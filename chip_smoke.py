@@ -1,20 +1,38 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's YOLOv4 serving path on one CUDA card.
+"""Smoke run of the PyTorch port's YOLOv4 serving and training paths on
+one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--batch 8] [--size 416] [--requests 3]
+    python3 chip_smoke.py [--seed 0] [--batch 8] [--size 416]
+                          [--requests 2] [--train-batch 32] [--steps 3]
 
 Phases (each raises on failure, so the exit code is nonzero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels of tf2_yolo_tpu_torch/csrc with nvcc;
+  2. build the CUDA kernels of tf2_yolo_tpu_torch/csrc, one nvcc each,
+     all started together;
   3. check each kernel against its plain PyTorch version on the card at
-     YOLOv4@416 layer shapes, bf16 and f32 (TF32 off for the plain conv);
+     YOLOv4@416 layer shapes, bf16 and f32 (TF32 off for the plain
+     versions): conv + statistics at the serving and the training batch,
+     NMS, and the fused GEMM forward and backward at the training batch
+     (and again at the halved batch if phase 7 had to fall back); time
+     each, with the one-call PyTorch equivalent where
+     there is one (a yardstick only; the port never calls it);
   4. serve ``--requests`` batches of ``--batch`` images through
      ``make_serving_fn`` in bf16, with launch counters proving that every
      conv (107 ConvBN + 3 head convs) and every NMS ran the kernels;
   5. in f32 on the same weights, compare the head logits and outputs of
      the kernel route with the plain route, then the NMS kernel with the
      plain NMS on the same decoded rows;
-  6. time both routes per request.
+  6. time both serving routes per request;
+  7. train ``--steps`` steps of ``YoloV4(packed=True)`` in bf16 at batch
+     ``--train-batch`` (halved once if it does not fit) through
+     ``make_train_step`` with Adam 1e-3 and synthetic labels, with launch
+     counters proving that every 1x1 ConvBN of the backbone's stages 3-5
+     ran the fused GEMM kernels (32 forwards; 35 backwards, one per
+     input operand) and every other conv the conv kernel (78); loss and
+     gradients finite, running statistics moved;
+  8. one f32 step at batch 2 on the kernel route and on the plain route
+     from the same state: loss, every gradient, every updated parameter;
+  9. time both training routes per step.
 
 Weights are random, from ``--seed``: conv kernels drawn with the port's
 HE_NORMAL from a seeded ``torch.Generator``. With BN at its init
@@ -34,12 +52,12 @@ import argparse
 import copy
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tf2_yolo_tpu_torch.export import make_serving_fn
 from tf2_yolo_tpu_torch.models import YoloV4, use_plain_route
@@ -47,26 +65,50 @@ from tf2_yolo_tpu_torch.models.layers import Conv, ConvBN, he_normal_
 from tf2_yolo_tpu_torch.ops.decode import decode_multi_level
 from tf2_yolo_tpu_torch.ops.kernels import _build
 from tf2_yolo_tpu_torch.ops.kernels import conv_bn as conv_mod
+from tf2_yolo_tpu_torch.ops.kernels import fused_gemm as gemm_mod
 from tf2_yolo_tpu_torch.ops.kernels import nms as nms_mod
 from tf2_yolo_tpu_torch.ops.kernels.conv_bn import (conv_bn_stats,
                                                     conv_bn_stats_plain)
+from tf2_yolo_tpu_torch.ops.kernels.fused_gemm import fused_gemm
 from tf2_yolo_tpu_torch.ops.kernels.nms import nms_keep, nms_keep_plain
 from tf2_yolo_tpu_torch.ops.nms import _sorted_by_conf
+from tf2_yolo_tpu_torch.parallel import create_train_state, make_optimizer
+from tf2_yolo_tpu_torch.tools.train_profile import (ANCHORS, CLASSES,
+                                                    card_line, make_training,
+                                                    timed_steps)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CLASSES = 3
-ANCHORS = np.stack([np.linspace(0.05, 0.75, 9),
-                    np.linspace(0.07, 0.65, 9)], axis=1)
 CONVS_PER_FORWARD = 110          # 107 ConvBN + 3 head convs
+# one packed training step: the 1x1 ConvBNs of stages 3-5 (cross, pre,
+# post, out and one squeeze per block; blocks = 8, 8, 4)
+GEMMS_PER_STEP = 3 * 4 + 8 + 8 + 4
+# the backward counts one per input operand, and each stage's ``out``
+# reads two (the concat of post and cross)
+GEMM_BWD_INPUTS_PER_STEP = GEMMS_PER_STEP + 3
+CONVS_PER_STEP = CONVS_PER_FORWARD - GEMMS_PER_STEP
 
-# (name, N, H, W, Ci, Co, k, stride): YOLOv4@416 layers at batch 8
+# H100 SXM data sheet: device memory rate and dense peak rates
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def bound_ms(nbytes, flops, dtype):
+    """Least time the card could take: the larger of bytes over the
+    memory rate and operations over the peak rate of ``dtype``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+# (name, H, W, Ci, Co, k, stride): YOLOv4@416 layers, checked at the
+# serving batch and at the training batch (whose statistics sum four
+# times the rows)
 CONV_SHAPES = [
-    ("stem 416^2 3->32 3x3s1", 8, 416, 416, 3, 32, 3, 1),
-    ("stage1.down 416^2 32->64 3x3s2", 8, 416, 416, 32, 64, 3, 2),
-    ("stage3.pre 52^2 256->128 1x1", 8, 52, 52, 256, 128, 1, 1),
-    ("stage3.block.expand 52^2 128->128 3x3s1", 8, 52, 52, 128, 128, 3, 1),
-    ("td1_pre1 13^2 1024->512 1x1", 8, 13, 13, 1024, 512, 1, 1),
-    ("td1_pre2 13^2 512->1024 3x3s1", 8, 13, 13, 512, 1024, 3, 1),
+    ("stem 416^2 3->32 3x3s1", 416, 416, 3, 32, 3, 1),
+    ("stage1.down 416^2 32->64 3x3s2", 416, 416, 32, 64, 3, 2),
+    ("stage3.pre 52^2 256->128 1x1", 52, 52, 256, 128, 1, 1),
+    ("stage3.block.expand 52^2 128->128 3x3s1", 52, 52, 128, 128, 3, 1),
+    ("td1_pre1 13^2 1024->512 1x1", 13, 13, 1024, 512, 1, 1),
+    ("td1_pre2 13^2 512->1024 3x3s1", 13, 13, 512, 1024, 3, 1),
 ]
 # Tolerances of kernel against plain, same inputs on the card.
 # y: f32 sums of up to 9*Ci products in another order (4.6e3 terms at
@@ -74,9 +116,13 @@ CONV_SHAPES = [
 # sum to 8 bits, and a sum that differs in its last f32 bits can round
 # to the neighbouring bf16 value: 1/128 relative (2 bf16 ulps) plus 1e-3
 # of scale.
-# s1, s2: per-block partial sums added by f32 atomics in no fixed order,
-# plus the y differences: relative to sum|y| and sum(y^2), 1e-5 in f32,
-# and in bf16 the share of rounding flips, bounded by 1/128.
+# s1, s2 against the plain version's: the y differences and the plain
+# version's own f32 summation, relative to sum|y| and sum(y^2): 1e-5 in
+# f32, and in bf16 the share of rounding flips, bounded by 1/128.
+# s1, s2 against f64 sums of the kernel's OWN y (its summation alone:
+# f32 partials of 64 terms, f64 atomics, one rounding to f32): 2e-6 in
+# either dtype, at any batch.
+SUM_TOL = 2e-6
 TOL = {torch.float32: dict(y_rel=1e-4, y_scale=1e-4, s_rel=1e-5),
        torch.bfloat16: dict(y_rel=2 ** -7, y_scale=1e-3, s_rel=2 ** -7)}
 NMS_CASES = [(8, 128), (8, 1024)]
@@ -85,14 +131,6 @@ NMS_CASES = [(8, 128), (8, 1024)]
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    return out[0].strip()
 
 
 def cuda_ms(fn, iters, warmup=1):
@@ -111,8 +149,11 @@ def cuda_ms(fn, iters, warmup=1):
 
 def phase_build(log_dir):
     t0 = time.perf_counter()
+    _build.build_libraries([conv_mod.SOURCE, nms_mod.SOURCE,
+                            gemm_mod.SOURCE])
     conv_mod._launcher()
     nms_mod._launcher()
+    gemm_mod._library()
     seconds = time.perf_counter() - t0
     os.makedirs(log_dir, exist_ok=True)
     with open(os.path.join(log_dir, "kernel_build.log"), "w") as f:
@@ -127,11 +168,26 @@ def phase_build(log_dir):
     return seconds
 
 
-def phase_conv_checks(gen):
-    results = []
+def conv_library_call(x, w, b, stride):
+    """The one PyTorch call that computes the conv kernel's y: F.conv2d
+    in the working dtype on a channels_last view of the NHWC tensor (no
+    copy), weights laid out beforehand. A yardstick only."""
+    xc = x.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    if stride == 2:
+        xc = F.pad(xc, (1, 0, 1, 0)).contiguous(
+            memory_format=torch.channels_last)
+    pad = w.shape[0] // 2 if stride == 1 else 0
+    return lambda: F.conv2d(xc, wc, b, stride=stride, padding=pad)
+
+
+def phase_conv_checks(gen, n):
+    """Every conv shape at batch ``n``, statistics on, against the plain
+    version; all shapes are printed before a failure raises."""
+    results, failed = [], []
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[dtype]
-        for name, n, h, w, ci, co, k, stride in CONV_SHAPES:
+        for name, h, w, ci, co, k, stride in CONV_SHAPES:
             x = torch.randn(n, h, w, ci, generator=gen, device="cuda")
             wt = torch.empty(k, k, ci, co, device="cuda")
             he_normal_(wt, gen)
@@ -150,27 +206,45 @@ def phase_conv_checks(gen):
             sq_sum = (ypf * ypf).sum(dim=(0, 1, 2))
             s1_rel = ((s1 - s1p).abs() / abs_sum.clamp(min=1e-30)).max()
             s2_rel = ((s2 - s2p).abs() / sq_sum.clamp(min=1e-30)).max()
+            yd = y.double()
+            own1 = (s1 - yd.sum(dim=(0, 1, 2))).abs() / abs_sum
+            own2 = (s2 - (yd * yd).sum(dim=(0, 1, 2))).abs() / sq_sum
+            sum_err = max(own1.max().item(), own2.max().item())
+            del yd
             ms = cuda_ms(lambda: conv_bn_stats(x, wt, b, stride, False), 5)
             plain_ms = cuda_ms(
                 lambda: conv_bn_stats_plain(x, wt, b, stride, False), 5)
             flop = 2.0 * n * (h // stride) * (w // stride) * co * k * k * ci
-            r = dict(shape=name, dtype=str(dtype).replace("torch.", ""),
+            nbytes = (x.numel() + wt.numel() + b.numel() + y.numel()) \
+                * x.element_size()
+            bound, bound_by = bound_ms(nbytes, flop, dtype)
+            library_ms = cuda_ms(conv_library_call(x, wt, b, stride), 5)
+            r = dict(shape=name, batch=n,
+                     dtype=str(dtype).replace("torch.", ""),
                      max_abs_err=err.max().item(), y_scale=scale,
                      s1_rel_err=s1_rel.item(), s2_rel_err=s2_rel.item(),
-                     ms=ms, plain_ms=plain_ms,
+                     sum_rel_err=sum_err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound, bound_by=bound_by,
+                     library_ms=library_ms,
                      kernel_tflops=flop / ms / 1e9)
             results.append(r)
-            print(f"  conv {r['dtype']:8s} {name:40s} max|dy| "
+            print(f"  conv {r['dtype']:8s} b{n:<2d} {name:40s} max|dy| "
                   f"{r['max_abs_err']:.3e} (|y| <= {scale:.3g}; bound "
                   f"{tol['y_rel']:.3g}*|y| + {tol['y_scale']:.0e}*scale) "
                   f"s1 rel {r['s1_rel_err']:.2e} s2 rel "
-                  f"{r['s2_rel_err']:.2e} (bound {tol['s_rel']:.2e}) | "
+                  f"{r['s2_rel_err']:.2e} (bound {tol['s_rel']:.2e}), to "
+                  f"f64 sums of its own y {sum_err:.2e} (bound "
+                  f"{SUM_TOL:.0e}) | "
                   f"kernel {ms:.3f} ms ({r['kernel_tflops']:.2f} TFLOP/s)"
-                  f" plain {plain_ms:.3f} ms")
-            check(y_ok, f"conv {name} {dtype}: y outside the bound")
-            check(r["s1_rel_err"] <= tol["s_rel"]
-                  and r["s2_rel_err"] <= tol["s_rel"],
-                  f"conv {name} {dtype}: statistics outside the bound")
+                  f" plain {plain_ms:.3f} ms, F.conv2d channels_last "
+                  f"{library_ms:.3f} ms, bound {bound:.4f} ms ({bound_by})")
+            if not y_ok:
+                failed.append(f"{name} b{n} {r['dtype']}: y")
+            if max(r["s1_rel_err"], r["s2_rel_err"]) > tol["s_rel"] \
+                    or sum_err > SUM_TOL:
+                failed.append(f"{name} b{n} {r['dtype']}: statistics")
+            del x, y, yp, yf, ypf, err
+    check(not failed, f"conv outside the bound: {failed}")
     return results
 
 
@@ -201,17 +275,211 @@ def phase_nms_checks(gen):
             max_abs_err = (keep - keep_p).abs().max().item()
             ms = cuda_ms(lambda: nms_keep(boxes, 0.45, mode), 10)
             plain_ms = cuda_ms(lambda: nms_keep_plain(boxes, 0.45, mode), 2)
+            # least work: each box read and each flag written once; a
+            # greedy pass needs an overlap (about 25 f32 operations) of
+            # every kept box with every valid box after it
+            valid_after = boxes[..., 7].flip(1).cumsum(1).flip(1) \
+                - boxes[..., 7]
+            pairs = float((keep * valid_after).sum())
+            bound, bound_by = bound_ms(boxes.numel() * 4 + keep.numel() * 4,
+                                       25.0 * pairs, torch.float32)
             r = dict(n=n, k=k, iou_mode=mode, mismatches=mismatches,
                      max_abs_err=max_abs_err,
                      kept=int(keep.sum()), valid=int(boxes[..., 7].sum()),
-                     ms=ms, plain_ms=plain_ms)
+                     ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                     bound_by=bound_by)
             results.append(r)
             print(f"  nms N={n} K={k} {'IoU' if mode == 1 else 'DIoU'}: "
                   f"{mismatches} mismatches (bound 0), kept {r['kept']} of "
                   f"{r['valid']} | kernel {ms:.3f} ms plain "
-                  f"{plain_ms:.3f} ms")
+                  f"{plain_ms:.3f} ms (no one-call equivalent), bound "
+                  f"{bound:.2e} ms ({bound_by})")
             check(mismatches == 0, f"nms K={k} mode {mode}: masks differ")
             check(0 < r["kept"] < r["valid"], "nms: degenerate test rows")
+    return results
+
+
+# (name, rows per image, [K_i], N, prologue per input, act, equal weights)
+# at the training batch: the 1x1 ConvBNs of the packed stages
+GEMM_SHAPES = [
+    ("stage3.pre 52^2 256->128 prologue", 52 * 52, [256], 128, [True],
+     "mish", False),
+    ("stage3.post 52^2 128->128 activated", 52 * 52, [128], 128, [False],
+     "mish", False),
+    ("stage3.out 52^2 128+128->256 prologue", 52 * 52, [128, 128], 256,
+     [True, True], "mish", False),
+    ("stage5.cross 13^2 1024->512 prologue", 13 * 13, [1024], 512, [True],
+     "mish", False),
+    ("sum of 3 terms 13^2 512->512", 13 * 13, [512, 512, 512], 512,
+     [True, True, False], "mish", True),
+    ("ragged M=1237 96->72 leaky", None, [96], 72, [True], "leaky", False),
+    ("ragged M=1237 96+40->72 linear", None, [96, 40], 72, [True, False],
+     "linear", False),
+]
+# Tolerances of the fused GEMM kernels against their plain versions.
+# y: as the conv (f32 sums in another order; in bf16 a sum that differs
+# in its last f32 bits can round to the neighbouring bf16 value, 1 ulp).
+# s1, s2: relative to sum|y| and sum y^2 (the plain version's f32
+# summation, plus the share of rounding flips in bf16), and against f64
+# sums of the kernel's own y within SUM_TOL, as the conv's. dx: 1 ulp of
+# the dtype relative to the value plus y_scale of max|dx| (dg is a sum
+# of three products that may cancel). dW, da, db: relative L2 to their
+# norms; sums of M products in another order (for dW a random-walk error
+# of about eps * sqrt(M) ~ 2e-5 at M = 86528) and, in bf16, operands that
+# flip by one ulp.
+GEMM_TOL = {torch.float32: dict(y_rel=1e-4, y_scale=1e-4, s_rel=1e-5,
+                                red_rel=2e-3),
+            torch.bfloat16: dict(y_rel=2 ** -7, y_scale=1e-3, s_rel=2 ** -7,
+                                 red_rel=2e-3)}
+
+
+def gemm_case(gen, dtype, m, ks, n, pattern, equal_w):
+    xs = [torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+          for k in ks]
+    ws = [(torch.randn(k, n, generator=gen, device="cuda")
+           / (sum(ks) ** 0.5)).to(dtype) for k in ks]
+    if equal_w:
+        ws = [ws[0]] * len(ks)
+    affines = []
+    for k, on in zip(ks, pattern):
+        a = 1.0 + 0.2 * torch.randn(k, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(k, generator=gen, device="cuda")
+        affines.append((a, b) if on else None)
+    dy = (1e-3 * torch.randn(m, n, generator=gen, device="cuda")).to(dtype)
+    ds1 = 1e-3 * torch.randn(n, generator=gen, device="cuda")
+    ds2 = 1e-4 * torch.randn(n, generator=gen, device="cuda")
+    return xs, ws, affines, (dy, ds1, ds2)
+
+
+def gemm_run(xs, ws, affines, act, dtype, cts, plain):
+    """Forward and backward through the public wrapper; returns
+    (y, s1, s2) and the gradients of every x, w, a, b."""
+    xs = [x.detach().requires_grad_() for x in xs]
+    ws = [w.detach().requires_grad_() for w in ws]
+    affines = [None if aff is None else
+               tuple(t.detach().requires_grad_() for t in aff)
+               for aff in affines]
+    outs = fused_gemm(xs, ws, affines, act=act, dtype=dtype, plain=plain)
+    leaves = xs + ws + [t for aff in affines if aff is not None
+                        for t in aff]
+    grads = torch.autograd.grad(outs, leaves, cts, retain_graph=True)
+    return outs, leaves, grads
+
+
+def rel_l2(a, b):
+    return ((a.float() - b.float()).norm()
+            / b.float().norm().clamp(min=1e-30)).item()
+
+
+def phase_gemm_checks(gen, batch):
+    results = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = GEMM_TOL[dtype]
+        size = torch.finfo(dtype).bits // 8
+        for name, rows, ks, n, pattern, act, equal_w in GEMM_SHAPES:
+            m = 1237 if rows is None else batch * rows
+            xs, ws, affines, cts = gemm_case(gen, dtype, m, ks, n, pattern,
+                                             equal_w)
+            fwd0, bwd0 = fused_gemm.launches, fused_gemm.bwd_launches
+            (y, s1, s2), leaves, grads = gemm_run(
+                xs, ws, affines, act, dtype, cts, plain=False)
+            check(fused_gemm.launches == fwd0 + 1
+                  and fused_gemm.bwd_launches == bwd0 + len(ks),
+                  f"gemm {name}: the wrapper did not launch its kernels")
+            (yp, s1p, s2p), _, grads_p = gemm_run(
+                xs, ws, affines, act, dtype, cts, plain=True)
+            torch.cuda.synchronize()
+            yf, ypf = y.float(), yp.float()
+            err = (yf - ypf).abs()
+            scale = ypf.abs().max().item()
+            y_ok = bool((err <= tol["y_rel"] * ypf.abs()
+                         + tol["y_scale"] * max(1.0, scale)).all())
+            s1_rel = ((s1 - s1p).abs() / ypf.abs().sum(0).clamp(
+                min=1e-30)).max().item()
+            s2_rel = ((s2 - s2p).abs() / (ypf * ypf).sum(0).clamp(
+                min=1e-30)).max().item()
+            yd = y.double()
+            sum_err = max(
+                ((s1 - yd.sum(0)).abs() / ypf.abs().sum(0).clamp(
+                    min=1e-30)).max().item(),
+                ((s2 - (yd * yd).sum(0)).abs() / (ypf * ypf).sum(0).clamp(
+                    min=1e-30)).max().item())
+            del yd
+            nx = len(xs)
+            dx_err, dx_ok, red_err = 0.0, True, 0.0
+            for i, (g, gp) in enumerate(zip(grads, grads_p)):
+                check(bool(torch.isfinite(g).all()), f"gemm {name}: "
+                      "non-finite gradient")
+                if i < nx:
+                    gf, gpf = g.float(), gp.float()
+                    d = (gf - gpf).abs()
+                    top = gpf.abs().max().item()
+                    dx_ok &= bool((d <= tol["y_rel"] * gpf.abs()
+                                   + tol["y_scale"] * top).all())
+                    dx_err = max(dx_err, d.max().item() / max(top, 1e-30))
+                else:
+                    red_err = max(red_err, rel_l2(g, gp))
+            k_sum = sum(ks)
+            k_pro = sum(k for k, on in zip(ks, pattern) if on)
+            flops = 2.0 * m * k_sum * n
+            fwd_bytes = (m * k_sum + k_sum * n + m * n) * size \
+                + 8 * k_pro + 8 * n
+            # backward: x, w, a, b, dy, ds1, ds2 in; dx (T), dW, da, db
+            # (f32) out; two products (dx and dW) of the forward's size.
+            # y is not counted: the function can recompute it from x, so
+            # the port's read of the stored y is its own cost
+            bwd_bytes = (2 * m * k_sum + k_sum * n + m * n) * size \
+                + 4 * k_sum * n + 16 * k_pro + 8 * n
+            fb, fby = bound_ms(fwd_bytes, flops, dtype)
+            bb, bby = bound_ms(bwd_bytes, 2 * flops, dtype)
+            run = lambda plain: fused_gemm(xs, ws, affines, act=act,
+                                           dtype=dtype, plain=plain)
+            ms = cuda_ms(lambda: run(False), 5)
+            plain_ms = cuda_ms(lambda: run(True), 5)
+            outs_k = gemm_run(xs, ws, affines, act, dtype, cts, False)
+            outs_p = gemm_run(xs, ws, affines, act, dtype, cts, True)
+            bwd = lambda o: torch.autograd.grad(o[0], o[1], cts,
+                                                retain_graph=True)
+            bwd_ms = cuda_ms(lambda: bwd(outs_k), 5)
+            bwd_plain_ms = cuda_ms(lambda: bwd(outs_p), 5)
+            library_ms = None
+            if not any(pattern) and len(ks) == 1:
+                library_ms = cuda_ms(lambda: torch.matmul(xs[0], ws[0]), 5)
+            r = dict(shape=name, m=m, dtype=str(dtype).replace("torch.", ""),
+                     max_abs_err=err.max().item(), y_scale=scale,
+                     s1_rel_err=s1_rel, s2_rel_err=s2_rel,
+                     sum_rel_err=sum_err, dx_rel_to_max=dx_err,
+                     red_rel_l2=red_err,
+                     ms=ms, plain_ms=plain_ms, bound_ms=fb, bound_by=fby,
+                     library_ms=library_ms, bwd_ms=bwd_ms,
+                     bwd_plain_ms=bwd_plain_ms, bwd_bound_ms=bb,
+                     bwd_bound_by=bby,
+                     fwd_tflops=flops / ms / 1e9,
+                     bwd_tflops=2 * flops / bwd_ms / 1e9)
+            results.append(r)
+            lib = ("-" if library_ms is None
+                   else f"torch.matmul {library_ms:.3f} ms")
+            print(f"  gemm {r['dtype']:8s} {name:38s} M={m}: max|dy| "
+                  f"{r['max_abs_err']:.3e} (|y| <= {scale:.3g}; bound "
+                  f"{tol['y_rel']:.3g}*|y| + {tol['y_scale']:.0e}*scale) "
+                  f"s1 rel {s1_rel:.2e} s2 rel {s2_rel:.2e} (bound "
+                  f"{tol['s_rel']:.2e}), to f64 sums of its own y "
+                  f"{sum_err:.2e} (bound {SUM_TOL:.0e}); dx "
+                  f"max|d|/max|dx| {dx_err:.2e} "
+                  f"(bound {tol['y_rel']:.3g}*|dx| + {tol['y_scale']:.0e}"
+                  f"*max|dx|); dW/da/db rel L2 {red_err:.2e} (bound "
+                  f"{tol['red_rel']:.0e}) | fwd {ms:.3f} ms "
+                  f"({r['fwd_tflops']:.2f} TFLOP/s) plain {plain_ms:.3f} "
+                  f"{lib} bound {fb:.4f} ({fby}) | bwd {bwd_ms:.3f} ms "
+                  f"({r['bwd_tflops']:.2f} TFLOP/s) plain "
+                  f"{bwd_plain_ms:.3f} bound {bb:.4f} ({bby})")
+            check(y_ok, f"gemm {name} {dtype}: y outside the bound")
+            check(s1_rel <= tol["s_rel"] and s2_rel <= tol["s_rel"]
+                  and sum_err <= SUM_TOL,
+                  f"gemm {name} {dtype}: statistics outside the bound")
+            check(dx_ok, f"gemm {name} {dtype}: dx outside the bound")
+            check(red_err <= tol["red_rel"],
+                  f"gemm {name} {dtype}: dW/da/db outside the bound")
     return results
 
 
@@ -385,18 +653,192 @@ def phase_timing(args, model, threshold, images, card):
     return out
 
 
+def phase_train(args):
+    batch = args.train_batch
+    while True:
+        torch.cuda.reset_peak_memory_stats()
+        state, step, x, ys = make_training(args.seed, batch, args.size,
+                                           torch.bfloat16)
+        stats0 = {k: v.clone() for k, v in state.model.named_buffers()}
+        conv_bn_stats.launches = 0
+        fused_gemm.launches = fused_gemm.bwd_launches = 0
+        try:
+            _, warm = timed_steps(state, step, x, ys, 1)
+            break
+        except torch.cuda.OutOfMemoryError:
+            fits = False         # free outside the handler: the
+        if not fits:             # exception holds the step's tensors
+            check(batch == args.train_batch, f"batch {batch} does not fit")
+            del state, step, x, ys, stats0
+            torch.cuda.empty_cache()
+            batch //= 2
+            print(f"  batch {args.train_batch} does not fit; trying {batch}")
+    model = state.model
+    no_grad = [n for n, p in model.named_parameters() if p.grad is None]
+    check(not no_grad, f"parameters without a gradient: {no_grad[:5]}")
+    bad = [n for n, p in model.named_parameters()
+           if not bool(torch.isfinite(p.grad).all())]
+    check(not bad, f"non-finite gradients after step 1: {bad[:5]}")
+    still = [k for k, v in model.named_buffers()
+             if torch.equal(v, stats0[k])]
+    check(not still, f"running statistics did not move: {still[:5]}")
+    times, losses = timed_steps(state, step, x, ys, args.steps)
+    losses = warm + losses
+    n_steps = args.steps + 1
+    counts = dict(conv_bn_stats=conv_bn_stats.launches,
+                  fused_gemm_fwd=fused_gemm.launches,
+                  fused_gemm_bwd=fused_gemm.bwd_launches)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  batch {batch}, bf16, {args.size}^2, seed {args.seed}: losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB")
+    print(f"  launches in {n_steps} steps: fused_gemm forward "
+          f"{counts['fused_gemm_fwd']}, backward "
+          f"{counts['fused_gemm_bwd']} (want {GEMMS_PER_STEP} and "
+          f"{GEMM_BWD_INPUTS_PER_STEP} a step), conv_bn_stats "
+          f"{counts['conv_bn_stats']} (want {CONVS_PER_STEP} a step)")
+    check(all(np.isfinite(losses)), "non-finite training loss")
+    check(counts["fused_gemm_fwd"] == GEMMS_PER_STEP * n_steps
+          and counts["fused_gemm_bwd"]
+          == GEMM_BWD_INPUTS_PER_STEP * n_steps,
+          "not every 1x1 ConvBN of stages 3-5 ran the fused GEMM kernels")
+    check(counts["conv_bn_stats"] == CONVS_PER_STEP * n_steps,
+          "not every other conv ran the conv kernel")
+    return dict(batch=batch, losses=losses, ms_per_step=times,
+                peak_bytes=peak, launches=counts, steps=n_steps), \
+        (state, step, x, ys)
+
+
+def phase_train_routes_f32(args):
+    """One f32 step at batch 2 on both routes from the same state.
+
+    The untrained YOLOv4 is chaotically conditioned: 107 BatchNorm + mish
+    layers amplify a 1e-6 change of the input into about 5% relative L2
+    in most gradient leaves on one and the same route (the JAX package's
+    own packed-vs-plain test meets the same and calibrates by it). So the
+    plain route runs twice, on x and on x + 1e-6, and the kernel route is
+    held, leaf by leaf, to 5 times that measured noise, with a floor of
+    1e-3 and a ceiling of 0.3. The leaves fall into two groups, read
+    apart: chaotic ones (probe noise of 1e-2 and more, about 315 of 330)
+    and well-conditioned ones (heads, last neck layers; noise 1e-7 to
+    2e-3), whose ratio to so small a noise may be large under the floor.
+    This check catches a route that goes wrong as a whole (a layer on the
+    wrong weights, a missing cotangent term); a bound this wide would
+    pass a slightly wrong kernel. The gate for each kernel's arithmetic
+    is phase 3, and the per-module CPU tests of the port. Adam's first
+    update is lr * g / (|g| + 1e-7), the sign of g: an
+    element whose gradient lies within the noise of 0 may step the other
+    way, 2 lr apart, so the updated parameters are bounded by 2 lr
+    elementwise and, over all of them together, by twice the probe's
+    distance (measured 1.39-1.44 times; unrelated directions give 5.6
+    times)."""
+    state, step, x, ys = make_training(args.seed, 2, args.size,
+                                       torch.float32)
+
+    def plain_copy():
+        return create_train_state(
+            use_plain_route(copy.deepcopy(state.model)),
+            make_optimizer("adam", 1e-3))
+
+    plain_state, probe_state = plain_copy(), plain_copy()
+    _, logs = step(state, x, ys)
+    _, logs_p = step(plain_state, x, ys)
+    _, logs_e = step(probe_state, x + 1e-6, ys)
+    torch.cuda.synchronize()
+    loss, loss_p = float(logs["loss"]), float(logs_p["loss"])
+    loss_rel = abs(loss - loss_p) / abs(loss_p)
+    loss_noise = abs(float(logs_e["loss"]) - loss_p) / abs(loss_p)
+    plain_params = dict(plain_state.model.named_parameters())
+    probe_params = dict(probe_state.model.named_parameters())
+    grad_rel, grad_noise, failed = {}, {}, []
+    apart = noise = upd_abs = 0.0
+    for name, p in state.model.named_parameters():
+        q, e = plain_params[name], probe_params[name]
+        grad_rel[name] = rel_l2(p.grad, q.grad)
+        grad_noise[name] = rel_l2(e.grad, q.grad)
+        if grad_rel[name] > min(0.3, max(5 * grad_noise[name], 1e-3)):
+            failed.append(name)
+        d = p.detach() - q.detach()
+        upd_abs = max(upd_abs, d.abs().max().item())
+        apart += float(d.square().sum())
+        noise += float((e.detach() - q.detach()).square().sum())
+    worst = max(grad_rel, key=grad_rel.get)
+    g_med = float(np.median(list(grad_rel.values())))
+    n_med = float(np.median(list(grad_noise.values())))
+    groups = {}
+    for label, keys in (
+            ("chaotic", [k for k in grad_rel if grad_noise[k] >= 1e-2]),
+            ("well_conditioned",
+             [k for k in grad_rel if grad_noise[k] < 1e-2])):
+        groups[label] = dict(
+            leaves=len(keys),
+            rel_l2_max=max((grad_rel[k] for k in keys), default=0.0),
+            ratio_max=max((grad_rel[k] / max(grad_noise[k], 1e-30)
+                           for k in keys), default=0.0))
+    apart, noise = apart ** 0.5, noise ** 0.5
+    print(f"  f32 b2 one step: loss kernel {loss:.6f} plain {loss_p:.6f} "
+          f"(rel {loss_rel:.2e}; probe {loss_noise:.2e}; bound 1e-5 + 4 x "
+          f"probe); gradient rel L2 per leaf: median {g_med:.2e} (probe "
+          f"{n_med:.2e}), max {grad_rel[worst]:.2e} at {worst} (probe "
+          f"{grad_noise[worst]:.2e}); bound per leaf min(0.3, max(5 x "
+          f"probe, 1e-3)); "
+          + "; ".join(f"{g['leaves']} {label} leaves: largest rel L2 "
+                      f"{g['rel_l2_max']:.2e}, largest ratio to probe "
+                      f"{g['ratio_max']:.2f}"
+                      for label, g in groups.items())
+          + f"; updated parameters max|d| {upd_abs:.2e} (bound 2.1e-3 = "
+          f"2 lr), distance over all "
+          f"{apart:.3e} (probe {noise:.3e}; bound 2 x probe)")
+    check(np.isfinite(loss) and loss_rel <= 1e-5 + 4 * loss_noise,
+          "route losses differ")
+    check(not failed, f"route gradients differ at {failed[:5]}")
+    check(upd_abs <= 2.1e-3 and apart <= 2 * noise,
+          "route updates differ")
+    return dict(loss=loss, loss_plain=loss_p, loss_rel=loss_rel,
+                loss_rel_probe=loss_noise, grad_rel_l2_median=g_med,
+                grad_rel_l2_median_probe=n_med,
+                grad_rel_l2_max=grad_rel[worst], grad_groups=groups,
+                param_max_abs_diff=upd_abs,
+                update_distance=apart, update_distance_probe=noise,
+                grad_rel_l2={k: (grad_rel[k], grad_noise[k])
+                             for k in grad_rel})
+
+
+def phase_train_timing(args, trained, kernel_times, card):
+    state, step, x, ys = trained
+    batch = x.shape[0]
+    plain = make_training(args.seed, batch, args.size, torch.bfloat16,
+                          plain=True)
+    times = {"kernel": list(kernel_times), "plain": []}
+    timed_steps(*plain, 1)                       # warm-up
+    times["plain"] += timed_steps(*plain, 2 * args.steps)[0]   # in turns:
+    times["kernel"] += timed_steps(state, step, x, ys, args.steps)[0]
+    out = {}
+    for name, ts in times.items():
+        ms = float(np.median(ts))
+        out[name] = dict(ms_per_step=ms, img_per_s=batch / (ms / 1e3),
+                         runs=ts)
+        print(f"  {name:6s} route bf16 b{batch} {args.size}^2 packed: "
+              f"{ms:.2f} ms/step (median of {len(ts)}), "
+              f"{out[name]['img_per_s']:.1f} img/s [{card}]")
+    return out
+
+
 def main(argv=None):
-    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--size", type=int, default=416)
-    p.add_argument("--requests", type=int, default=3)
+    p.add_argument("--requests", type=int, default=2)
+    p.add_argument("--train-batch", type=int, default=32)
+    p.add_argument("--steps", type=int, default=3)
     p.add_argument("--log-dir",
                    default=os.path.join(ROOT, "build", "chip_smoke"))
     args = p.parse_args(argv)
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
+    t_start = time.perf_counter()
     card = card_line()
     print(f"phase 1: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -408,8 +850,10 @@ def main(argv=None):
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
 
     print("phase 3: kernels against their plain versions")
-    conv_res = phase_conv_checks(gen)
+    conv_res = phase_conv_checks(gen, args.batch)
+    conv_res += phase_conv_checks(gen, args.train_batch)
     nms_res = phase_nms_checks(gen)
+    gemm_res = phase_gemm_checks(gen, args.train_batch)
 
     print(f"phase 4: serving {args.requests} requests of {args.batch} x "
           f"{args.size}^2 in bf16 (HE_NORMAL kernels, seed {args.seed}, "
@@ -433,31 +877,92 @@ def main(argv=None):
 
     print("phase 6: ms/request, both routes")
     timing = phase_timing(args, model, threshold, images, card)
+    del model, images
+    torch.cuda.empty_cache()
 
-    bf16 = [r for r in conv_res if r["dtype"] == "bfloat16"]
-    nms128 = [r for r in nms_res if r["k"] == 128 and r["iou_mode"] == 1][0]
+    print(f"phase 7: training {args.steps} steps (after one warm-up) of "
+          "YoloV4(packed=True), Adam 1e-3, synthetic labels")
+    trained, train_handles = phase_train(args)
+    if trained["batch"] != args.train_batch:
+        print(f"  kernels again at the batch trained, {trained['batch']}")
+        conv_res += phase_conv_checks(gen, trained["batch"])
+        gemm_res += phase_gemm_checks(gen, trained["batch"])
+
+    print("phase 8: one f32 training step, kernel route against plain "
+          "route, same state")
+    train_routes = phase_train_routes_f32(args)
+
+    print("phase 9: ms/step, both routes")
+    train_timing = phase_train_timing(args, train_handles,
+                                      trained["ms_per_step"], card)
+
+    def bf16_at(results, shape):
+        return [r for r in results
+                if r["dtype"] == "bfloat16" and r["shape"] == shape][-1]
+
+    conv_at = bf16_at(conv_res, CONV_SHAPES[3][0])   # at the batch trained
+    nms_at = [r for r in nms_res if r["k"] == 128 and r["iou_mode"] == 1][0]
+    fwd_at = bf16_at(gemm_res, GEMM_SHAPES[1][0])
+    bwd_at = bf16_at(gemm_res, GEMM_SHAPES[0][0])
+    train_launches = trained["launches"]
+    # times, bounds and library times at one shape each (``at``); errors
+    # are the largest over every shape and dtype checked; launches are
+    # the counts of the serving and the training runs above
     kernels = [
         dict(name="conv_bn_stats", route="cuda",
              source="tf2_yolo_tpu_torch/csrc/conv_bn.cu",
              replaces="tf2_yolo_tpu/ops/pallas/conv_bn_kernel.py:114 "
                       "and :346",
-             launches=served["conv_launches"],
+             launches=served["conv_launches"]
+             + train_launches["conv_bn_stats"],
+             launches_serving=served["conv_launches"],
+             launches_training=train_launches["conv_bn_stats"],
              max_abs_err=max(r["max_abs_err"] for r in conv_res),
-             ms=sum(r["ms"] for r in bf16),
-             plain_ms=sum(r["plain_ms"] for r in bf16)),
+             at=f"{conv_at['shape']}, batch {conv_at['batch']}, bf16",
+             ms=conv_at["ms"], plain_ms=conv_at["plain_ms"],
+             bound_ms=conv_at["bound_ms"], bound_by=conv_at["bound_by"],
+             library_ms=conv_at["library_ms"]),
         dict(name="nms_keep", route="cuda",
              source="tf2_yolo_tpu_torch/csrc/nms.cu",
              replaces="tf2_yolo_tpu/ops/pallas/nms_kernel.py:182",
              launches=served["nms_launches"],
              max_abs_err=max(r["max_abs_err"] for r in nms_res),
-             ms=nms128["ms"], plain_ms=nms128["plain_ms"]),
+             at="N=8, K=128, IoU",
+             ms=nms_at["ms"], plain_ms=nms_at["plain_ms"],
+             bound_ms=nms_at["bound_ms"], bound_by=nms_at["bound_by"],
+             library_ms=None),
+        dict(name="fused_gemm_fwd", route="cuda",
+             source="tf2_yolo_tpu_torch/csrc/fused_gemm.cu",
+             replaces="tf2_yolo_tpu/ops/pallas/packed_gemm.py:160",
+             launches=train_launches["fused_gemm_fwd"],
+             max_abs_err=max(r["max_abs_err"] for r in gemm_res),
+             at=f"{fwd_at['shape']}, M={fwd_at['m']}, bf16",
+             ms=fwd_at["ms"], plain_ms=fwd_at["plain_ms"],
+             bound_ms=fwd_at["bound_ms"], bound_by=fwd_at["bound_by"],
+             library_ms=fwd_at["library_ms"]),
+        dict(name="fused_gemm_bwd", route="cuda",
+             source="tf2_yolo_tpu_torch/csrc/fused_gemm.cu",
+             replaces="tf2_yolo_tpu/ops/pallas/packed_gemm.py:272",
+             launches=train_launches["fused_gemm_bwd"],
+             max_abs_err=max(r["dx_rel_to_max"] for r in gemm_res),
+             at=f"{bwd_at['shape']}, M={bwd_at['m']}, bf16",
+             ms=bwd_at["bwd_ms"], plain_ms=bwd_at["bwd_plain_ms"],
+             bound_ms=bwd_at["bwd_bound_ms"],
+             bound_by=bwd_at["bwd_bound_by"], library_ms=None),
     ]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was never launched")
+    seconds = time.perf_counter() - t_start
     record = dict(card=card, build_seconds=build_s, conv=conv_res,
-                  nms=nms_res, threshold=threshold, served=served,
-                  routes_f32=routes, timing=timing, kernels=kernels)
+                  nms=nms_res, gemm=gemm_res, threshold=threshold,
+                  served=served, routes_f32=routes, timing=timing,
+                  trained=trained, train_routes_f32=train_routes,
+                  train_timing=train_timing, kernels=kernels,
+                  seconds=seconds)
     os.makedirs(args.log_dir, exist_ok=True)
     with open(os.path.join(args.log_dir, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
+    print(f"all phases passed in {seconds:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,48 @@
+"""The port imports torch and numpy, never JAX and nothing of the JAX
+package: every module of ``tf2_yolo_tpu_torch`` and ``chip_smoke.py`` are
+imported in a fresh interpreter, and ``sys.modules`` is
+searched afterwards."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import tf2_yolo_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tf2_yolo_tpu")
+MODULES = sorted(
+    m.name for m in pkgutil.walk_packages(tf2_yolo_tpu_torch.__path__,
+                                          "tf2_yolo_tpu_torch."))
+
+
+def _imports_cleanly(statement):
+    code = (f"import sys; {statement}; "
+            f"bad = sorted(m for m in sys.modules "
+            f"if m.split('.')[0] in {FORBIDDEN!r}); "
+            "assert not bad, bad")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_the_walk_finds_the_port():
+    for name in ("tf2_yolo_tpu_torch.models.packed_region",
+                 "tf2_yolo_tpu_torch.ops.kernels.fused_gemm",
+                 "tf2_yolo_tpu_torch.ops.losses",
+                 "tf2_yolo_tpu_torch.parallel.train",
+                 "tf2_yolo_tpu_torch.tools.train_profile"):
+        assert name in MODULES
+
+
+def test_every_module_of_the_port_imports_without_jax():
+    proc = _imports_cleanly(
+        "import importlib; "
+        f"[importlib.import_module(m) for m in {MODULES!r}]")
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_imports_without_jax():
+    proc = _imports_cleanly("import chip_smoke")
+    assert proc.returncode == 0, proc.stderr

@@ -81,8 +81,9 @@ def test_convbn_matches_fused_jax(kernel, stride, act):
     x = rng.randn(2, 8, 8, 8).astype(np.float32)
     jm = jlayers.ConvBN(16, kernel, stride, act=act, fused=True,
                         kernel_init=jlayers.DARKNET_NORMAL)
-    v, tm = _bridged(jm, ConvBN(8, 16, kernel, stride, act=act), x, rng,
-                     train=False)
+    v, tm = _bridged(
+        jm, ConvBN(8, 16, kernel, stride, act=act, device="cpu"), x, rng,
+        train=False)
     want = np.asarray(jm.apply(v, jnp.asarray(x), train=False))
     got = _port(tm, x).numpy()
     # a conv of <= 72 products summed in another order, then the BN
@@ -98,7 +99,7 @@ def test_biased_conv_without_bn_matches_jax():
     jm = jlayers.ConvBN(12, 1, act="linear", use_bn=False)
     v = _numpy_tree(jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
     v["params"]["conv"]["bias"] = rng.randn(12).astype(np.float32)
-    tm = ConvBN(8, 12, 1, act="linear", use_bn=False)
+    tm = ConvBN(8, 12, 1, act="linear", use_bn=False, device="cpu")
     tm.load_state_dict(from_flax(v), strict=True)
     # 8-term f32 dots: measured max |diff| 4.8e-7 on outputs up to 6.1
     np.testing.assert_allclose(
@@ -121,7 +122,8 @@ def test_csp_stage_matches_jax():
     rng = np.random.RandomState(5)
     x = rng.randn(2, 16, 16, 16).astype(np.float32)
     jm = JCSPStage(features=32, blocks=1)
-    v, tm = _bridged(jm, CSPStage(16, 32, 1), x, rng, train=False)
+    v, tm = _bridged(jm, CSPStage(16, 32, 1, device="cpu"), x, rng,
+                     train=False)
     want = np.asarray(jm.apply(v, jnp.asarray(x), train=False))
     # six ConvBN layers and a residual, f32 summation order only:
     # measured max |diff| 2.1e-7 on outputs up to 0.79; bound 10x that
@@ -133,7 +135,7 @@ def test_fpn_stage_matches_jax():
     rng = np.random.RandomState(6)
     x = rng.randn(2, 8, 8, 24).astype(np.float32)
     jm = JFPNStage(16, make_out=False, kernel_init=jlayers.DARKNET_NORMAL)
-    v, tm = _bridged(jm, FPNStage(24, 16), x, rng, train=False)
+    v, tm = _bridged(jm, FPNStage(24, 16, device="cpu"), x, rng, train=False)
     want, _ = jm.apply(v, jnp.asarray(x), train=False)
     # five ConvBN layers, f32 summation order only: measured max |diff|
     # 2.0e-7 on outputs up to 0.91; bound 10x that
@@ -148,7 +150,7 @@ def test_anchor_head_matches_jax():
     jm = JAnchorHead(anchors, 3, prob_act="sigmoid", anchors_as_params=True,
                      kernel_init=jnn.initializers.normal(stddev=0.02))
     v = _numpy_tree(jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
-    tm = AnchorHead(32, anchors, 3)
+    tm = AnchorHead(32, anchors, 3, device="cpu")
     tm.load_state_dict(from_flax(v), strict=True)
     # sigmoid/exp of a 32-term f32 dot: measured max |diff| 4.8e-7 on
     # outputs up to 2.1 (the exp'd wh)

@@ -70,7 +70,7 @@ def slice_pair():
     init = jax.tree_util.tree_map(
         np.asarray,
         jmodel.init(jax.random.PRNGKey(0), jnp.asarray(x[:1]), train=False))
-    model = YoloV4(ANCHORS, CLASSES).eval()
+    model = YoloV4(ANCHORS, CLASSES, device="cpu").eval()
     model.load_state_dict(from_flax(init), strict=True)
     _calibrate_bn(model, torch.from_numpy(x))
     variables = to_flax(model.state_dict())

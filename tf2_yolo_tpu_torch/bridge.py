@@ -25,7 +25,12 @@ def _flatten(tree, prefix=()):
 
 def from_flax(variables):
     """``{"params": ..., "batch_stats": ...}`` of numpy arrays (or
-    anything ``np.asarray`` takes) -> ``state_dict`` of CPU tensors."""
+    anything ``np.asarray`` takes), or a JAX ``TrainState`` (anything
+    with ``params`` and ``batch_stats`` attributes), -> ``state_dict`` of
+    CPU tensors. The v4 head ``anchors`` are parameters on both sides."""
+    if hasattr(variables, "params"):
+        variables = {"params": variables.params,
+                     "batch_stats": variables.batch_stats}
     out = {}
     for collection in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(collection, {})):
@@ -44,3 +49,18 @@ def to_flax(state_dict):
             node = node.setdefault(name, {})
         node[path[-1]] = tensor.detach().cpu().numpy()
     return {"params": params, "batch_stats": stats}
+
+
+def flax_leaves(model, grad=False):
+    """``{flax path: tensor}`` of a module's parameters and BN
+    statistics, e.g. ``params/backbone/stem/conv/kernel`` and
+    ``batch_stats/backbone/stem/bn/mean``, for a leaf-by-leaf comparison
+    with a flax tree. ``grad=True`` gives each parameter's ``.grad``
+    instead (``None`` where it has none) and no statistics."""
+    out = {}
+    for name, p in model.named_parameters():
+        out["params/" + name.replace(".", "/")] = p.grad if grad else p
+    if not grad:
+        for name, b in model.named_buffers():
+            out["batch_stats/" + name.replace(".", "/")] = b
+    return out

@@ -1,6 +1,7 @@
 // Direct NHWC convolution (implicit GEMM) with an optional per-channel
 // statistics epilogue: y = conv(x, w) + b rounded to the output type,
-// s1 = sum(y), s2 = sum(y^2) over N*H*W of the ROUNDED y, in f32.
+// s1 = sum(y), s2 = sum(y^2) over N*H*W of the ROUNDED y, accumulated in
+// f64.
 //
 // Replaces the Pallas TPU kernels conv1x1_stats (_conv1x1_stats_fwd_impl)
 // and conv3x3_stats (_conv3x3_stats_fwd_impl) of
@@ -28,10 +29,14 @@
 //
 // Statistics: the TPU kernel carries s1/s2 across its sequential grid.
 // Blocks here run in parallel in no order, so each block reduces its
-// tile's columns in shared memory and adds them with one f32 atomicAdd
-// per column and block: the summation order, and so the last bits of
-// s1/s2, change from run to run.  STATS is a template flag, so the
-// served forward (want_stats = 0) carries no reduction and no atomics.
+// tile's columns in shared memory (64 f32 terms) and adds them with one
+// f64 atomicAdd per column and block.  A training batch sums millions of
+// rows per channel (5.5e6 in the stem at batch 32) over tens of
+// thousands of blocks, and the variance s2/M - mean^2 cancels: f32
+// atomics lost 8e-6 of sum(y^2) there, f64 ones lose nothing that shows
+// after the wrapper rounds the sums to f32, whatever the block order.
+// STATS is a template flag, so the served forward (want_stats = 0)
+// carries no reduction and no atomics.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -61,7 +66,7 @@ template <typename T, int KS, int STRIDE, bool STATS>
 __global__ void __launch_bounds__(THREADS)
 conv_bn_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
                      const T* __restrict__ b, T* __restrict__ y,
-                     float* __restrict__ s1, float* __restrict__ s2,
+                     double* __restrict__ s1, double* __restrict__ s2,
                      int n, int h, int wd, int ci, int co, int ho, int wo) {
   constexpr int PAD = KS == 3 ? 1 : 0;
   // +4 floats per row: the gather writes column-wise, and the pad
@@ -193,15 +198,15 @@ conv_bn_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
         t1 += r1[r][tid];
         t2 += r2[r][tid];
       }
-      atomicAdd(&s1[c0 + tid], t1);
-      atomicAdd(&s2[c0 + tid], t2);
+      atomicAdd(&s1[c0 + tid], (double)t1);
+      atomicAdd(&s2[c0 + tid], (double)t2);
     }
   }
 }
 
 template <typename T, int KS, int STRIDE>
-void launch(const void* x, const void* w, const void* b, void* y, float* s1,
-            float* s2, int n, int h, int wd, int ci, int co, int want_stats,
+void launch(const void* x, const void* w, const void* b, void* y, double* s1,
+            double* s2, int n, int h, int wd, int ci, int co, int want_stats,
             cudaStream_t stream) {
   int ho = h / STRIDE, wo = wd / STRIDE;
   int64_t m_total = (int64_t)n * ho * wo;
@@ -218,8 +223,8 @@ void launch(const void* x, const void* w, const void* b, void* y, float* s1,
 }
 
 template <typename T>
-int dispatch(const void* x, const void* w, const void* b, void* y, float* s1,
-             float* s2, int n, int h, int wd, int ci, int co, int ksize,
+int dispatch(const void* x, const void* w, const void* b, void* y, double* s1,
+             double* s2, int n, int h, int wd, int ci, int co, int ksize,
              int stride, int want_stats, cudaStream_t stream) {
   if (ksize == 1 && stride == 1) {
     launch<T, 1, 1>(x, w, b, y, s1, s2, n, h, wd, ci, co, want_stats, stream);
@@ -235,11 +240,12 @@ int dispatch(const void* x, const void* w, const void* b, void* y, float* s1,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  s1/s2 may be null when
-// want_stats == 0.  Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16.  s1/s2 are zeroed f64 buffers of co
+// entries, and may be null when want_stats == 0.  Returns the
+// cudaError_t of the launch.
 extern "C" int conv_bn_stats_launch(const void* x, const void* w,
-                                    const void* b, void* y, float* s1,
-                                    float* s2, int n, int h, int wd, int ci,
+                                    const void* b, void* y, double* s1,
+                                    double* s2, int n, int h, int wd, int ci,
                                     int co, int ksize, int stride, int dtype,
                                     int want_stats, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;

@@ -1,15 +1,17 @@
-"""CSPDarknet-53, the YOLOv4 backbone (eval mode, NHWC).
+"""CSPDarknet-53, the YOLOv4 backbone (NHWC).
 
-Port of ``CSPResBlock``, ``CSPStage`` and the plain path of
-``CSPDarknet53`` in tf2_yolo_tpu/models/backbones.py. Submodule names
-follow the flax names (``stem``, ``stage3.block2.expand``, ...). Every
-conv uses the v4 DarknetConv2D init, RandomNormal(0, 0.02).
+Port of ``CSPResBlock``, ``CSPStage`` and ``CSPDarknet53`` (the plain
+path and the fused-GEMM path of stages 3-5) in
+tf2_yolo_tpu/models/backbones.py. Submodule names follow the flax names
+(``stem``, ``stage3.block2.expand``, ...). Every conv uses the v4
+DarknetConv2D init, RandomNormal(0, 0.02).
 """
 
 import torch
 from torch import nn
 
 from .layers import ConvBN, darknet_normal_
+from .packed_region import activate, packed_stage, rows_to
 
 
 def _cbn(ci, co, k, stride=1, **kw):
@@ -57,13 +59,19 @@ class CSPStage(nn.Module):
 
 class CSPDarknet53(nn.Module):
     """Stem + five CSP stages. Returns (c3, c4, c5): the stride-8 256-ch,
-    stride-16 512-ch and stride-32 1024-ch stage outputs."""
+    stride-16 512-ch and stride-32 1024-ch stage outputs.
+
+    ``packed=True`` runs stages 3-5 through the fused GEMMs of
+    :mod:`.packed_region` in train mode (stem and stages 1-2 stay on the
+    plain path; eval mode takes the plain path throughout). Same
+    parameters and the same math up to summation order."""
 
     SPECS = ((64, 1, False), (128, 2, True), (256, 8, True),
              (512, 8, True), (1024, 4, True))
 
-    def __init__(self, **kw):
+    def __init__(self, packed=False, **kw):
         super().__init__()
+        self.packed = packed
         self.stem = _cbn(3, 32, 3, **kw)
         ci = 32
         for i, (f, blocks, narrow) in enumerate(self.SPECS):
@@ -75,6 +83,12 @@ class CSPDarknet53(nn.Module):
         x = self.stem(x)
         taps = []
         for i in range(len(self.SPECS)):
-            x = getattr(self, f"stage{i + 1}")(x)
+            stage = getattr(self, f"stage{i + 1}")
+            if self.packed and self.training and i >= 2:
+                y2, aff, (b, h, w) = packed_stage(stage, x)
+                x = rows_to(activate(y2, aff, "mish", stage.out.dtype),
+                            b, h, w)
+            else:
+                x = stage(x)
             taps.append(x)
         return taps[2], taps[3], taps[4]

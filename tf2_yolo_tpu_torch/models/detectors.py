@@ -1,7 +1,8 @@
 """YOLOv4: CSPDarknet-53 + SPP top-down FPN + bottom-up PAN + heads.
 
 Port of ``_split_anchors``, ``FPNStage`` and the full-network path of
-``YoloV4`` in tf2_yolo_tpu/models/detectors.py (eval mode, NHWC). The
+``YoloV4`` in tf2_yolo_tpu/models/detectors.py (NHWC; ``train()`` /
+``eval()`` select batch or running BatchNorm statistics). The
 concat orders and the coarse-to-fine output order are the JAX
 package's. 107 ConvBN layers (72 mish in the backbone, 35 leaky in the
 neck, 7 of them stride 2) and 3 biased head convs.
@@ -57,15 +58,18 @@ class YoloV4(nn.Module):
 
     ``dtype`` is the compute dtype of the convs; parameters are f32.
     ``generator`` draws the v4 init (RandomNormal(0, 0.02) everywhere).
-    ``plain`` is set by ``layers.use_plain_route``.
+    ``packed=True`` runs the backbone's stages 3-5 through the fused
+    GEMMs in train mode (see ``CSPDarknet53``). The model is built on
+    the card unless ``device`` says otherwise. ``plain`` is set by
+    ``layers.use_plain_route``.
     """
 
     def __init__(self, anchors, class_num=1, dtype=torch.float32,
-                 generator=None, device=None):
+                 generator=None, device="cuda", packed=False):
         super().__init__()
         kw = dict(dtype=dtype, generator=generator, device=device)
         self.plain = False
-        self.backbone = CSPDarknet53(**kw)
+        self.backbone = CSPDarknet53(packed=packed, **kw)
 
         self.td1_pre1 = _neck(1024, 512, 1, **kw)
         self.td1_pre2 = _neck(512, 1024, 3, **kw)

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.geometry import clip
 from .layers import Conv, darknet_normal_
 
 
@@ -20,7 +21,7 @@ class AnchorHead(nn.Module):
     then sigmoid xy, exp(clamped) * anchors wh, sigmoid conf and probs."""
 
     def __init__(self, ci, anchors, class_num, dtype=torch.float32,
-                 generator=None, device=None):
+                 generator=None, device="cuda"):
         super().__init__()
         anchors = np.asarray(anchors, np.float32)
         self.bbox_num = anchors.shape[0]
@@ -38,7 +39,7 @@ class AnchorHead(nn.Module):
         xy = torch.sigmoid(raw[..., 0:2])
         # clamp the exponent: an untrained or diverged net can emit huge
         # raw values and exp() would overflow
-        wh = torch.exp(raw[..., 2:4].clamp(-15.0, 15.0)) * self.anchors
+        wh = torch.exp(clip(raw[..., 2:4], -15.0, 15.0)) * self.anchors
         conf = torch.sigmoid(raw[..., 4:5])
         prob = torch.sigmoid(raw[..., 5:])
         out = torch.cat([xy, wh, conf, prob], dim=-1)

@@ -1,4 +1,4 @@
-"""Building-block layers for the YOLOv4 serving path (eval mode, NHWC).
+"""Building-block layers of YOLOv4 (NHWC), for serving and training.
 
 Port of tf2_yolo_tpu/models/layers.py. Parameters keep the flax names
 and layouts, so that :mod:`tf2_yolo_tpu_torch.bridge` maps a flax
@@ -13,7 +13,9 @@ Every conv runs through ``conv_bn_stats``: the CUDA kernel on a GPU
 tensor, its plain version on a CPU tensor. :func:`use_plain_route` sets
 one model to the plain version on any device (the reference route).
 Parameters stay f32; a module casts them to its compute ``dtype`` at
-each call, as flax does.
+each call, as flax does. ``nn.Module.train()`` / ``.eval()`` select
+batch or running statistics and the training or eval form of mish.
+Modules are built on the card unless ``device`` says otherwise.
 """
 
 import math
@@ -22,9 +24,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels.conv_bn import conv_bn_stats, conv_bn_stats_plain
+from ..ops.kernels.conv_bn import conv_bn_stats
+from ..ops.kernels.fused_gemm import act_and_grad
 
 BN_EPS = 1e-3                  # tf.keras default, as the JAX package
+BN_MOMENTUM = 0.99             # running = 0.99 running + 0.01 batch
 # std of a unit normal truncated to [-2, 2] (flax/keras variance_scaling)
 _TRUNC_STD = 0.87962566103423978
 
@@ -52,21 +56,49 @@ def mish_eval(x):
     return x * torch.tanh(F.softplus(x))
 
 
+class _MishTrain(torch.autograd.Function):
+    """Training form of mish, x * (1 - 2 / ((1 + e^x)^2 + 1)) with the
+    exponent clamped at 20 (beyond it the value is x exactly and the
+    clamp keeps (1 + e^x)^2 finite), computed in x's dtype. Only x is
+    saved; the backward recomputes the derivative in f32, where eager
+    autograd through the chain would keep seven activation-sized
+    tensors."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        u = torch.exp(torch.clamp(x, max=20.0))
+        return x * (1.0 - 2.0 / ((1.0 + u) * (1.0 + u) + 1.0))
+
+    @staticmethod
+    def backward(ctx, dout):
+        (x,) = ctx.saved_tensors
+        return (dout.float() * act_and_grad(x.float(), "mish")[1]).to(
+            x.dtype)
+
+
+def mish(x):
+    """Mish for training (see :class:`_MishTrain`); the same function as
+    :func:`mish_eval`."""
+    return _MishTrain.apply(x)
+
+
 def leaky(x):
     return F.leaky_relu(x, negative_slope=0.1)
 
 
-ACTS = {"mish": mish_eval, "leaky": leaky, "linear": lambda x: x}
+ACTS = {"mish": mish, "leaky": leaky, "linear": lambda x: x}
+ACTS_EVAL = dict(ACTS, mish=mish_eval)
 
 
 class Conv(nn.Module):
     """Conv parameters in the flax layout, run through ``conv_bn_stats``
-    (1x1 s1, 3x3 s1 SAME, 3x3 s2 darknet pad) without the statistics,
-    which eval mode does not use. Returns (y, None, None)."""
+    (1x1 s1, 3x3 s1 SAME, 3x3 s2 darknet pad). Returns (y, s1, s2); the
+    statistics are ``None`` unless ``want_stats``."""
 
     def __init__(self, ci, co, kernel, stride=1, use_bias=False,
                  dtype=torch.float32, init=he_normal_, generator=None,
-                 device=None):
+                 device="cuda"):
         super().__init__()
         self.kernel = nn.Parameter(
             torch.empty(kernel, kernel, ci, co, device=device))
@@ -79,36 +111,47 @@ class Conv(nn.Module):
         self.dtype = dtype
         self.plain = False
 
-    def forward(self, x):
+    def forward(self, x, want_stats=False):
         dt = self.dtype
         k = self.kernel.to(dt)
         b = (self.bias.to(dt) if self.bias is not None
              else torch.zeros(k.shape[-1], dtype=dt, device=k.device))
-        fn = conv_bn_stats_plain if self.plain else conv_bn_stats
-        return fn(x.to(dt).contiguous(), k, b, self.stride, False)
+        return conv_bn_stats(x.to(dt).contiguous(), k, b, self.stride,
+                             want_stats, self.plain)
 
 
 class BNState(nn.Module):
     """BatchNorm parameters and running statistics (flax BatchNorm's
     ``scale``/``bias`` params and ``mean``/``var`` batch_stats)."""
 
-    def __init__(self, features, device=None):
+    def __init__(self, features, device="cuda"):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
 
+    @torch.no_grad()
+    def update_running(self, mean, var):
+        """running = 0.99 running + 0.01 batch, in place, with the
+        biased batch variance as flax and tf.keras take it."""
+        self.mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+        self.var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+
 
 class ConvBN(nn.Module):
-    """Conv (+ eval-mode BatchNorm) + activation, the math of the JAX
-    fused path: y = conv(x) in the compute dtype, then
+    """Conv (+ BatchNorm) + activation, the math of the JAX fused path:
+    y = conv(x) in the compute dtype, then
     (y - mean) * rsqrt(var + 1e-3) * scale + bias in that dtype, then the
-    activation. ``use_bn=False`` gives a plain biased conv."""
+    activation. In train mode mean = s1 / M and var = s2 / M - mean^2
+    come from the conv kernel's sums over the M = N*H*W pixels (f32), the
+    running statistics are updated in place, and mish takes its training
+    form; in eval mode the running statistics normalise.
+    ``use_bn=False`` gives a plain biased conv."""
 
     def __init__(self, ci, features, kernel=3, stride=1, act="leaky",
                  use_bn=True, dtype=torch.float32, init=he_normal_,
-                 generator=None, device=None):
+                 generator=None, device="cuda"):
         super().__init__()
         if act not in ACTS:
             raise ValueError(f"unknown activation {act!r}")
@@ -119,13 +162,26 @@ class ConvBN(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
-        y, _, _ = self.conv(x)
-        if self.bn is not None:
+        bn = self.bn
+        train = self.training and bn is not None
+        y, s1, s2 = self.conv(x, want_stats=train)
+        if bn is not None:
             dt = self.dtype
-            bn = self.bn
-            y = ((y - bn.mean.to(dt)) * torch.rsqrt(bn.var.to(dt) + BN_EPS)
+            if train:
+                mean, var = batch_stats(s1, s2, y.numel() // y.shape[-1])
+                bn.update_running(mean, var)
+            else:
+                mean, var = bn.mean, bn.var
+            y = ((y - mean.to(dt)) * torch.rsqrt(var.to(dt) + BN_EPS)
                  * bn.scale.to(dt) + bn.bias.to(dt))
-        return ACTS[self.act](y)
+        return (ACTS if self.training else ACTS_EVAL)[self.act](y)
+
+
+def batch_stats(s1, s2, count):
+    """Batch mean and biased variance from the sums of y and y^2 over
+    ``count`` values per channel (f32)."""
+    mean = s1 / count
+    return mean, s2 / count - mean * mean
 
 
 def upsample2x(x):
@@ -149,10 +205,10 @@ def spp(x):
 
 
 def use_plain_route(model):
-    """Route one model's convs (and, through ``make_serving_fn``, its
-    NMS) to the plain PyTorch versions on any device. The default on a
-    GPU is the CUDA kernels; this is the reference route they are
-    checked against."""
+    """Route one model's convs and fused GEMMs (and, through
+    ``make_serving_fn``, its NMS) to the plain PyTorch versions on any
+    device. The default on a GPU is the CUDA kernels; this is the
+    reference route they are checked against."""
     for m in model.modules():
         if hasattr(m, "plain"):
             m.plain = True

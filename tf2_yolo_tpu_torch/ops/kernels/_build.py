@@ -36,25 +36,47 @@ def _nvcc():
     return path
 
 
-def load_library(source, extra_flags=()):
-    """Return the ``ctypes.CDLL`` of ``csrc/<source>``, building it first
-    if no library of the same source and flags exists. Raises on a
-    failed build. Each wrapper loads its library once
-    (``functools.cache`` on its launcher)."""
+def _plan(source, extra_flags):
     flags = (*FLAGS, *extra_flags)
     src = CSRC / source
     digest = hashlib.sha256(
         src.read_bytes() + "\0".join(flags).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{src.stem}-{digest}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return src, flags, BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
+def build_libraries(specs):
+    """Build every ``(source, extra_flags)`` of ``specs`` that has no
+    library of the same source and flags yet, one ``nvcc`` process each,
+    all started together. Raises on a failed build."""
+    plans = [(source, *_plan(source, flags)) for source, flags in specs]
+    plans = [p for p in plans if not p[3].exists()]
+    if not plans:
+        return
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for source, src, flags, out in plans:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True, check=False)
+        proc = subprocess.Popen(
+            [nvcc, *flags, "-o", str(tmp), str(src)],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        procs.append((source, src, tmp, out, proc, time.perf_counter()))
+    failed = []
+    for source, src, tmp, out, proc, t0 in procs:
+        _, log = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+            failed.append(f"nvcc failed on {src}:\n{log}")
+            continue
         os.replace(tmp, out)
         build_info[source] = {"seconds": time.perf_counter() - t0,
-                              "log": proc.stderr}
-    return ctypes.CDLL(str(out))
+                              "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(source, extra_flags=()):
+    """Return the ``ctypes.CDLL`` of ``csrc/<source>``, building it first
+    if no library of the same source and flags exists. Each wrapper
+    loads its library once (``functools.cache`` on its launcher)."""
+    build_libraries([(source, extra_flags)])
+    return ctypes.CDLL(str(_plan(source, extra_flags)[2]))

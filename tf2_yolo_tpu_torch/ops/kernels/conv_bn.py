@@ -1,17 +1,25 @@
-"""Conv + bias with per-channel statistic sums (NHWC, forward).
+"""Conv + bias with per-channel statistic sums (NHWC), differentiable.
 
 ``conv_bn_stats(x, w, b, stride, want_stats)`` returns ``(y, s1, s2)``:
 y = conv(x, w) + b rounded to ``x.dtype``; s1 = sum(y) and s2 = sum(y^2)
 per output channel over N*H*W of the rounded y, in f32 (``None`` when
 ``want_stats`` is false).
 
+Backward (the JAX package's ``_dy_eff`` and ``_conv*_stats_bwd``): the
+cotangents fold into g = dy + ds1 + 2 y ds2, computed in f32 and rounded
+to ``dy.dtype``; dx and dw are the conv VJP of g in the compute dtype,
+db = sum(g) in f32. The JAX package takes that VJP with XLA's conv
+outside any Pallas kernel; here it is ``aten.convolution_backward`` on
+NCHW views of the NHWC tensors (no copy), on either route.
+
 Source note. On a CUDA tensor this launches ``csrc/conv_bn.cu``, the
 Hopper port of the Pallas TPU kernels ``conv1x1_stats`` and
 ``conv3x3_stats`` (tf2_yolo_tpu/ops/pallas/conv_bn_kernel.py,
 ``_conv1x1_stats_fwd_impl`` and ``_conv3x3_stats_fwd_impl``). It is an
 implicit-GEMM conv on the CUDA cores, bounded by their FMA rate; the
-statistics are per-block partial sums added with f32 atomics, so their
-last bits depend on block order. On a CPU tensor it computes
+statistics are per-block partial sums (64 f32 terms) added with f64
+atomics and rounded to f32 here, so block order does not show in them
+even where a training batch sums millions of rows. On a CPU tensor it computes
 :func:`conv_bn_stats_plain`, the counterpart of ``conv_stats_ref``.
 
 Geometries: 1x1 stride 1; 3x3 stride 1 SAME; 3x3 stride 2 with the
@@ -27,6 +35,7 @@ import torch.nn.functional as F
 
 from ._build import load_library
 
+SOURCE = ("conv_bn.cu", ())          # source and extra nvcc flags
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _GEOMETRIES = {(1, 1), (3, 1), (3, 2)}
 _INT32_MAX = 2 ** 31 - 1
@@ -81,39 +90,91 @@ def conv_bn_stats_plain(x, w, b, stride=1, want_stats=True):
 
 @functools.cache
 def _launcher():
-    fn = load_library("conv_bn.cu").conv_bn_stats_launch
+    fn = load_library(*SOURCE).conv_bn_stats_launch
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def conv_bn_stats(x, w, b, stride=1, want_stats=True):
-    """See the module docstring. CPU tensors take the plain version;
-    CUDA tensors launch the kernel, or raise."""
-    n, h, wd, ci, co, ks = _check(x, w, b, stride)
-    if x.device.type == "cpu":
-        return conv_bn_stats_plain(x, w, b, stride, want_stats)
-    if x.device.type != "cuda":
-        raise ValueError(f"no conv_bn_stats kernel for {x.device}")
+def _forward_cuda(x, w, b, stride, want_stats, dims):
+    n, h, wd, ci, co, ks = dims
     launch = _launcher()
     y = torch.empty((n, h // stride, wd // stride, co), dtype=x.dtype,
                     device=x.device)
-    s1 = s2 = None
+    s = None
     if want_stats:
-        s1 = torch.zeros(co, dtype=torch.float32, device=x.device)
-        s2 = torch.zeros(co, dtype=torch.float32, device=x.device)
+        s = torch.zeros((2, co), dtype=torch.float64, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                 s1.data_ptr() if want_stats else None,
-                 s2.data_ptr() if want_stats else None,
+                 s[0].data_ptr() if want_stats else None,
+                 s[1].data_ptr() if want_stats else None,
                  n, h, wd, ci, co, ks, stride, _DTYPE_CODES[x.dtype],
                  int(want_stats), stream)
     if err != 0:
         raise RuntimeError(f"conv_bn_stats kernel launch failed: "
                            f"cudaError {err}")
     conv_bn_stats.launches += 1
+    if not want_stats:
+        return y, None, None
+    s1, s2 = s.float()
     return y, s1, s2
+
+
+def _conv_vjp(x, w, g, stride, want_dx):
+    """(dx, dw) of the NHWC/HWIO conv for the output cotangent g, in the
+    compute dtype (dx ``None`` unless ``want_dx``). The darknet stride-2
+    pad (top/left, then VALID) on even H and W reads the same pixels as
+    a symmetric pad of 1 whose bottom/right edge is never touched, so
+    one padding rule serves."""
+    pad = w.shape[0] // 2
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
+        w.permute(3, 2, 0, 1), None, [stride, stride], [pad, pad], [1, 1],
+        False, [0, 0], 1, [want_dx, True, False])
+    return (dx.permute(0, 2, 3, 1) if want_dx else None,
+            dw.permute(2, 3, 1, 0))
+
+
+class _ConvBNStats(torch.autograd.Function):
+    """apply(x, w, b, stride, want_stats, plain) -> (y, s1, s2)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, want_stats, plain):
+        dims = _check(x, w, b, stride)
+        if plain or x.device.type == "cpu":
+            y, s1, s2 = conv_bn_stats_plain(x, w, b, stride, want_stats)
+        elif x.device.type == "cuda":
+            y, s1, s2 = _forward_cuda(x, w, b, stride, want_stats, dims)
+        else:
+            raise ValueError(f"no conv_bn_stats kernel for {x.device}")
+        ctx.stride = stride
+        if not want_stats:
+            ctx.save_for_backward(x, w, None)
+            return y
+        ctx.save_for_backward(x, w, y)
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, dy, ds1=None, ds2=None):
+        x, w, y = ctx.saved_tensors
+        g = dy
+        if y is not None:
+            g = (dy.float() + ds1.float()
+                 + 2.0 * y.float() * ds2.float()).to(dy.dtype)
+        db = None
+        if ctx.needs_input_grad[2]:
+            db = g.float().sum(dim=(0, 1, 2)).to(x.dtype)
+        dx, dw = _conv_vjp(x, w, g, ctx.stride, ctx.needs_input_grad[0])
+        return dx, dw, db, None, None, None
+
+
+def conv_bn_stats(x, w, b, stride=1, want_stats=True, plain=False):
+    """See the module docstring. CPU tensors take the plain version;
+    CUDA tensors launch the kernel, or raise. ``plain=True`` forces the
+    plain version on any device (the reference route)."""
+    out = _ConvBNStats.apply(x, w, b, stride, want_stats, plain)
+    return out if want_stats else (out, None, None)
 
 
 conv_bn_stats.launches = 0

@@ -24,6 +24,7 @@ import torch
 from ..geometry import pair_iou
 from ._build import load_library
 
+SOURCE = ("nms.cu", ("--fmad=false",))   # source and extra nvcc flags
 # shared memory a block may opt into on an H100 (227 KB)
 SMEM_LIMIT = 232448
 _BYTES_PER_BOX = 36                    # 8 f32 fields + an int alive flag
@@ -63,7 +64,7 @@ def nms_keep_plain(boxes, threshold=0.45, iou_mode=1):
 
 @functools.cache
 def _launcher():
-    lib = load_library("nms.cu", extra_flags=("--fmad=false",))
+    lib = load_library(*SOURCE)
     fn = lib.nms_keep_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_float, ctypes.c_int,

@@ -1,0 +1,182 @@
+"""Where one training step of the port spends its time on the card.
+
+    python3 -m tf2_yolo_tpu_torch.tools.train_profile [--batch 32]
+        [--size 416] [--steps 2] [--out DIR]
+
+Builds a bf16 ``YoloV4(packed=True)`` train state (:func:`make_training`:
+random v4 init from ``--seed``, Adam 1e-3, synthetic labels; the smoke
+script ``chip_smoke.py`` trains the same), warms up, traces ``--steps``
+steps with ``torch.profiler`` and sums the device time of every CUDA
+kernel by category:
+
+  conv forward       the hand-written conv + statistics kernel
+  conv backward      the library conv VJP (cuDNN / CUTLASS kernels and
+                     the layout changes around them)
+  fused gemm fwd/bwd the hand-written fused GEMM kernels
+  optimizer          Adam's multi-tensor kernels
+  elementwise        everything else (BN normalise, mish, leaky and their
+                     backward, casts, reductions, the loss, copies)
+
+and prints one JSON object with ms per step of each, the wall time per
+step with and without the profiler, and the device's idle share
+(1 - kernel time / untraced wall time: the profiler's own host cost
+stretches the traced wall time). Needs CUDA; prints the card's name and
+power limit.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..models import YoloV4, use_plain_route
+from ..ops.losses import wrap_yolo_loss_v4
+from ..parallel import create_train_state, make_optimizer, make_train_step
+
+CLASSES = 3
+ANCHORS = np.stack([np.linspace(0.05, 0.75, 9),
+                    np.linspace(0.07, 0.65, 9)], axis=1)
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def make_training(seed, batch, size, dtype, plain=False):
+    """A YoloV4(packed=True) train state on the card with the v4 init
+    drawn from ``seed``, Adam 1e-3, the three v4 losses, one batch of
+    random images and synthetic labels (four boxes per image and level,
+    as the JAX package's training benchmark makes them)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = YoloV4(ANCHORS, CLASSES, dtype=dtype, generator=gen,
+                   packed=True)
+    if plain:
+        use_plain_route(model)
+    state = create_train_state(model, make_optimizer("adam", 1e-3))
+    rng = np.random.RandomState(seed)
+    x = torch.rand(batch, size, size, 3, generator=gen, device="cuda")
+    loss_fns, ys = [], []
+    for level in range(3):
+        g = (size // 32) * 2 ** level
+        loss_fns.append(wrap_yolo_loss_v4(
+            (g, g), 3, CLASSES, ANCHORS[3 * level:3 * level + 3]))
+        y = np.zeros((batch, g, g, 5 + CLASSES), np.float32)
+        for b in range(batch):
+            for _ in range(4):
+                gy, gx = rng.randint(0, g, 2)
+                y[b, gy, gx, :5] = [*rng.rand(2), 0.2, 0.3, 1.0]
+                y[b, gy, gx, 5 + rng.randint(CLASSES)] = 1.0
+        ys.append(torch.from_numpy(y).cuda())
+    return state, make_train_step(loss_fns), x, tuple(ys)
+
+
+def timed_steps(state, step, x, ys, steps):
+    """``steps`` steps, each ending in a synchronize; (ms, losses)."""
+    times, losses = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, logs = step(state, x, ys)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(logs["loss"]))
+    return times, losses
+
+
+
+CATEGORIES = (
+    ("conv forward", ("conv_bn_stats_kernel",)),
+    ("fused gemm forward", ("fused_gemm_fwd_kernel",)),
+    ("fused gemm backward", ("fused_gemm_dx_kernel", "fused_gemm_dw_kernel")),
+    ("optimizer", ("multi_tensor_apply", "adam")),
+    ("conv backward", ("cudnn", "cutlass", "xmma", "dgrad", "wgrad", "nhwc",
+                       "nchw", "convolve", "conv2d", "implicit_gemm",
+                       "sm90_", "sm80_", "gemm")),
+)
+
+
+def category(name):
+    low = name.lower()
+    for cat, keys in CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    return "elementwise"
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--batch", type=int, default=32)
+    p.add_argument("--size", type=int, default=416)
+    p.add_argument("--steps", type=int, default=2)
+    p.add_argument("--out", default=None,
+                   help="directory for train_profile.json and the table")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("train_profile: CUDA is not available")
+    from torch.profiler import ProfilerActivity, profile
+    card = card_line()
+    print(card)
+
+    state, step, x, ys = make_training(
+        args.seed, args.batch, args.size, torch.bfloat16)
+    timed_steps(state, step, x, ys, 2)          # warm-up
+    untraced, _ = timed_steps(state, step, x, ys, args.steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.steps):
+            step(state, x, ys)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+
+    by_cat, by_kernel, launches = {}, {}, 0
+    for ev in prof.events():
+        # device-side events only; "Optimizer.step#Adam.step" is an
+        # annotation that spans kernels already counted
+        if ev.device_type != torch.autograd.DeviceType.CUDA \
+                or ev.name.startswith("Optimizer."):
+            continue
+        ms = ev.device_time_total / 1e3 / args.steps
+        by_cat[category(ev.name)] = by_cat.get(category(ev.name), 0.0) + ms
+        by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ms
+        launches += 1
+    busy = sum(by_cat.values())
+    if busy <= 0:
+        raise SystemExit("train_profile: no device time in the "
+                         "trace; time with CUDA events instead")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:25]
+    untraced_ms = sum(untraced) / len(untraced)
+    result = dict(card=card, batch=args.batch, size=args.size,
+                  steps=args.steps, wall_ms_per_step_traced=wall_ms,
+                  wall_ms_per_step_untraced=untraced_ms,
+                  kernel_ms_per_step=busy,
+                  idle_share=max(0.0, 1.0 - busy / untraced_ms),
+                  launches_per_step=launches / args.steps,
+                  ms_per_step=dict(sorted(by_cat.items())),
+                  top_kernels=[dict(name=k[:120], ms_per_step=v,
+                                    category=category(k)) for k, v in top])
+    for k, v in top:
+        print(f"  {v:9.3f} ms/step  [{category(k)}]  {k[:100]}")
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "train_profile.json"), "w") as f:
+            json.dump(result, f, indent=1)
+    result.pop("top_kernels")
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
