@@ -12,10 +12,13 @@ Phases (each raises on failure, so the exit code is nonzero):
   3. check each kernel against its plain PyTorch version on the card at
      YOLOv4@416 layer shapes, bf16 and f32 (TF32 off for the plain
      versions): conv + statistics at the serving and the training batch,
-     NMS, and the fused GEMM forward and backward at the training batch
-     (and again at the halved batch if phase 7 had to fall back); time
-     each, with the one-call PyTorch equivalent where
-     there is one (a yardstick only; the port never calls it);
+     NMS, the fused GEMM forward and backward at the training batch, and
+     the fused 3x3 conv forward and backward at both batches (and again
+     at the halved batch if phase 7 had to fall back); time each, with
+     the one-call PyTorch equivalent where there is one (a yardstick
+     only; the port never calls it); the probe layer of
+     ``tools/bench_packed_probe.py`` the same way, and its chain of four
+     layers driven once with its counter read;
   4. serve ``--requests`` batches of ``--batch`` images through
      ``make_serving_fn`` in bf16, with launch counters proving that every
      conv (107 ConvBN + 3 head convs) and every NMS ran the kernels;
@@ -23,16 +26,22 @@ Phases (each raises on failure, so the exit code is nonzero):
      the kernel route with the plain route, then the NMS kernel with the
      plain NMS on the same decoded rows;
   6. time both serving routes per request;
-  7. train ``--steps`` steps of ``YoloV4(packed=True)`` in bf16 at batch
-     ``--train-batch`` (halved once if it does not fit) through
+  7. train ``--steps`` steps of ``YoloV4(packed=3)`` in bf16 at batch
+     ``--train-batch`` (halved once if it does not fit, which is printed
+     and makes phase 3 run again at that batch) through
      ``make_train_step`` with Adam 1e-3 and synthetic labels, with launch
-     counters proving that every 1x1 ConvBN of the backbone's stages 3-5
-     ran the fused GEMM kernels (32 forwards; 35 backwards, one per
-     input operand) and every other conv the conv kernel (78); loss and
-     gradients finite, running statistics moved;
-  8. one f32 step at batch 2 on the kernel route and on the plain route
-     from the same state: loss, every gradient, every updated parameter;
-  9. time both training routes per step.
+     counters proving that the five 3x3 convs of the backbone's stages
+     1-2 ran the fused conv kernels (5 forwards, 5 backwards), every 1x1
+     ConvBN of the backbone the fused GEMM kernels (43 forwards; 52
+     backwards, one per input operand) and every other conv the conv
+     kernel (62); loss and gradients finite, running statistics moved.
+     Then one step of ``YoloV4(packed=True)`` (stages 1-2 on the plain
+     path: 32 and 35 fused GEMM launches, 78 convs) the same way;
+  8. one f32 step of ``packed=3`` at batch 2 on the kernel route and on
+     the plain route from the same state: loss, every gradient, every
+     updated parameter;
+  9. time ``packed=3`` on both routes and ``packed=True`` on the kernel
+     route per step, in turns.
 
 Weights are random, from ``--seed``: conv kernels drawn with the port's
 HE_NORMAL from a seeded ``torch.Generator``. With BN at its init
@@ -65,14 +74,18 @@ from tf2_yolo_tpu_torch.models.layers import Conv, ConvBN, he_normal_
 from tf2_yolo_tpu_torch.ops.decode import decode_multi_level
 from tf2_yolo_tpu_torch.ops.kernels import _build
 from tf2_yolo_tpu_torch.ops.kernels import conv_bn as conv_mod
+from tf2_yolo_tpu_torch.ops.kernels import fused_conv3x3 as conv3_mod
 from tf2_yolo_tpu_torch.ops.kernels import fused_gemm as gemm_mod
 from tf2_yolo_tpu_torch.ops.kernels import nms as nms_mod
 from tf2_yolo_tpu_torch.ops.kernels.conv_bn import (conv_bn_stats,
                                                     conv_bn_stats_plain)
-from tf2_yolo_tpu_torch.ops.kernels.fused_gemm import fused_gemm
+from tf2_yolo_tpu_torch.ops.kernels.fused_conv3x3 import fused_conv3x3
+from tf2_yolo_tpu_torch.ops.kernels.fused_gemm import (act_and_grad,
+                                                       fused_gemm)
 from tf2_yolo_tpu_torch.ops.kernels.nms import nms_keep, nms_keep_plain
 from tf2_yolo_tpu_torch.ops.nms import _sorted_by_conf
 from tf2_yolo_tpu_torch.parallel import create_train_state, make_optimizer
+from tf2_yolo_tpu_torch.tools import bench_packed_probe as probe
 from tf2_yolo_tpu_torch.tools.train_profile import (ANCHORS, CLASSES,
                                                     card_line, make_training,
                                                     timed_steps)
@@ -86,6 +99,22 @@ GEMMS_PER_STEP = 3 * 4 + 8 + 8 + 4
 # reads two (the concat of post and cross)
 GEMM_BWD_INPUTS_PER_STEP = GEMMS_PER_STEP + 3
 CONVS_PER_STEP = CONVS_PER_FORWARD - GEMMS_PER_STEP
+# launches of one training step by backbone route. packed=3 moves the 16
+# ConvBNs of stages 1-2 (blocks = 1, 2) off the conv kernel: 5 of them
+# 3x3 (two ``down``, three ``expand``) onto the fused conv, 11 of them
+# 1x1 onto the fused GEMM, whose sum-GEMMs read 1, 2 or 3 terms
+# (backward operands, stage 1: cross 1, pre 1, squeeze 1, post 2, out 2;
+# stage 2: cross 1, pre 1, squeezes 1 + 2, post 3, out 2)
+TRAIN_LAUNCHES = {
+    1: dict(fused_conv3x3_fwd=0, fused_conv3x3_bwd=0,
+            fused_gemm_fwd=GEMMS_PER_STEP,
+            fused_gemm_bwd=GEMM_BWD_INPUTS_PER_STEP,
+            conv_bn_stats=CONVS_PER_STEP),
+    3: dict(fused_conv3x3_fwd=5, fused_conv3x3_bwd=5,
+            fused_gemm_fwd=GEMMS_PER_STEP + 5 + 6,
+            fused_gemm_bwd=GEMM_BWD_INPUTS_PER_STEP + 7 + 10,
+            conv_bn_stats=CONVS_PER_STEP - 16),
+}
 
 # H100 SXM data sheet: device memory rate and dense peak rates
 HBM_BYTES_PER_S = 3.35e12
@@ -147,13 +176,81 @@ def cuda_ms(fn, iters, warmup=1):
     return start.elapsed_time(end) / iters
 
 
+def forward_errors(outs, plain, tol):
+    """A kernel's (y, s1, s2) against its plain version's under ``tol``
+    (keys y_rel, y_scale, s_rel), and s1, s2 against f64 sums of the
+    kernel's own y. The last axis is the channel axis; sums are relative
+    to sum|y| and sum y^2 of the channel."""
+    (y, s1, s2), (yp, s1p, s2p) = outs, plain
+    yf = y.float().reshape(-1, y.shape[-1])
+    ypf = yp.float().reshape(yf.shape)
+    err = (yf - ypf).abs()
+    scale = ypf.abs().max().item()
+    y_ok = bool((err <= tol["y_rel"] * ypf.abs()
+                 + tol["y_scale"] * max(1.0, scale)).all())
+    abs_sum = ypf.abs().sum(0).clamp(min=1e-30)
+    sq_sum = (ypf * ypf).sum(0).clamp(min=1e-30)
+    yd = yf.double()
+    own = max(((s1 - yd.sum(0)).abs() / abs_sum).max().item(),
+              ((s2 - (yd * yd).sum(0)).abs() / sq_sum).max().item())
+    return dict(max_abs_err=err.max().item(), y_scale=scale, y_ok=y_ok,
+                s1_rel_err=((s1 - s1p).abs() / abs_sum).max().item(),
+                s2_rel_err=((s2 - s2p).abs() / sq_sum).max().item(),
+                sum_rel_err=own)
+
+
+def forward_line(r, tol):
+    return (f"max|dy| {r['max_abs_err']:.3e} (|y| <= {r['y_scale']:.3g}; "
+            f"bound {tol['y_rel']:.3g}*|y| + {tol['y_scale']:.0e}*scale) "
+            f"s1 rel {r['s1_rel_err']:.2e} s2 rel {r['s2_rel_err']:.2e} "
+            f"(bound {tol['s_rel']:.2e}), to f64 sums of its own y "
+            f"{r['sum_rel_err']:.2e} (bound {SUM_TOL:.0e})")
+
+
+def forward_ok(r, tol):
+    """(y within its bound, statistics within theirs)."""
+    return r["y_ok"], (max(r["s1_rel_err"], r["s2_rel_err"]) <= tol["s_rel"]
+                       and r["sum_rel_err"] <= SUM_TOL)
+
+
+def backward_errors(grads, grads_p, n_dx, tol, what):
+    """The first ``n_dx`` gradients (dx, in the compute dtype) elementwise:
+    1 ulp relative to the value plus y_scale of max|dx|; the others (dW,
+    da, db) by relative L2. Returns (dx ok, max|d|/max|dx|, rel L2)."""
+    dx_err, dx_ok, red_err = 0.0, True, 0.0
+    for i, (g, gp) in enumerate(zip(grads, grads_p)):
+        check(bool(torch.isfinite(g).all()), f"{what}: non-finite gradient")
+        if i < n_dx:
+            gf, gpf = g.float(), gp.float()
+            d = (gf - gpf).abs()
+            top = gpf.abs().max().item()
+            dx_ok &= bool((d <= tol["y_rel"] * gpf.abs()
+                           + tol["y_scale"] * top).all())
+            dx_err = max(dx_err, d.max().item() / max(top, 1e-30))
+        else:
+            red_err = max(red_err, rel_l2(g, gp))
+    return dx_ok, dx_err, red_err
+
+
+def backward_line(dx_err, red_err, tol):
+    return (f"dx max|d|/max|dx| {dx_err:.2e} (bound {tol['y_rel']:.3g}*|dx| "
+            f"+ {tol['y_scale']:.0e}*max|dx|); dW/da/db rel L2 "
+            f"{red_err:.2e} (bound {tol['red_rel']:.0e})")
+
+
+def rel_l2(a, b):
+    return ((a.float() - b.float()).norm()
+            / b.float().norm().clamp(min=1e-30)).item()
+
+
 def phase_build(log_dir):
     t0 = time.perf_counter()
     _build.build_libraries([conv_mod.SOURCE, nms_mod.SOURCE,
-                            gemm_mod.SOURCE])
+                            gemm_mod.SOURCE, conv3_mod.SOURCE])
     conv_mod._launcher()
     nms_mod._launcher()
     gemm_mod._library()
+    conv3_mod._library()
     seconds = time.perf_counter() - t0
     os.makedirs(log_dir, exist_ok=True)
     with open(os.path.join(log_dir, "kernel_build.log"), "w") as f:
@@ -196,21 +293,7 @@ def phase_conv_checks(gen, n):
             y, s1, s2 = conv_bn_stats(x, wt, b, stride, want_stats=True)
             yp, s1p, s2p = conv_bn_stats_plain(x, wt, b, stride, True)
             torch.cuda.synchronize()
-            yf, ypf = y.float(), yp.float()
-            err = (yf - ypf).abs()
-            scale = ypf.abs().max().item()
-            bound = tol["y_rel"] * ypf.abs() + tol["y_scale"] * max(1.0,
-                                                                     scale)
-            y_ok = bool((err <= bound).all())
-            abs_sum = ypf.abs().sum(dim=(0, 1, 2))
-            sq_sum = (ypf * ypf).sum(dim=(0, 1, 2))
-            s1_rel = ((s1 - s1p).abs() / abs_sum.clamp(min=1e-30)).max()
-            s2_rel = ((s2 - s2p).abs() / sq_sum.clamp(min=1e-30)).max()
-            yd = y.double()
-            own1 = (s1 - yd.sum(dim=(0, 1, 2))).abs() / abs_sum
-            own2 = (s2 - (yd * yd).sum(dim=(0, 1, 2))).abs() / sq_sum
-            sum_err = max(own1.max().item(), own2.max().item())
-            del yd
+            fwd = forward_errors((y, s1, s2), (yp, s1p, s2p), tol)
             ms = cuda_ms(lambda: conv_bn_stats(x, wt, b, stride, False), 5)
             plain_ms = cuda_ms(
                 lambda: conv_bn_stats_plain(x, wt, b, stride, False), 5)
@@ -220,30 +303,22 @@ def phase_conv_checks(gen, n):
             bound, bound_by = bound_ms(nbytes, flop, dtype)
             library_ms = cuda_ms(conv_library_call(x, wt, b, stride), 5)
             r = dict(shape=name, batch=n,
-                     dtype=str(dtype).replace("torch.", ""),
-                     max_abs_err=err.max().item(), y_scale=scale,
-                     s1_rel_err=s1_rel.item(), s2_rel_err=s2_rel.item(),
-                     sum_rel_err=sum_err, ms=ms, plain_ms=plain_ms,
-                     bound_ms=bound, bound_by=bound_by,
+                     dtype=str(dtype).replace("torch.", ""), **fwd, ms=ms,
+                     plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                      library_ms=library_ms,
                      kernel_tflops=flop / ms / 1e9)
             results.append(r)
-            print(f"  conv {r['dtype']:8s} b{n:<2d} {name:40s} max|dy| "
-                  f"{r['max_abs_err']:.3e} (|y| <= {scale:.3g}; bound "
-                  f"{tol['y_rel']:.3g}*|y| + {tol['y_scale']:.0e}*scale) "
-                  f"s1 rel {r['s1_rel_err']:.2e} s2 rel "
-                  f"{r['s2_rel_err']:.2e} (bound {tol['s_rel']:.2e}), to "
-                  f"f64 sums of its own y {sum_err:.2e} (bound "
-                  f"{SUM_TOL:.0e}) | "
+            print(f"  conv {r['dtype']:8s} b{n:<2d} {name:40s} "
+                  f"{forward_line(r, tol)} | "
                   f"kernel {ms:.3f} ms ({r['kernel_tflops']:.2f} TFLOP/s)"
                   f" plain {plain_ms:.3f} ms, F.conv2d channels_last "
                   f"{library_ms:.3f} ms, bound {bound:.4f} ms ({bound_by})")
+            y_ok, s_ok = forward_ok(r, tol)
             if not y_ok:
                 failed.append(f"{name} b{n} {r['dtype']}: y")
-            if max(r["s1_rel_err"], r["s2_rel_err"]) > tol["s_rel"] \
-                    or sum_err > SUM_TOL:
+            if not s_ok:
                 failed.append(f"{name} b{n} {r['dtype']}: statistics")
-            del x, y, yp, yf, ypf, err
+            del x, y, yp
     check(not failed, f"conv outside the bound: {failed}")
     return results
 
@@ -312,6 +387,14 @@ GEMM_SHAPES = [
      "mish", False),
     ("sum of 3 terms 13^2 512->512", 13 * 13, [512, 512, 512], 512,
      [True, True, False], "mish", True),
+    ("stage1.squeeze 208^2 64->32 prologue", 208 * 208, [64], 32, [True],
+     "mish", False),
+    ("stage1.post 208^2 sum of 2 terms 64->64", 208 * 208, [64, 64], 64,
+     [True, True], "mish", True),
+    ("stage2.post 104^2 sum of 3 terms 64->64", 104 * 104, [64, 64, 64],
+     64, [True, True, True], "mish", True),
+    ("stage2.out 104^2 64+64->128 prologue", 104 * 104, [64, 64], 128,
+     [True, True], "mish", False),
     ("ragged M=1237 96->72 leaky", None, [96], 72, [True], "leaky", False),
     ("ragged M=1237 96+40->72 linear", None, [96, 40], 72, [True, False],
      "linear", False),
@@ -366,11 +449,6 @@ def gemm_run(xs, ws, affines, act, dtype, cts, plain):
     return outs, leaves, grads
 
 
-def rel_l2(a, b):
-    return ((a.float() - b.float()).norm()
-            / b.float().norm().clamp(min=1e-30)).item()
-
-
 def phase_gemm_checks(gen, batch):
     results = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -389,36 +467,9 @@ def phase_gemm_checks(gen, batch):
             (yp, s1p, s2p), _, grads_p = gemm_run(
                 xs, ws, affines, act, dtype, cts, plain=True)
             torch.cuda.synchronize()
-            yf, ypf = y.float(), yp.float()
-            err = (yf - ypf).abs()
-            scale = ypf.abs().max().item()
-            y_ok = bool((err <= tol["y_rel"] * ypf.abs()
-                         + tol["y_scale"] * max(1.0, scale)).all())
-            s1_rel = ((s1 - s1p).abs() / ypf.abs().sum(0).clamp(
-                min=1e-30)).max().item()
-            s2_rel = ((s2 - s2p).abs() / (ypf * ypf).sum(0).clamp(
-                min=1e-30)).max().item()
-            yd = y.double()
-            sum_err = max(
-                ((s1 - yd.sum(0)).abs() / ypf.abs().sum(0).clamp(
-                    min=1e-30)).max().item(),
-                ((s2 - (yd * yd).sum(0)).abs() / (ypf * ypf).sum(0).clamp(
-                    min=1e-30)).max().item())
-            del yd
-            nx = len(xs)
-            dx_err, dx_ok, red_err = 0.0, True, 0.0
-            for i, (g, gp) in enumerate(zip(grads, grads_p)):
-                check(bool(torch.isfinite(g).all()), f"gemm {name}: "
-                      "non-finite gradient")
-                if i < nx:
-                    gf, gpf = g.float(), gp.float()
-                    d = (gf - gpf).abs()
-                    top = gpf.abs().max().item()
-                    dx_ok &= bool((d <= tol["y_rel"] * gpf.abs()
-                                   + tol["y_scale"] * top).all())
-                    dx_err = max(dx_err, d.max().item() / max(top, 1e-30))
-                else:
-                    red_err = max(red_err, rel_l2(g, gp))
+            fwd = forward_errors((y, s1, s2), (yp, s1p, s2p), tol)
+            dx_ok, dx_err, red_err = backward_errors(
+                grads, grads_p, len(xs), tol, f"gemm {name}")
             k_sum = sum(ks)
             k_pro = sum(k for k, on in zip(ks, pattern) if on)
             flops = 2.0 * m * k_sum * n
@@ -446,10 +497,7 @@ def phase_gemm_checks(gen, batch):
             if not any(pattern) and len(ks) == 1:
                 library_ms = cuda_ms(lambda: torch.matmul(xs[0], ws[0]), 5)
             r = dict(shape=name, m=m, dtype=str(dtype).replace("torch.", ""),
-                     max_abs_err=err.max().item(), y_scale=scale,
-                     s1_rel_err=s1_rel, s2_rel_err=s2_rel,
-                     sum_rel_err=sum_err, dx_rel_to_max=dx_err,
-                     red_rel_l2=red_err,
+                     **fwd, dx_rel_to_max=dx_err, red_rel_l2=red_err,
                      ms=ms, plain_ms=plain_ms, bound_ms=fb, bound_by=fby,
                      library_ms=library_ms, bwd_ms=bwd_ms,
                      bwd_plain_ms=bwd_plain_ms, bwd_bound_ms=bb,
@@ -459,28 +507,223 @@ def phase_gemm_checks(gen, batch):
             results.append(r)
             lib = ("-" if library_ms is None
                    else f"torch.matmul {library_ms:.3f} ms")
-            print(f"  gemm {r['dtype']:8s} {name:38s} M={m}: max|dy| "
-                  f"{r['max_abs_err']:.3e} (|y| <= {scale:.3g}; bound "
-                  f"{tol['y_rel']:.3g}*|y| + {tol['y_scale']:.0e}*scale) "
-                  f"s1 rel {s1_rel:.2e} s2 rel {s2_rel:.2e} (bound "
-                  f"{tol['s_rel']:.2e}), to f64 sums of its own y "
-                  f"{sum_err:.2e} (bound {SUM_TOL:.0e}); dx "
-                  f"max|d|/max|dx| {dx_err:.2e} "
-                  f"(bound {tol['y_rel']:.3g}*|dx| + {tol['y_scale']:.0e}"
-                  f"*max|dx|); dW/da/db rel L2 {red_err:.2e} (bound "
-                  f"{tol['red_rel']:.0e}) | fwd {ms:.3f} ms "
+            print(f"  gemm {r['dtype']:8s} {name:38s} M={m}: "
+                  f"{forward_line(r, tol)}; "
+                  f"{backward_line(dx_err, red_err, tol)} | fwd {ms:.3f} ms "
                   f"({r['fwd_tflops']:.2f} TFLOP/s) plain {plain_ms:.3f} "
                   f"{lib} bound {fb:.4f} ({fby}) | bwd {bwd_ms:.3f} ms "
                   f"({r['bwd_tflops']:.2f} TFLOP/s) plain "
                   f"{bwd_plain_ms:.3f} bound {bb:.4f} ({bby})")
+            y_ok, s_ok = forward_ok(r, tol)
             check(y_ok, f"gemm {name} {dtype}: y outside the bound")
-            check(s1_rel <= tol["s_rel"] and s2_rel <= tol["s_rel"]
-                  and sum_err <= SUM_TOL,
-                  f"gemm {name} {dtype}: statistics outside the bound")
+            check(s_ok, f"gemm {name} {dtype}: statistics outside the bound")
             check(dx_ok, f"gemm {name} {dtype}: dx outside the bound")
             check(red_err <= tol["red_rel"],
                   f"gemm {name} {dtype}: dW/da/db outside the bound")
     return results
+
+
+# (name, H, W, K, N, stride, prologue): the five fused 3x3 convs of one
+# packed=3 training step (the two ``expand`` convs of stage 2 share one
+# shape) and the stem's shape, K = 3, without a prologue
+CONV3_SHAPES = [
+    ("stage1.down 416^2 32->64 s2 prologue", 416, 416, 32, 64, 2, True),
+    ("stage1.block1.expand 208^2 32->64 s1 prologue", 208, 208, 32, 64, 1,
+     True),
+    ("stage2.down 208^2 64->128 s2 prologue", 208, 208, 64, 128, 2, True),
+    ("stage2.block.expand 104^2 64->64 s1 prologue", 104, 104, 64, 64, 1,
+     True),
+    ("stem shape 416^2 3->32 s1 as it is", 416, 416, 3, 32, 1, False),
+]
+
+
+def conv3_case(gen, dtype, n, h, w, k, co, stride, prologue):
+    x = torch.randn(n, h, w, k, generator=gen, device="cuda").to(dtype)
+    wt = (torch.randn(3, 3, k, co, generator=gen, device="cuda")
+          / (9 * k) ** 0.5).to(dtype)
+    affine = None
+    if prologue:
+        affine = (1.0 + 0.2 * torch.randn(k, generator=gen, device="cuda"),
+                  0.1 * torch.randn(k, generator=gen, device="cuda"))
+    ho, wo = h // stride, w // stride
+    dy = (1e-3 * torch.randn(n, ho, wo, co, generator=gen,
+                             device="cuda")).to(dtype)
+    ds1 = 1e-3 * torch.randn(co, generator=gen, device="cuda")
+    ds2 = 1e-4 * torch.randn(co, generator=gen, device="cuda")
+    return x, wt, affine, (dy, ds1, ds2)
+
+
+def conv3_run(x, wt, affine, stride, dtype, cts, plain):
+    """Forward and backward through the public wrapper; returns
+    (y, s1, s2), the leaves and their gradients (x, w, then a, b)."""
+    x = x.detach().requires_grad_()
+    wt = wt.detach().requires_grad_()
+    if affine is not None:
+        affine = tuple(t.detach().requires_grad_() for t in affine)
+    outs = fused_conv3x3(x, wt, affine, stride=stride, act="mish",
+                         dtype=dtype, plain=plain)
+    leaves = [x, wt] + list(affine or ())
+    grads = torch.autograd.grad(outs, leaves, cts, retain_graph=True)
+    return outs, leaves, grads
+
+
+def phase_conv3_checks(gen, n):
+    """The fused 3x3 conv, forward and backward, at every shape at batch
+    ``n`` against its plain versions, with the tolerances of the fused
+    GEMM (``GEMM_TOL``: the same kinds of sums, over 9K products for y,
+    at most 9N for dx and B*Ho*Wo for dW, da, db)."""
+    results = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = GEMM_TOL[dtype]
+        size = torch.finfo(dtype).bits // 8
+        for name, h, w, k, co, stride, prologue in CONV3_SHAPES:
+            x, wt, affine, cts = conv3_case(gen, dtype, n, h, w, k, co,
+                                            stride, prologue)
+            fwd0, bwd0 = fused_conv3x3.launches, fused_conv3x3.bwd_launches
+            (y, s1, s2), _, grads = conv3_run(x, wt, affine, stride, dtype,
+                                              cts, plain=False)
+            check(fused_conv3x3.launches == fwd0 + 1
+                  and fused_conv3x3.bwd_launches == bwd0 + 1,
+                  f"conv3x3 {name}: the wrapper did not launch its kernels")
+            (yp, s1p, s2p), _, grads_p = conv3_run(x, wt, affine, stride,
+                                                   dtype, cts, plain=True)
+            torch.cuda.synchronize()
+            fwd = forward_errors((y, s1, s2), (yp, s1p, s2p), tol)
+            dx_ok, dx_err, red_err = backward_errors(
+                grads, grads_p, 1, tol, f"conv3x3 {name}")
+            ho, wo = h // stride, w // stride
+            m = n * ho * wo
+            flops = 2.0 * m * 9 * k * co
+            k_pro = k if prologue else 0
+            fwd_bytes = (x.numel() + wt.numel() + y.numel()) * size \
+                + 8 * k_pro + 8 * co
+            # backward: x, w, a, b, dy, ds1, ds2 in; dx (T), dW, da, db
+            # (f32) out; two products of the forward's size. The stored
+            # y is not counted (the function can recompute it from x)
+            bwd_bytes = (2 * x.numel() + wt.numel() + y.numel()) * size \
+                + 4 * wt.numel() + 16 * k_pro + 8 * co
+            fb, fby = bound_ms(fwd_bytes, flops, dtype)
+            bb, bby = bound_ms(bwd_bytes, 2 * flops, dtype)
+            run = lambda plain: fused_conv3x3(x, wt, affine, stride=stride,
+                                              dtype=dtype, plain=plain)
+            ms = cuda_ms(lambda: run(False), 5)
+            plain_ms = cuda_ms(lambda: run(True), 3)
+            outs_k = conv3_run(x, wt, affine, stride, dtype, cts, False)
+            bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+                outs_k[0], outs_k[1], cts, retain_graph=True), 5)
+            del outs_k
+            outs_p = conv3_run(x, wt, affine, stride, dtype, cts, True)
+            bwd_plain_ms = cuda_ms(lambda: torch.autograd.grad(
+                outs_p[0], outs_p[1], cts, retain_graph=True), 3)
+            del outs_p
+            # the one-call yardstick computes the conv without the
+            # prologue: both it and the kernel take the activated input
+            g_in = x
+            if prologue:
+                g_in = act_and_grad(x.float() * affine[0] + affine[1],
+                                    "mish")[0].to(dtype)
+            bare_ms = cuda_ms(lambda: fused_conv3x3(
+                g_in, wt, None, stride=stride, dtype=dtype), 5)
+            library_ms = cuda_ms(conv_library_call(g_in, wt, None, stride),
+                                 5)
+            del g_in
+            r = dict(shape=name, batch=n,
+                     dtype=str(dtype).replace("torch.", ""), **fwd,
+                     dx_rel_to_max=dx_err, red_rel_l2=red_err, ms=ms,
+                     plain_ms=plain_ms,
+                     bound_ms=fb, bound_by=fby, bare_ms=bare_ms,
+                     library_ms=library_ms, bwd_ms=bwd_ms,
+                     bwd_plain_ms=bwd_plain_ms, bwd_bound_ms=bb,
+                     bwd_bound_by=bby, fwd_tflops=flops / ms / 1e9,
+                     bwd_tflops=2 * flops / bwd_ms / 1e9)
+            results.append(r)
+            print(f"  conv3x3 {r['dtype']:8s} b{n:<2d} {name:46s} "
+                  f"{forward_line(r, tol)}; "
+                  f"{backward_line(dx_err, red_err, tol)} | fwd {ms:.3f} ms "
+                  f"({r['fwd_tflops']:.2f} TFLOP/s) plain {plain_ms:.3f} "
+                  f"bound {fb:.4f} ({fby}); on the activated input: kernel "
+                  f"{bare_ms:.3f} F.conv2d channels_last {library_ms:.3f}"
+                  f" | bwd {bwd_ms:.3f} ms ({r['bwd_tflops']:.2f} TFLOP/s) "
+                  f"plain {bwd_plain_ms:.3f} bound {bb:.4f} ({bby})")
+            y_ok, s_ok = forward_ok(r, tol)
+            check(y_ok, f"conv3x3 {name} {dtype}: y outside the bound")
+            check(s_ok,
+                  f"conv3x3 {name} {dtype}: statistics outside the bound")
+            check(dx_ok, f"conv3x3 {name} {dtype}: dx outside the bound")
+            check(red_err <= tol["red_rel"],
+                  f"conv3x3 {name} {dtype}: dW/da/db outside the bound")
+            del x, wt, y, yp, grads, grads_p, cts
+    return results
+
+
+def phase_probe_checks(gen, n):
+    """The probe layer (the fused GEMM forward with the statistics of the
+    unrounded product) against its plain version at the probe's shape,
+    208^2 x 64 -> 64 at batch ``n``; then the probe's chain of four
+    layers, driven as the tool drives it, with the counter set to 0 just
+    before and read just after."""
+    results = []
+    m, c = n * probe.H * probe.W, probe.C
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = GEMM_TOL[dtype]
+        xs, ws, affines, _ = gemm_case(gen, dtype, m, [c], c, [True], False)
+        x, w, (a, b) = xs[0], ws[0], affines[0]
+        before = probe.probe_layer.launches
+        y, s1, s2 = probe.probe_layer(x, w, a, b)
+        check(probe.probe_layer.launches == before + 1,
+              "probe: the wrapper did not launch its kernel")
+        yp, s1p, s2p = probe.probe_layer_plain(x, w, a, b)
+        torch.cuda.synchronize()
+        yf, ypf = y.float(), yp.float()
+        err = (yf - ypf).abs()
+        scale = ypf.abs().max().item()
+        y_ok = bool((err <= tol["y_rel"] * ypf.abs()
+                     + tol["y_scale"] * max(1.0, scale)).all())
+        # the sums are of the f32 product, which is no output: they are
+        # held to the plain version's (f32 sums of another f32 product),
+        # in f32's bound for either dtype
+        s_tol = GEMM_TOL[torch.float32]["s_rel"]
+        s1_rel = ((s1 - s1p).abs() / ypf.abs().sum(0)).max().item()
+        s2_rel = ((s2 - s2p).abs() / (ypf * ypf).sum(0)).max().item()
+        size = x.element_size()
+        bound, bound_by = bound_ms((2 * m * c + c * c) * size + 16 * c,
+                                   2.0 * m * c * c, dtype)
+        ms = cuda_ms(lambda: probe.probe_layer(x, w, a, b), 5)
+        plain_ms = cuda_ms(lambda: probe.probe_layer_plain(x, w, a, b), 3)
+        r = dict(shape=f"208^2 {c}->{c} prologue", m=m,
+                 dtype=str(dtype).replace("torch.", ""),
+                 max_abs_err=err.max().item(), y_scale=scale,
+                 s1_rel_err=s1_rel, s2_rel_err=s2_rel, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+        results.append(r)
+        print(f"  probe {r['dtype']:8s} M={m}: max|dy| {r['max_abs_err']:.3e}"
+              f" (|y| <= {scale:.3g}; bound {tol['y_rel']:.3g}*|y| + "
+              f"{tol['y_scale']:.0e}*scale) s1 rel {s1_rel:.2e} s2 rel "
+              f"{s2_rel:.2e} (bound {s_tol:.0e}) | kernel {ms:.3f} ms plain "
+              f"{plain_ms:.3f} ms bound {bound:.4f} ({bound_by})")
+        check(y_ok, f"probe {dtype}: y outside the bound")
+        check(max(s1_rel, s2_rel) <= s_tol,
+              f"probe {dtype}: statistics outside the bound")
+        del x, w, y, yp, yf, ypf, err
+    x, ws, aas, bbs = probe.make_case(0, n, 4)
+    probe.probe_layer.launches = 0
+    y, s1, s2 = probe.fused_chain(x, ws, aas, bbs)
+    torch.cuda.synchronize()
+    launches = probe.probe_layer.launches
+    check(launches == 4, f"probe chain launched {launches} kernels, want 4")
+    check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(s2).all())
+          and y.shape == x.shape, "probe chain output")
+    x4 = x.reshape(n, probe.H, probe.W, probe.C)
+    chain = dict(
+        launches=launches,
+        fused_ms_per_layer=cuda_ms(
+            lambda: probe.fused_chain(x, ws, aas, bbs), 3) / 4,
+        eager_ms_per_layer=cuda_ms(
+            lambda: probe.eager_chain(x4, ws, aas, bbs), 3) / 4)
+    print(f"  probe chain b{n}, 4 layers, bf16: fused "
+          f"{chain['fused_ms_per_layer']:.3f} ms/layer, eager conv1x1 + "
+          f"BN-train + mish {chain['eager_ms_per_layer']:.3f} ms/layer")
+    return results, chain
 
 
 def calibrate_bn(model, images):
@@ -653,26 +896,43 @@ def phase_timing(args, model, threshold, images, card):
     return out
 
 
-def phase_train(args):
-    batch = args.train_batch
+def reset_train_counters():
+    conv_bn_stats.launches = 0
+    fused_gemm.launches = fused_gemm.bwd_launches = 0
+    fused_conv3x3.launches = fused_conv3x3.bwd_launches = 0
+
+
+def train_counters():
+    return dict(fused_conv3x3_fwd=fused_conv3x3.launches,
+                fused_conv3x3_bwd=fused_conv3x3.bwd_launches,
+                fused_gemm_fwd=fused_gemm.launches,
+                fused_gemm_bwd=fused_gemm.bwd_launches,
+                conv_bn_stats=conv_bn_stats.launches)
+
+
+def phase_train(args, packed, steps, batch):
+    """One warm-up step and ``steps`` timed steps of ``YoloV4(packed)``
+    on the kernel route, from ``batch`` down (halved once if it does not
+    fit); the counters are set to 0 just before and read just after."""
+    first = batch
     while True:
         torch.cuda.reset_peak_memory_stats()
         state, step, x, ys = make_training(args.seed, batch, args.size,
-                                           torch.bfloat16)
+                                           torch.bfloat16, packed=packed)
         stats0 = {k: v.clone() for k, v in state.model.named_buffers()}
-        conv_bn_stats.launches = 0
-        fused_gemm.launches = fused_gemm.bwd_launches = 0
+        reset_train_counters()
         try:
             _, warm = timed_steps(state, step, x, ys, 1)
             break
         except torch.cuda.OutOfMemoryError:
             fits = False         # free outside the handler: the
         if not fits:             # exception holds the step's tensors
-            check(batch == args.train_batch, f"batch {batch} does not fit")
+            check(batch == first, f"batch {batch} does not fit")
             del state, step, x, ys, stats0
             torch.cuda.empty_cache()
             batch //= 2
-            print(f"  batch {args.train_batch} does not fit; trying {batch}")
+            print(f"  FELL BACK: batch {first} does not fit; trying {batch} "
+                  "(the kernel checks run again at that batch)")
     model = state.model
     no_grad = [n for n, p in model.named_parameters() if p.grad is None]
     check(not no_grad, f"parameters without a gradient: {no_grad[:5]}")
@@ -682,31 +942,28 @@ def phase_train(args):
     still = [k for k, v in model.named_buffers()
              if torch.equal(v, stats0[k])]
     check(not still, f"running statistics did not move: {still[:5]}")
-    times, losses = timed_steps(state, step, x, ys, args.steps)
+    times, losses = timed_steps(state, step, x, ys, steps)
     losses = warm + losses
-    n_steps = args.steps + 1
-    counts = dict(conv_bn_stats=conv_bn_stats.launches,
-                  fused_gemm_fwd=fused_gemm.launches,
-                  fused_gemm_bwd=fused_gemm.bwd_launches)
+    n_steps = steps + 1
+    counts = train_counters()
+    want = TRAIN_LAUNCHES[packed]
     peak = torch.cuda.max_memory_allocated()
-    print(f"  batch {batch}, bf16, {args.size}^2, seed {args.seed}: losses "
-          f"{' '.join(f'{v:.4f}' for v in losses)}; peak memory "
+    print(f"  packed={packed}, batch {batch}, bf16, {args.size}^2, seed "
+          f"{args.seed}: losses {' '.join(f'{v:.4f}' for v in losses)}; "
+          f"{len(stats0)} running statistics moved; peak memory "
           f"{peak / 2 ** 30:.2f} GiB")
-    print(f"  launches in {n_steps} steps: fused_gemm forward "
-          f"{counts['fused_gemm_fwd']}, backward "
-          f"{counts['fused_gemm_bwd']} (want {GEMMS_PER_STEP} and "
-          f"{GEMM_BWD_INPUTS_PER_STEP} a step), conv_bn_stats "
-          f"{counts['conv_bn_stats']} (want {CONVS_PER_STEP} a step)")
+    print(f"  launches in {n_steps} steps: "
+          + ", ".join(f"{k} {v} (want {want[k]} a step)"
+                      for k, v in counts.items()))
     check(all(np.isfinite(losses)), "non-finite training loss")
-    check(counts["fused_gemm_fwd"] == GEMMS_PER_STEP * n_steps
-          and counts["fused_gemm_bwd"]
-          == GEMM_BWD_INPUTS_PER_STEP * n_steps,
-          "not every 1x1 ConvBN of stages 3-5 ran the fused GEMM kernels")
-    check(counts["conv_bn_stats"] == CONVS_PER_STEP * n_steps,
-          "not every other conv ran the conv kernel")
-    return dict(batch=batch, losses=losses, ms_per_step=times,
-                peak_bytes=peak, launches=counts, steps=n_steps), \
-        (state, step, x, ys)
+    check(losses[-1] < losses[0], "the training loss did not fall")
+    for k, v in counts.items():
+        check(v == want[k] * n_steps,
+              f"packed={packed}: {k} launched {v} times in {n_steps} steps, "
+              f"want {want[k]} a step")
+    return dict(packed=packed, batch=batch, losses=losses, ms_per_step=times,
+                peak_bytes=peak, launches=counts, steps=n_steps,
+                running_statistics=len(stats0)), (state, step, x, ys)
 
 
 def phase_train_routes_f32(args):
@@ -733,7 +990,7 @@ def phase_train_routes_f32(args):
     distance (measured 1.39-1.44 times; unrelated directions give 5.6
     times)."""
     state, step, x, ys = make_training(args.seed, 2, args.size,
-                                       torch.float32)
+                                       torch.float32, packed=3)
 
     def plain_copy():
         return create_train_state(
@@ -804,21 +1061,28 @@ def phase_train_routes_f32(args):
                              for k in grad_rel})
 
 
-def phase_train_timing(args, trained, kernel_times, card):
-    state, step, x, ys = trained
-    batch = x.shape[0]
-    plain = make_training(args.seed, batch, args.size, torch.bfloat16,
-                          plain=True)
-    times = {"kernel": list(kernel_times), "plain": []}
-    timed_steps(*plain, 1)                       # warm-up
-    times["plain"] += timed_steps(*plain, 2 * args.steps)[0]   # in turns:
-    times["kernel"] += timed_steps(state, step, x, ys, args.steps)[0]
+def phase_train_timing(args, handles3, handles1, card):
+    """ms/step of packed=3 on both routes and of packed=True on the
+    kernel route, all at the batch packed=3 trained at, in turns."""
+    batch = handles3[2].shape[0]
+    check(handles1[2].shape[0] == batch, "the two routes trained at "
+          "different batches")
+    runs = {"packed=3 kernel": handles3,
+            "packed=3 plain": make_training(args.seed, batch, args.size,
+                                            torch.bfloat16, plain=True,
+                                            packed=3),
+            "packed=1 kernel": handles1}
+    timed_steps(*runs["packed=3 plain"], 1)      # warm-up
+    times = {name: [] for name in runs}
+    order = list(runs)
+    for name in order + order[::-1]:
+        times[name] += timed_steps(*runs[name], args.steps)[0]
     out = {}
     for name, ts in times.items():
         ms = float(np.median(ts))
         out[name] = dict(ms_per_step=ms, img_per_s=batch / (ms / 1e3),
                          runs=ts)
-        print(f"  {name:6s} route bf16 b{batch} {args.size}^2 packed: "
+        print(f"  {name:15s} route bf16 b{batch} {args.size}^2: "
               f"{ms:.2f} ms/step (median of {len(ts)}), "
               f"{out[name]['img_per_s']:.1f} img/s [{card}]")
     return out
@@ -854,6 +1118,9 @@ def main(argv=None):
     conv_res += phase_conv_checks(gen, args.train_batch)
     nms_res = phase_nms_checks(gen)
     gemm_res = phase_gemm_checks(gen, args.train_batch)
+    probe_res, probe_chain = phase_probe_checks(gen, args.train_batch)
+    conv3_res = phase_conv3_checks(gen, args.batch)
+    conv3_res += phase_conv3_checks(gen, args.train_batch)
 
     print(f"phase 4: serving {args.requests} requests of {args.batch} x "
           f"{args.size}^2 in bf16 (HE_NORMAL kernels, seed {args.seed}, "
@@ -881,20 +1148,25 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     print(f"phase 7: training {args.steps} steps (after one warm-up) of "
-          "YoloV4(packed=True), Adam 1e-3, synthetic labels")
-    trained, train_handles = phase_train(args)
+          "YoloV4(packed=3), then 1 step of YoloV4(packed=True), Adam "
+          "1e-3, synthetic labels")
+    trained, handles3 = phase_train(args, 3, args.steps, args.train_batch)
+    trained1, handles1 = phase_train(args, 1, 1, trained["batch"])
+    check(trained1["batch"] == trained["batch"],
+          "packed=True did not fit at the batch packed=3 trained at")
     if trained["batch"] != args.train_batch:
         print(f"  kernels again at the batch trained, {trained['batch']}")
         conv_res += phase_conv_checks(gen, trained["batch"])
         gemm_res += phase_gemm_checks(gen, trained["batch"])
+        conv3_res += phase_conv3_checks(gen, trained["batch"])
 
-    print("phase 8: one f32 training step, kernel route against plain "
-          "route, same state")
+    print("phase 8: one f32 training step of packed=3, kernel route against "
+          "plain route, same state")
     train_routes = phase_train_routes_f32(args)
 
-    print("phase 9: ms/step, both routes")
-    train_timing = phase_train_timing(args, train_handles,
-                                      trained["ms_per_step"], card)
+    print("phase 9: ms/step, packed=3 on both routes and packed=True")
+    train_timing = phase_train_timing(args, handles3, handles1, card)
+    del handles3, handles1
 
     def bf16_at(results, shape):
         return [r for r in results
@@ -904,7 +1176,13 @@ def main(argv=None):
     nms_at = [r for r in nms_res if r["k"] == 128 and r["iou_mode"] == 1][0]
     fwd_at = bf16_at(gemm_res, GEMM_SHAPES[1][0])
     bwd_at = bf16_at(gemm_res, GEMM_SHAPES[0][0])
-    train_launches = trained["launches"]
+    conv3_at = bf16_at(conv3_res, CONV3_SHAPES[0][0])
+
+    def train_launches(name):
+        """Launches in the packed=3 run, the packed=True run, and both."""
+        both = trained["launches"][name], trained1["launches"][name]
+        return dict(launches=sum(both), launches_training_packed3=both[0],
+                    launches_training_packed1=both[1])
     # times, bounds and library times at one shape each (``at``); errors
     # are the largest over every shape and dtype checked; launches are
     # the counts of the serving and the training runs above
@@ -913,10 +1191,10 @@ def main(argv=None):
              source="tf2_yolo_tpu_torch/csrc/conv_bn.cu",
              replaces="tf2_yolo_tpu/ops/pallas/conv_bn_kernel.py:114 "
                       "and :346",
-             launches=served["conv_launches"]
-             + train_launches["conv_bn_stats"],
+             **{**train_launches("conv_bn_stats"),
+                "launches": served["conv_launches"]
+                + train_launches("conv_bn_stats")["launches"]},
              launches_serving=served["conv_launches"],
-             launches_training=train_launches["conv_bn_stats"],
              max_abs_err=max(r["max_abs_err"] for r in conv_res),
              at=f"{conv_at['shape']}, batch {conv_at['batch']}, bf16",
              ms=conv_at["ms"], plain_ms=conv_at["plain_ms"],
@@ -934,7 +1212,7 @@ def main(argv=None):
         dict(name="fused_gemm_fwd", route="cuda",
              source="tf2_yolo_tpu_torch/csrc/fused_gemm.cu",
              replaces="tf2_yolo_tpu/ops/pallas/packed_gemm.py:160",
-             launches=train_launches["fused_gemm_fwd"],
+             **train_launches("fused_gemm_fwd"),
              max_abs_err=max(r["max_abs_err"] for r in gemm_res),
              at=f"{fwd_at['shape']}, M={fwd_at['m']}, bf16",
              ms=fwd_at["ms"], plain_ms=fwd_at["plain_ms"],
@@ -943,20 +1221,58 @@ def main(argv=None):
         dict(name="fused_gemm_bwd", route="cuda",
              source="tf2_yolo_tpu_torch/csrc/fused_gemm.cu",
              replaces="tf2_yolo_tpu/ops/pallas/packed_gemm.py:272",
-             launches=train_launches["fused_gemm_bwd"],
+             **train_launches("fused_gemm_bwd"),
              max_abs_err=max(r["dx_rel_to_max"] for r in gemm_res),
              at=f"{bwd_at['shape']}, M={bwd_at['m']}, bf16",
              ms=bwd_at["bwd_ms"], plain_ms=bwd_at["bwd_plain_ms"],
              bound_ms=bwd_at["bwd_bound_ms"],
              bound_by=bwd_at["bwd_bound_by"], library_ms=None),
+        # with the prologue no one PyTorch call computes the function;
+        # ``bare_ms`` / ``bare_library_ms`` are the kernel and F.conv2d
+        # (bf16, channels_last) on the activated input at the same shape
+        dict(name="fused_conv3x3_fwd", route="cuda",
+             source="tf2_yolo_tpu_torch/csrc/fused_conv3x3.cu",
+             replaces="tf2_yolo_tpu/ops/pallas/packed_conv3x3.py:286",
+             **train_launches("fused_conv3x3_fwd"),
+             max_abs_err=max(r["max_abs_err"] for r in conv3_res),
+             at=f"{conv3_at['shape']}, batch {conv3_at['batch']}, bf16",
+             ms=conv3_at["ms"], plain_ms=conv3_at["plain_ms"],
+             bound_ms=conv3_at["bound_ms"], bound_by=conv3_at["bound_by"],
+             library_ms=None, bare_ms=conv3_at["bare_ms"],
+             bare_library_ms=conv3_at["library_ms"]),
+        dict(name="fused_conv3x3_bwd", route="cuda",
+             source="tf2_yolo_tpu_torch/csrc/fused_conv3x3.cu",
+             replaces="tf2_yolo_tpu/ops/pallas/packed_conv3x3.py:643 "
+                      "and :650",
+             **train_launches("fused_conv3x3_bwd"),
+             max_abs_err=max(r["dx_rel_to_max"] for r in conv3_res),
+             at=f"{conv3_at['shape']}, batch {conv3_at['batch']}, bf16",
+             ms=conv3_at["bwd_ms"], plain_ms=conv3_at["bwd_plain_ms"],
+             bound_ms=conv3_at["bwd_bound_ms"],
+             bound_by=conv3_at["bwd_bound_by"], library_ms=None),
+        # a tool's kernel, on no model path: its launches are those of
+        # the probe's own chain of four layers
+        dict(name="probe_layer", route="cuda",
+             source="tf2_yolo_tpu_torch/csrc/fused_gemm.cu",
+             replaces="tools/bench_packed_probe.py:70",
+             launches=probe_chain["launches"],
+             max_abs_err=max(r["max_abs_err"] for r in probe_res),
+             at=f"{probe_res[0]['shape']}, M={probe_res[0]['m']}, bf16",
+             ms=probe_res[0]["ms"], plain_ms=probe_res[0]["plain_ms"],
+             bound_ms=probe_res[0]["bound_ms"],
+             bound_by=probe_res[0]["bound_by"], library_ms=None,
+             eager_chain_ms_per_layer=probe_chain["eager_ms_per_layer"]),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched")
     seconds = time.perf_counter() - t_start
     record = dict(card=card, build_seconds=build_s, conv=conv_res,
-                  nms=nms_res, gemm=gemm_res, threshold=threshold,
+                  nms=nms_res, gemm=gemm_res, conv3x3=conv3_res,
+                  probe=probe_res, probe_chain=probe_chain,
+                  threshold=threshold,
                   served=served, routes_f32=routes, timing=timing,
-                  trained=trained, train_routes_f32=train_routes,
+                  trained=trained, trained_packed1=trained1,
+                  train_routes_f32=train_routes,
                   train_timing=train_timing, kernels=kernels,
                   seconds=seconds)
     os.makedirs(args.log_dir, exist_ok=True)

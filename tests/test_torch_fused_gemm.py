@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 
 from tf2_yolo_tpu.ops.pallas import packed_gemm
+from tests.helpers_torch import release_memory_after_module  # noqa: F401
 from tf2_yolo_tpu_torch.ops.kernels.fused_gemm import (
     act_and_grad, fused_gemm, fused_gemm_bwd_plain, fused_gemm_plain)
 

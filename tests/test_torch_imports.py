@@ -30,6 +30,8 @@ def _imports_cleanly(statement):
 def test_the_walk_finds_the_port():
     for name in ("tf2_yolo_tpu_torch.models.packed_region",
                  "tf2_yolo_tpu_torch.ops.kernels.fused_gemm",
+                 "tf2_yolo_tpu_torch.ops.kernels.fused_conv3x3",
+                 "tf2_yolo_tpu_torch.tools.bench_packed_probe",
                  "tf2_yolo_tpu_torch.ops.losses",
                  "tf2_yolo_tpu_torch.parallel.train",
                  "tf2_yolo_tpu_torch.tools.train_profile"):

@@ -16,6 +16,7 @@ from tf2_yolo_tpu.ops.nms import nms_scan
 from tf2_yolo_tpu.ops.pallas import nms_pallas
 from tf2_yolo_tpu.ops.pallas.conv_bn_kernel import (conv1x1_stats,
                                                     conv3x3_stats)
+from tests.helpers_torch import release_memory_after_module  # noqa: F401
 from tf2_yolo_tpu_torch.ops.kernels import (conv_bn_stats, nms_keep,
                                             nms_keep_plain)
 

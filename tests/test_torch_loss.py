@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from tf2_yolo_tpu.ops.geometry import grid_iou as jgrid_iou
 from tf2_yolo_tpu.ops.losses import _response_mask as jresponse_mask
 from tf2_yolo_tpu.ops.losses import wrap_yolo_loss_v4 as jwrap_yolo_loss_v4
+from tests.helpers_torch import release_memory_after_module  # noqa: F401
 from tf2_yolo_tpu_torch.ops.geometry import EPSILON, clip, grid_iou
 from tf2_yolo_tpu_torch.ops.losses import _response_mask, wrap_yolo_loss_v4
 

@@ -25,6 +25,7 @@ from tf2_yolo_tpu.models.detectors import FPNStage as JFPNStage
 from tf2_yolo_tpu.models.heads import AnchorHead as JAnchorHead
 from tf2_yolo_tpu.ops.decode import decode_multi_level as jdecode
 from tf2_yolo_tpu.ops.nms import apply_nms_device as japply_nms
+from tests.helpers_torch import release_memory_after_module  # noqa: F401
 from tf2_yolo_tpu_torch.bridge import from_flax, to_flax
 from tf2_yolo_tpu_torch.models.backbones import CSPStage
 from tf2_yolo_tpu_torch.models.detectors import FPNStage

@@ -20,6 +20,7 @@ from flax import linen as jnn
 
 from tf2_yolo_tpu.export import make_serving_fn as jax_make_serving_fn
 from tf2_yolo_tpu.models import YoloV4 as JaxYoloV4
+from tests.helpers_torch import release_memory_after_module  # noqa: F401
 from tf2_yolo_tpu_torch.bridge import from_flax, to_flax
 from tf2_yolo_tpu_torch.export import make_serving_fn
 from tf2_yolo_tpu_torch.models import YoloV4

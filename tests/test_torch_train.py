@@ -28,6 +28,10 @@ from tf2_yolo_tpu.ops.pallas import packed_gemm
 from tf2_yolo_tpu.parallel import create_train_state as jcreate_train_state
 from tf2_yolo_tpu.parallel import make_optimizer as jmake_optimizer
 from tf2_yolo_tpu.parallel import make_train_step as jmake_train_step
+from tests.helpers_torch import release_memory_after_module  # noqa: F401
+from tests.helpers_torch import (assert_leaves, flat, labels, loss_fns,
+                                 numpy_tree, rel_l2, release_memory,
+                                 with_random_bn)
 from tf2_yolo_tpu_torch import bridge
 from tf2_yolo_tpu_torch.models import YoloV4
 from tf2_yolo_tpu_torch.models import packed_region as region
@@ -58,50 +62,7 @@ def packed_jax():
     yield
     jlayers.set_packed_early(False)
     packed_gemm.set_interpret(False)
-
-
-def _numpy_tree(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
-def _with_random_bn(variables, rng):
-    """Replace every BN scale/bias/mean/var leaf with a seeded draw."""
-    def walk(params, stats):
-        for name, node in params.items():
-            if name == "bn":
-                f = node["scale"].shape[0]
-                node["scale"] = (1 + 0.2 * rng.randn(f)).astype(np.float32)
-                node["bias"] = (0.1 * rng.randn(f)).astype(np.float32)
-                stats[name]["mean"] = (0.05 * rng.randn(f)).astype(np.float32)
-                stats[name]["var"] = (0.5 + rng.rand(f)).astype(np.float32)
-            elif isinstance(node, dict):
-                walk(node, stats.get(name, {}))
-    v = _numpy_tree(variables)
-    walk(v["params"], v.get("batch_stats", {}))
-    return v
-
-
-def _flat(tree, prefix):
-    return {prefix + "/".join(str(getattr(k, "key", k)) for k in path):
-            np.asarray(leaf)
-            for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
-
-
-def _rel_l2(got, want):
-    return float(np.linalg.norm(got - want)
-                 / max(np.linalg.norm(want), 1e-30))
-
-
-def _assert_leaves(got, want, bound, what):
-    """Every leaf of ``got`` ({flax path: tensor}) within ``bound``
-    relative L2 of the flax leaf; returns the largest difference."""
-    assert got.keys() == want.keys(), (sorted(got)[:3], sorted(want)[:3])
-    worst = 0.0
-    for path, leaf in want.items():
-        err = _rel_l2(got[path].detach().numpy(), leaf)
-        assert err <= bound, (what, path, err)
-        worst = max(worst, err)
-    return worst
+    release_memory()         # a whole-model test leaves ~4 GB of cached heap
 
 
 # ------------------------------------------------------------- ConvBN
@@ -116,7 +77,7 @@ def test_convbn_train_matches_fused_jax(kernel, stride, act):
     ct = rng.randn(2, 8 // stride, 8 // stride, 16).astype(np.float32)
     jm = jlayers.ConvBN(16, kernel, stride, act=act, fused=True,
                         kernel_init=jlayers.DARKNET_NORMAL)
-    v = _with_random_bn(jm.init(jax.random.PRNGKey(0), jnp.asarray(x),
+    v = with_random_bn(jm.init(jax.random.PRNGKey(0), jnp.asarray(x),
                                 train=False), rng)
 
     def jf(params, xx):
@@ -140,14 +101,14 @@ def test_convbn_train_matches_fused_jax(kernel, stride, act):
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
                                rtol=2e-5, atol=1e-5)
     leaves = bridge.flax_leaves(tm)
-    for name, leaf in _flat(want_stats, "batch_stats/").items():
+    for name, leaf in flat(want_stats, "batch_stats/").items():
         # running = 0.99 old + 0.01 batch, biased variance
         np.testing.assert_allclose(leaves[name].numpy(), leaf, rtol=1e-6,
                                    atol=1e-7, err_msg=name)
     # gradients through the batch statistics: measured rel L2 <= 4.1e-7
-    _assert_leaves(bridge.flax_leaves(tm, grad=True),
-                   _flat(want_gp, "params/"), 2e-5, "grad")
-    assert _rel_l2(tx.grad.numpy(), np.asarray(want_gx)) <= 2e-5
+    assert_leaves(bridge.flax_leaves(tm, grad=True),
+                   flat(want_gp, "params/"), 2e-5, "grad")
+    assert rel_l2(tx.grad.numpy(), np.asarray(want_gx)) <= 2e-5
 
 
 def test_convbn_eval_does_not_touch_running_statistics():
@@ -278,7 +239,7 @@ def test_packed_stage_matches_jax_cspstage(packed_jax):
     x = rng.randn(4, 12, 12, 16).astype(np.float32)
     ct = rng.randn(4, 6, 6, 32).astype(np.float32)
     jm = JCSPStage(features=32, blocks=2)
-    v = _with_random_bn(jm.init(jax.random.PRNGKey(0), jnp.asarray(x),
+    v = with_random_bn(jm.init(jax.random.PRNGKey(0), jnp.asarray(x),
                                 train=False), rng)
 
     def jf(params, xx):
@@ -306,14 +267,14 @@ def test_packed_stage_matches_jax_cspstage(packed_jax):
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
     leaves = bridge.flax_leaves(tm)
-    for name, leaf in _flat(want_stats, "batch_stats/").items():
+    for name, leaf in flat(want_stats, "batch_stats/").items():
         np.testing.assert_allclose(leaves[name].numpy(), leaf, rtol=1e-5,
                                    atol=1e-6, err_msg=name)
     # measured worst leaf 1.5e-6 rel L2, input gradient 6.9e-7; bound
     # 2e-5
-    _assert_leaves(bridge.flax_leaves(tm, grad=True),
-                   _flat(want_gp, "params/"), 2e-5, "grad")
-    assert _rel_l2(tx.grad.numpy(), np.asarray(want_gx)) <= 2e-5
+    assert_leaves(bridge.flax_leaves(tm, grad=True),
+                   flat(want_gp, "params/"), 2e-5, "grad")
+    assert rel_l2(tx.grad.numpy(), np.asarray(want_gx)) <= 2e-5
 
 
 def test_packed_gemm_convbn_sum_inputs_is_the_sum():
@@ -338,7 +299,7 @@ def test_packed_backbone_matches_jax(packed_jax):
     rng = np.random.RandomState(8)
     x = rng.rand(2, 64, 64, 3).astype(np.float32)
     jm = JCSPDarknet53()
-    v = _numpy_tree(jm.init(jax.random.PRNGKey(0), jnp.asarray(x[:1]),
+    v = numpy_tree(jm.init(jax.random.PRNGKey(0), jnp.asarray(x[:1]),
                             train=False))
     want, mut = jm.apply(v, jnp.asarray(x), train=True,
                          mutable=["batch_stats"])
@@ -358,7 +319,7 @@ def test_packed_backbone_matches_jax(packed_jax):
         np.testing.assert_allclose(g.numpy(), np.asarray(w_), rtol=2e-3,
                                    atol=2e-3)
     leaves = bridge.flax_leaves(tm)
-    for name, leaf in _flat(mut["batch_stats"], "batch_stats/").items():
+    for name, leaf in flat(mut["batch_stats"], "batch_stats/").items():
         np.testing.assert_allclose(leaves[name].numpy(), leaf, rtol=1e-4,
                                    atol=1e-5, err_msg=name)
     # eval mode takes the plain path whatever ``packed`` says
@@ -373,24 +334,11 @@ def test_packed_backbone_matches_jax(packed_jax):
 # ---------------------------------------------------------- train step
 
 def _labels(rng, batch, size):
-    """Four boxes per image and level, as the JAX package's training
-    benchmark makes them."""
-    ys = []
-    for level in range(3):
-        g = (size // 32) * 2 ** level
-        y = np.zeros((batch, g, g, 5 + CLASSES), np.float32)
-        for b in range(batch):
-            for _ in range(4):
-                gy, gx = rng.randint(0, g, 2)
-                y[b, gy, gx, :5] = [*rng.rand(2), 0.2, 0.3, 1.0]
-                y[b, gy, gx, 5 + rng.randint(CLASSES)] = 1.0
-        ys.append(y)
-    return ys
+    return labels(rng, batch, size, CLASSES)
 
 
 def _loss_fns(wrap, size):
-    return [wrap(((size // 32) * 2 ** lvl,) * 2, 3, CLASSES,
-                 ANCHORS[3 * lvl:3 * lvl + 3]) for lvl in range(3)]
+    return loss_fns(wrap, size, CLASSES, ANCHORS)
 
 
 # The untrained YOLOv4 is chaotically conditioned: 107 BatchNorm + mish
@@ -423,17 +371,38 @@ def test_two_train_steps_match_jax(packed_jax):
     jtx = jmake_optimizer("adam", 1e-3)
     jstate = jcreate_train_state(variables, jtx)
     jprobe = jcreate_train_state(variables, jtx)
-    start = _flat(_numpy_tree(jstate.params), "params/")
+    start = flat(numpy_tree(jstate.params), "params/")
     jstep = jax.jit(jmake_train_step(jm.apply, jtx,
                                      _loss_fns(jwrap_yolo_loss_v4, size)))
 
+    start_state = bridge.from_flax(jstate)
+
+    # the JAX side first, kept as numpy, and its memory handed back
+    # before the port's model is built
+    jys = tuple(jnp.asarray(y) for y in ys)
+
+    def copied(tree, prefix):
+        return {k: np.array(v) for k, v in flat(tree, prefix).items()}
+
+    wants = []
+    for _ in range(2):
+        jstate, jlogs = jstep(jstate, jnp.asarray(x), jys)
+        jprobe, plogs = jstep(jprobe, jnp.asarray(x + EPS_PROBE), jys)
+        wants.append(dict(
+            step=int(jstate.step), loss=float(jlogs["loss"]),
+            probe_loss=float(plogs["loss"]),
+            stats=copied(jstate.batch_stats, "batch_stats/"),
+            probe_stats=copied(jprobe.batch_stats, "batch_stats/"),
+            params=copied(jstate.params, "params/"),
+            probe_params=copied(jprobe.params, "params/")))
+    del jstate, jprobe, jstep, variables
+    release_memory()
+
     model = YoloV4(ANCHORS, CLASSES, device="cpu", packed=True)
-    model.load_state_dict(bridge.from_flax(jstate), strict=True)
+    model.load_state_dict(start_state, strict=True)
     state = create_train_state(model, make_optimizer("adam", 1e-3),
                                device="cpu")
     step = make_train_step(_loss_fns(wrap_yolo_loss_v4, size))
-
-    jys = tuple(jnp.asarray(y) for y in ys)
     tys = tuple(torch.from_numpy(y) for y in ys)
 
     def stat_excess(got, want):
@@ -444,13 +413,11 @@ def test_two_train_steps_match_jax(packed_jax):
                           / (1e-5 + 1e-4 * np.abs(v))).max())
                    for k, v in want.items())
 
-    for n in (1, 2):
-        jstate, jlogs = jstep(jstate, jnp.asarray(x), jys)
-        jprobe, plogs = jstep(jprobe, jnp.asarray(x + EPS_PROBE), jys)
+    for n, want in zip((1, 2), wants):
         state, logs = step(state, torch.from_numpy(x), tys)
-        assert state.step == n == int(jstate.step)
-        want_loss = float(jlogs["loss"])
-        noise = abs(float(plogs["loss"]) - want_loss)
+        assert state.step == n == want["step"]
+        want_loss = want["loss"]
+        noise = abs(want["probe_loss"] - want_loss)
         # measured: step 1 |d| 2.8e-4 of 79.86 (3.5e-6 relative; noise
         # 4.1e-6), step 2 3.2% (noise 2.0%: the first Adam update is a
         # sign-like step, see below)
@@ -459,13 +426,11 @@ def test_two_train_steps_match_jax(packed_jax):
 
         leaves = {k: v.detach().numpy()
                   for k, v in bridge.flax_leaves(state.model).items()}
-        want_stats = _flat(jstate.batch_stats, "batch_stats/")
-        want_params = _flat(jstate.params, "params/")
+        want_stats, want_params = want["stats"], want["params"]
         assert set(want_stats) | set(want_params) == set(leaves)
         # measured excess 0.37 at step 1 (noise 0.30), 318 at step 2
         # (noise 349)
-        noise = stat_excess(_flat(jprobe.batch_stats, "batch_stats/"),
-                            want_stats)
+        noise = stat_excess(want["probe_stats"], want_stats)
         assert stat_excess(leaves, want_stats) <= max(1.0, 4 * noise), n
 
         # Adam's first updates are lr * g / (|g| + 1e-7), the sign of g:
@@ -477,7 +442,7 @@ def test_two_train_steps_match_jax(packed_jax):
         # 0.62; unrelated directions give 1.41); and over all parameters
         # together it stays within 1.5 times the probe's (measured 0.26
         # against 0.25 at step 1, 0.44 against 0.43 at step 2).
-        probe_params = _flat(jprobe.params, "params/")
+        probe_params = want["probe_params"]
         apart = moved = noise = 0.0
         for name, leaf in want_params.items():
             assert np.abs(leaves[name] - leaf).max() <= 2.05e-3 * n, name
@@ -496,7 +461,7 @@ def test_first_step_gradients_match_jax(packed_jax):
     x = rng.rand(batch, size, size, 3).astype(np.float32)
     ys = _labels(rng, batch, size)
     jm = JYoloV4(anchors=ANCHORS, class_num=CLASSES)
-    v = _numpy_tree(jm.init(jax.random.PRNGKey(0), jnp.asarray(x[:1]),
+    v = numpy_tree(jm.init(jax.random.PRNGKey(0), jnp.asarray(x[:1]),
                             train=False))
     jfns = _loss_fns(jwrap_yolo_loss_v4, size)
 
@@ -509,6 +474,10 @@ def test_first_step_gradients_match_jax(packed_jax):
     jgrad = jax.jit(jax.value_and_grad(jloss))
     want_loss, want = jgrad(v["params"], jnp.asarray(x))
     _, probe = jgrad(v["params"], jnp.asarray(x + EPS_PROBE))
+    want_loss = float(want_loss)
+    want, probe = flat(want, "params/"), flat(probe, "params/")
+    del jgrad
+    release_memory()         # the JAX side is numpy now
 
     model = YoloV4(ANCHORS, CLASSES, device="cpu", packed=True).train()
     model.load_state_dict(bridge.from_flax(v), strict=True)
@@ -517,14 +486,13 @@ def test_first_step_gradients_match_jax(packed_jax):
                zip(_loss_fns(wrap_yolo_loss_v4, size), ys, outs))
     loss.backward()
     # measured 3.0e-6 relative
-    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=2e-5)
+    np.testing.assert_allclose(loss.item(), want_loss, rtol=2e-5)
     got = bridge.flax_leaves(model, grad=True)
-    want, probe = _flat(want, "params/"), _flat(probe, "params/")
     assert got.keys() == want.keys()
     sharp = 0
     for name, leaf in want.items():
-        err = _rel_l2(got[name].numpy(), leaf)
-        noise = _rel_l2(probe[name], leaf)
+        err = rel_l2(got[name].numpy(), leaf)
+        noise = rel_l2(probe[name], leaf)
         # measured: err / noise median 0.91, largest 3.5 (head3 anchors,
         # 4.2e-5 against 1.2e-5); err itself median 6.8e-2, largest
         # 9.8e-2, as the probe's (7.4e-2, 9.6e-2). A wrong term or a

@@ -24,6 +24,8 @@
 //   M = 86528 rows are 1352 blocks per column, and the variance
 //   s2 / M - mean^2 cancels, so the cross-block sum must not lose bits.
 //   The wrapper rounds the sums to f32; block order does not show.
+//   With `raw_stats` the sums are of the f32 product before it is rounded
+//   (the variant of tools/bench_packed_probe.py's fused_kernel).
 // * Backward reads the forward's stored y where the TPU kernel recomputes
 //   it in VMEM: under PyTorch the consumer keeps y alive anyway, and a
 //   block could not hold a [rows, N] tile of y for N = 1024.  Two kernels
@@ -49,22 +51,11 @@
 // plain PyTorch version does (no contraction); the GEMM loops call fmaf
 // explicitly.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "fused_common.cuh"
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int THREADS = 256;
 constexpr int MAX_INPUTS = 9;
-constexpr int M_CHUNK = 1024;
-
-constexpr int ACT_MISH = 0;
-constexpr int ACT_LEAKY = 1;
-constexpr int ACT_LINEAR = 2;
 
 struct FwdInputs {
   const void* x[MAX_INPUTS];
@@ -75,93 +66,13 @@ struct FwdInputs {
   int count;
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-// round an f32 value to T and bring it back
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
-// activation value g and derivative gp at z, f32, the formulas of
-// packed_gemm._act_and_grad (mish with the exponent clamped at 20)
-template <int ACT>
-__device__ __forceinline__ void act_and_grad(float z, float& g, float& gp) {
-  if (ACT == ACT_MISH) {
-    float u = expf(fminf(z, 20.0f));
-    float d = (1.0f + u) * (1.0f + u) + 1.0f;
-    float c = 1.0f - 2.0f / d;
-    g = z * c;
-    gp = c + z * (2.0f / (d * d)) * (2.0f * (1.0f + u) * u);
-  } else if (ACT == ACT_LEAKY) {
-    g = z >= 0.0f ? z : z * 0.1f;
-    gp = z >= 0.0f ? 1.0f : 0.1f;
-  } else {
-    g = z;
-    gp = 1.0f;
-  }
-}
-
-template <int ACT>
-__device__ __forceinline__ float act_only(float z) {
-  float g, gp;
-  act_and_grad<ACT>(z, g, gp);
-  return g;
-}
-
-// acc[4][4] += As[k][ty*4 + i] * Bs[k][tx*4 + j] over one staged slice
-__device__ __forceinline__ void tile_fma(float (*As)[BM + 4],
-                                         float (*Bs)[BN + 4], int ty, int tx,
-                                         float acc[4][4]) {
-#pragma unroll
-  for (int k = 0; k < BK; ++k) {
-    float4 a = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-    float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-    float av[4] = {a.x, a.y, a.z, a.w};
-    float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// Reduce per-thread column partials p[4] (thread (ty, tx) owns columns
-// tx*4 .. +3 for its 4 rows) over the 16 row groups of the block through
-// shared memory, then one atomicAdd per column.  Must be called by all
-// threads, after a __syncthreads() that released `red`.
-__device__ __forceinline__ void column_atomic_add(float (*red)[BN + 4],
-                                                  const float p[4], int ty,
-                                                  int tx, int tid, int c0,
-                                                  int cols, double* out) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) red[ty][tx * 4 + j] = p[j];
-  __syncthreads();
-  if (tid < BN && c0 + tid < cols) {
-    float t = 0.f;
-#pragma unroll
-    for (int r = 0; r < 16; ++r) t += red[r][tid];
-    atomicAdd(&out[c0 + tid], (double)t);
-  }
-  __syncthreads();
-}
-
 // ------------------------------------------------------------- forward
 
 template <typename T, int ACT>
 __global__ void __launch_bounds__(THREADS)
 fused_gemm_fwd_kernel(FwdInputs in, T* __restrict__ y,
                       double* __restrict__ s1, double* __restrict__ s2,
-                      int m_total, int n_total) {
+                      int m_total, int n_total, int raw_stats) {
   __shared__ __align__(16) float As[BK][BM + 4];
   __shared__ __align__(16) float Bs[BK][BN + 4];
 
@@ -236,7 +147,7 @@ fused_gemm_fwd_kernel(FwdInputs in, T* __restrict__ y,
       if (m >= m_total) continue;
       T yr = from_f32<T>(acc[i][j]);
       y[m * n_total + cc] = yr;
-      float yv = to_f32(yr);
+      float yv = raw_stats ? acc[i][j] : to_f32(yr);
       p1[j] += yv;
       p2[j] += yv * yv;
     }
@@ -427,10 +338,10 @@ fused_gemm_dw_kernel(const T* __restrict__ x, const float* __restrict__ pa,
 
 template <typename T, int ACT>
 int launch_fwd(const FwdInputs& in, void* y, double* s1, double* s2, int m,
-               int n, cudaStream_t stream) {
+               int n, int raw_stats, cudaStream_t stream) {
   dim3 grid((unsigned)((m + BM - 1) / BM), (unsigned)((n + BN - 1) / BN));
   fused_gemm_fwd_kernel<T, ACT><<<grid, THREADS, 0, stream>>>(
-      in, (T*)y, s1, s2, m, n);
+      in, (T*)y, s1, s2, m, n, raw_stats);
   return (int)cudaGetLastError();
 }
 
@@ -471,15 +382,16 @@ int launch_bwd(const void* x, const void* w, const float* a, const float* b,
 // Forward.  xs, ws, aas, bbs: host arrays of `count` device pointers (an
 // entry of `aas` is null for an input without a prologue); ks: host array
 // of the K_i.  dtype: 0 = float32, 1 = bfloat16.  act: 0 mish, 1 leaky,
-// 2 linear.  s1 and s2 are zeroed f64 buffers.  Returns the cudaError_t
-// of the launch.
+// 2 linear.  s1 and s2 are zeroed f64 buffers; they sum the rounded y,
+// or with raw_stats != 0 the f32 product before rounding.  Returns the
+// cudaError_t of the launch.
 extern "C" int fused_gemm_fwd_launch(const void* const* xs,
                                      const void* const* ws,
                                      const void* const* aas,
                                      const void* const* bbs, const int* ks,
                                      int count, void* y, double* s1,
                                      double* s2, int m, int n, int dtype,
-                                     int act, void* stream) {
+                                     int act, int raw_stats, void* stream) {
   if (count < 1 || count > MAX_INPUTS || m < 1 || n < 1)
     return (int)cudaErrorInvalidValue;
   FwdInputs in;
@@ -492,7 +404,7 @@ extern "C" int fused_gemm_fwd_launch(const void* const* xs,
     in.k[i] = ks[i];
   }
   cudaStream_t s = (cudaStream_t)stream;
-  DISPATCH(launch_fwd, in, y, s1, s2, m, n, s)
+  DISPATCH(launch_fwd, in, y, s1, s2, m, n, raw_stats, s)
 }
 
 // Backward of one input: the dx kernel, then the split-M dW kernel.  a

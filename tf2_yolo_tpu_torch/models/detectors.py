@@ -59,7 +59,8 @@ class YoloV4(nn.Module):
     ``dtype`` is the compute dtype of the convs; parameters are f32.
     ``generator`` draws the v4 init (RandomNormal(0, 0.02) everywhere).
     ``packed=True`` runs the backbone's stages 3-5 through the fused
-    GEMMs in train mode (see ``CSPDarknet53``). The model is built on
+    GEMMs in train mode, ``packed=3`` also stages 1-2 through the fused
+    3x3 convs and sum-GEMMs (see ``CSPDarknet53``). The model is built on
     the card unless ``device`` says otherwise. ``plain`` is set by
     ``layers.use_plain_route``.
     """

@@ -5,8 +5,13 @@ In this route every 1x1 ConvBN of a CSP stage is one ``fused_gemm`` call:
 the producer's BatchNorm affine + mish is applied in the consumer's input
 read (the prologue), the raw output's channel sums come out of the
 epilogue, and a channel concat is read as two operands without being
-stored. 3x3 and stride-2 convs stay ``conv_bn_stats`` calls on explicitly
-activated tensors.
+stored. In :func:`packed_stage` (stages 3-5) the 3x3 and stride-2 convs
+stay ``conv_bn_stats`` calls on explicitly activated tensors. In
+:func:`p3_stage` (stages 1-2 of ``packed=3``) they are ``fused_conv3x3``
+calls with the same prologue and epilogue, and the residual chain is a
+list of (raw output, affine) terms that the next sum-GEMM reads, so that
+nothing but raw conv outputs is stored between kernels: no normalise, no
+activation pass, no residual add, no concat.
 
 The functions here are forward routes over the SAME submodules as the
 plain path (``CSPStage`` / ``CSPResBlock`` / ``ConvBN``): they read
@@ -15,7 +20,9 @@ weights, the bridge and the eval path are untouched. The JAX classes map
 to them as ``PackedConvBN3x3`` -> :func:`packed_conv3x3`,
 ``PackedGemmConvBN`` -> :func:`packed_gemm_convbn`,
 ``PackedCSPResBlock`` -> :func:`packed_res_block`, ``PackedCSPStage`` ->
-:func:`packed_stage`.
+:func:`packed_stage`, ``PackedPallasConvBN3x3`` ->
+:func:`fused_conv3x3_convbn`, ``P3CSPResBlock`` -> :func:`p3_res_block`,
+``P3CSPStage`` -> :func:`p3_stage`.
 
 Rows. The GEMM operands are 2D row matrices [M, C]. The JAX package
 orders rows (h, w, b)-major to match a layout XLA assigns on the TPU; on
@@ -25,12 +32,16 @@ nothing in the math (sums over rows, per-row products).
 
 Not ported (TPU machinery): batch-into-lanes packing (``pack_batch``,
 ``unpack_batch``, ``_block_diag``, ``rows_of_packed``,
-``rows_to_unpacked``, the p > 1 tiling in ``bn_affine``), and the
-cross-replica ``axis_name`` branch of ``_fold_stats``.
+``rows_to_unpacked``, the p > 1 tiling in ``bn_affine``, the ``p_down``
+branch of ``P3CSPStage`` that runs its down conv at a higher packing
+factor; p = 1 throughout), the ``im2col`` flag of
+``PackedPallasConvBN3x3``, and the cross-replica ``axis_name`` branch of
+``_fold_stats``.
 """
 
 import torch
 
+from ..ops.kernels.fused_conv3x3 import fused_conv3x3
 from ..ops.kernels.fused_gemm import act_and_grad, fused_gemm
 from .layers import BN_EPS, batch_stats
 
@@ -102,7 +113,10 @@ def packed_gemm_convbn(convbn, inputs, sum_inputs=False):
     (x2d [M, Ci], affine-or-None) pairs: a raw producer output brings its
     producer's affine, which is applied with mish in this layer's input
     read; an activated tensor brings ``None``. Returns (raw y2d, consumer
-    affine).
+    affine). The mish passed to the kernel is the PRODUCERS' activation
+    (every caller's producers are mish layers), as ``act_in`` of the JAX
+    ``PackedPallasConvBN3x3`` is; this layer's own activation is its
+    consumer's business.
 
     Several inputs mean a channel concat (the [Cin, Co] kernel is split
     along Cin per operand) or, with ``sum_inputs``, a sum over the full
@@ -152,5 +166,46 @@ def packed_stage(stage, x_act4):
         z_act = packed_res_block(getattr(stage, f"block{i + 1}"), z_act,
                                  (b, h, w))
     post = packed_gemm_convbn(stage.post, [(z_act, None)])
+    out_y, out_aff = packed_gemm_convbn(stage.out, [post, cross])
+    return out_y, out_aff, (b, h, w)
+
+
+def fused_conv3x3_convbn(convbn, x_raw4, affine):
+    """3x3 (or stride-2 darknet-pad) ConvBN as the fused conv. Takes the
+    producer's RAW NHWC output and its affine (``None`` for an activated
+    tensor): the producer's BN + mish is applied in this conv's input
+    read. Returns (raw y4, consumer affine)."""
+    y, s1, s2 = fused_conv3x3(x_raw4, convbn.conv.kernel, affine,
+                              stride=convbn.conv.stride, act="mish",
+                              dtype=convbn.dtype, plain=convbn.conv.plain)
+    return y, _fold_stats(convbn.bn, s1, s2, y.numel() // y.shape[-1])
+
+
+def p3_res_block(block, terms, spatial):
+    """CSP residual module with nothing materialised. ``terms`` is the
+    running list [(raw y2d, affine), ...] whose activated sum is the
+    block input; returns the expand conv's (raw y2d, affine) term, which
+    the caller appends to the list (the residual add distributes over the
+    next GEMM, see ``sum_inputs``)."""
+    b, h, w = spatial
+    sq_y, sq_aff = packed_gemm_convbn(block.squeeze, terms, sum_inputs=True)
+    ex_y, ex_aff = fused_conv3x3_convbn(block.expand,
+                                        rows_to(sq_y, b, h, w), sq_aff)
+    return rows_of(ex_y), ex_aff
+
+
+def p3_stage(stage, y_raw4, affine):
+    """CSPStage with every conv fused. Takes the previous layer's raw
+    NHWC output and its affine; returns (raw y2d of the ``out`` conv, its
+    affine, (B, H, W)) at half the resolution."""
+    dn_y, dn_aff = fused_conv3x3_convbn(stage.down, y_raw4, affine)
+    b, h, w = dn_y.shape[:3]
+    dn2 = rows_of(dn_y)
+    cross = packed_gemm_convbn(stage.cross, [(dn2, dn_aff)])
+    terms = [packed_gemm_convbn(stage.pre, [(dn2, dn_aff)])]
+    for i in range(stage.blocks):
+        terms.append(p3_res_block(getattr(stage, f"block{i + 1}"), terms,
+                                  (b, h, w)))
+    post = packed_gemm_convbn(stage.post, terms, sum_inputs=True)
     out_y, out_aff = packed_gemm_convbn(stage.out, [post, cross])
     return out_y, out_aff, (b, h, w)

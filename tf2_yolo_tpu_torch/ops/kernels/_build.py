@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/kernels/<name>-<hash>.so`` at the
 root of the checkout (a directory ``.gitignore`` lists), keyed by a hash
-of the source and the flags, then loaded with ``ctypes``. Nothing here
+of the source, the headers beside it (``csrc/*.cuh``) and the flags, then
+loaded with ``ctypes``. Nothing here
 runs at import time: the CPU tests import the wrappers without a CUDA
 toolkit.
 """
@@ -39,8 +40,10 @@ def _nvcc():
 def _plan(source, extra_flags):
     flags = (*FLAGS, *extra_flags)
     src = CSRC / source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(flags).encode()).hexdigest()[:16]
+        src.read_bytes() + headers + "\0".join(flags).encode()
+    ).hexdigest()[:16]
     return src, flags, BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

@@ -1,0 +1,280 @@
+"""Fused prologue + 3x3 conv + BN-statistic sums (NHWC), with its backward.
+
+``fused_conv3x3(x4, w, affine, stride, act, dtype)`` returns
+``(y4, s1, s2)``:
+
+    g  = act(x4 * a + b) in f32, rounded to ``dtype``, for
+         ``affine = (a, b)``; x4 as it is for ``None``. Outside the image
+         g is 0 (the window's padding applies AFTER the prologue)
+    y4 = conv3x3(g, w) accumulated in f32, rounded to ``dtype``:
+         stride 1 SAME, or stride 2 with the darknet pad (one zero row on
+         top, one zero column on the left, then VALID; H and W even)
+    s1 = sum y4, s2 = sum y4 * y4 over B*Ho*Wo     [N] f32, of the
+         ROUNDED y4
+
+``x4`` is the producer's RAW NHWC output [B, H, W, K] and ``affine`` its
+BatchNorm affine, so neither the normalised nor the activated tensor is
+ever stored. ``w`` is [3, 3, K, N] (HWIO, the flax layout). It is
+differentiable: a ``torch.autograd.Function`` whose forward and backward
+both launch hand-written kernels on CUDA tensors.
+
+Backward, from the stored y (the TPU kernels' arithmetic, rounding by
+rounding): dyf = T(dy + y * (2 ds2)); dg = the transposed conv of dyf plus,
+in f32, ds1 @ w_tap^T for every tap whose output pixel exists (ds1 stays
+apart from dyf and is not rounded: a constant pre-added into a bf16 sum
+would swamp small dy entries); dx = T(dg * act'(z) * a); da = sum dg *
+act'(z) * x, db = sum dg * act'(z) (f32); dW_tap = shift(g)^T @
+T(dyf + ds1) (f32).
+
+Source note. On CUDA tensors this launches ``csrc/fused_conv3x3.cu``, the
+Hopper port of the Pallas TPU kernels ``_fwd_s1_kernel``,
+``_fwd_s2_kernel``, ``_bwd_s1_kernel`` and ``_bwd_s2_kernel``
+(tf2_yolo_tpu/ops/pallas/packed_conv3x3.py, reached through ``_fwd_call``
+and ``_bwd_call``). The kernels are implicit GEMMs on the CUDA cores that
+gather their window by index from the contiguous NHWC tensor, bounded by
+the f32 FMA rate and by the prologue they recompute once per tap. The
+backward is two launches: dx with the da/db reductions (at stride 2 one
+parity class of input pixels per block, so only the taps that reach it
+are visited), and a split-M dW. The fold ``dy + 2 y ds2``, a separate
+pass before the TPU kernel, happens in the kernels' loads. The sums over
+all pixels (s1, s2, da, db) are per-block f32 partials added with f64
+atomics and rounded to f32 here, so block order does not show in them; dW
+is added with f32 atomics (one per chunk of 1024 output pixels), so its
+last bits depend on block order. On CPU tensors it computes
+:func:`fused_conv3x3_plain` and :func:`fused_conv3x3_bwd_plain`.
+
+Not carried over (TPU machinery): the (h, w, b)-major row layout with its
+``spatial`` argument, the halo blocks with clamped index maps and edge
+gates, ``BLOCK_ROWS`` / ``_chunk_cols``, the even/odd ``dx0``/``dx1``
+interleave of the stride-2 backward, and the ``im2col`` flag (an
+MXU-occupancy variant of the same function: the one kernel here also
+takes K as small as 3).
+"""
+
+import ctypes
+import functools
+
+import torch
+from torch.nn.grad import conv2d_input, conv2d_weight
+
+from ._build import load_library
+from .fused_gemm import _ACT_CODES, _DTYPE_CODES, _prologue
+
+# source and extra nvcc flags: no contraction, so the f32 prologue
+# rounds as the plain version does
+SOURCE = ("fused_conv3x3.cu", ("--fmad=false",))
+_INT32_MAX = 2 ** 31 - 1
+_DW_CHUNK = 1024               # output pixels per dW block (M_CHUNK)
+
+
+def _check(x4, w, a, b, stride, act):
+    if act not in _ACT_CODES:
+        raise ValueError(f"unsupported fused-conv activation: {act!r}")
+    if stride not in (1, 2):
+        raise ValueError(f"unsupported stride {stride}")
+    if x4.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (
+            3, 3, x4.shape[-1]) or w.shape[-1] < 1:
+        raise ValueError(f"want x [B, H, W, K] and w [3, 3, K, N], got "
+                         f"{tuple(x4.shape)}, {tuple(w.shape)}")
+    bsz, h, wd, k = x4.shape
+    n = w.shape[-1]
+    if min(bsz, h, wd, k) < 1:
+        raise ValueError(f"empty input {tuple(x4.shape)}")
+    if stride == 2 and (h % 2 or wd % 2):
+        raise ValueError(f"stride 2 needs even H and W, got {h}x{wd}")
+    if x4.dtype not in _DTYPE_CODES or w.dtype != x4.dtype:
+        raise TypeError(f"want x and w in one dtype of "
+                        f"{list(_DTYPE_CODES)}, got {x4.dtype}, {w.dtype}")
+    if (a is None) != (b is None):
+        raise ValueError("an affine is a pair (a, b) or None")
+    tensors = [x4, w]
+    if a is not None:
+        if a.shape != (k,) or b.shape != a.shape \
+                or a.dtype != torch.float32 or b.dtype != torch.float32:
+            raise ValueError(
+                f"want a, b f32 of shape ({k},), got {tuple(a.shape)} "
+                f"{a.dtype}, {tuple(b.shape)} {b.dtype}")
+        tensors += [a, b]
+    for t in tensors:
+        if t.device != x4.device:
+            raise ValueError(f"tensors on {t.device} and {x4.device}")
+        if not t.is_contiguous():
+            raise ValueError("x, w, a and b must be contiguous")
+    ho, wo = h // stride, wd // stride
+    # the kernels index elements in 64 bits; pixel counts and the dW
+    # kernel's chunk count (grid.z) are what is bounded
+    if bsz * h * wd > _INT32_MAX or bsz * ho * wo > 65535 * _DW_CHUNK:
+        raise ValueError(f"unsupported size {tuple(x4.shape)} -> {n}")
+    return bsz, h, wd, k, n, ho, wo
+
+
+def _nchw(t4):
+    """NHWC tensor as an NCHW view (no copy)."""
+    return t4.permute(0, 3, 1, 2)
+
+
+def _oihw(w):
+    return w.float().permute(3, 2, 0, 1)           # HWIO -> OIHW
+
+
+def fused_conv3x3_plain(x4, w, a, b, stride=1, act="mish"):
+    """Plain forward: the f32 prologue rounded to the compute dtype, a
+    conv of it accumulated in f32 (its zero padding applies to g, after
+    the prologue), rounded to the compute dtype, then the statistics of
+    the rounded y. On even H and W the darknet stride-2 window (top/left
+    pad, then VALID) reads the same pixels as a symmetric pad of 1 whose
+    bottom/right edge is never touched, so one padding rule serves."""
+    g = x4 if a is None else _prologue(x4, a, b, act)[0]
+    yf = torch.nn.functional.conv2d(_nchw(g.float()), _oihw(w),
+                                    stride=stride, padding=1)
+    y = yf.to(x4.dtype).permute(0, 2, 3, 1).contiguous()
+    ys = y.float()
+    return y, ys.sum(dim=(0, 1, 2)), (ys * ys).sum(dim=(0, 1, 2))
+
+
+def fused_conv3x3_bwd_plain(x4, w, a, b, y, dy, ds1, ds2, stride=1,
+                            act="mish"):
+    """Plain backward from the stored y: returns (dx, dW, da, db) with dx
+    in the compute dtype and dW [3, 3, K, N], da, db in f32 (da, db
+    ``None`` without a prologue). The roundings are the TPU kernels':
+    dyf = T(dy + 2 y ds2) once; the ds1 term enters dg in f32, as the
+    transposed conv of a constant image (a tap adds ds1 @ w_tap^T exactly
+    where its output pixel exists); dW takes T(dyf + ds1)."""
+    dt = y.dtype
+    bsz, h, wd, k = x4.shape
+    ho, wo, n = y.shape[1:]
+    wf = _oihw(w)
+    dyf = (dy.float() + y.float() * (2.0 * ds2)).to(dt)
+    dg = conv2d_input((bsz, k, h, wd), wf, _nchw(dyf.float()), stride, 1)
+    const = conv2d_input(
+        (1, k, h, wd), wf,
+        ds1.view(1, n, 1, 1).expand(1, n, ho, wo).contiguous(), stride, 1)
+    dg = (dg + const).permute(0, 2, 3, 1)
+    if a is None:
+        g = x4
+        dx, da, db = dg.to(dt), None, None
+    else:
+        g, gp, xf = _prologue(x4, a, b, act)
+        dz = dg * gp
+        dx = (dz * a).to(dt)
+        da = (dz * xf).sum(dim=(0, 1, 2))
+        db = dz.sum(dim=(0, 1, 2))
+    dyt = (dyf.float() + ds1).to(dt)
+    dw = conv2d_weight(_nchw(g.float()), wf.shape, _nchw(dyt.float()),
+                       stride, 1)
+    return dx.contiguous(), dw.permute(2, 3, 1, 0).contiguous(), da, db
+
+
+@functools.cache
+def _library():
+    lib = load_library(*SOURCE)
+    lib.fused_conv3x3_fwd_launch.argtypes = [ctypes.c_void_p] * 7 \
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.fused_conv3x3_fwd_launch.restype = ctypes.c_int
+    lib.fused_conv3x3_bwd_launch.argtypes = [ctypes.c_void_p] * 12 \
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.fused_conv3x3_bwd_launch.restype = ctypes.c_int
+    return lib
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _forward_cuda(x4, w, a, b, stride, act, dims):
+    bsz, h, wd, k, n, ho, wo = dims
+    lib = _library()
+    y = torch.empty((bsz, ho, wo, n), dtype=x4.dtype, device=x4.device)
+    s = torch.zeros((2, n), dtype=torch.float64, device=x4.device)
+    err = lib.fused_conv3x3_fwd_launch(
+        x4.data_ptr(), w.data_ptr(), _ptr(a), _ptr(b), y.data_ptr(),
+        s[0].data_ptr(), s[1].data_ptr(), bsz, h, wd, k, n, stride,
+        _DTYPE_CODES[x4.dtype], _ACT_CODES[act],
+        torch.cuda.current_stream(x4.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_conv3x3 forward launch failed: "
+                           f"cudaError {err}")
+    fused_conv3x3.launches += 1
+    s1, s2 = s.float()
+    return y, s1, s2
+
+
+def _backward_cuda(x4, w, a, b, y, dy, ds1, ds2, stride, act):
+    lib = _library()
+    bsz, h, wd, k = x4.shape
+    n = y.shape[-1]
+    dx = torch.empty_like(x4)
+    dw = torch.zeros((3, 3, k, n), dtype=torch.float32, device=x4.device)
+    dab = None
+    if a is not None:
+        dab = torch.zeros((2, k), dtype=torch.float64, device=x4.device)
+    err = lib.fused_conv3x3_bwd_launch(
+        x4.data_ptr(), w.data_ptr(), _ptr(a), _ptr(b), y.data_ptr(),
+        dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr(), dx.data_ptr(),
+        dw.data_ptr(), None if dab is None else dab[0].data_ptr(),
+        None if dab is None else dab[1].data_ptr(), bsz, h, wd, k, n,
+        stride, _DTYPE_CODES[y.dtype], _ACT_CODES[act],
+        torch.cuda.current_stream(y.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_conv3x3 backward launch failed: "
+                           f"cudaError {err}")
+    # one count per call: its dx kernel and its dW kernel
+    fused_conv3x3.bwd_launches += 1
+    da, db = (None, None) if dab is None else dab.float()
+    return dx, dw, da, db
+
+
+class _FusedConv3x3(torch.autograd.Function):
+    """apply(x4, w, a, b, stride, act, plain) -> (y4, s1, s2)."""
+
+    @staticmethod
+    def forward(ctx, x4, w, a, b, stride, act, plain):
+        dims = _check(x4, w, a, b, stride, act)
+        device = x4.device.type
+        if plain or device == "cpu":
+            y, s1, s2 = fused_conv3x3_plain(x4, w, a, b, stride, act)
+        elif device == "cuda":
+            y, s1, s2 = _forward_cuda(x4, w, a, b, stride, act, dims)
+        else:
+            raise ValueError(f"no fused_conv3x3 kernel for {x4.device}")
+        ctx.stride, ctx.act, ctx.plain = stride, act, plain
+        ctx.save_for_backward(x4, w, a, b, y)
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, dy, ds1, ds2):
+        x4, w, a, b, y = ctx.saved_tensors
+        dy = dy.contiguous()
+        ds1 = ds1.float().contiguous()
+        ds2 = ds2.float().contiguous()
+        if ctx.plain or y.device.type == "cpu":
+            dx, dw, da, db = fused_conv3x3_bwd_plain(
+                x4, w, a, b, y, dy, ds1, ds2, ctx.stride, ctx.act)
+        else:
+            dx, dw, da, db = _backward_cuda(
+                x4, w, a, b, y, dy, ds1, ds2, ctx.stride, ctx.act)
+        # the cotangent takes the primal's dtype: one last rounding of
+        # the f32 dW to the compute dtype, as at fused_gemm's
+        return dx, dw.to(w.dtype), da, db, None, None, None
+
+
+def fused_conv3x3(x4, w, affine, stride=1, act="mish", dtype=torch.bfloat16,
+                  plain=False):
+    """See the module docstring. ``x4``: raw NHWC [B, H, W, K]; ``w``:
+    [3, 3, K, N] HWIO; ``affine``: ``None`` or ``(a, b)`` broadcastable
+    to [K]. ``act`` is the PRODUCER's activation, applied in the input
+    read. Inputs are cast to ``dtype``. CPU tensors take the plain
+    version; CUDA tensors launch the kernels, or raise. ``plain=True``
+    forces the plain version on any device (the reference route)."""
+    a = b = None
+    if affine is not None:
+        k = x4.shape[-1]
+        a = affine[0].reshape(k).float().contiguous()
+        b = affine[1].reshape(k).float().contiguous()
+    return _FusedConv3x3.apply(x4.to(dtype).contiguous(),
+                               w.to(dtype).contiguous(), a, b, stride, act,
+                               plain)
+
+
+fused_conv3x3.launches = 0
+fused_conv3x3.bwd_launches = 0

@@ -1,9 +1,9 @@
 """Where one training step of the port spends its time on the card.
 
     python3 -m tf2_yolo_tpu_torch.tools.train_profile [--batch 32]
-        [--size 416] [--steps 2] [--out DIR]
+        [--size 416] [--steps 2] [--packed {1,3}] [--out DIR]
 
-Builds a bf16 ``YoloV4(packed=True)`` train state (:func:`make_training`:
+Builds a bf16 ``YoloV4(packed=...)`` train state (:func:`make_training`:
 random v4 init from ``--seed``, Adam 1e-3, synthetic labels; the smoke
 script ``chip_smoke.py`` trains the same), warms up, traces ``--steps``
 steps with ``torch.profiler`` and sums the device time of every CUDA
@@ -13,6 +13,8 @@ kernel by category:
   conv backward      the library conv VJP (cuDNN / CUTLASS kernels and
                      the layout changes around them)
   fused gemm fwd/bwd the hand-written fused GEMM kernels
+  fused conv3x3 forward / backward
+                     the hand-written fused 3x3 conv kernels (``--packed 3``)
   optimizer          Adam's multi-tensor kernels
   elementwise        everything else (BN normalise, mish, leaky and their
                      backward, casts, reductions, the loss, copies)
@@ -52,14 +54,14 @@ def card_line():
     return out[0].strip()
 
 
-def make_training(seed, batch, size, dtype, plain=False):
-    """A YoloV4(packed=True) train state on the card with the v4 init
+def make_training(seed, batch, size, dtype, plain=False, packed=3):
+    """A YoloV4(packed=...) train state on the card with the v4 init
     drawn from ``seed``, Adam 1e-3, the three v4 losses, one batch of
     random images and synthetic labels (four boxes per image and level,
     as the JAX package's training benchmark makes them)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     model = YoloV4(ANCHORS, CLASSES, dtype=dtype, generator=gen,
-                   packed=True)
+                   packed=packed)
     if plain:
         use_plain_route(model)
     state = create_train_state(model, make_optimizer("adam", 1e-3))
@@ -93,8 +95,10 @@ def timed_steps(state, step, x, ys, steps):
     return times, losses
 
 
-
 CATEGORIES = (
+    ("fused conv3x3 forward", ("fused_conv3x3_fwd_kernel",)),
+    ("fused conv3x3 backward", ("fused_conv3x3_dx_kernel",
+                                "fused_conv3x3_dw_kernel")),
     ("conv forward", ("conv_bn_stats_kernel",)),
     ("fused gemm forward", ("fused_gemm_fwd_kernel",)),
     ("fused gemm backward", ("fused_gemm_dx_kernel", "fused_gemm_dw_kernel")),
@@ -119,6 +123,9 @@ def main(argv=None):
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--size", type=int, default=416)
     p.add_argument("--steps", type=int, default=2)
+    p.add_argument("--packed", type=int, choices=(1, 3), default=3,
+                   help="backbone route: 1 = fused GEMMs in stages 3-5, "
+                        "3 = also stages 1-2 all fused")
     p.add_argument("--out", default=None,
                    help="directory for train_profile.json and the table")
     args = p.parse_args(argv)
@@ -129,7 +136,8 @@ def main(argv=None):
     print(card)
 
     state, step, x, ys = make_training(
-        args.seed, args.batch, args.size, torch.bfloat16)
+        args.seed, args.batch, args.size, torch.bfloat16,
+        packed=args.packed)
     timed_steps(state, step, x, ys, 2)          # warm-up
     untraced, _ = timed_steps(state, step, x, ys, args.steps)
     torch.cuda.synchronize()
@@ -159,7 +167,8 @@ def main(argv=None):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:25]
     untraced_ms = sum(untraced) / len(untraced)
     result = dict(card=card, batch=args.batch, size=args.size,
-                  steps=args.steps, wall_ms_per_step_traced=wall_ms,
+                  packed=args.packed, steps=args.steps,
+                  wall_ms_per_step_traced=wall_ms,
                   wall_ms_per_step_untraced=untraced_ms,
                   kernel_ms_per_step=busy,
                   idle_share=max(0.0, 1.0 - busy / untraced_ms),
@@ -171,7 +180,8 @@ def main(argv=None):
         print(f"  {v:9.3f} ms/step  [{category(k)}]  {k[:100]}")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "train_profile.json"), "w") as f:
+        name = f"train_profile_packed{args.packed}.json"
+        with open(os.path.join(args.out, name), "w") as f:
             json.dump(result, f, indent=1)
     result.pop("top_kernels")
     print(json.dumps(result))
