@@ -11,7 +11,9 @@ Phases (each raises on failure, so the exit code is nonzero):
      all started together;
   3. check each kernel against its plain PyTorch version on the card at
      YOLOv4@416 layer shapes, bf16 and f32 (TF32 off for the plain
-     versions): conv + statistics at the serving and the training batch,
+     versions), printing each conv shape's launch plan (route: tensor
+     cores for bf16, CUDA cores for f32 and the bf16 stem; tile config):
+     conv + statistics at the serving and the training batch,
      NMS, the fused GEMM forward and backward at the training batch, and
      the fused 3x3 conv forward and backward at both batches (and again
      at the halved batch if phase 7 had to fall back); time each, with
@@ -21,7 +23,8 @@ Phases (each raises on failure, so the exit code is nonzero):
      layers driven once with its counter read;
   4. serve ``--requests`` batches of ``--batch`` images through
      ``make_serving_fn`` in bf16, with launch counters proving that every
-     conv (107 ConvBN + 3 head convs) and every NMS ran the kernels;
+     conv (107 ConvBN + 3 head convs) and every NMS ran the kernels, every
+     conv but the stem on the tensor cores;
   5. in f32 on the same weights, compare the head logits and outputs of
      the kernel route with the plain route, then the NMS kernel with the
      plain NMS on the same decoded rows;
@@ -34,7 +37,8 @@ Phases (each raises on failure, so the exit code is nonzero):
      1-2 ran the fused conv kernels (5 forwards, 5 backwards), every 1x1
      ConvBN of the backbone the fused GEMM kernels (43 forwards; 52
      backwards, one per input operand) and every other conv the conv
-     kernel (62); loss and gradients finite, running statistics moved.
+     kernel (62), the five fused convs and every conv but the stem on the
+     tensor cores; loss and gradients finite, running statistics moved.
      Then one step of ``YoloV4(packed=True)`` (stages 1-2 on the plain
      path: 32 and 35 fused GEMM launches, 78 convs) the same way;
   8. one f32 step of ``packed=3`` at batch 2 on the kernel route and on
@@ -105,15 +109,22 @@ CONVS_PER_STEP = CONVS_PER_FORWARD - GEMMS_PER_STEP
 # 1x1 onto the fused GEMM, whose sum-GEMMs read 1, 2 or 3 terms
 # (backward operands, stage 1: cross 1, pre 1, squeeze 1, post 2, out 2;
 # stage 2: cross 1, pre 1, squeezes 1 + 2, post 3, out 2)
+# The bf16 convs run on the tensor cores but for the stem (Ci = 3 has no
+# 16-byte rows), which the launch plan routes to the CUDA cores.
+STEM_CONVS = 1
 TRAIN_LAUNCHES = {
-    1: dict(fused_conv3x3_fwd=0, fused_conv3x3_bwd=0,
+    1: dict(fused_conv3x3_fwd=0, fused_conv3x3_fwd_tc=0,
+            fused_conv3x3_bwd=0,
             fused_gemm_fwd=GEMMS_PER_STEP,
             fused_gemm_bwd=GEMM_BWD_INPUTS_PER_STEP,
-            conv_bn_stats=CONVS_PER_STEP),
-    3: dict(fused_conv3x3_fwd=5, fused_conv3x3_bwd=5,
+            conv_bn_stats=CONVS_PER_STEP,
+            conv_bn_stats_tc=CONVS_PER_STEP - STEM_CONVS),
+    3: dict(fused_conv3x3_fwd=5, fused_conv3x3_fwd_tc=5,
+            fused_conv3x3_bwd=5,
             fused_gemm_fwd=GEMMS_PER_STEP + 5 + 6,
             fused_gemm_bwd=GEMM_BWD_INPUTS_PER_STEP + 7 + 10,
-            conv_bn_stats=CONVS_PER_STEP - 16),
+            conv_bn_stats=CONVS_PER_STEP - 16,
+            conv_bn_stats_tc=CONVS_PER_STEP - 16 - STEM_CONVS),
 }
 
 # H100 SXM data sheet: device memory rate and dense peak rates
@@ -130,7 +141,9 @@ def bound_ms(nbytes, flops, dtype):
 
 # (name, H, W, Ci, Co, k, stride): YOLOv4@416 layers, checked at the
 # serving batch and at the training batch (whose statistics sum four
-# times the rows)
+# times the rows): the layers that carry the conv time (the 3x3 s1
+# expands of stages 3-5 and the neck) and the ragged edges of the tiles
+# (13^2 rows that end inside a tile, N = 24 in a 32-wide tile)
 CONV_SHAPES = [
     ("stem 416^2 3->32 3x3s1", 416, 416, 3, 32, 3, 1),
     ("stage1.down 416^2 32->64 3x3s2", 416, 416, 32, 64, 3, 2),
@@ -138,6 +151,10 @@ CONV_SHAPES = [
     ("stage3.block.expand 52^2 128->128 3x3s1", 52, 52, 128, 128, 3, 1),
     ("td1_pre1 13^2 1024->512 1x1", 13, 13, 1024, 512, 1, 1),
     ("td1_pre2 13^2 512->1024 3x3s1", 13, 13, 512, 1024, 3, 1),
+    ("stage4.block.expand 26^2 256->256 3x3s1", 26, 26, 256, 256, 3, 1),
+    ("td2.conv2 26^2 256->512 3x3s1", 26, 26, 256, 512, 3, 1),
+    ("stage3.down 104^2 128->256 3x3s2", 104, 104, 128, 256, 3, 2),
+    ("head3 52^2 256->24 1x1", 52, 52, 256, 24, 1, 1),
 ]
 # Tolerances of kernel against plain, same inputs on the card.
 # y: f32 sums of up to 9*Ci products in another order (4.6e3 terms at
@@ -243,6 +260,11 @@ def rel_l2(a, b):
             / b.float().norm().clamp(min=1e-30)).item()
 
 
+def plan_line(plan):
+    return (f"{plan.route} config {plan.config} grid {plan.grid} smem "
+            f"{plan.smem_bytes}")
+
+
 def phase_build(log_dir):
     t0 = time.perf_counter()
     _build.build_libraries([conv_mod.SOURCE, nms_mod.SOURCE,
@@ -278,6 +300,54 @@ def conv_library_call(x, w, b, stride):
     return lambda: F.conv2d(xc, wc, b, stride=stride, padding=pad)
 
 
+def cuda_core_conv_call(x, w, b, stride):
+    """The conv's CUDA-core kernel on the same bf16 inputs, launched with
+    the CUDA-core plan (64 x 64 tiles) where the wrapper's plan takes the
+    tensor cores: the design before them, timed in the same call. Not
+    counted (a comparison launch)."""
+    n, h, wd, ci = x.shape
+    k, co = w.shape[0], w.shape[-1]
+    m = n * (h // stride) * (wd // stride)
+    grid = (-(-m // 64), -(-co // 64))
+    y = torch.empty(n, h // stride, wd // stride, co, dtype=x.dtype,
+                    device=x.device)
+    launch = conv_mod._launcher()
+
+    def run():
+        err = launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                     None, None, n, h, wd, ci, co, k, stride,
+                     conv_mod._DTYPE_CODES[x.dtype], 0, -1, *grid, 0,
+                     torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"CUDA-core conv launch failed: cudaError {err}")
+    return run
+
+
+def cuda_core_conv3_call(x, w, affine, stride):
+    """The fused conv's CUDA-core forward on the same bf16 inputs, as
+    :func:`cuda_core_conv_call` does for the conv."""
+    n, h, wd, k = x.shape
+    co = w.shape[-1]
+    m = n * (h // stride) * (wd // stride)
+    grid = (-(-m // 64), -(-co // 64), 1)
+    a, b = (None, None) if affine is None else (
+        affine[0].float().contiguous(), affine[1].float().contiguous())
+    y = torch.empty(n, h // stride, wd // stride, co, dtype=x.dtype,
+                    device=x.device)
+    s = torch.zeros(2, co, dtype=torch.float64, device=x.device)
+    launch = conv3_mod._library().fused_conv3x3_fwd_launch
+
+    def run():
+        err = launch(x.data_ptr(), w.data_ptr(), conv3_mod._ptr(a),
+                     conv3_mod._ptr(b), y.data_ptr(), s[0].data_ptr(),
+                     s[1].data_ptr(), n, h, wd, k, co, stride,
+                     conv3_mod._DTYPE_CODES[x.dtype],
+                     conv3_mod._ACT_CODES["mish"], -1, *grid, 0,
+                     torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"CUDA-core fused conv launch failed: cudaError "
+                        f"{err}")
+    return run
+
+
 def phase_conv_checks(gen, n):
     """Every conv shape at batch ``n``, statistics on, against the plain
     version; all shapes are printed before a failure raises."""
@@ -290,7 +360,12 @@ def phase_conv_checks(gen, n):
             he_normal_(wt, gen)
             b = 0.1 * torch.randn(co, generator=gen, device="cuda")
             x, wt, b = x.to(dtype), wt.to(dtype), b.to(dtype)
+            plan = conv_mod._tc_plan(n, h, w, ci, co, k, stride, dtype)
+            before = conv_bn_stats.launches, conv_bn_stats.tc_launches
             y, s1, s2 = conv_bn_stats(x, wt, b, stride, want_stats=True)
+            check((conv_bn_stats.launches, conv_bn_stats.tc_launches)
+                  == (before[0] + 1, before[1] + (plan.route == "tc")),
+                  f"conv {name}: the wrapper did not launch its kernel")
             yp, s1p, s2p = conv_bn_stats_plain(x, wt, b, stride, True)
             torch.cuda.synchronize()
             fwd = forward_errors((y, s1, s2), (yp, s1p, s2p), tol)
@@ -302,17 +377,25 @@ def phase_conv_checks(gen, n):
                 * x.element_size()
             bound, bound_by = bound_ms(nbytes, flop, dtype)
             library_ms = cuda_ms(conv_library_call(x, wt, b, stride), 5)
+            cc_ms = None
+            if plan.route == "tc":
+                cc_ms = cuda_ms(cuda_core_conv_call(x, wt, b, stride), 5)
             r = dict(shape=name, batch=n,
                      dtype=str(dtype).replace("torch.", ""), **fwd, ms=ms,
                      plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                      library_ms=library_ms,
-                     kernel_tflops=flop / ms / 1e9)
+                     kernel_tflops=flop / ms / 1e9, bound_share=bound / ms,
+                     route=plan.route, config=plan.config,
+                     cuda_core_ms=cc_ms)
             results.append(r)
             print(f"  conv {r['dtype']:8s} b{n:<2d} {name:40s} "
-                  f"{forward_line(r, tol)} | "
-                  f"kernel {ms:.3f} ms ({r['kernel_tflops']:.2f} TFLOP/s)"
-                  f" plain {plain_ms:.3f} ms, F.conv2d channels_last "
-                  f"{library_ms:.3f} ms, bound {bound:.4f} ms ({bound_by})")
+                  f"[{plan_line(plan)}] {forward_line(r, tol)} | "
+                  f"kernel {ms:.3f} ms ({r['kernel_tflops']:.2f} TFLOP/s, "
+                  f"{bound / ms:.1%} of bound) plain {plain_ms:.3f} ms, "
+                  f"F.conv2d channels_last {library_ms:.3f} ms, bound "
+                  f"{bound:.4f} ms ({bound_by})"
+                  + ("" if cc_ms is None
+                     else f", CUDA-core kernel {cc_ms:.3f} ms"))
             y_ok, s_ok = forward_ok(r, tol)
             if not y_ok:
                 failed.append(f"{name} b{n} {r['dtype']}: y")
@@ -579,11 +662,15 @@ def phase_conv3_checks(gen, n):
         for name, h, w, k, co, stride, prologue in CONV3_SHAPES:
             x, wt, affine, cts = conv3_case(gen, dtype, n, h, w, k, co,
                                             stride, prologue)
+            plan = conv3_mod._tc_plan(n, h, w, k, co, stride, dtype)
             fwd0, bwd0 = fused_conv3x3.launches, fused_conv3x3.bwd_launches
+            tc0 = fused_conv3x3.tc_launches
             (y, s1, s2), _, grads = conv3_run(x, wt, affine, stride, dtype,
                                               cts, plain=False)
             check(fused_conv3x3.launches == fwd0 + 1
-                  and fused_conv3x3.bwd_launches == bwd0 + 1,
+                  and fused_conv3x3.bwd_launches == bwd0 + 1
+                  and fused_conv3x3.tc_launches
+                  == tc0 + (plan.route == "tc"),
                   f"conv3x3 {name}: the wrapper did not launch its kernels")
             (yp, s1p, s2p), _, grads_p = conv3_run(x, wt, affine, stride,
                                                    dtype, cts, plain=True)
@@ -607,6 +694,10 @@ def phase_conv3_checks(gen, n):
             run = lambda plain: fused_conv3x3(x, wt, affine, stride=stride,
                                               dtype=dtype, plain=plain)
             ms = cuda_ms(lambda: run(False), 5)
+            cc_ms = None
+            if plan.route == "tc":
+                cc_ms = cuda_ms(cuda_core_conv3_call(x, wt, affine, stride),
+                                5)
             plain_ms = cuda_ms(lambda: run(True), 3)
             outs_k = conv3_run(x, wt, affine, stride, dtype, cts, False)
             bwd_ms = cuda_ms(lambda: torch.autograd.grad(
@@ -635,12 +726,17 @@ def phase_conv3_checks(gen, n):
                      library_ms=library_ms, bwd_ms=bwd_ms,
                      bwd_plain_ms=bwd_plain_ms, bwd_bound_ms=bb,
                      bwd_bound_by=bby, fwd_tflops=flops / ms / 1e9,
-                     bwd_tflops=2 * flops / bwd_ms / 1e9)
+                     bwd_tflops=2 * flops / bwd_ms / 1e9,
+                     bound_share=fb / ms, route=plan.route,
+                     config=plan.config, cuda_core_ms=cc_ms)
             results.append(r)
             print(f"  conv3x3 {r['dtype']:8s} b{n:<2d} {name:46s} "
-                  f"{forward_line(r, tol)}; "
+                  f"[{plan_line(plan)}] {forward_line(r, tol)}; "
                   f"{backward_line(dx_err, red_err, tol)} | fwd {ms:.3f} ms "
-                  f"({r['fwd_tflops']:.2f} TFLOP/s) plain {plain_ms:.3f} "
+                  f"({r['fwd_tflops']:.2f} TFLOP/s, {fb / ms:.1%} of bound) "
+                  + ("" if cc_ms is None
+                     else f"CUDA-core kernel {cc_ms:.3f} ")
+                  + f"plain {plain_ms:.3f} "
                   f"bound {fb:.4f} ({fby}); on the activated input: kernel "
                   f"{bare_ms:.3f} F.conv2d channels_last {library_ms:.3f}"
                   f" | bwd {bwd_ms:.3f} ms ({r['bwd_tflops']:.2f} TFLOP/s) "
@@ -778,7 +874,7 @@ def serve_stats(rows, keep, threshold):
 def phase_serve(args, model, threshold, images):
     serve = make_serving_fn(model, CLASSES, 4, threshold=threshold,
                             nms_mode=1, nms_threshold=0.45)
-    conv_bn_stats.launches = 0
+    conv_bn_stats.launches = conv_bn_stats.tc_launches = 0
     nms_keep.launches = 0
     times, stats = [], []
     for req in range(args.requests + 1):     # request 0 warms up
@@ -794,18 +890,25 @@ def phase_serve(args, model, threshold, images):
         stats.append(serve_stats(rows, keep, threshold))
     forwards = args.requests + 1
     conv_launches, nms_launches = conv_bn_stats.launches, nms_keep.launches
+    tc_launches = conv_bn_stats.tc_launches
+    want_tc = CONVS_PER_FORWARD - STEM_CONVS
     print(f"  launches in {forwards} requests: conv_bn_stats "
           f"{conv_launches} ({conv_launches / forwards:g} per forward, "
-          f"want {CONVS_PER_FORWARD}), nms_keep {nms_launches} "
+          f"want {CONVS_PER_FORWARD}), of them on the tensor cores "
+          f"{tc_launches} ({tc_launches / forwards:g} per forward, want "
+          f"{want_tc}: all but the stem), nms_keep {nms_launches} "
           f"(want {forwards})")
     check(conv_launches == CONVS_PER_FORWARD * forwards,
           "not every conv of the forward ran the kernel")
+    check(tc_launches == want_tc * forwards,
+          "not every bf16 conv but the stem ran on the tensor cores")
     check(nms_launches == forwards, "not every request ran the NMS kernel")
     for req, (valid, kept) in enumerate(stats):
         print(f"  request {req}: valid {valid}, kept {kept}, suppressed "
               f"{valid - kept}")
         check(0 < kept < valid, "degenerate detections")
     return dict(ms_per_request=times, conv_launches=conv_launches,
+                conv_tc_launches=tc_launches,
                 nms_launches=nms_launches, forwards=forwards,
                 valid_kept=stats)
 
@@ -897,17 +1000,20 @@ def phase_timing(args, model, threshold, images, card):
 
 
 def reset_train_counters():
-    conv_bn_stats.launches = 0
+    conv_bn_stats.launches = conv_bn_stats.tc_launches = 0
     fused_gemm.launches = fused_gemm.bwd_launches = 0
     fused_conv3x3.launches = fused_conv3x3.bwd_launches = 0
+    fused_conv3x3.tc_launches = 0
 
 
 def train_counters():
     return dict(fused_conv3x3_fwd=fused_conv3x3.launches,
+                fused_conv3x3_fwd_tc=fused_conv3x3.tc_launches,
                 fused_conv3x3_bwd=fused_conv3x3.bwd_launches,
                 fused_gemm_fwd=fused_gemm.launches,
                 fused_gemm_bwd=fused_gemm.bwd_launches,
-                conv_bn_stats=conv_bn_stats.launches)
+                conv_bn_stats=conv_bn_stats.launches,
+                conv_bn_stats_tc=conv_bn_stats.tc_launches)
 
 
 def phase_train(args, packed, steps, batch):
@@ -1195,11 +1301,16 @@ def main(argv=None):
                 "launches": served["conv_launches"]
                 + train_launches("conv_bn_stats")["launches"]},
              launches_serving=served["conv_launches"],
+             launches_tc=served["conv_tc_launches"]
+             + train_launches("conv_bn_stats_tc")["launches"],
              max_abs_err=max(r["max_abs_err"] for r in conv_res),
              at=f"{conv_at['shape']}, batch {conv_at['batch']}, bf16",
              ms=conv_at["ms"], plain_ms=conv_at["plain_ms"],
              bound_ms=conv_at["bound_ms"], bound_by=conv_at["bound_by"],
-             library_ms=conv_at["library_ms"]),
+             library_ms=conv_at["library_ms"],
+             tflops=conv_at["kernel_tflops"],
+             bound_share=conv_at["bound_share"],
+             cuda_core_ms=conv_at["cuda_core_ms"]),
         dict(name="nms_keep", route="cuda",
              source="tf2_yolo_tpu_torch/csrc/nms.cu",
              replaces="tf2_yolo_tpu/ops/pallas/nms_kernel.py:182",
@@ -1234,12 +1345,16 @@ def main(argv=None):
              source="tf2_yolo_tpu_torch/csrc/fused_conv3x3.cu",
              replaces="tf2_yolo_tpu/ops/pallas/packed_conv3x3.py:286",
              **train_launches("fused_conv3x3_fwd"),
+             launches_tc=train_launches("fused_conv3x3_fwd_tc")["launches"],
              max_abs_err=max(r["max_abs_err"] for r in conv3_res),
              at=f"{conv3_at['shape']}, batch {conv3_at['batch']}, bf16",
              ms=conv3_at["ms"], plain_ms=conv3_at["plain_ms"],
              bound_ms=conv3_at["bound_ms"], bound_by=conv3_at["bound_by"],
              library_ms=None, bare_ms=conv3_at["bare_ms"],
-             bare_library_ms=conv3_at["library_ms"]),
+             bare_library_ms=conv3_at["library_ms"],
+             tflops=conv3_at["fwd_tflops"],
+             bound_share=conv3_at["bound_share"],
+             cuda_core_ms=conv3_at["cuda_core_ms"]),
         dict(name="fused_conv3x3_bwd", route="cuda",
              source="tf2_yolo_tpu_torch/csrc/fused_conv3x3.cu",
              replaces="tf2_yolo_tpu/ops/pallas/packed_conv3x3.py:643 "

@@ -15,32 +15,50 @@
 // (1,0),(1,0) pad.
 //
 // GEMM view: M = N*Ho*Wo output pixels, Co columns, K = ks*ks*Ci.  The
-// HWIO weight tensor is already the row-major (K, Co) B matrix.  A block
-// computes a BM x BN tile, stages a BK-deep slice of the gathered input
-// (zero-filled halo) and of the weights through shared memory, and each
-// of its 256 threads accumulates a 4x4 micro-tile in f32 registers with
-// FMA on the CUDA cores.
+// HWIO weight tensor is already the row-major (K, Co) B matrix.  Two
+// kernels compute it, chosen per shape by the Python plan
+// (ops/kernels/conv_bn.py, _tc_plan), which passes the tile config, the
+// grid and the dynamic shared memory:
 //
-// What bounds it on an H100: FMA throughput of the CUDA cores (f32
-// peak 67 TFLOP/s), far below the bf16 tensor-core rate this layer
-// could reach with wgmma; the input gather re-reads each activation
-// ks*ks times through L1/L2.  This is the simple, correct first kernel;
-// tensor cores and TMA come later.
+// * conv_bn_stats_tc_kernel, bf16 with Ci % 32 == 0 and Co % 8 == 0
+//   (every conv of YOLOv4 but the stem): tensor cores.  A block computes
+//   128 output pixels x BN (128, 64 or 32) channels with 8 warps; each
+//   32-deep slice of K lies inside one tap, so a row's (n, hi, wi) is
+//   computed once per block and the tap once per slice.  A ring of 4
+//   stages of 16-byte cp.async copies (8 channels of one pixel at one
+//   tap; a pixel outside the image is zero-filled by a source size of 0,
+//   which is the halo) feeds ldmatrix and mma.sync m16n8k16 (bf16 in
+//   shared memory, f32 accumulators), with one __syncthreads per slice.
+//   Epilogue in conv_mma.cuh: bias in f32, one rounding to bf16, 16-byte
+//   stores through shared memory, statistics of the rounded values.
+// * conv_bn_stats_kernel, f32 (the tensor cores' f32 route would be TF32)
+//   and the bf16 stem (Ci = 3 has no 16-byte rows): 64 x 64 tiles on the
+//   CUDA cores, a BK = 16 slice gathered element by element (zero-filled
+//   halo) into f32 shared memory, a 4 x 4 FMA micro-tile per thread.
+//
+// What bounds it on an H100: the tensor-core kernel is bound by
+// operations for the 3x3 layers at 52^2 and below with Ci >= 128 (K =
+// 1152-4608), where mma.sync reaches a fraction of the 989 TFLOP/s that
+// wgmma could, and by bytes for the 1x1 layers and the wide early layers
+// (the A operand is re-read ks*ks times, through L2).  The CUDA-core
+// kernel is bound by the f32 FMA rate (67 TFLOP/s peak).
 //
 // Statistics: the TPU kernel carries s1/s2 across its sequential grid.
 // Blocks here run in parallel in no order, so each block reduces its
-// tile's columns in shared memory (64 f32 terms) and adds them with one
-// f64 atomicAdd per column and block.  A training batch sums millions of
-// rows per channel (5.5e6 in the stem at batch 32) over tens of
-// thousands of blocks, and the variance s2/M - mean^2 cancels: f32
-// atomics lost 8e-6 of sum(y^2) there, f64 ones lose nothing that shows
-// after the wrapper rounds the sums to f32, whatever the block order.
-// STATS is a template flag, so the served forward (want_stats = 0)
-// carries no reduction and no atomics.
+// tile's columns in f32 and adds them with one f64 atomicAdd per column
+// and block.  A training batch sums millions of rows per channel (5.5e6
+// in the stem at batch 32) over tens of thousands of blocks, and the
+// variance s2/M - mean^2 cancels: f32 atomics lost 8e-6 of sum(y^2)
+// there, f64 ones lose nothing that shows after the wrapper rounds the
+// sums to f32, whatever the block order.  STATS is a template flag, so
+// the served forward (want_stats = 0) carries no reduction and no
+// atomics.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "conv_mma.cuh"
 
 namespace {
 
@@ -207,10 +225,8 @@ conv_bn_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
 template <typename T, int KS, int STRIDE>
 void launch(const void* x, const void* w, const void* b, void* y, double* s1,
             double* s2, int n, int h, int wd, int ci, int co, int want_stats,
-            cudaStream_t stream) {
+            dim3 grid, cudaStream_t stream) {
   int ho = h / STRIDE, wo = wd / STRIDE;
-  int64_t m_total = (int64_t)n * ho * wo;
-  dim3 grid((unsigned)((m_total + BM - 1) / BM), (co + BN - 1) / BN);
   if (want_stats) {
     conv_bn_stats_kernel<T, KS, STRIDE, true><<<grid, THREADS, 0, stream>>>(
         (const T*)x, (const T*)w, (const T*)b, (T*)y, s1, s2, n, h, wd, ci,
@@ -222,38 +238,232 @@ void launch(const void* x, const void* w, const void* b, void* y, double* s1,
   }
 }
 
-template <typename T>
-int dispatch(const void* x, const void* w, const void* b, void* y, double* s1,
-             double* s2, int n, int h, int wd, int ci, int co, int ksize,
-             int stride, int want_stats, cudaStream_t stream) {
-  if (ksize == 1 && stride == 1) {
-    launch<T, 1, 1>(x, w, b, y, s1, s2, n, h, wd, ci, co, want_stats, stream);
-  } else if (ksize == 3 && stride == 1) {
-    launch<T, 3, 1>(x, w, b, y, s1, s2, n, h, wd, ci, co, want_stats, stream);
-  } else if (ksize == 3 && stride == 2) {
-    launch<T, 3, 2>(x, w, b, y, s1, s2, n, h, wd, ci, co, want_stats, stream);
-  } else {
-    return (int)cudaErrorInvalidValue;
+// ------------------------------------------------ tensor cores (bf16)
+
+constexpr int TC_BK = 32;              // K per slice: inside one tap
+constexpr int TC_STAGES = 4;
+constexpr int TC_APITCH = TC_BK + 8;   // bf16 per A row: 80 bytes, so the
+                                       // 8 rows of an ldmatrix hit 8 banks
+
+template <class TL>
+struct TcSmem {
+  static constexpr int A_ELEMS = tc::BM * TC_APITCH;
+  static constexpr int BPITCH = TL::BN + 8;
+  static constexpr int STAGE_ELEMS = A_ELEMS + TC_BK * BPITCH;
+  static constexpr int PIPE_BYTES = TC_STAGES * STAGE_ELEMS * 2;
+  static constexpr int BYTES =
+      PIPE_BYTES > TL::EPI_BYTES ? PIPE_BYTES : TL::EPI_BYTES;
+};
+
+template <int KS, int STRIDE, bool STATS, class TL>
+__global__ void __launch_bounds__(tc::THREADS)
+conv_bn_stats_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ w,
+                        const __nv_bfloat16* __restrict__ b,
+                        __nv_bfloat16* __restrict__ y,
+                        double* __restrict__ s1, double* __restrict__ s2,
+                        int n, int h, int wd, int ci, int co, int ho,
+                        int wo) {
+  using SM = TcSmem<TL>;
+  constexpr int PAD = KS == 3 ? 1 : 0;
+  constexpr int BN = TL::BN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / TL::WARPS_N, wn = warp % TL::WARPS_N;
+  const int64_t m_total = (int64_t)n * ho * wo;
+  const int64_t m0 = (int64_t)blockIdx.x * tc::BM;
+  const int c0 = blockIdx.y * BN;
+  const int slices = KS * KS * ci / TC_BK;
+
+  // A copies: this thread's 16-byte chunk (tid % 4) of rows tid / 4 and
+  // tid / 4 + 64; each row's first input pixel and window origin
+  const int a_chunk = tid & 3;
+  int64_t a_pix[2];
+  int a_hi[2], a_wi[2];
+  bool a_ok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    int64_t m = m0 + (tid >> 2) + 64 * r;
+    a_ok[r] = m < m_total;
+    int64_t mm = a_ok[r] ? m : 0;
+    int wo_i = (int)(mm % wo);
+    int64_t t = mm / wo;
+    int ho_i = (int)(t % ho);
+    int64_t nn = t / ho;
+    a_hi[r] = ho_i * STRIDE - PAD;
+    a_wi[r] = wo_i * STRIDE - PAD;
+    a_pix[r] = (nn * h + a_hi[r]) * wd + a_wi[r];
   }
-  return (int)cudaGetLastError();
+  // position of the next slice to copy: channel base and tap
+  int l_c = 0, l_kx = 0, l_ky = 0;
+  auto copy_slice = [&](int stage) {
+    __nv_bfloat16* as = ring + stage * SM::STAGE_ELEMS;
+    __nv_bfloat16* bs = as + SM::A_ELEMS;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int hi = a_hi[r] + l_ky, wi = a_wi[r] + l_kx;
+      const bool ok = a_ok[r] && hi >= 0 && hi < h && wi >= 0 && wi < wd;
+      const __nv_bfloat16* src =
+          ok ? x + (a_pix[r] + l_ky * wd + l_kx) * ci + l_c + a_chunk * 8 : x;
+      tc::cp_async16(as + ((tid >> 2) + 64 * r) * TC_APITCH + a_chunk * 8,
+                     src, ok);
+    }
+    const int64_t k_row = (int64_t)(l_ky * KS + l_kx) * ci + l_c;
+    constexpr int B_CHUNKS = TC_BK * BN / 8;
+#pragma unroll
+    for (int i = tid; i < B_CHUNKS; i += tc::THREADS) {
+      const int kr = i / (BN / 8), col = (i % (BN / 8)) * 8;
+      const bool ok = c0 + col < co;
+      tc::cp_async16(bs + kr * SM::BPITCH + col,
+                     ok ? w + (k_row + kr) * co + c0 + col : w, ok);
+    }
+    l_c += TC_BK;
+    if (l_c == ci) {
+      l_c = 0;
+      if (++l_kx == KS) {
+        l_kx = 0;
+        ++l_ky;
+      }
+    }
+  };
+
+  float acc[TL::MI][TL::NI][4];
+#pragma unroll
+  for (int mi = 0; mi < TL::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < TL::NI; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < slices) copy_slice(s);
+    tc::cp_async_commit();
+  }
+  for (int kt = 0; kt < slices; ++kt) {
+    tc::cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();   // slice kt has landed; slice kt - 1 is consumed
+    if (kt + TC_STAGES - 1 < slices)
+      copy_slice((kt + TC_STAGES - 1) % TC_STAGES);
+    tc::cp_async_commit();
+    const __nv_bfloat16* as = ring + (kt % TC_STAGES) * SM::STAGE_ELEMS;
+    const __nv_bfloat16* bs = as + SM::A_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < TC_BK; kk += 16) {
+      const __nv_bfloat16* a_rows[TL::MI];
+#pragma unroll
+      for (int mi = 0; mi < TL::MI; ++mi)
+        a_rows[mi] = as + (wm * TL::WTM + mi * 16 + (lane & 15)) * TC_APITCH
+                     + kk + (lane >> 4) * 8;
+      tc::mma_k16<TL>(acc, a_rows,
+                      bs + (kk + (lane & 15)) * SM::BPITCH + wn * TL::WTN
+                          + (lane >> 4) * 8);
+    }
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  tc::store_tile<TL, STATS>(
+      acc, smem, b, c0, co,
+      [&](int r) -> int64_t {
+        int64_t m = m0 + r;
+        return m < m_total ? m * co : -1;
+      },
+      y, s1, s2);
+}
+
+template <int KS, int STRIDE, bool STATS, class TL>
+int launch_tc(const void* x, const void* w, const void* b, void* y,
+              double* s1, double* s2, int n, int h, int wd, int ci, int co,
+              dim3 grid, int smem_bytes, cudaStream_t stream) {
+  // the plan's shared memory must be this config's
+  if (smem_bytes != TcSmem<TL>::BYTES || ci % TC_BK || co % 8)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = conv_bn_stats_tc_kernel<KS, STRIDE, STATS, TL>;
+  static int allowed[tc::MAX_DEVICES] = {0};   // per instance and device
+  int err = tc::allow_smem((const void*)kernel, smem_bytes, allowed);
+  if (err != 0) return err;
+  kernel<<<grid, tc::THREADS, smem_bytes, stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
+      (const __nv_bfloat16*)b, (__nv_bfloat16*)y, s1, s2, n, h, wd, ci, co,
+      h / STRIDE, wd / STRIDE);
+  return 0;
+}
+
+template <int KS, int STRIDE, bool STATS>
+int dispatch_tc(const void* x, const void* w, const void* b, void* y,
+                double* s1, double* s2, int n, int h, int wd, int ci, int co,
+                int config, dim3 grid, int smem_bytes, cudaStream_t stream) {
+  switch (config) {
+    case 0:
+      return launch_tc<KS, STRIDE, STATS, tc::Tile128>(
+          x, w, b, y, s1, s2, n, h, wd, ci, co, grid, smem_bytes, stream);
+    case 1:
+      return launch_tc<KS, STRIDE, STATS, tc::Tile64>(
+          x, w, b, y, s1, s2, n, h, wd, ci, co, grid, smem_bytes, stream);
+    case 2:
+      return launch_tc<KS, STRIDE, STATS, tc::Tile32>(
+          x, w, b, y, s1, s2, n, h, wd, ci, co, grid, smem_bytes, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int KS, int STRIDE>
+int launch_geom(const void* x, const void* w, const void* b, void* y,
+                double* s1, double* s2, int n, int h, int wd, int ci, int co,
+                int dtype, int want_stats, int config, dim3 grid,
+                int smem_bytes, cudaStream_t stream) {
+  if (config >= 0) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return want_stats
+               ? dispatch_tc<KS, STRIDE, true>(x, w, b, y, s1, s2, n, h, wd,
+                                               ci, co, config, grid,
+                                               smem_bytes, stream)
+               : dispatch_tc<KS, STRIDE, false>(x, w, b, y, s1, s2, n, h, wd,
+                                                ci, co, config, grid,
+                                                smem_bytes, stream);
+  }
+  if (dtype == 0)
+    launch<float, KS, STRIDE>(x, w, b, y, s1, s2, n, h, wd, ci, co,
+                              want_stats, grid, stream);
+  else if (dtype == 1)
+    launch<__nv_bfloat16, KS, STRIDE>(x, w, b, y, s1, s2, n, h, wd, ci, co,
+                                      want_stats, grid, stream);
+  else
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  s1/s2 are zeroed f64 buffers of co
-// entries, and may be null when want_stats == 0.  Returns the
-// cudaError_t of the launch.
+// entries, and may be null when want_stats == 0.  config, grid and
+// smem_bytes come from the Python plan: config -1 runs the CUDA-core
+// kernel (64 x 64 tiles, static shared memory), 0/1/2 the tensor-core
+// kernel with BN = 128/64/32 (bf16 only) and smem_bytes of dynamic
+// shared memory.  Returns the cudaError_t of the launch.
 extern "C" int conv_bn_stats_launch(const void* x, const void* w,
                                     const void* b, void* y, double* s1,
                                     double* s2, int n, int h, int wd, int ci,
                                     int co, int ksize, int stride, int dtype,
-                                    int want_stats, void* stream) {
+                                    int want_stats, int config, int grid_x,
+                                    int grid_y, int smem_bytes,
+                                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch<float>(x, w, b, y, s1, s2, n, h, wd, ci, co, ksize,
-                           stride, want_stats, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(x, w, b, y, s1, s2, n, h, wd, ci, co,
-                                   ksize, stride, want_stats, s);
-  return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)grid_x, (unsigned)grid_y);
+  int err;
+  if (ksize == 1 && stride == 1)
+    err = launch_geom<1, 1>(x, w, b, y, s1, s2, n, h, wd, ci, co, dtype,
+                            want_stats, config, grid, smem_bytes, s);
+  else if (ksize == 3 && stride == 1)
+    err = launch_geom<3, 1>(x, w, b, y, s1, s2, n, h, wd, ci, co, dtype,
+                            want_stats, config, grid, smem_bytes, s);
+  else if (ksize == 3 && stride == 2)
+    err = launch_geom<3, 2>(x, w, b, y, s1, s2, n, h, wd, ci, co, dtype,
+                            want_stats, config, grid, smem_bytes, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err != 0) return err;
+  return (int)cudaGetLastError();
 }

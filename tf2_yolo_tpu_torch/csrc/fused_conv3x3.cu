@@ -26,11 +26,30 @@
 // leaves the image:
 //
 // * Forward: M = B*Ho*Wo output pixels, N columns, contraction over the
-//   9K (tap, channel) pairs.  One block per 64 x 64 tile; the prologue
-//   runs in f32 while the A slice is gathered and is rounded to T as the
-//   TPU kernel rounds its MXU operand.  The gate is applied after the
-//   prologue: a pixel outside the image contributes 0, not act(b).
-//   Statistics: per-block column sums, one f64 atomic per column.
+//   9K (tap, channel) pairs.  Two kernels, chosen per shape by the Python
+//   plan (ops/kernels/fused_conv3x3.py, _tc_plan), which passes the
+//   config, the grid and the dynamic shared memory:
+//   - fused_conv3x3_fwd_tc_kernel, bf16 with K % 16 == 0 and N % 8 == 0
+//     (all five layers of packed=3): tensor cores.  A block takes an
+//     8 x 16 tile of output pixels and all of N <= 128 (BN 128 or 64), so
+//     the prologue is not repeated per column block.  Per slice of 16
+//     input channels it copies the raw input halo of the tile,
+//     (s*7 + 3) x (s*15 + 3) pixels, and the slice's nine weight taps
+//     with 16-byte cp.async copies (zero outside the image), runs the
+//     prologue ONCE per halo element in f32 and rounds it to bf16 in
+//     shared memory, then reads nine shifted A tiles of the halo through
+//     ldmatrix (stride 2 reads every other column: the halo rows keep the
+//     even columns apart from the odd ones, so an ldmatrix still reads 8
+//     consecutive slots) into mma.sync m16n8k16 with f32 accumulators.
+//   - fused_conv3x3_fwd_kernel, f32 (the tensor cores' f32 route would be
+//     TF32) and bf16 shapes the tensor-core kernel does not take (K = 3):
+//     one block per 64 x 64 tile on the CUDA cores; the prologue runs in
+//     f32 while the A slice is gathered, once per tap that reads an
+//     element.
+//   Both round g to T as the TPU kernel rounds its MXU operand, and gate
+//   after the prologue: a pixel outside the image contributes 0, not
+//   act(b).  Statistics: per-block column sums of the rounded y, one f64
+//   atomic per column.
 // * Backward, dx kernel: M = input pixels, columns = the K input
 //   channels, contraction over (tap, n) of
 //       e = T(dy + y * (2 ds2)) + ds1   where the tap's output pixel
@@ -51,14 +70,17 @@
 // * Any B, H, W, K, N >= 1 (K = 3 included): ragged edges are zero-filled
 //   on load and masked on store.  Element offsets are 64-bit.
 //
-// What bounds it on an H100: the f32 FMA rate of the CUDA cores (67
-// TFLOP/s peak) and, beside it, the prologue: each input element's
-// activation is recomputed once per tap that reads it.  By bytes these
-// layers are memory-bound (K, N <= 128).  Staging an activated halo tile
-// once per block, and tensor cores, are later work.
+// What bounds it on an H100: the forward's layers are bound by bytes
+// (K, N <= 128: 0.02-0.16 ms at batch 32); the tensor-core kernel adds
+// to those the prologue (expf and two divisions per halo element, at
+// f32 CUDA-core rates and without FMA contraction) and its halo overlap
+// (1.4x the tile's input at stride 1, 1.1x at stride 2).  The f32
+// forward and the backward kernels run on the CUDA cores, bound by their
+// FMA rate (67 TFLOP/s peak).
 //
 // Built with --fmad=false (see fused_common.cuh).
 
+#include "conv_mma.cuh"
 #include "fused_common.cuh"
 
 namespace {
@@ -174,6 +196,150 @@ fused_conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
   column_atomic_add(As, p1, ty, tx, tid, c0, g.n, s1);
   column_atomic_add(As, p2, ty, tx, tid, c0, g.n, s2);
+}
+
+// ------------------------------------------ forward on tensor cores (bf16)
+
+constexpr int TC_TH = 8, TC_TW = 16;   // output tile: 8 rows x 16 columns
+constexpr int TC_KC = 16;              // input channels per slice
+constexpr int TC_HPITCH = TC_KC + 8;   // bf16 per halo pixel: 48 bytes, so
+                                       // 8 consecutive pixels hit 8 banks
+
+// The block's halo of one channel slice and the slice's nine weight
+// taps.  A halo row holds the HW input columns of the tile's window; at
+// stride 2 the even columns come first, then the odd ones, so that at
+// every tap the 8 output pixels of one ldmatrix read 8 consecutive
+// slots: column ox * STRIDE + dx of the window sits at slot
+// ox + slot(dx).
+template <int STRIDE, class TL>
+struct HaloSmem {
+  static constexpr int HH = STRIDE * (TC_TH - 1) + 3;
+  static constexpr int HW = STRIDE * (TC_TW - 1) + 3;
+  static constexpr int HE = (HW + 1) / 2;
+  static constexpr int HALO_ELEMS = HH * HW * TC_HPITCH;
+  static constexpr int BPITCH = TL::BN + 8;
+  static constexpr int MAIN_BYTES = (HALO_ELEMS + 9 * TC_KC * BPITCH) * 2;
+  static constexpr int BYTES =
+      MAIN_BYTES > TL::EPI_BYTES ? MAIN_BYTES : TL::EPI_BYTES;
+  __device__ static __forceinline__ int slot(int hx) {
+    return STRIDE == 1 ? hx : (hx & 1) * HE + (hx >> 1);
+  }
+};
+
+// One block: a TC_TH x TC_TW tile of output pixels of image blockIdx.z
+// (GEMM rows r = oy * TC_TW + ox, so fragment row block mi of a warp is
+// one output row) against output channels blockIdx.y * BN .. + BN.  Per
+// slice of 16 input channels: copy the raw halo and the nine weight taps
+// with cp.async (zero outside the image), run the prologue once per halo
+// element in f32 and round it to bf16 (pixels outside the image stay 0:
+// the gate comes after the prologue), then nine shifted A tiles of the
+// halo against the taps through ldmatrix and mma.sync.  PRO false is the
+// input without a prologue.  One slice is in flight at a time: two
+// blocks per SM (at most 128 registers a thread) overlap one block's
+// copies and prologue with the other's products.
+template <int STRIDE, int ACT, bool PRO, class TL>
+__global__ void __launch_bounds__(tc::THREADS, 2)
+fused_conv3x3_fwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                            const __nv_bfloat16* __restrict__ w,
+                            const float* __restrict__ pa,
+                            const float* __restrict__ pb,
+                            __nv_bfloat16* __restrict__ y,
+                            double* __restrict__ s1,
+                            double* __restrict__ s2, Geom g) {
+  using SM = HaloSmem<STRIDE, TL>;
+  constexpr int BN = TL::BN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* halo = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ws = halo + SM::HALO_ELEMS;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / TL::WARPS_N, wn = warp % TL::WARPS_N;
+  const int tiles_x = (g.wo + TC_TW - 1) / TC_TW;
+  const int oy0 = (blockIdx.x / tiles_x) * TC_TH;
+  const int ox0 = (blockIdx.x % tiles_x) * TC_TW;
+  const int c0 = blockIdx.y * BN;
+  const int img = blockIdx.z;
+  const int iy0 = oy0 * STRIDE - 1, ix0 = ox0 * STRIDE - 1;
+  const __nv_bfloat16* ximg = x + (int64_t)img * g.h * g.w * g.k;
+
+  // this lane's halo element of each A fragment at tap (0, 0)
+  int a_base[TL::MI];
+#pragma unroll
+  for (int mi = 0; mi < TL::MI; ++mi) {
+    const int r = wm * TL::WTM + mi * 16 + (lane & 15);
+    const int oy = r / TC_TW, ox = r % TC_TW;
+    a_base[mi] = (oy * STRIDE * SM::HW + ox) * TC_HPITCH + (lane >> 4) * 8;
+  }
+
+  float acc[TL::MI][TL::NI][4];
+#pragma unroll
+  for (int mi = 0; mi < TL::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < TL::NI; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
+
+  for (int kc = 0; kc < g.k; kc += TC_KC) {
+    // raw halo: two 16-byte chunks of 8 channels per pixel
+    for (int i = tid; i < SM::HH * SM::HW * 2; i += tc::THREADS) {
+      const int p = i >> 1, ch = i & 1;
+      const int hy = p / SM::HW, hx = p % SM::HW;
+      const int iy = iy0 + hy, ix = ix0 + hx;
+      const bool ok = iy >= 0 && iy < g.h && ix >= 0 && ix < g.w;
+      tc::cp_async16(
+          halo + (hy * SM::HW + SM::slot(hx)) * TC_HPITCH + ch * 8,
+          ok ? ximg + ((int64_t)iy * g.w + ix) * g.k + kc + ch * 8 : x, ok);
+    }
+    // weights: row tap * 16 + j is w[tap][kc + j][c0 .. c0 + BN)
+    for (int i = tid; i < 9 * TC_KC * (BN / 8); i += tc::THREADS) {
+      const int row = i / (BN / 8), col = (i % (BN / 8)) * 8;
+      const int tap = row / TC_KC, j = row % TC_KC;
+      const bool ok = c0 + col < g.n;
+      tc::cp_async16(
+          ws + row * SM::BPITCH + col,
+          ok ? w + ((int64_t)tap * g.k + kc + j) * g.n + c0 + col : w, ok);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    if (PRO) {
+      // thread owns channel pair tid % 8 of every 32nd pixel
+      const int c = kc + 2 * (tid & 7);
+      const float a0 = pa[c], a1 = pa[c + 1], b0 = pb[c], b1 = pb[c + 1];
+      for (int p = tid >> 3; p < SM::HH * SM::HW; p += tc::THREADS / 8) {
+        const int hy = p / SM::HW, hx = p % SM::HW;
+        const int iy = iy0 + hy, ix = ix0 + hx;
+        if (iy < 0 || iy >= g.h || ix < 0 || ix >= g.w) continue;
+        __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(
+            halo + (hy * SM::HW + SM::slot(hx)) * TC_HPITCH + 2 * (tid & 7));
+        const float2 v = __bfloat1622float2(*e);
+        *e = __floats2bfloat162_rn(act_only<ACT>(v.x * a0 + b0),
+                                   act_only<ACT>(v.y * a1 + b1));
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int shift = ((tap / 3) * SM::HW + SM::slot(tap % 3)) * TC_HPITCH;
+      const __nv_bfloat16* a_rows[TL::MI];
+#pragma unroll
+      for (int mi = 0; mi < TL::MI; ++mi)
+        a_rows[mi] = halo + a_base[mi] + shift;
+      tc::mma_k16<TL>(acc, a_rows,
+                      ws + (tap * TC_KC + (lane & 15)) * SM::BPITCH
+                          + wn * TL::WTN + (lane >> 4) * 8);
+    }
+    __syncthreads();   // the next slice's copies overwrite halo and ws
+  }
+  tc::store_tile<TL, true>(
+      acc, smem, nullptr, c0, g.n,
+      [&](int r) -> int64_t {
+        const int oy = oy0 + r / TC_TW, ox = ox0 + r % TC_TW;
+        return oy < g.ho && ox < g.wo
+                   ? (((int64_t)img * g.ho + oy) * g.wo + ox) * g.n
+                   : -1;
+      },
+      y, s1, s2);
 }
 
 // ------------------------------------------------------- backward: dx
@@ -450,13 +616,61 @@ fused_conv3x3_dw_kernel(const T* __restrict__ x, const float* __restrict__ pa,
 
 template <typename T, int ACT>
 int launch_fwd(const void* x, const void* w, const float* a, const float* b,
-               void* y, double* s1, double* s2, const Geom& g,
+               void* y, double* s1, double* s2, const Geom& g, dim3 grid,
                cudaStream_t stream) {
-  int64_t m = (int64_t)g.b * g.ho * g.wo;
-  dim3 grid((unsigned)((m + BM - 1) / BM), (unsigned)((g.n + BN - 1) / BN));
   fused_conv3x3_fwd_kernel<T, ACT><<<grid, THREADS, 0, stream>>>(
       (const T*)x, (const T*)w, a, b, (T*)y, s1, s2, g);
   return (int)cudaGetLastError();
+}
+
+template <int STRIDE, int ACT, bool PRO, class TL>
+int launch_fwd_tc(const void* x, const void* w, const float* a,
+                  const float* b, void* y, double* s1, double* s2,
+                  const Geom& g, dim3 grid, int smem_bytes,
+                  cudaStream_t stream) {
+  // the plan's shared memory must be this config's
+  if (smem_bytes != HaloSmem<STRIDE, TL>::BYTES || g.k % TC_KC || g.n % 8)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = fused_conv3x3_fwd_tc_kernel<STRIDE, ACT, PRO, TL>;
+  static int allowed[tc::MAX_DEVICES] = {0};   // per instance and device
+  int err = tc::allow_smem((const void*)kernel, smem_bytes, allowed);
+  if (err != 0) return err;
+  kernel<<<grid, tc::THREADS, smem_bytes, stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, a, b,
+      (__nv_bfloat16*)y, s1, s2, g);
+  return (int)cudaGetLastError();
+}
+
+template <int STRIDE, class TL>
+int fwd_tc_by_act(const void* x, const void* w, const float* a,
+                  const float* b, void* y, double* s1, double* s2,
+                  const Geom& g, int act, dim3 grid, int smem_bytes,
+                  cudaStream_t stream) {
+  if (a == nullptr)
+    return launch_fwd_tc<STRIDE, ACT_LINEAR, false, TL>(
+        x, w, a, b, y, s1, s2, g, grid, smem_bytes, stream);
+  if (act == ACT_MISH)
+    return launch_fwd_tc<STRIDE, ACT_MISH, true, TL>(
+        x, w, a, b, y, s1, s2, g, grid, smem_bytes, stream);
+  if (act == ACT_LEAKY)
+    return launch_fwd_tc<STRIDE, ACT_LEAKY, true, TL>(
+        x, w, a, b, y, s1, s2, g, grid, smem_bytes, stream);
+  if (act == ACT_LINEAR)
+    return launch_fwd_tc<STRIDE, ACT_LINEAR, true, TL>(
+        x, w, a, b, y, s1, s2, g, grid, smem_bytes, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <class TL>
+int fwd_tc_by_stride(const void* x, const void* w, const float* a,
+                     const float* b, void* y, double* s1, double* s2,
+                     const Geom& g, int act, dim3 grid, int smem_bytes,
+                     cudaStream_t stream) {
+  if (g.stride == 1)
+    return fwd_tc_by_act<1, TL>(x, w, a, b, y, s1, s2, g, act, grid,
+                                smem_bytes, stream);
+  return fwd_tc_by_act<2, TL>(x, w, a, b, y, s1, s2, g, act, grid,
+                              smem_bytes, stream);
 }
 
 template <typename T, int ACT>
@@ -515,19 +729,35 @@ bool make_geom(int b, int h, int w, int k, int n, int stride, Geom* g) {
 
 // Forward.  a and b are null for an input without a prologue.  dtype:
 // 0 = float32, 1 = bfloat16.  act: 0 mish, 1 leaky, 2 linear.  s1 and s2
-// are zeroed f64 buffers of n entries.  Returns the cudaError_t of the
-// launch.
+// are zeroed f64 buffers of n entries.  config, grid and smem_bytes come
+// from the Python plan: config -1 runs the CUDA-core kernel (64 x 64
+// tiles, static shared memory), 0/1 the tensor-core kernel with BN =
+// 128/64 (bf16 only) and smem_bytes of dynamic shared memory.  Returns
+// the cudaError_t of the launch.
 extern "C" int fused_conv3x3_fwd_launch(const void* x, const void* w,
                                         const float* a, const float* b,
                                         void* y, double* s1, double* s2,
                                         int bsz, int h, int wd, int k, int n,
                                         int stride, int dtype, int act,
+                                        int config, int grid_x, int grid_y,
+                                        int grid_z, int smem_bytes,
                                         void* stream) {
   Geom g;
   if (!make_geom(bsz, h, wd, k, n, stride, &g))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  DISPATCH(launch_fwd, x, w, a, b, y, s1, s2, g, s)
+  dim3 grid((unsigned)grid_x, (unsigned)grid_y, (unsigned)grid_z);
+  if (config >= 0) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    if (config == 0)
+      return fwd_tc_by_stride<tc::Tile128>(x, w, a, b, y, s1, s2, g, act,
+                                           grid, smem_bytes, s);
+    if (config == 1)
+      return fwd_tc_by_stride<tc::Tile64>(x, w, a, b, y, s1, s2, g, act,
+                                          grid, smem_bytes, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  DISPATCH(launch_fwd, x, w, a, b, y, s1, s2, g, grid, s)
 }
 
 // Backward: the dx kernel, then the split-M dW kernel.  a and b are null

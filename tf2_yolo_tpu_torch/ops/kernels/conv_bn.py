@@ -16,10 +16,18 @@ Source note. On a CUDA tensor this launches ``csrc/conv_bn.cu``, the
 Hopper port of the Pallas TPU kernels ``conv1x1_stats`` and
 ``conv3x3_stats`` (tf2_yolo_tpu/ops/pallas/conv_bn_kernel.py,
 ``_conv1x1_stats_fwd_impl`` and ``_conv3x3_stats_fwd_impl``). It is an
-implicit-GEMM conv on the CUDA cores, bounded by their FMA rate; the
-statistics are per-block partial sums (64 f32 terms) added with f64
-atomics and rounded to f32 here, so block order does not show in them
-even where a training batch sums millions of rows. On a CPU tensor it computes
+implicit-GEMM conv with two kernels, one per route, chosen by shape in
+:func:`_tc_plan`: bf16 with Ci % 32 == 0 and Co % 8 == 0 (every conv of
+YOLOv4 but the stem) runs on the tensor cores (``mma.sync`` bf16 -> f32
+fed by a 4-stage ``cp.async`` ring; 128-pixel tiles of 128, 64 or 32
+channels), bound by operations on the 3x3 layers at 52^2 and below with
+Ci >= 128 and by bytes elsewhere; f32 (whose tensor-core route would be
+TF32) and the bf16 stem (Ci = 3) run on the CUDA cores, bound by their
+FMA rate. ``conv_bn_stats.launches`` counts every launch,
+``conv_bn_stats.tc_launches`` those of the tensor-core kernel. The
+statistics are per-block partial sums added with f64 atomics and
+rounded to f32 here, so block order does not show in them even where a
+training batch sums millions of rows. On a CPU tensor it computes
 :func:`conv_bn_stats_plain`, the counterpart of ``conv_stats_ref``.
 
 Geometries: 1x1 stride 1; 3x3 stride 1 SAME; 3x3 stride 2 with the
@@ -29,6 +37,7 @@ flax layout, which is the kernel's row-major (K, Co) matrix.
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +48,69 @@ SOURCE = ("conv_bn.cu", ())          # source and extra nvcc flags
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _GEOMETRIES = {(1, 1), (3, 1), (3, 2)}
 _INT32_MAX = 2 ** 31 - 1
+# H100: SMs, and the shared memory one block may use
+_SMS = 132
+SMEM_MAX = 232448
+# tensor-core tiles by config id: (BN, warps along M): 128 output pixels
+# and 8 warps each; a 4-stage ring of 32-deep slices
+_TC_BM, _TC_BK, _TC_STAGES = 128, 32, 4
+_TC_TILES = {0: (128, 2), 1: (64, 4), 2: (32, 4)}
+_CC_TILE = 64                          # the CUDA-core kernel's BM = BN
+
+
+class Plan(NamedTuple):
+    """How one conv launches: ``route`` "tc" (tensor cores) or
+    "cuda_core"; ``config`` the tile id (-1 on the CUDA cores); ``grid``
+    (x, y); ``smem_bytes`` of dynamic shared memory (0 on the CUDA
+    cores)."""
+    route: str
+    config: int
+    grid: tuple
+    smem_bytes: int
+
+
+def _tc_smem(config):
+    """Bytes of dynamic shared memory of tensor-core config ``config``:
+    the ring (A rows of 32 + 8 bf16, B rows of BN + 8) or the epilogue
+    (the bf16 tile, rows of BN + 8, and two f32 partial sums per column
+    and warp row), whichever is larger (``TcSmem`` in conv_bn.cu)."""
+    bn, warps_m = _TC_TILES[config]
+    ring = _TC_STAGES * (_TC_BM * (_TC_BK + 8) + _TC_BK * (bn + 8)) * 2
+    epilogue = _TC_BM * (bn + 8) * 2 + 2 * warps_m * bn * 4
+    return max(ring, epilogue)
+
+
+def _tc_plan(n, h, wd, ci, co, ksize, stride, dtype):
+    """The launch plan of one conv (pure Python: the CPU tests reach it).
+    bf16 with Ci % 32 == 0 (a 32-deep slice lies in one tap) and Co % 8
+    == 0 (16-byte rows) takes the tensor cores, with the widest tile of
+    128, 64 or 32 channels that Co fills, halved while the grid would not
+    cover the 132 SMs once. Anything else of a supported dtype (f32, the
+    stem's Ci = 3) takes the CUDA-core kernel. Raises ValueError on a
+    shape the kernels do not take."""
+    if (ksize, stride) not in _GEOMETRIES:
+        raise ValueError(f"unsupported conv {ksize}x{ksize} stride {stride}")
+    if stride == 2 and (h % 2 or wd % 2):
+        raise ValueError(f"stride 2 needs even H and W, got {h}x{wd}")
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"unsupported dtype {dtype}")
+    if min(n, h, wd, ci, co) < 1:
+        raise ValueError(f"empty conv {(n, h, wd, ci)} -> {co}")
+    m = n * (h // stride) * (wd // stride)
+    if dtype == torch.bfloat16 and ci % _TC_BK == 0 and co % 8 == 0:
+        config = next(c for c, (bn, _) in _TC_TILES.items()
+                      if bn <= co or c == 2)
+        grid = lambda c: (-(-m // _TC_BM), -(-co // _TC_TILES[c][0]))
+        while config < 2 and grid(config)[0] * grid(config)[1] < _SMS:
+            config += 1
+        plan = Plan("tc", config, grid(config), _tc_smem(config))
+    else:
+        plan = Plan("cuda_core", -1,
+                    (-(-m // _CC_TILE), -(-co // _CC_TILE)), 0)
+    if plan.grid[0] > _INT32_MAX or plan.grid[1] > 65535 \
+            or plan.smem_bytes > SMEM_MAX:
+        raise ValueError(f"unsupported size {(n, h, wd, ci)} -> {co}")
+    return plan
 
 
 def _check(x, w, b, stride):
@@ -91,7 +163,7 @@ def conv_bn_stats_plain(x, w, b, stride=1, want_stats=True):
 @functools.cache
 def _launcher():
     fn = load_library(*SOURCE).conv_bn_stats_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -99,6 +171,7 @@ def _launcher():
 
 def _forward_cuda(x, w, b, stride, want_stats, dims):
     n, h, wd, ci, co, ks = dims
+    plan = _tc_plan(n, h, wd, ci, co, ks, stride, x.dtype)
     launch = _launcher()
     y = torch.empty((n, h // stride, wd // stride, co), dtype=x.dtype,
                     device=x.device)
@@ -110,11 +183,13 @@ def _forward_cuda(x, w, b, stride, want_stats, dims):
                  s[0].data_ptr() if want_stats else None,
                  s[1].data_ptr() if want_stats else None,
                  n, h, wd, ci, co, ks, stride, _DTYPE_CODES[x.dtype],
-                 int(want_stats), stream)
+                 int(want_stats), plan.config, *plan.grid, plan.smem_bytes,
+                 stream)
     if err != 0:
         raise RuntimeError(f"conv_bn_stats kernel launch failed: "
-                           f"cudaError {err}")
+                           f"cudaError {err} ({plan})")
     conv_bn_stats.launches += 1
+    conv_bn_stats.tc_launches += plan.route == "tc"
     if not want_stats:
         return y, None, None
     s1, s2 = s.float()
@@ -178,3 +253,4 @@ def conv_bn_stats(x, w, b, stride=1, want_stats=True, plain=False):
 
 
 conv_bn_stats.launches = 0
+conv_bn_stats.tc_launches = 0

@@ -30,10 +30,19 @@ Source note. On CUDA tensors this launches ``csrc/fused_conv3x3.cu``, the
 Hopper port of the Pallas TPU kernels ``_fwd_s1_kernel``,
 ``_fwd_s2_kernel``, ``_bwd_s1_kernel`` and ``_bwd_s2_kernel``
 (tf2_yolo_tpu/ops/pallas/packed_conv3x3.py, reached through ``_fwd_call``
-and ``_bwd_call``). The kernels are implicit GEMMs on the CUDA cores that
-gather their window by index from the contiguous NHWC tensor, bounded by
-the f32 FMA rate and by the prologue they recompute once per tap. The
-backward is two launches: dx with the da/db reductions (at stride 2 one
+and ``_bwd_call``). The forward has two kernels, one per route, chosen
+by shape in :func:`_tc_plan`: bf16 with K % 16 == 0 and N % 8 == 0 (all
+five layers of ``packed=3``) runs on the tensor cores, one block per 8 x
+16 output pixels and all of N <= 128: per slice of 16 input channels it
+stages the raw input halo with ``cp.async``, runs the prologue once per
+halo element, and feeds nine shifted tiles of the activated halo to
+``mma.sync`` (bf16 -> f32). It is bound by bytes and by the prologue's
+f32 arithmetic. f32 (whose tensor-core route would be TF32) and K = 3
+run on the CUDA cores, an implicit GEMM that gathers its window by index
+and recomputes the prologue once per tap. ``fused_conv3x3.launches``
+counts every forward launch, ``fused_conv3x3.tc_launches`` those of the
+tensor-core kernel. The backward (CUDA cores, bound by the f32 FMA rate)
+is two launches: dx with the da/db reductions (at stride 2 one
 parity class of input pixels per block, so only the taps that reach it
 are visited), and a split-M dW. The fold ``dy + 2 y ds2``, a separate
 pass before the TPU kernel, happens in the kernels' loads. The sums over
@@ -58,6 +67,7 @@ import torch
 from torch.nn.grad import conv2d_input, conv2d_weight
 
 from ._build import load_library
+from .conv_bn import SMEM_MAX, Plan
 from .fused_gemm import _ACT_CODES, _DTYPE_CODES, _prologue
 
 # source and extra nvcc flags: no contraction, so the f32 prologue
@@ -65,6 +75,54 @@ from .fused_gemm import _ACT_CODES, _DTYPE_CODES, _prologue
 SOURCE = ("fused_conv3x3.cu", ("--fmad=false",))
 _INT32_MAX = 2 ** 31 - 1
 _DW_CHUNK = 1024               # output pixels per dW block (M_CHUNK)
+# the forward's tensor-core tiles: 8 x 16 output pixels; slices of 16
+# input channels; BN by config id
+_TC_TH, _TC_TW, _TC_KC = 8, 16, 16
+_TC_TILES = {0: (128, 2), 1: (64, 4)}  # config: (BN, warps along M)
+_CC_TILE = 64                          # the CUDA-core kernel's BM = BN
+
+
+def _tc_smem(config, stride):
+    """Bytes of dynamic shared memory of the tensor-core forward: the
+    halo of one slice ((s*7 + 3) x (s*15 + 3) pixels, rows of 16 + 8
+    bf16) and its nine weight taps (rows of BN + 8), or the epilogue, as
+    ``HaloSmem`` in fused_conv3x3.cu."""
+    bn, warps_m = _TC_TILES[config]
+    halo = (stride * (_TC_TH - 1) + 3) * (stride * (_TC_TW - 1) + 3)
+    main = (halo * (_TC_KC + 8) + 9 * _TC_KC * (bn + 8)) * 2
+    epilogue = 128 * (bn + 8) * 2 + 2 * warps_m * bn * 4
+    return max(main, epilogue)
+
+
+def _tc_plan(bsz, h, wd, k, n, stride, dtype):
+    """The forward's launch plan (pure Python: the CPU tests reach it).
+    bf16 with K % 16 == 0 and N % 8 == 0 takes the tensor cores: grid
+    (tiles of 8 x 16 output pixels of an image, column blocks of BN = 64
+    for N <= 64 or else 128, images); anything else of a supported dtype
+    (f32, K = 3) the CUDA-core kernel: grid (64-row blocks of B*Ho*Wo,
+    64-column blocks). Raises ValueError on a shape the kernels do not
+    take."""
+    if stride not in (1, 2):
+        raise ValueError(f"unsupported stride {stride}")
+    if stride == 2 and (h % 2 or wd % 2):
+        raise ValueError(f"stride 2 needs even H and W, got {h}x{wd}")
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"unsupported dtype {dtype}")
+    if min(bsz, h, wd, k, n) < 1:
+        raise ValueError(f"empty conv {(bsz, h, wd, k)} -> {n}")
+    ho, wo = h // stride, wd // stride
+    if dtype == torch.bfloat16 and k % _TC_KC == 0 and n % 8 == 0:
+        config = 1 if n <= 64 else 0
+        tiles = -(-ho // _TC_TH) * -(-wo // _TC_TW)
+        plan = Plan("tc", config, (tiles, -(-n // _TC_TILES[config][0]), bsz),
+                    _tc_smem(config, stride))
+    else:
+        plan = Plan("cuda_core", -1, (-(-bsz * ho * wo // _CC_TILE),
+                                      -(-n // _CC_TILE), 1), 0)
+    if plan.grid[0] > _INT32_MAX or max(plan.grid[1:]) > 65535 \
+            or plan.smem_bytes > SMEM_MAX:
+        raise ValueError(f"unsupported size {(bsz, h, wd, k)} -> {n}")
+    return plan
 
 
 def _check(x4, w, a, b, stride, act):
@@ -169,7 +227,7 @@ def fused_conv3x3_bwd_plain(x4, w, a, b, y, dy, ds1, ds2, stride=1,
 def _library():
     lib = load_library(*SOURCE)
     lib.fused_conv3x3_fwd_launch.argtypes = [ctypes.c_void_p] * 7 \
-        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     lib.fused_conv3x3_fwd_launch.restype = ctypes.c_int
     lib.fused_conv3x3_bwd_launch.argtypes = [ctypes.c_void_p] * 12 \
         + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -183,18 +241,20 @@ def _ptr(t):
 
 def _forward_cuda(x4, w, a, b, stride, act, dims):
     bsz, h, wd, k, n, ho, wo = dims
+    plan = _tc_plan(bsz, h, wd, k, n, stride, x4.dtype)
     lib = _library()
     y = torch.empty((bsz, ho, wo, n), dtype=x4.dtype, device=x4.device)
     s = torch.zeros((2, n), dtype=torch.float64, device=x4.device)
     err = lib.fused_conv3x3_fwd_launch(
         x4.data_ptr(), w.data_ptr(), _ptr(a), _ptr(b), y.data_ptr(),
         s[0].data_ptr(), s[1].data_ptr(), bsz, h, wd, k, n, stride,
-        _DTYPE_CODES[x4.dtype], _ACT_CODES[act],
-        torch.cuda.current_stream(x4.device).cuda_stream)
+        _DTYPE_CODES[x4.dtype], _ACT_CODES[act], plan.config, *plan.grid,
+        plan.smem_bytes, torch.cuda.current_stream(x4.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_conv3x3 forward launch failed: "
-                           f"cudaError {err}")
+                           f"cudaError {err} ({plan})")
     fused_conv3x3.launches += 1
+    fused_conv3x3.tc_launches += plan.route == "tc"
     s1, s2 = s.float()
     return y, s1, s2
 
@@ -277,4 +337,5 @@ def fused_conv3x3(x4, w, affine, stride=1, act="mish", dtype=torch.bfloat16,
 
 
 fused_conv3x3.launches = 0
+fused_conv3x3.tc_launches = 0
 fused_conv3x3.bwd_launches = 0

@@ -1,26 +1,32 @@
-"""Where one training step of the port spends its time on the card.
+"""Where one training step, or one served request, of the port spends
+its time on the card.
 
     python3 -m tf2_yolo_tpu_torch.tools.train_profile [--batch 32]
-        [--size 416] [--steps 2] [--packed {1,3}] [--out DIR]
+        [--size 416] [--steps 2] [--packed {1,3}] [--serve] [--out DIR]
 
 Builds a bf16 ``YoloV4(packed=...)`` train state (:func:`make_training`:
 random v4 init from ``--seed``, Adam 1e-3, synthetic labels; the smoke
 script ``chip_smoke.py`` trains the same), warms up, traces ``--steps``
 steps with ``torch.profiler`` and sums the device time of every CUDA
-kernel by category:
+kernel by category. With ``--serve`` it traces ``--steps`` requests of
+``make_serving_fn`` on the same bf16 network in eval mode instead (pass
+``--batch 8`` for the served micro-batch). The categories:
 
-  conv forward       the hand-written conv + statistics kernel
+  conv forward       the hand-written conv + statistics kernels (tensor
+                     cores, and the CUDA cores for the stem)
   conv backward      the library conv VJP (cuDNN / CUTLASS kernels and
                      the layout changes around them)
   fused gemm fwd/bwd the hand-written fused GEMM kernels
   fused conv3x3 forward / backward
                      the hand-written fused 3x3 conv kernels (``--packed 3``)
   optimizer          Adam's multi-tensor kernels
+  nms                the hand-written NMS kernel (``--serve``)
   elementwise        everything else (BN normalise, mish, leaky and their
                      backward, casts, reductions, the loss, copies)
 
-and prints one JSON object with ms per step of each, the wall time per
-step with and without the profiler, and the device's idle share
+and prints one JSON object with ms per step (or request) of each, the
+wall time per step with and without the profiler, and the device's idle
+share
 (1 - kernel time / untraced wall time: the profiler's own host cost
 stretches the traced wall time). Needs CUDA; prints the card's name and
 power limit.
@@ -36,6 +42,7 @@ import time
 import numpy as np
 import torch
 
+from ..export import make_serving_fn
 from ..models import YoloV4, use_plain_route
 from ..ops.losses import wrap_yolo_loss_v4
 from ..parallel import create_train_state, make_optimizer, make_train_step
@@ -95,14 +102,41 @@ def timed_steps(state, step, x, ys, steps):
     return times, losses
 
 
+def make_serving(seed, batch, size):
+    """``run()``: one request of ``batch`` random images through
+    ``make_serving_fn`` on the bf16 network of :func:`make_training`
+    (v4 init from ``seed``) in eval mode."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = YoloV4(ANCHORS, CLASSES, dtype=torch.bfloat16, generator=gen)
+    serve = make_serving_fn(model, CLASSES, 4)
+    x = torch.rand(batch, size, size, 3, generator=gen, device="cuda")
+    return lambda: serve(x)
+
+
+def timed_runs(run, n):
+    """ms of ``n`` calls of ``run``, each ending in a synchronize."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
 CATEGORIES = (
-    ("fused conv3x3 forward", ("fused_conv3x3_fwd_kernel",)),
+    ("fused conv3x3 forward", ("fused_conv3x3_fwd_kernel",
+                               "fused_conv3x3_fwd_tc_kernel")),
     ("fused conv3x3 backward", ("fused_conv3x3_dx_kernel",
                                 "fused_conv3x3_dw_kernel")),
-    ("conv forward", ("conv_bn_stats_kernel",)),
+    ("conv forward", ("conv_bn_stats_kernel", "conv_bn_stats_tc_kernel")),
     ("fused gemm forward", ("fused_gemm_fwd_kernel",)),
     ("fused gemm backward", ("fused_gemm_dx_kernel", "fused_gemm_dw_kernel")),
     ("optimizer", ("multi_tensor_apply", "adam")),
+    ("nms", ("nms_keep_kernel",)),
+    # SPP's max-pool kernels carry "nhwc" in their names
+    ("elementwise", ("max_pool",)),
     ("conv backward", ("cudnn", "cutlass", "xmma", "dgrad", "wgrad", "nhwc",
                        "nchw", "convolve", "conv2d", "implicit_gemm",
                        "sm90_", "sm80_", "gemm")),
@@ -126,8 +160,10 @@ def main(argv=None):
     p.add_argument("--packed", type=int, choices=(1, 3), default=3,
                    help="backbone route: 1 = fused GEMMs in stages 3-5, "
                         "3 = also stages 1-2 all fused")
+    p.add_argument("--serve", action="store_true",
+                   help="trace served requests instead of training steps")
     p.add_argument("--out", default=None,
-                   help="directory for train_profile.json and the table")
+                   help="directory for the JSON record")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: CUDA is not available")
@@ -135,17 +171,21 @@ def main(argv=None):
     card = card_line()
     print(card)
 
-    state, step, x, ys = make_training(
-        args.seed, args.batch, args.size, torch.bfloat16,
-        packed=args.packed)
-    timed_steps(state, step, x, ys, 2)          # warm-up
-    untraced, _ = timed_steps(state, step, x, ys, args.steps)
+    if args.serve:
+        run = make_serving(args.seed, args.batch, args.size)
+    else:
+        state, step, x, ys = make_training(
+            args.seed, args.batch, args.size, torch.bfloat16,
+            packed=args.packed)
+        run = lambda: step(state, x, ys)
+    timed_runs(run, 2)                          # warm-up
+    untraced = timed_runs(run, args.steps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(args.steps):
-            step(state, x, ys)
+            run()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
@@ -167,7 +207,8 @@ def main(argv=None):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:25]
     untraced_ms = sum(untraced) / len(untraced)
     result = dict(card=card, batch=args.batch, size=args.size,
-                  packed=args.packed, steps=args.steps,
+                  packed=None if args.serve else args.packed,
+                  serve=args.serve, steps=args.steps,
                   wall_ms_per_step_traced=wall_ms,
                   wall_ms_per_step_untraced=untraced_ms,
                   kernel_ms_per_step=busy,
@@ -180,7 +221,8 @@ def main(argv=None):
         print(f"  {v:9.3f} ms/step  [{category(k)}]  {k[:100]}")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        name = f"train_profile_packed{args.packed}.json"
+        name = ("serve_profile.json" if args.serve
+                else f"train_profile_packed{args.packed}.json")
         with open(os.path.join(args.out, name), "w") as f:
             json.dump(result, f, indent=1)
     result.pop("top_kernels")
