@@ -11,20 +11,23 @@ Phases (each raises on failure, so the exit code is nonzero):
      all started together;
   3. check each kernel against its plain PyTorch version on the card at
      YOLOv4@416 layer shapes, bf16 and f32 (TF32 off for the plain
-     versions), printing each conv shape's launch plan (route: tensor
-     cores for bf16, CUDA cores for f32 and the bf16 stem; tile config):
-     conv + statistics at the serving and the training batch,
-     NMS, the fused GEMM forward and backward at the training batch, and
-     the fused 3x3 conv forward and backward at both batches (and again
-     at the halved batch if phase 7 had to fall back); time each, with
-     the one-call PyTorch equivalent where there is one (a yardstick
-     only; the port never calls it); the probe layer of
-     ``tools/bench_packed_probe.py`` the same way, and its chain of four
-     layers driven once with its counter read;
+     versions), printing each shape's launch plan (route: tensor cores
+     for bf16, CUDA cores for f32 and the shapes without 16-byte rows;
+     tile config, grid, shared memory): conv + statistics, the fused
+     GEMM forward and backward, and the fused 3x3 conv forward and
+     backward (with two ragged shapes) at the serving and the training
+     batch (and again at the halved batch if phase 7 had to fall back),
+     and NMS; time each, the tensor-core kernels also launched alone and
+     beside the CUDA-core instance on the same bf16 inputs, with the
+     one-call PyTorch equivalent where there is one (``F.conv2d``,
+     ``torch.matmul`` or ``aten.convolution_backward`` on the activated
+     input: a yardstick only; the port never calls it); the probe layer
+     of ``tools/bench_packed_probe.py`` the same way, and its chain of
+     four layers driven once with its counters read;
   4. serve ``--requests`` batches of ``--batch`` images through
      ``make_serving_fn`` in bf16, with launch counters proving that every
      conv (107 ConvBN + 3 head convs) and every NMS ran the kernels, every
-     conv but the stem on the tensor cores;
+     conv but the stem on the tensor cores, and no fused kernel ran;
   5. in f32 on the same weights, compare the head logits and outputs of
      the kernel route with the plain route, then the NMS kernel with the
      plain NMS on the same decoded rows;
@@ -37,15 +40,18 @@ Phases (each raises on failure, so the exit code is nonzero):
      1-2 ran the fused conv kernels (5 forwards, 5 backwards), every 1x1
      ConvBN of the backbone the fused GEMM kernels (43 forwards; 52
      backwards, one per input operand) and every other conv the conv
-     kernel (62), the five fused convs and every conv but the stem on the
-     tensor cores; loss and gradients finite, running statistics moved.
-     Then one step of ``YoloV4(packed=True)`` (stages 1-2 on the plain
-     path: 32 and 35 fused GEMM launches, 78 convs) the same way;
+     kernel (62); the five fused convs (both ways), the 43 fused GEMM
+     forwards and every conv but the stem on the tensor cores; loss and
+     gradients finite, running statistics moved. Then one step of
+     ``YoloV4(packed=True)`` (stages 1-2 on the plain path: 32 fused
+     GEMM forwards, all on the tensor cores, 35 backward operands, 78
+     convs) the same way;
   8. one f32 step of ``packed=3`` at batch 2 on the kernel route and on
      the plain route from the same state: loss, every gradient, every
      updated parameter;
   9. time ``packed=3`` on both routes and ``packed=True`` on the kernel
-     route per step, in turns.
+     route per step, in turns, with the launch counters of every timed
+     run held to those of phase 7 (none on the plain route).
 
 Weights are random, from ``--seed``: conv kernels drawn with the port's
 HE_NORMAL from a seeded ``torch.Generator``. With BN at its init
@@ -63,6 +69,7 @@ every measurement go to ``--log-dir`` (default ``build/chip_smoke/``).
 
 import argparse
 import copy
+import ctypes
 import json
 import os
 import sys
@@ -110,18 +117,22 @@ CONVS_PER_STEP = CONVS_PER_FORWARD - GEMMS_PER_STEP
 # (backward operands, stage 1: cross 1, pre 1, squeeze 1, post 2, out 2;
 # stage 2: cross 1, pre 1, squeezes 1 + 2, post 3, out 2)
 # The bf16 convs run on the tensor cores but for the stem (Ci = 3 has no
-# 16-byte rows), which the launch plan routes to the CUDA cores.
+# 16-byte rows), which the launch plan routes to the CUDA cores; every
+# bf16 fused GEMM forward and fused conv (forward and backward) of a
+# training step runs on the tensor cores.
 STEM_CONVS = 1
 TRAIN_LAUNCHES = {
     1: dict(fused_conv3x3_fwd=0, fused_conv3x3_fwd_tc=0,
-            fused_conv3x3_bwd=0,
+            fused_conv3x3_bwd=0, fused_conv3x3_bwd_tc=0,
             fused_gemm_fwd=GEMMS_PER_STEP,
+            fused_gemm_fwd_tc=GEMMS_PER_STEP,
             fused_gemm_bwd=GEMM_BWD_INPUTS_PER_STEP,
             conv_bn_stats=CONVS_PER_STEP,
             conv_bn_stats_tc=CONVS_PER_STEP - STEM_CONVS),
     3: dict(fused_conv3x3_fwd=5, fused_conv3x3_fwd_tc=5,
-            fused_conv3x3_bwd=5,
+            fused_conv3x3_bwd=5, fused_conv3x3_bwd_tc=5,
             fused_gemm_fwd=GEMMS_PER_STEP + 5 + 6,
+            fused_gemm_fwd_tc=GEMMS_PER_STEP + 5 + 6,
             fused_gemm_bwd=GEMM_BWD_INPUTS_PER_STEP + 7 + 10,
             conv_bn_stats=CONVS_PER_STEP - 16,
             conv_bn_stats_tc=CONVS_PER_STEP - 16 - STEM_CONVS),
@@ -265,6 +276,12 @@ def plan_line(plan):
             f"{plan.smem_bytes}")
 
 
+def bwd_plan_line(plan):
+    return (f"{plan.route} dx config {plan.dx_config} grid {plan.dx_grid} "
+            f"smem {plan.dx_smem}, dW grid {plan.dw_grid} smem "
+            f"{plan.dw_smem}")
+
+
 def phase_build(log_dir):
     t0 = time.perf_counter()
     _build.build_libraries([conv_mod.SOURCE, nms_mod.SOURCE,
@@ -346,6 +363,122 @@ def cuda_core_conv3_call(x, w, affine, stride):
         check(err == 0, f"CUDA-core fused conv launch failed: cudaError "
                         f"{err}")
     return run
+
+
+def gemm_launch_call(xs, ws, affines, act, route, raw_stats=False):
+    """The fused GEMM forward's kernel of ``route`` ("tc": the plan's
+    tensor-core config; "cuda_core": the CUDA-core instance) on the same
+    inputs through its C entry, with the outputs and the ctypes arguments
+    made beforehand: the kernel's own time, without the wrapper's host
+    work (checks, plan, allocation), when launched back to back. Not
+    counted (a comparison launch)."""
+    m, n, ks = xs[0].shape[0], ws[0].shape[1], [x.shape[1] for x in xs]
+    aas = [None if aff is None else aff[0].float().contiguous()
+           for aff in affines]
+    bbs = [None if aff is None else aff[1].float().contiguous()
+           for aff in affines]
+    y = torch.empty(m, n, dtype=xs[0].dtype, device="cuda")
+    s = torch.zeros(2, n, dtype=torch.float64, device="cuda")
+    lib = gemm_mod._library()
+    args = (gemm_mod._ptr_array(xs), gemm_mod._ptr_array(ws),
+            gemm_mod._ptr_array(aas), gemm_mod._ptr_array(bbs),
+            (ctypes.c_int * len(xs))(*ks), len(xs), y.data_ptr(),
+            s[0].data_ptr(), s[1].data_ptr(), m, n)
+    stream = torch.cuda.current_stream().cuda_stream
+    act_code = gemm_mod._ACT_CODES[act]
+    if route == "tc":
+        plan = gemm_mod._tc_plan(m, ks, n, xs[0].dtype)
+        check(plan.route == "tc", f"gemm {ks}->{n}: no tensor-core plan")
+        launch = lambda: lib.fused_gemm_fwd_tc_launch(
+            *args, act_code, int(raw_stats), plan.config, *plan.grid,
+            plan.smem_bytes, stream)
+    else:
+        launch = lambda: lib.fused_gemm_fwd_launch(
+            *args, gemm_mod._DTYPE_CODES[xs[0].dtype], act_code,
+            int(raw_stats), stream)
+
+    def run():
+        err = launch()
+        check(err == 0, f"{route} gemm launch failed: cudaError {err}")
+    run.keep = (xs, ws, aas, bbs, y, s)          # alive while run is
+    return run
+
+
+def gemm_library_call(xs, ws, affines, act):
+    """torch.matmul of the ACTIVATED inputs, concatenated along K (the
+    kernel's contraction), by the weights stacked the same way, both made
+    beforehand. A yardstick only."""
+    gs = [x if aff is None else
+          act_and_grad(x.float() * aff[0] + aff[1], act)[0].to(x.dtype)
+          for x, aff in zip(xs, affines)]
+    g = torch.cat(gs, 1) if len(gs) > 1 else gs[0]
+    w = torch.cat(ws, 0) if len(ws) > 1 else ws[0]
+    return lambda: torch.matmul(g, w)
+
+
+def conv3_bwd_launch_call(x, wt, affine, y, cts, stride, route):
+    """The fused conv's backward kernels of ``route`` ("tc": the ds1
+    table, dx and dW of the plan; "cuda_core": the CUDA-core dx and dW)
+    on the same bf16 inputs through their C entry, with outputs and
+    arguments made beforehand, as :func:`gemm_launch_call`. dW, da and
+    db accumulate over repeated runs (timing only); not counted."""
+    n, h, wd, k = x.shape
+    co = y.shape[-1]
+    a, b = (None, None) if affine is None else (
+        affine[0].float().contiguous(), affine[1].float().contiguous())
+    dy = cts[0].contiguous()
+    ds1, ds2 = cts[1].float().contiguous(), cts[2].float().contiguous()
+    dx = torch.empty_like(x)
+    dw = torch.zeros(3, 3, k, co, dtype=torch.float32, device="cuda")
+    dab = torch.zeros(2, k, dtype=torch.float64, device="cuda")
+    ctab = torch.empty(9 * k, dtype=torch.float32, device="cuda")
+    lib = conv3_mod._library()
+    ptr = conv3_mod._ptr
+    head = (x.data_ptr(), wt.data_ptr(), ptr(a), ptr(b), y.data_ptr(),
+            dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr())
+    tail = (dx.data_ptr(), dw.data_ptr(),
+            None if a is None else dab[0].data_ptr(),
+            None if a is None else dab[1].data_ptr(), n, h, wd, k, co,
+            stride)
+    stream = torch.cuda.current_stream().cuda_stream
+    act = conv3_mod._ACT_CODES["mish"]
+    if route == "tc":
+        plan = conv3_mod._tc_bwd_plan(n, h, wd, k, co, stride, x.dtype)
+        check(plan.route == "tc", f"conv3x3 {tuple(x.shape)}: no "
+                                  "tensor-core plan")
+        launch = lambda: lib.fused_conv3x3_bwd_tc_launch(
+            *head, ctab.data_ptr(), *tail, act, plan.dx_config,
+            *plan.dx_grid, plan.dx_smem, *plan.dw_grid[:2], plan.dw_smem,
+            stream)
+    else:
+        launch = lambda: lib.fused_conv3x3_bwd_launch(
+            *head, *tail, conv3_mod._DTYPE_CODES[x.dtype], act, stream)
+
+    def run():
+        err = launch()
+        check(err == 0, f"{route} conv3x3 backward launch failed: "
+                        f"cudaError {err}")
+    run.keep = (a, b, dy, ds1, ds2, dx, dw, dab, ctab)
+    return run
+
+
+def conv_bwd_library_call(g_in, wt, dyt, stride):
+    """``aten.convolution_backward`` (dx and dW, bf16, channels_last) of
+    the conv on the ACTIVATED input with the folded cotangent dyt =
+    T(T(dy + 2 y ds2) + ds1): the GEMM core of the fused backward, as
+    F.conv2d is of the forward (the stride-2 input padded on top and
+    left beforehand). A yardstick only."""
+    xc = g_in.permute(0, 3, 1, 2)
+    wc = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    pad = 1
+    if stride == 2:
+        xc = F.pad(xc, (1, 0, 1, 0)).contiguous(
+            memory_format=torch.channels_last)
+        pad = 0
+    go = dyt.permute(0, 3, 1, 2)
+    return lambda: torch.ops.aten.convolution_backward(
+        go, xc, wc, None, [stride, stride], [pad, pad], [1, 1], False,
+        [0, 0], 1, [True, True, False])
 
 
 def phase_conv_checks(gen, n):
@@ -533,6 +666,12 @@ def gemm_run(xs, ws, affines, act, dtype, cts, plain):
 
 
 def phase_gemm_checks(gen, batch):
+    """Every fused GEMM shape at batch ``batch`` (the ragged rows at
+    their own M), forward and backward, against the plain versions,
+    printing each shape's forward plan. Times: the wrapper (``ms``), the
+    routed kernel launched alone (``launch_ms``), the CUDA-core instance
+    on the same bf16 inputs (``cuda_core_ms``) and torch.matmul of the
+    activated inputs (``library_ms``)."""
     results = []
     for dtype in (torch.bfloat16, torch.float32):
         tol = GEMM_TOL[dtype]
@@ -541,11 +680,14 @@ def phase_gemm_checks(gen, batch):
             m = 1237 if rows is None else batch * rows
             xs, ws, affines, cts = gemm_case(gen, dtype, m, ks, n, pattern,
                                              equal_w)
+            plan = gemm_mod._tc_plan(m, ks, n, dtype)
             fwd0, bwd0 = fused_gemm.launches, fused_gemm.bwd_launches
+            tc0 = fused_gemm.tc_launches
             (y, s1, s2), leaves, grads = gemm_run(
                 xs, ws, affines, act, dtype, cts, plain=False)
             check(fused_gemm.launches == fwd0 + 1
-                  and fused_gemm.bwd_launches == bwd0 + len(ks),
+                  and fused_gemm.bwd_launches == bwd0 + len(ks)
+                  and fused_gemm.tc_launches == tc0 + (plan.route == "tc"),
                   f"gemm {name}: the wrapper did not launch its kernels")
             (yp, s1p, s2p), _, grads_p = gemm_run(
                 xs, ws, affines, act, dtype, cts, plain=True)
@@ -569,6 +711,14 @@ def phase_gemm_checks(gen, batch):
             run = lambda plain: fused_gemm(xs, ws, affines, act=act,
                                            dtype=dtype, plain=plain)
             ms = cuda_ms(lambda: run(False), 5)
+            launch_ms = cuda_ms(
+                gemm_launch_call(xs, ws, affines, act, plan.route), 20)
+            cc_ms = None
+            if plan.route == "tc":
+                cc_ms = cuda_ms(
+                    gemm_launch_call(xs, ws, affines, act, "cuda_core"), 5)
+            library_ms = cuda_ms(gemm_library_call(xs, ws, affines, act),
+                                 20)
             plain_ms = cuda_ms(lambda: run(True), 5)
             outs_k = gemm_run(xs, ws, affines, act, dtype, cts, False)
             outs_p = gemm_run(xs, ws, affines, act, dtype, cts, True)
@@ -576,25 +726,30 @@ def phase_gemm_checks(gen, batch):
                                                 retain_graph=True)
             bwd_ms = cuda_ms(lambda: bwd(outs_k), 5)
             bwd_plain_ms = cuda_ms(lambda: bwd(outs_p), 5)
-            library_ms = None
-            if not any(pattern) and len(ks) == 1:
-                library_ms = cuda_ms(lambda: torch.matmul(xs[0], ws[0]), 5)
-            r = dict(shape=name, m=m, dtype=str(dtype).replace("torch.", ""),
+            r = dict(shape=name, m=m, batch=batch,
+                     dtype=str(dtype).replace("torch.", ""),
                      **fwd, dx_rel_to_max=dx_err, red_rel_l2=red_err,
-                     ms=ms, plain_ms=plain_ms, bound_ms=fb, bound_by=fby,
-                     library_ms=library_ms, bwd_ms=bwd_ms,
+                     ms=ms, launch_ms=launch_ms, plain_ms=plain_ms,
+                     bound_ms=fb, bound_by=fby, library_ms=library_ms,
+                     cuda_core_ms=cc_ms, route=plan.route,
+                     config=plan.config, bwd_ms=bwd_ms,
                      bwd_plain_ms=bwd_plain_ms, bwd_bound_ms=bb,
                      bwd_bound_by=bby,
-                     fwd_tflops=flops / ms / 1e9,
+                     fwd_tflops=flops / launch_ms / 1e9,
+                     bound_share=fb / launch_ms,
                      bwd_tflops=2 * flops / bwd_ms / 1e9)
             results.append(r)
-            lib = ("-" if library_ms is None
-                   else f"torch.matmul {library_ms:.3f} ms")
-            print(f"  gemm {r['dtype']:8s} {name:38s} M={m}: "
-                  f"{forward_line(r, tol)}; "
-                  f"{backward_line(dx_err, red_err, tol)} | fwd {ms:.3f} ms "
-                  f"({r['fwd_tflops']:.2f} TFLOP/s) plain {plain_ms:.3f} "
-                  f"{lib} bound {fb:.4f} ({fby}) | bwd {bwd_ms:.3f} ms "
+            print(f"  gemm {r['dtype']:8s} {name:38s} M={m} "
+                  f"[{plan_line(plan)}]: {forward_line(r, tol)}; "
+                  f"{backward_line(dx_err, red_err, tol)} | fwd kernel "
+                  f"{launch_ms:.3f} ms ({r['fwd_tflops']:.2f} TFLOP/s, "
+                  f"{fb / launch_ms:.1%} of bound), through the wrapper "
+                  f"{ms:.3f}"
+                  + ("" if cc_ms is None
+                     else f", CUDA-core kernel {cc_ms:.3f}")
+                  + f", plain {plain_ms:.3f}, torch.matmul on the "
+                  f"activated input {library_ms:.3f}, bound {fb:.4f} "
+                  f"({fby}) | bwd {bwd_ms:.3f} ms "
                   f"({r['bwd_tflops']:.2f} TFLOP/s) plain "
                   f"{bwd_plain_ms:.3f} bound {bb:.4f} ({bby})")
             y_ok, s_ok = forward_ok(r, tol)
@@ -608,7 +763,10 @@ def phase_gemm_checks(gen, batch):
 
 # (name, H, W, K, N, stride, prologue): the five fused 3x3 convs of one
 # packed=3 training step (the two ``expand`` convs of stage 2 share one
-# shape) and the stem's shape, K = 3, without a prologue
+# shape), the stem's shape, K = 3, without a prologue, and two shapes
+# whose edges fall inside the tensor-core kernels' tiles (16-wide pixel
+# tiles that overhang, K = 48 and N = 72 inside the dW kernel's 32 x 64
+# channel blocks, a K = 16 input without a prologue)
 CONV3_SHAPES = [
     ("stage1.down 416^2 32->64 s2 prologue", 416, 416, 32, 64, 2, True),
     ("stage1.block1.expand 208^2 32->64 s1 prologue", 208, 208, 32, 64, 1,
@@ -617,6 +775,8 @@ CONV3_SHAPES = [
     ("stage2.block.expand 104^2 64->64 s1 prologue", 104, 104, 64, 64, 1,
      True),
     ("stem shape 416^2 3->32 s1 as it is", 416, 416, 3, 32, 1, False),
+    ("ragged 26x22 48->72 s2 prologue", 26, 22, 48, 72, 2, True),
+    ("ragged 9x11 16->24 s1 as it is", 9, 11, 16, 24, 1, False),
 ]
 
 
@@ -654,7 +814,12 @@ def phase_conv3_checks(gen, n):
     """The fused 3x3 conv, forward and backward, at every shape at batch
     ``n`` against its plain versions, with the tolerances of the fused
     GEMM (``GEMM_TOL``: the same kinds of sums, over 9K products for y,
-    at most 9N for dx and B*Ho*Wo for dW, da, db)."""
+    at most 9N for dx and B*Ho*Wo for dW, da, db), printing each shape's
+    forward and backward plans. Backward times: through autograd and the
+    wrapper (``bwd_ms``), the routed kernels launched alone
+    (``bwd_launch_ms``), the CUDA-core kernels on the same bf16 inputs
+    (``bwd_cuda_core_ms``) and ``aten.convolution_backward`` on the
+    activated input with the folded cotangent (``bwd_library_ms``)."""
     results = []
     for dtype in (torch.bfloat16, torch.float32):
         tol = GEMM_TOL[dtype]
@@ -663,14 +828,18 @@ def phase_conv3_checks(gen, n):
             x, wt, affine, cts = conv3_case(gen, dtype, n, h, w, k, co,
                                             stride, prologue)
             plan = conv3_mod._tc_plan(n, h, w, k, co, stride, dtype)
+            bplan = conv3_mod._tc_bwd_plan(n, h, w, k, co, stride, dtype)
             fwd0, bwd0 = fused_conv3x3.launches, fused_conv3x3.bwd_launches
             tc0 = fused_conv3x3.tc_launches
+            btc0 = fused_conv3x3.tc_bwd_launches
             (y, s1, s2), _, grads = conv3_run(x, wt, affine, stride, dtype,
                                               cts, plain=False)
             check(fused_conv3x3.launches == fwd0 + 1
                   and fused_conv3x3.bwd_launches == bwd0 + 1
                   and fused_conv3x3.tc_launches
-                  == tc0 + (plan.route == "tc"),
+                  == tc0 + (plan.route == "tc")
+                  and fused_conv3x3.tc_bwd_launches
+                  == btc0 + (bplan.route == "tc"),
                   f"conv3x3 {name}: the wrapper did not launch its kernels")
             (yp, s1p, s2p), _, grads_p = conv3_run(x, wt, affine, stride,
                                                    dtype, cts, plain=True)
@@ -707,6 +876,13 @@ def phase_conv3_checks(gen, n):
             bwd_plain_ms = cuda_ms(lambda: torch.autograd.grad(
                 outs_p[0], outs_p[1], cts, retain_graph=True), 3)
             del outs_p
+            y = y.detach()
+            bwd_launch_ms = cuda_ms(conv3_bwd_launch_call(
+                x, wt, affine, y, cts, stride, bplan.route), 10)
+            bwd_cc_ms = None
+            if bplan.route == "tc":
+                bwd_cc_ms = cuda_ms(conv3_bwd_launch_call(
+                    x, wt, affine, y, cts, stride, "cuda_core"), 3)
             # the one-call yardstick computes the conv without the
             # prologue: both it and the kernel take the activated input
             g_in = x
@@ -717,7 +893,12 @@ def phase_conv3_checks(gen, n):
                 g_in, wt, None, stride=stride, dtype=dtype), 5)
             library_ms = cuda_ms(conv_library_call(g_in, wt, None, stride),
                                  5)
-            del g_in
+            dy, ds1, ds2 = cts
+            dyt = ((dy.float() + y.float() * (2.0 * ds2)).to(dtype).float()
+                   + ds1).to(dtype)
+            bwd_library_ms = cuda_ms(
+                conv_bwd_library_call(g_in, wt, dyt, stride), 5)
+            del g_in, dyt
             r = dict(shape=name, batch=n,
                      dtype=str(dtype).replace("torch.", ""), **fwd,
                      dx_rel_to_max=dx_err, red_rel_l2=red_err, ms=ms,
@@ -728,10 +909,16 @@ def phase_conv3_checks(gen, n):
                      bwd_bound_by=bby, fwd_tflops=flops / ms / 1e9,
                      bwd_tflops=2 * flops / bwd_ms / 1e9,
                      bound_share=fb / ms, route=plan.route,
-                     config=plan.config, cuda_core_ms=cc_ms)
+                     config=plan.config, cuda_core_ms=cc_ms,
+                     bwd_route=bplan.route, bwd_launch_ms=bwd_launch_ms,
+                     bwd_cuda_core_ms=bwd_cc_ms,
+                     bwd_library_ms=bwd_library_ms,
+                     bwd_launch_tflops=2 * flops / bwd_launch_ms / 1e9,
+                     bwd_bound_share=bb / bwd_launch_ms)
             results.append(r)
             print(f"  conv3x3 {r['dtype']:8s} b{n:<2d} {name:46s} "
-                  f"[{plan_line(plan)}] {forward_line(r, tol)}; "
+                  f"[{plan_line(plan)}; backward {bwd_plan_line(bplan)}] "
+                  f"{forward_line(r, tol)}; "
                   f"{backward_line(dx_err, red_err, tol)} | fwd {ms:.3f} ms "
                   f"({r['fwd_tflops']:.2f} TFLOP/s, {fb / ms:.1%} of bound) "
                   + ("" if cc_ms is None
@@ -739,8 +926,15 @@ def phase_conv3_checks(gen, n):
                   + f"plain {plain_ms:.3f} "
                   f"bound {fb:.4f} ({fby}); on the activated input: kernel "
                   f"{bare_ms:.3f} F.conv2d channels_last {library_ms:.3f}"
-                  f" | bwd {bwd_ms:.3f} ms ({r['bwd_tflops']:.2f} TFLOP/s) "
-                  f"plain {bwd_plain_ms:.3f} bound {bb:.4f} ({bby})")
+                  f" | bwd kernels {bwd_launch_ms:.3f} ms "
+                  f"({r['bwd_launch_tflops']:.2f} TFLOP/s, "
+                  f"{bb / bwd_launch_ms:.1%} of bound), through autograd "
+                  f"{bwd_ms:.3f}"
+                  + ("" if bwd_cc_ms is None
+                     else f", CUDA-core kernels {bwd_cc_ms:.3f}")
+                  + f", plain {bwd_plain_ms:.3f}, convolution_backward on "
+                  f"the activated input {bwd_library_ms:.3f}, bound "
+                  f"{bb:.4f} ({bby})")
             y_ok, s_ok = forward_ok(r, tol)
             check(y_ok, f"conv3x3 {name} {dtype}: y outside the bound")
             check(s_ok,
@@ -764,9 +958,11 @@ def phase_probe_checks(gen, n):
         tol = GEMM_TOL[dtype]
         xs, ws, affines, _ = gemm_case(gen, dtype, m, [c], c, [True], False)
         x, w, (a, b) = xs[0], ws[0], affines[0]
-        before = probe.probe_layer.launches
+        plan = gemm_mod._tc_plan(m, [c], c, dtype)
+        before = probe.probe_layer.launches, probe.probe_layer.tc_launches
         y, s1, s2 = probe.probe_layer(x, w, a, b)
-        check(probe.probe_layer.launches == before + 1,
+        check((probe.probe_layer.launches, probe.probe_layer.tc_launches)
+              == (before[0] + 1, before[1] + (plan.route == "tc")),
               "probe: the wrapper did not launch its kernel")
         yp, s1p, s2p = probe.probe_layer_plain(x, w, a, b)
         torch.cuda.synchronize()
@@ -785,33 +981,49 @@ def phase_probe_checks(gen, n):
         bound, bound_by = bound_ms((2 * m * c + c * c) * size + 16 * c,
                                    2.0 * m * c * c, dtype)
         ms = cuda_ms(lambda: probe.probe_layer(x, w, a, b), 5)
+        launch_ms = cuda_ms(gemm_launch_call(
+            [x], [w], [(a, b)], "mish", plan.route, raw_stats=True), 20)
+        cc_ms = None
+        if plan.route == "tc":
+            cc_ms = cuda_ms(gemm_launch_call(
+                [x], [w], [(a, b)], "mish", "cuda_core", raw_stats=True), 5)
         plain_ms = cuda_ms(lambda: probe.probe_layer_plain(x, w, a, b), 3)
         r = dict(shape=f"208^2 {c}->{c} prologue", m=m,
                  dtype=str(dtype).replace("torch.", ""),
                  max_abs_err=err.max().item(), y_scale=scale,
                  s1_rel_err=s1_rel, s2_rel_err=s2_rel, ms=ms,
-                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+                 launch_ms=launch_ms, cuda_core_ms=cc_ms, route=plan.route,
+                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                 tflops=2.0 * m * c * c / launch_ms / 1e9,
+                 bound_share=bound / launch_ms)
         results.append(r)
-        print(f"  probe {r['dtype']:8s} M={m}: max|dy| {r['max_abs_err']:.3e}"
+        print(f"  probe {r['dtype']:8s} M={m} [{plan_line(plan)}]: max|dy| "
+              f"{r['max_abs_err']:.3e}"
               f" (|y| <= {scale:.3g}; bound {tol['y_rel']:.3g}*|y| + "
               f"{tol['y_scale']:.0e}*scale) s1 rel {s1_rel:.2e} s2 rel "
-              f"{s2_rel:.2e} (bound {s_tol:.0e}) | kernel {ms:.3f} ms plain "
-              f"{plain_ms:.3f} ms bound {bound:.4f} ({bound_by})")
+              f"{s2_rel:.2e} (bound {s_tol:.0e}) | kernel {launch_ms:.3f} ms "
+              f"({r['tflops']:.2f} TFLOP/s, {bound / launch_ms:.1%} of "
+              f"bound), through the wrapper {ms:.3f}"
+              + ("" if cc_ms is None else f", CUDA-core kernel {cc_ms:.3f}")
+              + f", plain {plain_ms:.3f} ms, bound {bound:.4f} ({bound_by})")
         check(y_ok, f"probe {dtype}: y outside the bound")
         check(max(s1_rel, s2_rel) <= s_tol,
               f"probe {dtype}: statistics outside the bound")
         del x, w, y, yp, yf, ypf, err
     x, ws, aas, bbs = probe.make_case(0, n, 4)
-    probe.probe_layer.launches = 0
+    probe.probe_layer.launches = probe.probe_layer.tc_launches = 0
     y, s1, s2 = probe.fused_chain(x, ws, aas, bbs)
     torch.cuda.synchronize()
     launches = probe.probe_layer.launches
-    check(launches == 4, f"probe chain launched {launches} kernels, want 4")
+    tc_launches = probe.probe_layer.tc_launches
+    check(launches == 4 and tc_launches == 4,
+          f"probe chain launched {launches} kernels ({tc_launches} on the "
+          "tensor cores), want 4 (4)")
     check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(s2).all())
           and y.shape == x.shape, "probe chain output")
     x4 = x.reshape(n, probe.H, probe.W, probe.C)
     chain = dict(
-        launches=launches,
+        launches=launches, tc_launches=tc_launches,
         fused_ms_per_layer=cuda_ms(
             lambda: probe.fused_chain(x, ws, aas, bbs), 3) / 4,
         eager_ms_per_layer=cuda_ms(
@@ -876,6 +1088,7 @@ def phase_serve(args, model, threshold, images):
                             nms_mode=1, nms_threshold=0.45)
     conv_bn_stats.launches = conv_bn_stats.tc_launches = 0
     nms_keep.launches = 0
+    reset_fused_counters()
     times, stats = [], []
     for req in range(args.requests + 1):     # request 0 warms up
         torch.cuda.synchronize()
@@ -903,6 +1116,10 @@ def phase_serve(args, model, threshold, images):
     check(tc_launches == want_tc * forwards,
           "not every bf16 conv but the stem ran on the tensor cores")
     check(nms_launches == forwards, "not every request ran the NMS kernel")
+    fused = fused_counters()
+    print(f"  fused kernels in {forwards} requests (want 0 each): "
+          + ", ".join(f"{k} {v}" for k, v in fused.items()))
+    check(not any(fused.values()), "a served request ran a fused kernel")
     for req, (valid, kept) in enumerate(stats):
         print(f"  request {req}: valid {valid}, kept {kept}, suppressed "
               f"{valid - kept}")
@@ -999,20 +1216,30 @@ def phase_timing(args, model, threshold, images, card):
     return out
 
 
-def reset_train_counters():
-    conv_bn_stats.launches = conv_bn_stats.tc_launches = 0
-    fused_gemm.launches = fused_gemm.bwd_launches = 0
-    fused_conv3x3.launches = fused_conv3x3.bwd_launches = 0
-    fused_conv3x3.tc_launches = 0
+def reset_fused_counters():
+    fused_gemm.launches = fused_gemm.tc_launches = 0
+    fused_gemm.bwd_launches = 0
+    fused_conv3x3.launches = fused_conv3x3.tc_launches = 0
+    fused_conv3x3.bwd_launches = fused_conv3x3.tc_bwd_launches = 0
 
 
-def train_counters():
+def fused_counters():
     return dict(fused_conv3x3_fwd=fused_conv3x3.launches,
                 fused_conv3x3_fwd_tc=fused_conv3x3.tc_launches,
                 fused_conv3x3_bwd=fused_conv3x3.bwd_launches,
+                fused_conv3x3_bwd_tc=fused_conv3x3.tc_bwd_launches,
                 fused_gemm_fwd=fused_gemm.launches,
-                fused_gemm_bwd=fused_gemm.bwd_launches,
-                conv_bn_stats=conv_bn_stats.launches,
+                fused_gemm_fwd_tc=fused_gemm.tc_launches,
+                fused_gemm_bwd=fused_gemm.bwd_launches)
+
+
+def reset_train_counters():
+    conv_bn_stats.launches = conv_bn_stats.tc_launches = 0
+    reset_fused_counters()
+
+
+def train_counters():
+    return dict(**fused_counters(), conv_bn_stats=conv_bn_stats.launches,
                 conv_bn_stats_tc=conv_bn_stats.tc_launches)
 
 
@@ -1181,8 +1408,19 @@ def phase_train_timing(args, handles3, handles1, card):
     timed_steps(*runs["packed=3 plain"], 1)      # warm-up
     times = {name: [] for name in runs}
     order = list(runs)
+    # the counters per timed run: the kernel routes' launches per step,
+    # none on the plain route
+    want = {"packed=3 kernel": TRAIN_LAUNCHES[3],
+            "packed=3 plain": dict.fromkeys(TRAIN_LAUNCHES[3], 0),
+            "packed=1 kernel": TRAIN_LAUNCHES[1]}
     for name in order + order[::-1]:
+        reset_train_counters()
         times[name] += timed_steps(*runs[name], args.steps)[0]
+        counts = train_counters()
+        check(all(v == want[name][k] * args.steps
+                  for k, v in counts.items()),
+              f"{name}: launches in {args.steps} timed steps {counts}, "
+              f"want {want[name]} a step")
     out = {}
     for name, ts in times.items():
         ms = float(np.median(ts))
@@ -1223,7 +1461,8 @@ def main(argv=None):
     conv_res = phase_conv_checks(gen, args.batch)
     conv_res += phase_conv_checks(gen, args.train_batch)
     nms_res = phase_nms_checks(gen)
-    gemm_res = phase_gemm_checks(gen, args.train_batch)
+    gemm_res = phase_gemm_checks(gen, args.batch)
+    gemm_res += phase_gemm_checks(gen, args.train_batch)
     probe_res, probe_chain = phase_probe_checks(gen, args.train_batch)
     conv3_res = phase_conv3_checks(gen, args.batch)
     conv3_res += phase_conv3_checks(gen, args.train_batch)
@@ -1320,15 +1559,24 @@ def main(argv=None):
              ms=nms_at["ms"], plain_ms=nms_at["plain_ms"],
              bound_ms=nms_at["bound_ms"], bound_by=nms_at["bound_by"],
              library_ms=None),
+        # K2, K3' and P: ``ms`` is the kernel launched alone (the
+        # routed, tensor-core kernel), ``wrapper_ms`` the public wrapper
+        # around it, ``cuda_core_ms`` the CUDA-core instance on the same
+        # inputs; ``library_ms`` torch.matmul / convolution_backward on
+        # the activated inputs
         dict(name="fused_gemm_fwd", route="cuda",
              source="tf2_yolo_tpu_torch/csrc/fused_gemm.cu",
              replaces="tf2_yolo_tpu/ops/pallas/packed_gemm.py:160",
              **train_launches("fused_gemm_fwd"),
+             launches_tc=train_launches("fused_gemm_fwd_tc")["launches"],
              max_abs_err=max(r["max_abs_err"] for r in gemm_res),
              at=f"{fwd_at['shape']}, M={fwd_at['m']}, bf16",
-             ms=fwd_at["ms"], plain_ms=fwd_at["plain_ms"],
+             ms=fwd_at["launch_ms"], wrapper_ms=fwd_at["ms"],
+             plain_ms=fwd_at["plain_ms"],
              bound_ms=fwd_at["bound_ms"], bound_by=fwd_at["bound_by"],
-             library_ms=fwd_at["library_ms"]),
+             library_ms=fwd_at["library_ms"], tflops=fwd_at["fwd_tflops"],
+             bound_share=fwd_at["bound_share"],
+             cuda_core_ms=fwd_at["cuda_core_ms"]),
         dict(name="fused_gemm_bwd", route="cuda",
              source="tf2_yolo_tpu_torch/csrc/fused_gemm.cu",
              replaces="tf2_yolo_tpu/ops/pallas/packed_gemm.py:272",
@@ -1361,21 +1609,32 @@ def main(argv=None):
                       "and :650",
              **train_launches("fused_conv3x3_bwd"),
              max_abs_err=max(r["dx_rel_to_max"] for r in conv3_res),
+             launches_tc=train_launches("fused_conv3x3_bwd_tc")["launches"],
              at=f"{conv3_at['shape']}, batch {conv3_at['batch']}, bf16",
-             ms=conv3_at["bwd_ms"], plain_ms=conv3_at["bwd_plain_ms"],
+             ms=conv3_at["bwd_launch_ms"], wrapper_ms=conv3_at["bwd_ms"],
+             plain_ms=conv3_at["bwd_plain_ms"],
              bound_ms=conv3_at["bwd_bound_ms"],
-             bound_by=conv3_at["bwd_bound_by"], library_ms=None),
+             bound_by=conv3_at["bwd_bound_by"],
+             library_ms=conv3_at["bwd_library_ms"],
+             tflops=conv3_at["bwd_launch_tflops"],
+             bound_share=conv3_at["bwd_bound_share"],
+             cuda_core_ms=conv3_at["bwd_cuda_core_ms"]),
         # a tool's kernel, on no model path: its launches are those of
         # the probe's own chain of four layers
         dict(name="probe_layer", route="cuda",
              source="tf2_yolo_tpu_torch/csrc/fused_gemm.cu",
              replaces="tools/bench_packed_probe.py:70",
              launches=probe_chain["launches"],
+             launches_tc=probe_chain["tc_launches"],
              max_abs_err=max(r["max_abs_err"] for r in probe_res),
              at=f"{probe_res[0]['shape']}, M={probe_res[0]['m']}, bf16",
-             ms=probe_res[0]["ms"], plain_ms=probe_res[0]["plain_ms"],
+             ms=probe_res[0]["launch_ms"], wrapper_ms=probe_res[0]["ms"],
+             plain_ms=probe_res[0]["plain_ms"],
              bound_ms=probe_res[0]["bound_ms"],
              bound_by=probe_res[0]["bound_by"], library_ms=None,
+             tflops=probe_res[0]["tflops"],
+             bound_share=probe_res[0]["bound_share"],
+             cuda_core_ms=probe_res[0]["cuda_core_ms"],
              eager_chain_ms_per_layer=probe_chain["eager_ms_per_layer"]),
     ]
     for k in kernels:

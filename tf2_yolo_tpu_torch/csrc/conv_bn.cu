@@ -240,20 +240,10 @@ void launch(const void* x, const void* w, const void* b, void* y, double* s1,
 
 // ------------------------------------------------ tensor cores (bf16)
 
-constexpr int TC_BK = 32;              // K per slice: inside one tap
-constexpr int TC_STAGES = 4;
-constexpr int TC_APITCH = TC_BK + 8;   // bf16 per A row: 80 bytes, so the
-                                       // 8 rows of an ldmatrix hit 8 banks
-
-template <class TL>
-struct TcSmem {
-  static constexpr int A_ELEMS = tc::BM * TC_APITCH;
-  static constexpr int BPITCH = TL::BN + 8;
-  static constexpr int STAGE_ELEMS = A_ELEMS + TC_BK * BPITCH;
-  static constexpr int PIPE_BYTES = TC_STAGES * STAGE_ELEMS * 2;
-  static constexpr int BYTES =
-      PIPE_BYTES > TL::EPI_BYTES ? PIPE_BYTES : TL::EPI_BYTES;
-};
+// the ring's slices (tc::Ring): 32 deep, inside one tap (Ci % 32 == 0)
+constexpr int TC_BK = tc::RING_BK;
+constexpr int TC_STAGES = tc::RING_STAGES;
+constexpr int TC_APITCH = tc::RING_APITCH;
 
 template <int KS, int STRIDE, bool STATS, class TL>
 __global__ void __launch_bounds__(tc::THREADS)
@@ -264,7 +254,7 @@ conv_bn_stats_tc_kernel(const __nv_bfloat16* __restrict__ x,
                         double* __restrict__ s1, double* __restrict__ s2,
                         int n, int h, int wd, int ci, int co, int ho,
                         int wo) {
-  using SM = TcSmem<TL>;
+  using SM = tc::Ring<TL>;
   constexpr int PAD = KS == 3 ? 1 : 0;
   constexpr int BN = TL::BN;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -378,7 +368,7 @@ int launch_tc(const void* x, const void* w, const void* b, void* y,
               double* s1, double* s2, int n, int h, int wd, int ci, int co,
               dim3 grid, int smem_bytes, cudaStream_t stream) {
   // the plan's shared memory must be this config's
-  if (smem_bytes != TcSmem<TL>::BYTES || ci % TC_BK || co % 8)
+  if (smem_bytes != tc::Ring<TL>::BYTES || ci % TC_BK || co % 8)
     return (int)cudaErrorInvalidValue;
   auto kernel = conv_bn_stats_tc_kernel<KS, STRIDE, STATS, TL>;
   static int allowed[tc::MAX_DEVICES] = {0};   // per instance and device

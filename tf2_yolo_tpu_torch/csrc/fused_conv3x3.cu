@@ -50,32 +50,55 @@
 //   after the prologue: a pixel outside the image contributes 0, not
 //   act(b).  Statistics: per-block column sums of the rounded y, one f64
 //   atomic per column.
-// * Backward, dx kernel: M = input pixels, columns = the K input
-//   channels, contraction over (tap, n) of
-//       e = T(dy + y * (2 ds2)) + ds1   where the tap's output pixel
-//                                       exists, else 0
-//   with w[tap]^T.  The fold dy + 2 y ds2 (a separate pass before the TPU
-//   kernel) is computed in the load and rounded to T as there; ds1 is
-//   added to the rounded value in f32 and is not rounded (the TPU kernel
-//   keeps it as an exact f32 broadcast term).  At stride 2 an input pixel
-//   receives only from the taps whose parity matches, so grid.z walks the
-//   four parity classes (hi mod 2, wi mod 2) and a block visits 1, 2 or 4
-//   taps, never 9.  The epilogue recomputes the prologue's derivative,
-//   writes dx and reduces da, db over the block's rows (f64 atomics).
-// * Backward, dW kernel: tile [64 of the 9K rows, 64 of N], contraction
-//   over a chunk of M_CHUNK output pixels (split-M: grid.z walks the
-//   chunks, tiles are added with f32 atomics into a zeroed dW).
-//   Operands: the gathered, recomputed g and dyt = T(T(dy + 2 y ds2) +
-//   ds1).
-// * Any B, H, W, K, N >= 1 (K = 3 included): ragged edges are zero-filled
-//   on load and masked on store.  Element offsets are 64-bit.
+// * Backward: dx (T), dW (f32), da, db from the stored y.  Two routes,
+//   chosen per shape by the Python plan (_tc_bwd_plan), as the forward's:
+//   - bf16 with K % 16 == 0 and N % 8 == 0 (all five layers of
+//     packed=3): tensor cores, three launches.  (1) A tiny pass folds
+//     ds1 into a per-(tap, k) f32 table c[tap, k] = sum_n ds1[n] w[tap,
+//     k, n], so that ds1, which the TPU kernel keeps as an exact f32
+//     broadcast term, never enters a bf16 operand.  (2) dx: a block
+//     takes an 8 x 16 tile of output-grid positions and 32, 64 or 128
+//     input channels; at stride 2 that is the input pixels of all four
+//     parity classes there (1, 2 or 4 taps reach a class, never 9), 32
+//     channels.  Per slice of 16 output channels, in a two-stage ring,
+//     it copies the raw dy and y of the tile's output-pixel halo and the
+//     nine taps' weight rows with cp.async, builds e = T(dy + y (2 ds2))
+//     ONCE per halo element in shared memory (0 where the output pixel
+//     does not exist), and reads it at each tap's shift through ldmatrix
+//     into mma.sync; the epilogue adds the table entries of the taps
+//     whose output pixel exists (they depend on the pixel's edge class),
+//     recomputes the prologue's derivative, writes dx through shared
+//     memory and adds da, db with f64 atomics.
+//     (3) dW: 9 warps, one per tap, over 32 input channels x 64 output
+//     channels; per 8 x 16 tile of output pixels it copies the raw input
+//     halo and the raw dy, y, activates the halo ONCE per element and
+//     builds dyt = T(T(dy + 2 y ds2) + ds1) once per element, then
+//     contracts over the tile's pixels with both operands read by
+//     ldmatrix .trans.  A block walks a chunk of tiles (split-M, about
+//     two blocks per SM in all) and adds its sums to the zeroed dW with
+//     f32 atomics.
+//   - f32 and bf16 shapes the tensor cores do not take (K = 3): CUDA
+//     cores.  dx kernel: M = input pixels, columns = the K input
+//     channels, contraction over (tap, n) of e + ds1 (ds1 added to the
+//     rounded e in f32) with w[tap]^T; grid.z walks the four parity
+//     classes at stride 2; the epilogue as above.  dW kernel: tile [64
+//     of the 9K rows, 64 of N], contraction over a chunk of M_CHUNK
+//     output pixels (split-M, f32 atomics).  Operands: the gathered,
+//     recomputed g and dyt.
+//   The fold dy + 2 y ds2 (a separate pass before the TPU kernel) is
+//   computed in the loads and rounded to T as there.
+// * Any B, H, W, K, N >= 1 on the CUDA cores (K = 3 included): ragged
+//   edges are zero-filled on load and masked on store.  Element offsets
+//   are 64-bit.
 //
 // What bounds it on an H100: the forward's layers are bound by bytes
-// (K, N <= 128: 0.02-0.16 ms at batch 32); the tensor-core kernel adds
+// (K, N <= 128: 0.02-0.16 ms at batch 32); the tensor-core kernels add
 // to those the prologue (expf and two divisions per halo element, at
-// f32 CUDA-core rates and without FMA contraction) and its halo overlap
-// (1.4x the tile's input at stride 1, 1.1x at stride 2).  The f32
-// forward and the backward kernels run on the CUDA cores, bound by their
+// f32 CUDA-core rates and without FMA contraction) and their halo
+// overlap (1.4x the tile's input at stride 1, 1.1x at stride 2).  The
+// backward's two products are bound by bytes as well on the tensor
+// cores, and carry the prologue's derivative (dx) and the prologue
+// itself (dW).  The f32 kernels run on the CUDA cores, bound by their
 // FMA rate (67 TFLOP/s peak).
 //
 // Built with --fmad=false (see fused_common.cuh).
@@ -205,25 +228,32 @@ constexpr int TC_KC = 16;              // input channels per slice
 constexpr int TC_HPITCH = TC_KC + 8;   // bf16 per halo pixel: 48 bytes, so
                                        // 8 consecutive pixels hit 8 banks
 
-// The block's halo of one channel slice and the slice's nine weight
-// taps.  A halo row holds the HW input columns of the tile's window; at
+// The input halo of a TC_TH x TC_TW tile of output pixels: HH x HW
+// pixels.  A halo row holds the HW input columns of the tile's window; at
 // stride 2 the even columns come first, then the odd ones, so that at
 // every tap the 8 output pixels of one ldmatrix read 8 consecutive
 // slots: column ox * STRIDE + dx of the window sits at slot
 // ox + slot(dx).
-template <int STRIDE, class TL>
-struct HaloSmem {
+template <int STRIDE>
+struct HaloGeom {
   static constexpr int HH = STRIDE * (TC_TH - 1) + 3;
   static constexpr int HW = STRIDE * (TC_TW - 1) + 3;
   static constexpr int HE = (HW + 1) / 2;
-  static constexpr int HALO_ELEMS = HH * HW * TC_HPITCH;
+  __device__ static __forceinline__ int slot(int hx) {
+    return STRIDE == 1 ? hx : (hx & 1) * HE + (hx >> 1);
+  }
+};
+
+// The forward's shared memory: the halo of one channel slice (rows of
+// 16 + 8 bf16) and the slice's nine weight taps, or the epilogue.
+template <int STRIDE, class TL>
+struct HaloSmem : HaloGeom<STRIDE> {
+  using G = HaloGeom<STRIDE>;
+  static constexpr int HALO_ELEMS = G::HH * G::HW * TC_HPITCH;
   static constexpr int BPITCH = TL::BN + 8;
   static constexpr int MAIN_BYTES = (HALO_ELEMS + 9 * TC_KC * BPITCH) * 2;
   static constexpr int BYTES =
       MAIN_BYTES > TL::EPI_BYTES ? MAIN_BYTES : TL::EPI_BYTES;
-  __device__ static __forceinline__ int slot(int hx) {
-    return STRIDE == 1 ? hx : (hx & 1) * HE + (hx >> 1);
-  }
 };
 
 // One block: a TC_TH x TC_TW tile of output pixels of image blockIdx.z
@@ -612,6 +642,457 @@ fused_conv3x3_dw_kernel(const T* __restrict__ x, const float* __restrict__ pa,
   }
 }
 
+// ---------------------------------------- backward on tensor cores (bf16)
+
+// The ds1 fold of the dx kernel: c[tap, k] = sum_n ds1[n] * w[tap, k, n]
+// in f32, one thread per (tap, k) row of w.  ds1 enters dg only through
+// these sums (a tap adds its row where its output pixel exists), so it
+// never becomes a bf16 operand.
+__global__ void fused_conv3x3_ctab_kernel(const __nv_bfloat16* __restrict__ w,
+                                          const float* __restrict__ ds1,
+                                          float* __restrict__ ctab, int rows,
+                                          int n) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const __nv_bfloat16* wr = w + (int64_t)r * n;
+  float s = 0.f;
+  for (int j = 0; j < n; ++j) s = fmaf(ds1[j], __bfloat162float(wr[j]), s);
+  ctab[r] = s;
+}
+
+// The dx kernel's shared memory: two stages, each holding one slice of
+// 16 output channels: the cotangent halo of the tile in output pixels
+// (EH x EW, rows of 16 + 8 bf16: e, built in place from the raw dy),
+// the raw y of the same pixels, and w[tap][k][slice] of the block's BN
+// input channels for the nine taps (rows of 16 + 8); or the epilogue;
+// then the ds1 table of the block's columns, [9][BN] f32, and its sum
+// over each parity class's taps, [classes][BN].
+template <int STRIDE, class TL>
+struct DxSmem {
+  static constexpr int EH = STRIDE == 1 ? TC_TH + 2 : TC_TH + 1;
+  static constexpr int EW = STRIDE == 1 ? TC_TW + 2 : TC_TW + 1;
+  static constexpr int E_ELEMS = EH * EW * TC_HPITCH;
+  static constexpr int Y_ELEMS = EH * EW * TC_KC;
+  static constexpr int W_ELEMS = 9 * TL::BN * TC_HPITCH;
+  static constexpr int STAGE_ELEMS = E_ELEMS + Y_ELEMS + W_ELEMS;
+  static constexpr int MAIN_BYTES = 2 * STAGE_ELEMS * 2;
+  static constexpr int BODY =
+      ((MAIN_BYTES > TL::EPI_BYTES ? MAIN_BYTES : TL::EPI_BYTES) + 15) / 16
+      * 16;
+  static constexpr int BYTES = BODY + (9 + STRIDE * STRIDE) * TL::BN * 4;
+};
+
+// dx on the tensor cores.  One block: a TC_TH x TC_TW tile of output-grid
+// positions (i, j) of image blockIdx.z against input channels
+// blockIdx.y * BN .. + BN.  At stride 1 these are the input pixels
+// (i, j); at stride 2 the input pixels (2i + ph, 2j + pw) of the four
+// parity classes (ph, pw), each of which only 1, 2 or 4 taps reach, so
+// that the classes share one cotangent halo: dg[m, k] = sum over the
+// class's taps and n of e[out(m, tap), n] * w[tap, k, n] with e = T(dy +
+// y * (2 ds2)), built ONCE per element of the tile's output-pixel halo
+// per slice of 16 channels (0 where the output pixel does not exist),
+// then read through ldmatrix at each tap's shift.  The slices go through
+// two stages: the next slice's copies are in flight while this one is
+// built and multiplied.  The epilogue (per class) adds the ds1 table of
+// the taps whose output pixel exists (unrounded f32; one precomputed sum
+// away from the image's edges), then dz = dg * act'(x a + b), dx = T(dz
+// a), da += dz x, db += dz (f64 atomics per column and block); without
+// a prologue dx = T(dg).
+template <int STRIDE, int ACT, bool PRO, class TL>
+__global__ void __launch_bounds__(tc::THREADS,
+                                  STRIDE == 2 || TL::BN == 128 ? 2 : 3)
+fused_conv3x3_dx_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ w,
+                           const float* __restrict__ pa,
+                           const float* __restrict__ pb,
+                           const __nv_bfloat16* __restrict__ y,
+                           const __nv_bfloat16* __restrict__ dy,
+                           const float* __restrict__ ds2,
+                           const float* __restrict__ ctab,
+                           __nv_bfloat16* __restrict__ dx,
+                           double* __restrict__ da, double* __restrict__ db,
+                           Geom g) {
+  using SM = DxSmem<STRIDE, TL>;
+  constexpr int BN = TL::BN, CLASSES = STRIDE * STRIDE;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* ct = reinterpret_cast<float*>(smem + SM::BODY);
+  float* ct_full = ct + 9 * BN;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / TL::WARPS_N, wn = warp % TL::WARPS_N;
+  const int c0 = blockIdx.y * BN;
+  const int tiles_x = (g.wo + TC_TW - 1) / TC_TW;
+  const int i0 = (blockIdx.x / tiles_x) * TC_TH;
+  const int j0 = (blockIdx.x % tiles_x) * TC_TW;
+  const int img = blockIdx.z;
+  // the halo's first output pixel
+  const int ey0 = STRIDE == 1 ? i0 - 1 : i0;
+  const int ex0 = STRIDE == 1 ? j0 - 1 : j0;
+  const int64_t out_img = (int64_t)img * g.ho * g.wo * g.n;
+  // a tap reaches class (ph, pw) where its output pixel is whole: every
+  // tap at stride 1; at stride 2 dh = 1 for even rows, 0 and 2 for odd
+  // ones (dw alike)
+  auto tap_on = [](int cls, int dh, int dw) {
+    return STRIDE == 1
+           || ((((cls >> 1) + 1 - dh) | ((cls & 1) + 1 - dw)) & 1) == 0;
+  };
+
+  for (int i = tid; i < 9 * BN; i += tc::THREADS) {
+    const int kk = c0 + i % BN;
+    ct[i] = kk < g.k ? ctab[(i / BN) * g.k + kk] : 0.f;
+  }
+  for (int i = tid; i < CLASSES * BN; i += tc::THREADS) {
+    const int cls = i / BN, kk = c0 + i % BN;
+    float sum = 0.f;
+    for (int tap = 0; tap < 9; ++tap)
+      if (kk < g.k && tap_on(cls, tap / 3, tap % 3))
+        sum += ctab[tap * g.k + kk];
+    ct_full[i] = sum;
+  }
+  // this lane's halo element of each A fragment at shift (0, 0), and its
+  // row of the weight taps
+  int a_base[TL::MI];
+#pragma unroll
+  for (int mi = 0; mi < TL::MI; ++mi) {
+    const int r = wm * TL::WTM + mi * 16 + (lane & 15);
+    a_base[mi] = ((r / TC_TW) * SM::EW + r % TC_TW) * TC_HPITCH
+                 + (lane >> 4) * 8;
+  }
+  const int b_base = (wn * TL::WTN + (lane >> 4) * 8 + (lane & 7))
+                         * TC_HPITCH + ((lane >> 3) & 1) * 8;
+
+  // copies of the slice of channels n0 .. n0 + 16 into a stage: raw dy
+  // and y of the halo (two 16-byte chunks of 8 channels each), and the
+  // weights: row tap * BN + kl is w[tap][c0 + kl][slice]
+  auto copy_slice = [&](int stage, int n0) {
+    __nv_bfloat16* eb = stages + stage * SM::STAGE_ELEMS;
+    __nv_bfloat16* yb = eb + SM::E_ELEMS;
+    __nv_bfloat16* ws = yb + SM::Y_ELEMS;
+    for (int i = tid; i < SM::EH * SM::EW * 2; i += tc::THREADS) {
+      const int p = i >> 1, ch = i & 1;
+      const int oy = ey0 + p / SM::EW, ox = ex0 + p % SM::EW;
+      const bool ok = oy >= 0 && oy < g.ho && ox >= 0 && ox < g.wo
+                      && n0 + ch * 8 < g.n;
+      const int64_t off =
+          out_img + ((int64_t)oy * g.wo + ox) * g.n + n0 + ch * 8;
+      tc::cp_async16(eb + p * TC_HPITCH + ch * 8, ok ? dy + off : dy, ok);
+      tc::cp_async16(yb + p * TC_KC + ch * 8, ok ? y + off : y, ok);
+    }
+    for (int i = tid; i < 9 * BN * 2; i += tc::THREADS) {
+      const int tap = i / (2 * BN), kl = (i >> 1) % BN, ch = i & 1;
+      const bool ok = c0 + kl < g.k && n0 + ch * 8 < g.n;
+      tc::cp_async16(
+          ws + (tap * BN + kl) * TC_HPITCH + ch * 8,
+          ok ? w + ((int64_t)tap * g.k + c0 + kl) * g.n + n0 + ch * 8 : w,
+          ok);
+    }
+  };
+
+  float acc[CLASSES][TL::MI][TL::NI][4];
+#pragma unroll
+  for (int cls = 0; cls < CLASSES; ++cls)
+#pragma unroll
+    for (int mi = 0; mi < TL::MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < TL::NI; ++ni)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[cls][mi][ni][j] = 0.f;
+
+  const int slices = (g.n + TC_KC - 1) / TC_KC;
+  copy_slice(0, 0);
+  tc::cp_async_commit();
+  for (int sl = 0; sl < slices; ++sl) {
+    // the next slice's copies go to the stage the last slice used (all
+    // threads left it at the loop's end); then this slice has landed
+    if (sl + 1 < slices) copy_slice((sl + 1) & 1, (sl + 1) * TC_KC);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+    __nv_bfloat16* eb = stages + (sl & 1) * SM::STAGE_ELEMS;
+    const __nv_bfloat16* yb = eb + SM::E_ELEMS;
+    const __nv_bfloat16* ws = yb + SM::Y_ELEMS;
+    {
+      // e = T(dy + y * (2 ds2)) in place: thread owns channel pair
+      // tid % 8 of every 32nd halo pixel inside the output
+      const int c = 2 * (tid & 7), nn = sl * TC_KC + c;
+      if (nn < g.n) {
+        const float t0 = 2.0f * ds2[nn], t1 = 2.0f * ds2[nn + 1];
+        for (int p = tid >> 3; p < SM::EH * SM::EW; p += tc::THREADS / 8) {
+          const int oy = ey0 + p / SM::EW, ox = ex0 + p % SM::EW;
+          if (oy < 0 || oy >= g.ho || ox < 0 || ox >= g.wo) continue;
+          __nv_bfloat162* e =
+              reinterpret_cast<__nv_bfloat162*>(eb + p * TC_HPITCH + c);
+          const float2 d = __bfloat1622float2(*e);
+          const float2 v = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(yb + p * TC_KC + c));
+          *e = __floats2bfloat162_rn(d.x + v.x * t0, d.y + v.y * t1);
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int cls = 0; cls < CLASSES; ++cls) {
+      const int ph = cls >> 1, pw = cls & 1;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dh = tap / 3, dw = tap % 3;
+        if (!tap_on(cls, dh, dw)) continue;
+        // the tap's output pixel of tile pixel (oy, ox) is halo pixel
+        // (oy + sy, ox + sx)
+        const int sy = STRIDE == 1 ? 2 - dh : (ph + 1 - dh) >> 1;
+        const int sx = STRIDE == 1 ? 2 - dw : (pw + 1 - dw) >> 1;
+        const __nv_bfloat16* a[TL::MI];
+        const __nv_bfloat16* b[TL::NI / 2];
+#pragma unroll
+        for (int mi = 0; mi < TL::MI; ++mi)
+          a[mi] = eb + a_base[mi] + (sy * SM::EW + sx) * TC_HPITCH;
+#pragma unroll
+        for (int nj = 0; nj < TL::NI / 2; ++nj)
+          b[nj] = ws + (tap * BN + nj * 16) * TC_HPITCH + b_base;
+        tc::mma_step<TL::MI, TL::NI, false, false>(acc[cls], a, b);
+      }
+    }
+    __syncthreads();   // the next copies may overwrite this stage
+  }
+  tc::cp_async_wait<0>();
+
+#pragma unroll
+  for (int cls = 0; cls < CLASSES; ++cls) {
+    const int ph = cls >> 1, pw = cls & 1;
+    // tile row r is input pixel ((i0 + r / TC_TW) * STRIDE + ph,
+    // (j0 + r % TC_TW) * STRIDE + pw)
+    auto row_off = [&](int r) -> int64_t {
+      const int i = i0 + r / TC_TW, j = j0 + r % TC_TW;
+      return i < g.ho && j < g.wo
+                 ? (((int64_t)img * g.h + i * STRIDE + ph) * g.w
+                    + j * STRIDE + pw) * g.k
+                 : -1;
+    };
+    tc::epilogue<TL, PRO>(
+        acc[cls], smem, c0, g.k, row_off,
+        [&](int r, int c, float v0, float v1, float2& t1,
+            float2& t2) -> __nv_bfloat162 {
+          t1 = t2 = make_float2(0.f, 0.f);
+          const int64_t off = row_off(r);
+          if (off < 0 || c >= g.k) return __floats2bfloat162_rn(0.f, 0.f);
+          const int hi = (i0 + r / TC_TW) * STRIDE + ph;
+          const int wi = (j0 + r % TC_TW) * STRIDE + pw;
+          float e0, e1;
+          if (hi >= 1 && hi + 2 <= g.h && wi >= 1 && wi + 2 <= g.w) {
+            // every tap of the class has its output pixel
+            e0 = ct_full[cls * BN + c - c0];
+            e1 = ct_full[cls * BN + c - c0 + 1];
+          } else {
+            e0 = e1 = 0.f;
+#pragma unroll
+            for (int tap = 0; tap < 9; ++tap) {
+              const int th = hi + 1 - tap / 3, tw = wi + 1 - tap % 3;
+              if (th < 0 || (th % STRIDE) || th / STRIDE >= g.ho || tw < 0
+                  || (tw % STRIDE) || tw / STRIDE >= g.wo)
+                continue;
+              e0 += ct[tap * BN + c - c0];
+              e1 += ct[tap * BN + c - c0 + 1];
+            }
+          }
+          const float d0 = v0 + e0, d1 = v1 + e1;
+          if (!PRO) return __floats2bfloat162_rn(d0, d1);
+          const float2 xf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(x + off + c));
+          float g0, gp0, g1, gp1;
+          act_and_grad<ACT>(xf.x * pa[c] + pb[c], g0, gp0);
+          act_and_grad<ACT>(xf.y * pa[c + 1] + pb[c + 1], g1, gp1);
+          const float z0 = d0 * gp0, z1 = d1 * gp1;
+          t1 = make_float2(z0 * xf.x, z1 * xf.y);
+          t2 = make_float2(z0, z1);
+          return __floats2bfloat162_rn(z0 * pa[c], z1 * pa[c + 1]);
+        },
+        dx, da, db);
+    __syncthreads();   // the next class's epilogue reuses the staging
+  }
+}
+
+// dW on the tensor cores: 9 warps, warp = tap (dh, dw).  One block adds
+// dW[(tap, k0 .. k0 + 32), c0 .. c0 + 64) over a chunk of output-pixel
+// tiles (split-M: grid.x walks the chunks, the block's f32 sums go to the
+// zeroed dW with one f32 atomic per element).  Per TC_TH x TC_TW tile:
+// copy the raw input halo of the block's 32 channels and the raw dy, y
+// of the tile's pixels with cp.async (zero outside the image), run the
+// prologue ONCE per halo element in f32 and round it to bf16 (pixels
+// outside the image stay 0), build dyt = T(T(dy + y * (2 ds2)) + ds1)
+// once per element (0 for a pixel outside the output), then per output
+// row of the tile one 16-deep step: A = the tap's shifted halo,
+// [pixel][channel] read with ldmatrix .trans (the contraction runs over
+// pixels), B = dyt, [pixel][n], read with .trans.
+constexpr int DW_KC = 32;              // input channels of a block
+constexpr int DW_BN = 64;              // output channels of a block
+constexpr int DW_THREADS = 9 * 32;     // one warp per tap
+constexpr int DW_HPITCH = DW_KC + 8;   // 80-byte halo pixels
+constexpr int DW_DPITCH = DW_BN + 8;   // 144-byte dyt rows
+
+template <int STRIDE>
+struct DwSmem {
+  using G = HaloGeom<STRIDE>;
+  static constexpr int HALO_ELEMS = G::HH * G::HW * DW_HPITCH;
+  static constexpr int D_ELEMS = tc::BM * DW_DPITCH;
+  static constexpr int Y_ELEMS = tc::BM * DW_BN;
+  static constexpr int BYTES = (HALO_ELEMS + D_ELEMS + Y_ELEMS) * 2;
+};
+
+template <int STRIDE, int ACT, bool PRO>
+__global__ void __launch_bounds__(DW_THREADS, 2)
+fused_conv3x3_dw_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                           const float* __restrict__ pa,
+                           const float* __restrict__ pb,
+                           const __nv_bfloat16* __restrict__ y,
+                           const __nv_bfloat16* __restrict__ dy,
+                           const float* __restrict__ ds1,
+                           const float* __restrict__ ds2,
+                           float* __restrict__ dw, Geom g,
+                           int tiles_per_chunk) {
+  using G = HaloGeom<STRIDE>;
+  using SM = DwSmem<STRIDE>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* halo = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* dyt = halo + SM::HALO_ELEMS;
+  __nv_bfloat16* yb = dyt + SM::D_ELEMS;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int k_blocks = (g.k + DW_KC - 1) / DW_KC;
+  const int k0 = (blockIdx.y % k_blocks) * DW_KC;
+  const int c0 = (blockIdx.y / k_blocks) * DW_BN;
+  const int tiles_x = (g.wo + TC_TW - 1) / TC_TW;
+  const int per_img = tiles_x * ((g.ho + TC_TH - 1) / TC_TH);
+  const int64_t t_total = (int64_t)g.b * per_img;
+  const int64_t t_begin = (int64_t)blockIdx.x * tiles_per_chunk;
+  const int64_t t_end = t_begin + tiles_per_chunk < t_total
+                            ? t_begin + tiles_per_chunk : t_total;
+
+  // the prologue: thread owns channel pair tid % 16 of the halo
+  const int hcol = 2 * (tid & 15);
+  const bool h_ok = k0 + hcol < g.k;
+  float a0 = 1.f, a1 = 1.f, b0 = 0.f, b1 = 0.f;
+  if (PRO && h_ok) {
+    a0 = pa[k0 + hcol];
+    a1 = pa[k0 + hcol + 1];
+    b0 = pb[k0 + hcol];
+    b1 = pb[k0 + hcol + 1];
+  }
+  // the cotangent: thread owns column pair tid % 32 of dyt
+  const int dcol = 2 * (tid & 31);
+  const bool d_ok = c0 + dcol < g.n;
+  float u0 = 0.f, u1 = 0.f, v0 = 0.f, v1 = 0.f;   // ds1, 2 ds2
+  if (d_ok) {
+    u0 = ds1[c0 + dcol];
+    u1 = ds1[c0 + dcol + 1];
+    v0 = 2.0f * ds2[c0 + dcol];
+    v1 = 2.0f * ds2[c0 + dcol + 1];
+  }
+  // this lane's A address at output row 0 of the tile (its pixel is the
+  // contraction index (lane >> 4) * 8 + (lane & 7)), and its B address
+  const int dh = warp / 3, dwx = warp % 3;
+  const int a_off =
+      (dh * G::HW + G::slot(((lane >> 4) * 8 + (lane & 7)) * STRIDE + dwx))
+          * DW_HPITCH + ((lane >> 3) & 1) * 8;
+  const int b_off = (lane & 15) * DW_DPITCH + (lane >> 4) * 8;
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
+
+  for (int64_t t = t_begin; t < t_end; ++t) {
+    const int img = (int)(t / per_img), rem = (int)(t % per_img);
+    const int oy0 = (rem / tiles_x) * TC_TH, ox0 = (rem % tiles_x) * TC_TW;
+    const int iy0 = oy0 * STRIDE - 1, ix0 = ox0 * STRIDE - 1;
+    const __nv_bfloat16* ximg = x + (int64_t)img * g.h * g.w * g.k;
+    // raw halo: four 16-byte chunks of 8 channels per pixel
+    for (int i = tid; i < G::HH * G::HW * 4; i += DW_THREADS) {
+      const int p = i >> 2, ch = i & 3;
+      const int hy = p / G::HW, hx = p % G::HW;
+      const int iy = iy0 + hy, ix = ix0 + hx;
+      const bool ok = iy >= 0 && iy < g.h && ix >= 0 && ix < g.w
+                      && k0 + ch * 8 < g.k;
+      tc::cp_async16(
+          halo + (hy * G::HW + G::slot(hx)) * DW_HPITCH + ch * 8,
+          ok ? ximg + ((int64_t)iy * g.w + ix) * g.k + k0 + ch * 8 : x, ok);
+    }
+    // raw dy and y of the tile's 128 output pixels
+    for (int i = tid; i < tc::BM * (DW_BN / 8); i += DW_THREADS) {
+      const int r = i >> 3, ch = i & 7;
+      const int oy = oy0 + r / TC_TW, ox = ox0 + r % TC_TW;
+      const bool ok = oy < g.ho && ox < g.wo && c0 + ch * 8 < g.n;
+      const int64_t off =
+          (((int64_t)img * g.ho + oy) * g.wo + ox) * g.n + c0 + ch * 8;
+      tc::cp_async16(dyt + r * DW_DPITCH + ch * 8, ok ? dy + off : dy, ok);
+      tc::cp_async16(yb + r * DW_BN + ch * 8, ok ? y + off : y, ok);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    if (PRO && h_ok) {
+      for (int p = tid >> 4; p < G::HH * G::HW; p += DW_THREADS / 16) {
+        const int hy = p / G::HW, hx = p % G::HW;
+        const int iy = iy0 + hy, ix = ix0 + hx;
+        if (iy < 0 || iy >= g.h || ix < 0 || ix >= g.w) continue;
+        __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(
+            halo + (hy * G::HW + G::slot(hx)) * DW_HPITCH + hcol);
+        const float2 v = __bfloat1622float2(*e);
+        *e = __floats2bfloat162_rn(act_only<ACT>(v.x * a0 + b0),
+                                   act_only<ACT>(v.y * a1 + b1));
+      }
+    }
+    for (int r = tid >> 5; r < tc::BM; r += DW_THREADS / 32) {
+      const int oy = oy0 + r / TC_TW, ox = ox0 + r % TC_TW;
+      __nv_bfloat162* e =
+          reinterpret_cast<__nv_bfloat162*>(dyt + r * DW_DPITCH + dcol);
+      __nv_bfloat162 out = __floats2bfloat162_rn(0.f, 0.f);
+      if (d_ok && oy < g.ho && ox < g.wo) {
+        const float2 d = __bfloat1622float2(*e);
+        const float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(yb + r * DW_BN + dcol));
+        const float2 q = __bfloat1622float2(
+            __floats2bfloat162_rn(d.x + v.x * v0, d.y + v.y * v1));
+        out = __floats2bfloat162_rn(q.x + u0, q.y + u1);
+      }
+      *e = out;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < TC_TH; ++j) {
+      const __nv_bfloat16* a[2];
+      const __nv_bfloat16* b[4];
+      a[0] = halo + a_off + j * STRIDE * G::HW * DW_HPITCH;
+      a[1] = a[0] + 16;
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+        b[nj] = dyt + j * 16 * DW_DPITCH + b_off + nj * 16;
+      tc::mma_step<2, 8, true, true>(acc, a, b);
+    }
+    __syncthreads();   // the next tile's copies overwrite the buffers
+  }
+
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + mi * 16 + gq + 8 * h;
+      if (k >= g.k) continue;
+      float* row = dw + ((int64_t)warp * g.k + k) * g.n;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int n = c0 + ni * 8 + 2 * tq + j;
+          if (n < g.n) atomicAdd(row + n, acc[mi][ni][2 * h + j]);
+        }
+    }
+}
+
 // ------------------------------------------------------------ launches
 
 template <typename T, int ACT>
@@ -696,6 +1177,96 @@ int launch_bwd(const void* x, const void* w, const float* a, const float* b,
   return (int)cudaGetLastError();
 }
 
+struct BwdArgs {
+  const void* x;
+  const void* w;
+  const float* a;
+  const float* b;
+  const void* y;
+  const void* dy;
+  const float* ds1;
+  const float* ds2;
+  float* ctab;
+  void* dx;
+  float* dw;
+  double* da;
+  double* db;
+};
+
+struct BwdTcPlan {
+  dim3 dx_grid;
+  int dx_smem;
+  dim3 dw_grid;
+  int dw_smem;
+};
+
+template <int STRIDE, int ACT, bool PRO, class TL>
+int launch_bwd_tc(const BwdArgs& p, const Geom& g, const BwdTcPlan& plan,
+                  cudaStream_t stream) {
+  // the plan must be this config's
+  const unsigned dx_cols = (unsigned)((g.k + TL::BN - 1) / TL::BN);
+  const unsigned dw_blocks = (unsigned)(((g.k + DW_KC - 1) / DW_KC)
+                                        * ((g.n + DW_BN - 1) / DW_BN));
+  if (plan.dx_smem != DxSmem<STRIDE, TL>::BYTES
+      || plan.dw_smem != DwSmem<STRIDE>::BYTES || g.k % TC_KC || g.n % 8
+      || plan.dx_grid.y != dx_cols
+      || plan.dw_grid.y != dw_blocks || plan.dw_grid.x < 1)
+    return (int)cudaErrorInvalidValue;
+  const __nv_bfloat16* w = (const __nv_bfloat16*)p.w;
+  const int rows = 9 * g.k;
+  fused_conv3x3_ctab_kernel<<<(rows + 127) / 128, 128, 0, stream>>>(
+      w, p.ds1, p.ctab, rows, g.n);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+
+  auto dx_kernel = fused_conv3x3_dx_tc_kernel<STRIDE, ACT, PRO, TL>;
+  static int dx_allowed[tc::MAX_DEVICES] = {0};   // per instance and device
+  err = tc::allow_smem((const void*)dx_kernel, plan.dx_smem, dx_allowed);
+  if (err != 0) return err;
+  dx_kernel<<<plan.dx_grid, tc::THREADS, plan.dx_smem, stream>>>(
+      (const __nv_bfloat16*)p.x, w, p.a, p.b, (const __nv_bfloat16*)p.y,
+      (const __nv_bfloat16*)p.dy, p.ds2, p.ctab, (__nv_bfloat16*)p.dx, p.da,
+      p.db, g);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+
+  auto dw_kernel = fused_conv3x3_dw_tc_kernel<STRIDE, ACT, PRO>;
+  static int dw_allowed[tc::MAX_DEVICES] = {0};
+  err = tc::allow_smem((const void*)dw_kernel, plan.dw_smem, dw_allowed);
+  if (err != 0) return err;
+  const int64_t tiles = (int64_t)g.b * ((g.ho + TC_TH - 1) / TC_TH)
+                        * ((g.wo + TC_TW - 1) / TC_TW);
+  const int64_t per_chunk = (tiles + plan.dw_grid.x - 1) / plan.dw_grid.x;
+  dw_kernel<<<plan.dw_grid, DW_THREADS, plan.dw_smem, stream>>>(
+      (const __nv_bfloat16*)p.x, p.a, p.b, (const __nv_bfloat16*)p.y,
+      (const __nv_bfloat16*)p.dy, p.ds1, p.ds2, p.dw, g, (int)per_chunk);
+  return (int)cudaGetLastError();
+}
+
+template <int STRIDE, class TL>
+int bwd_tc_by_act(const BwdArgs& p, const Geom& g, int act,
+                  const BwdTcPlan& plan, cudaStream_t stream) {
+  if (p.a == nullptr)
+    return launch_bwd_tc<STRIDE, ACT_LINEAR, false, TL>(p, g, plan, stream);
+  if (act == ACT_MISH)
+    return launch_bwd_tc<STRIDE, ACT_MISH, true, TL>(p, g, plan, stream);
+  if (act == ACT_LEAKY)
+    return launch_bwd_tc<STRIDE, ACT_LEAKY, true, TL>(p, g, plan, stream);
+  if (act == ACT_LINEAR)
+    return launch_bwd_tc<STRIDE, ACT_LINEAR, true, TL>(p, g, plan, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// stride 2 holds four classes' accumulators: 32 columns only
+template <class TL>
+int bwd_tc_by_stride(const BwdArgs& p, const Geom& g, int act,
+                     const BwdTcPlan& plan, cudaStream_t stream) {
+  if (g.stride == 1) return bwd_tc_by_act<1, TL>(p, g, act, plan, stream);
+  if constexpr (TL::BN == 32)
+    return bwd_tc_by_act<2, TL>(p, g, act, plan, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 bool make_geom(int b, int h, int w, int k, int n, int stride, Geom* g) {
   if (b < 1 || h < 1 || w < 1 || k < 1 || n < 1) return false;
   if (stride != 1 && stride != 2) return false;
@@ -777,4 +1348,35 @@ extern "C" int fused_conv3x3_bwd_launch(const void* x, const void* w,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   DISPATCH(launch_bwd, x, w, a, b, y, dy, ds1, ds2, dx, dw, da, db, g, s)
+}
+
+// Backward on the tensor cores, bf16 only: the ds1 table (into ctab, 9k
+// f32 of scratch), the dx kernel, then the split-M dW kernel.  The
+// arguments are the CUDA-core entry's; dx_config (0, 1, 2: BN = 128,
+// 64, 32), the grids and the shared memory come from the Python plan
+// (dW's grid.x is its count of chunks).  K % 16 == 0, N % 8 == 0, and
+// every tensor 16-byte aligned.  Returns the first nonzero cudaError_t
+// of the three launches.
+extern "C" int fused_conv3x3_bwd_tc_launch(
+    const void* x, const void* w, const float* a, const float* b,
+    const void* y, const void* dy, const float* ds1, const float* ds2,
+    float* ctab, void* dx, float* dw, double* da, double* db, int bsz,
+    int h, int wd, int k, int n, int stride, int act, int dx_config,
+    int dx_grid_x, int dx_grid_y, int dx_grid_z, int dx_smem,
+    int dw_grid_x, int dw_grid_y, int dw_smem, void* stream) {
+  Geom g;
+  if (!make_geom(bsz, h, wd, k, n, stride, &g))
+    return (int)cudaErrorInvalidValue;
+  const BwdArgs p{x, w, a, b, y, dy, ds1, ds2, ctab, dx, dw, da, db};
+  const BwdTcPlan plan{
+      dim3((unsigned)dx_grid_x, (unsigned)dx_grid_y, (unsigned)dx_grid_z),
+      dx_smem, dim3((unsigned)dw_grid_x, (unsigned)dw_grid_y, 1u), dw_smem};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dx_config == 0)
+    return bwd_tc_by_stride<tc::Tile128>(p, g, act, plan, s);
+  if (dx_config == 1)
+    return bwd_tc_by_stride<tc::Tile64>(p, g, act, plan, s);
+  if (dx_config == 2)
+    return bwd_tc_by_stride<tc::Tile32>(p, g, act, plan, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -13,23 +13,38 @@
 //
 // Design for Hopper, not a block-by-block copy:
 //
-// * Forward: one block per 64 x 64 tile of y; the inputs' K ranges are
-//   walked one after the other by a loop in the block (a concat that is
-//   never stored).  The prologue runs in f32 while the A tile is staged,
-//   is rounded to T as the TPU kernel rounds its MXU operand, and goes to
-//   shared memory as f32 (a bf16 value is exact in f32).  256 threads,
-//   4 x 4 micro-tiles, f32 FMA on the CUDA cores.  The TPU kernel adds
-//   s1/s2 across its sequential grid; here each block reduces its columns
-//   in shared memory (64 f32 terms) and adds one f64 atomic per column:
-//   M = 86528 rows are 1352 blocks per column, and the variance
+// * Forward: the inputs' K ranges are walked one after the other by a
+//   loop in the block (a concat that is never stored).  Two kernels,
+//   chosen per shape by the Python plan (ops/kernels/fused_gemm.py,
+//   _tc_plan), which passes the tile config, the grid and the dynamic
+//   shared memory:
+//   - fused_gemm_fwd_tc_kernel, bf16 with every K_i % 8 == 0 and
+//     N % 8 == 0 (all 43 GEMMs of a packed=3 step): tensor cores.  A
+//     block takes 128 rows and BN = 128, 64 or 32 columns (the widest
+//     that N fills, narrower while the grid would not cover the 132
+//     SMs); 8 warps run mma.sync m16n8k16 (bf16 -> f32) fed by ldmatrix
+//     from a 4-stage ring of 32-deep slices copied with 16-byte cp.async
+//     (zero fill past M and past K_i).  An input without a prologue is
+//     copied as it is; for an input with one, the raw slice lands in the
+//     ring and is activated there ONCE per element in f32 and rounded to
+//     bf16 before ldmatrix reads it (once per column block of the grid).
+//   - fused_gemm_fwd_kernel, f32 (the tensor cores' f32 route would be
+//     TF32) and bf16 shapes the tensor-core kernel does not take: one
+//     block per 64 x 64 tile, 4 x 4 micro-tiles of f32 FMA on the CUDA
+//     cores; the prologue runs in f32 while the A tile is staged.
+//   Both round g to T as the TPU kernel rounds its MXU operand.  The TPU
+//   kernel adds s1/s2 across its sequential grid; here each block reduces
+//   its columns in shared memory and adds one f64 atomic per column:
+//   M = 86528 rows are hundreds of blocks per column, and the variance
 //   s2 / M - mean^2 cancels, so the cross-block sum must not lose bits.
 //   The wrapper rounds the sums to f32; block order does not show.
 //   With `raw_stats` the sums are of the f32 product before it is rounded
-//   (the variant of tools/bench_packed_probe.py's fused_kernel).
-// * Backward reads the forward's stored y where the TPU kernel recomputes
-//   it in VMEM: under PyTorch the consumer keeps y alive anyway, and a
-//   block could not hold a [rows, N] tile of y for N = 1024.  Two kernels
-//   per input:
+//   (the variant of tools/bench_packed_probe.py's fused_kernel; RAW in
+//   the tensor-core kernel).
+// * Backward (CUDA cores) reads the forward's stored y where the TPU
+//   kernel recomputes it in VMEM: under PyTorch the consumer keeps y
+//   alive anyway, and a block could not hold a [rows, N] tile of y for
+//   N = 1024.  Two kernels per input:
 //   - dx kernel, tile [64 rows, 64 of K_i], contraction over N of
 //     e = dy + T(y * T(2 ds2)) + T(ds1) with w_i^T.  Each term is rounded
 //     to T on its own, as the TPU kernel's three products round theirs;
@@ -40,17 +55,20 @@
 //     M_CHUNK rows (split-M: grid.z walks the chunks, tiles are added
 //     with f32 atomics into a zeroed dW).  Operands: the recomputed g_i
 //     and dyt = T(dy + ds1 + 2 y ds2).
-// * Any M >= 1, any K_i, N >= 1: ragged edges are zero-filled on load and
-//   masked on store.
+// * Any M >= 1, any K_i, N >= 1 on the CUDA cores: ragged edges are
+//   zero-filled on load and masked on store.
 //
-// What bounds it on an H100: the f32 FMA rate of the CUDA cores (67
-// TFLOP/s peak), far under the bf16 tensor cores; by bytes these GEMMs
-// are memory-light.  Tensor cores (mma.sync / wgmma) are later work.
+// What bounds it on an H100: by bytes these GEMMs are light (K, N <=
+// 1024).  The tensor-core forward adds to its bytes the prologue (expf
+// and two divisions per element at f32 CUDA-core rates, without FMA
+// contraction), repeated per column block; the backward and the f32
+// forward are bound by the CUDA cores' f32 FMA rate (67 TFLOP/s peak).
 //
 // Built with --fmad=false so that the prologue's f32 chain rounds as the
-// plain PyTorch version does (no contraction); the GEMM loops call fmaf
-// explicitly.
+// plain PyTorch version does (no contraction); the CUDA-core GEMM loops
+// call fmaf explicitly.
 
+#include "conv_mma.cuh"
 #include "fused_common.cuh"
 
 namespace {
@@ -154,6 +172,136 @@ fused_gemm_fwd_kernel(FwdInputs in, T* __restrict__ y,
   }
   column_atomic_add(As, p1, ty, tx, tid, c0, n_total, s1);
   column_atomic_add(As, p2, ty, tx, tid, c0, n_total, s2);
+}
+
+// ------------------------------------------ forward on tensor cores (bf16)
+
+// One block: rows blockIdx.x * 128 .. + 128 against columns
+// blockIdx.y * BN .. + BN, over the slices of every input in turn.  PRO
+// false: no input has a prologue (every slice goes from the ring to
+// ldmatrix as it landed).  RAW: the sums are of the f32 product.
+template <int ACT, bool PRO, bool RAW, class TL>
+__global__ void __launch_bounds__(tc::THREADS)
+fused_gemm_fwd_tc_kernel(FwdInputs in, __nv_bfloat16* __restrict__ y,
+                         double* __restrict__ s1, double* __restrict__ s2,
+                         int m_total, int n_total) {
+  using SM = tc::Ring<TL>;
+  constexpr int BN = TL::BN;
+  constexpr int BK = tc::RING_BK, STAGES = tc::RING_STAGES;
+  constexpr int APITCH = tc::RING_APITCH;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / TL::WARPS_N, wn = warp % TL::WARPS_N;
+  const int64_t m0 = (int64_t)blockIdx.x * tc::BM;
+  const int c0 = blockIdx.y * BN;
+  int slices = 0;
+  for (int i = 0; i < in.count; ++i) slices += (in.k[i] + BK - 1) / BK;
+
+  // copies: this thread's 16-byte chunk (tid % 4) of A rows tid / 4 and
+  // tid / 4 + 64; the input and first k of the next slice to copy
+  const int a_chunk = tid & 3;
+  int l_inp = 0, l_k = 0;
+  auto copy_slice = [&](int stage) {
+    __nv_bfloat16* as = ring + stage * SM::STAGE_ELEMS;
+    __nv_bfloat16* bs = as + SM::A_ELEMS;
+    const __nv_bfloat16* x = (const __nv_bfloat16*)in.x[l_inp];
+    const __nv_bfloat16* w = (const __nv_bfloat16*)in.w[l_inp];
+    const int k_total = in.k[l_inp];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = (tid >> 2) + 64 * r;
+      const int64_t m = m0 + row;
+      const int kk = l_k + a_chunk * 8;
+      const bool ok = m < m_total && kk < k_total;
+      tc::cp_async16(as + row * APITCH + a_chunk * 8,
+                     ok ? x + m * k_total + kk : x, ok);
+    }
+    constexpr int B_CHUNKS = BK * BN / 8;
+#pragma unroll
+    for (int i = tid; i < B_CHUNKS; i += tc::THREADS) {
+      const int kr = i / (BN / 8), col = (i % (BN / 8)) * 8;
+      const bool ok = l_k + kr < k_total && c0 + col < n_total;
+      tc::cp_async16(bs + kr * SM::BPITCH + col,
+                     ok ? w + (int64_t)(l_k + kr) * n_total + c0 + col : w,
+                     ok);
+    }
+    l_k += BK;
+    if (l_k >= k_total) {
+      l_k = 0;
+      ++l_inp;
+    }
+  };
+
+  float acc[TL::MI][TL::NI][4];
+#pragma unroll
+  for (int mi = 0; mi < TL::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < TL::NI; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < slices) copy_slice(s);
+    tc::cp_async_commit();
+  }
+  int c_inp = 0, c_k = 0;       // the slice being consumed
+  for (int kt = 0; kt < slices; ++kt) {
+    tc::cp_async_wait<STAGES - 2>();
+    __syncthreads();   // slice kt has landed; slice kt - 1 is consumed
+    if (kt + STAGES - 1 < slices) copy_slice((kt + STAGES - 1) % STAGES);
+    tc::cp_async_commit();
+    __nv_bfloat16* as = ring + (kt % STAGES) * SM::STAGE_ELEMS;
+    const __nv_bfloat16* bs = as + SM::A_ELEMS;
+    if (PRO && in.a[c_inp] != nullptr) {
+      // the prologue in place, once per element: thread owns channel
+      // pair tid % 16 of rows tid / 16 + 16 j (K_i % 8 == 0, so a pair
+      // lies wholly inside or past K_i; past it the zeros stay)
+      const int c = 2 * (tid & 15), kk = c_k + c;
+      if (kk < in.k[c_inp]) {
+        const float* pa = in.a[c_inp];
+        const float* pb = in.b[c_inp];
+        const float a0 = pa[kk], a1 = pa[kk + 1];
+        const float b0 = pb[kk], b1 = pb[kk + 1];
+#pragma unroll
+        for (int j = 0; j < tc::BM / 16; ++j) {
+          __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(
+              as + ((tid >> 4) + 16 * j) * APITCH + c);
+          const float2 v = __bfloat1622float2(*e);
+          *e = __floats2bfloat162_rn(act_only<ACT>(v.x * a0 + b0),
+                                     act_only<ACT>(v.y * a1 + b1));
+        }
+      }
+      __syncthreads();
+    }
+    c_k += BK;
+    if (c_k >= in.k[c_inp]) {
+      c_k = 0;
+      ++c_inp;
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      const __nv_bfloat16* a_rows[TL::MI];
+#pragma unroll
+      for (int mi = 0; mi < TL::MI; ++mi)
+        a_rows[mi] = as + (wm * TL::WTM + mi * 16 + (lane & 15)) * APITCH
+                     + kk + (lane >> 4) * 8;
+      tc::mma_k16<TL>(acc, a_rows,
+                      bs + (kk + (lane & 15)) * SM::BPITCH + wn * TL::WTN
+                          + (lane >> 4) * 8);
+    }
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  tc::store_tile<TL, true, RAW>(
+      acc, smem, nullptr, c0, n_total,
+      [&](int r) -> int64_t {
+        const int64_t m = m0 + r;
+        return m < m_total ? m * n_total : -1;
+      },
+      y, s1, s2);
 }
 
 // ------------------------------------------------------- backward: dx
@@ -345,6 +493,56 @@ int launch_fwd(const FwdInputs& in, void* y, double* s1, double* s2, int m,
   return (int)cudaGetLastError();
 }
 
+template <int ACT, bool PRO, bool RAW, class TL>
+int launch_fwd_tc(const FwdInputs& in, void* y, double* s1, double* s2,
+                  int m, int n, dim3 grid, int smem_bytes,
+                  cudaStream_t stream) {
+  // the plan's shared memory must be this config's
+  if (smem_bytes != tc::Ring<TL>::BYTES || n % 8)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < in.count; ++i)
+    if (in.k[i] % 8) return (int)cudaErrorInvalidValue;
+  auto kernel = fused_gemm_fwd_tc_kernel<ACT, PRO, RAW, TL>;
+  static int allowed[tc::MAX_DEVICES] = {0};   // per instance and device
+  int err = tc::allow_smem((const void*)kernel, smem_bytes, allowed);
+  if (err != 0) return err;
+  kernel<<<grid, tc::THREADS, smem_bytes, stream>>>(
+      in, (__nv_bfloat16*)y, s1, s2, m, n);
+  return (int)cudaGetLastError();
+}
+
+template <bool RAW, class TL>
+int fwd_tc_by_act(const FwdInputs& in, void* y, double* s1, double* s2,
+                  int m, int n, int act, dim3 grid, int smem_bytes,
+                  cudaStream_t stream) {
+  bool pro = false;
+  for (int i = 0; i < in.count; ++i) pro |= in.a[i] != nullptr;
+  if (!pro)
+    return launch_fwd_tc<ACT_LINEAR, false, RAW, TL>(in, y, s1, s2, m, n,
+                                                     grid, smem_bytes, stream);
+  if (act == ACT_MISH)
+    return launch_fwd_tc<ACT_MISH, true, RAW, TL>(in, y, s1, s2, m, n, grid,
+                                                  smem_bytes, stream);
+  if (act == ACT_LEAKY)
+    return launch_fwd_tc<ACT_LEAKY, true, RAW, TL>(in, y, s1, s2, m, n, grid,
+                                                   smem_bytes, stream);
+  if (act == ACT_LINEAR)
+    return launch_fwd_tc<ACT_LINEAR, true, RAW, TL>(in, y, s1, s2, m, n,
+                                                    grid, smem_bytes, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <class TL>
+int fwd_tc_by_raw(const FwdInputs& in, void* y, double* s1, double* s2,
+                  int m, int n, int act, int raw_stats, dim3 grid,
+                  int smem_bytes, cudaStream_t stream) {
+  if (raw_stats)
+    return fwd_tc_by_act<true, TL>(in, y, s1, s2, m, n, act, grid,
+                                   smem_bytes, stream);
+  return fwd_tc_by_act<false, TL>(in, y, s1, s2, m, n, act, grid,
+                                  smem_bytes, stream);
+}
+
 template <typename T, int ACT>
 int launch_bwd(const void* x, const void* w, const float* a, const float* b,
                const void* y, const void* dy, const float* ds1,
@@ -363,6 +561,22 @@ int launch_bwd(const void* x, const void* w, const float* a, const float* b,
   return (int)cudaGetLastError();
 }
 
+bool pack_inputs(const void* const* xs, const void* const* ws,
+                 const void* const* aas, const void* const* bbs,
+                 const int* ks, int count, FwdInputs* in) {
+  if (count < 1 || count > MAX_INPUTS) return false;
+  in->count = count;
+  for (int i = 0; i < count; ++i) {
+    in->x[i] = xs[i];
+    in->w[i] = ws[i];
+    in->a[i] = (const float*)aas[i];
+    in->b[i] = (const float*)bbs[i];
+    in->k[i] = ks[i];
+    if (ks[i] < 1) return false;
+  }
+  return true;
+}
+
 }  // namespace
 
 #define DISPATCH(FN, ...)                                                  \
@@ -379,12 +593,12 @@ int launch_bwd(const void* x, const void* w, const float* a, const float* b,
   }                                                                        \
   return (int)cudaErrorInvalidValue;
 
-// Forward.  xs, ws, aas, bbs: host arrays of `count` device pointers (an
-// entry of `aas` is null for an input without a prologue); ks: host array
-// of the K_i.  dtype: 0 = float32, 1 = bfloat16.  act: 0 mish, 1 leaky,
-// 2 linear.  s1 and s2 are zeroed f64 buffers; they sum the rounded y,
-// or with raw_stats != 0 the f32 product before rounding.  Returns the
-// cudaError_t of the launch.
+// Forward on the CUDA cores.  xs, ws, aas, bbs: host arrays of `count`
+// device pointers (an entry of `aas` is null for an input without a
+// prologue); ks: host array of the K_i.  dtype: 0 = float32, 1 =
+// bfloat16.  act: 0 mish, 1 leaky, 2 linear.  s1 and s2 are zeroed f64
+// buffers; they sum the rounded y, or with raw_stats != 0 the f32
+// product before rounding.  Returns the cudaError_t of the launch.
 extern "C" int fused_gemm_fwd_launch(const void* const* xs,
                                      const void* const* ws,
                                      const void* const* aas,
@@ -392,19 +606,37 @@ extern "C" int fused_gemm_fwd_launch(const void* const* xs,
                                      int count, void* y, double* s1,
                                      double* s2, int m, int n, int dtype,
                                      int act, int raw_stats, void* stream) {
-  if (count < 1 || count > MAX_INPUTS || m < 1 || n < 1)
-    return (int)cudaErrorInvalidValue;
   FwdInputs in;
-  in.count = count;
-  for (int i = 0; i < count; ++i) {
-    in.x[i] = xs[i];
-    in.w[i] = ws[i];
-    in.a[i] = (const float*)aas[i];
-    in.b[i] = (const float*)bbs[i];
-    in.k[i] = ks[i];
-  }
+  if (!pack_inputs(xs, ws, aas, bbs, ks, count, &in) || m < 1 || n < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   DISPATCH(launch_fwd, in, y, s1, s2, m, n, raw_stats, s)
+}
+
+// Forward on the tensor cores, bf16 only, arguments as above; config (0,
+// 1, 2: BN = 128, 64, 32), grid and smem_bytes come from the Python plan.
+// Every K_i and N must be multiples of 8, and x_i, w_i, y 16-byte
+// aligned.  Returns the cudaError_t of the launch.
+extern "C" int fused_gemm_fwd_tc_launch(
+    const void* const* xs, const void* const* ws, const void* const* aas,
+    const void* const* bbs, const int* ks, int count, void* y, double* s1,
+    double* s2, int m, int n, int act, int raw_stats, int config,
+    int grid_x, int grid_y, int smem_bytes, void* stream) {
+  FwdInputs in;
+  if (!pack_inputs(xs, ws, aas, bbs, ks, count, &in) || m < 1 || n < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  dim3 grid((unsigned)grid_x, (unsigned)grid_y);
+  if (config == 0)
+    return fwd_tc_by_raw<tc::Tile128>(in, y, s1, s2, m, n, act, raw_stats,
+                                      grid, smem_bytes, s);
+  if (config == 1)
+    return fwd_tc_by_raw<tc::Tile64>(in, y, s1, s2, m, n, act, raw_stats,
+                                     grid, smem_bytes, s);
+  if (config == 2)
+    return fwd_tc_by_raw<tc::Tile32>(in, y, s1, s2, m, n, act, raw_stats,
+                                     grid, smem_bytes, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Backward of one input: the dx kernel, then the split-M dW kernel.  a

@@ -73,7 +73,7 @@ def _tc_smem(config):
     """Bytes of dynamic shared memory of tensor-core config ``config``:
     the ring (A rows of 32 + 8 bf16, B rows of BN + 8) or the epilogue
     (the bf16 tile, rows of BN + 8, and two f32 partial sums per column
-    and warp row), whichever is larger (``TcSmem`` in conv_bn.cu)."""
+    and warp row), whichever is larger (``tc::Ring`` in conv_mma.cuh)."""
     bn, warps_m = _TC_TILES[config]
     ring = _TC_STAGES * (_TC_BM * (_TC_BK + 8) + _TC_BK * (bn + 8)) * 2
     epilogue = _TC_BM * (bn + 8) * 2 + 2 * warps_m * bn * 4

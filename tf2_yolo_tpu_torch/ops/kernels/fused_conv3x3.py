@@ -30,27 +30,45 @@ Source note. On CUDA tensors this launches ``csrc/fused_conv3x3.cu``, the
 Hopper port of the Pallas TPU kernels ``_fwd_s1_kernel``,
 ``_fwd_s2_kernel``, ``_bwd_s1_kernel`` and ``_bwd_s2_kernel``
 (tf2_yolo_tpu/ops/pallas/packed_conv3x3.py, reached through ``_fwd_call``
-and ``_bwd_call``). The forward has two kernels, one per route, chosen
-by shape in :func:`_tc_plan`: bf16 with K % 16 == 0 and N % 8 == 0 (all
-five layers of ``packed=3``) runs on the tensor cores, one block per 8 x
-16 output pixels and all of N <= 128: per slice of 16 input channels it
-stages the raw input halo with ``cp.async``, runs the prologue once per
-halo element, and feeds nine shifted tiles of the activated halo to
-``mma.sync`` (bf16 -> f32). It is bound by bytes and by the prologue's
-f32 arithmetic. f32 (whose tensor-core route would be TF32) and K = 3
-run on the CUDA cores, an implicit GEMM that gathers its window by index
-and recomputes the prologue once per tap. ``fused_conv3x3.launches``
-counts every forward launch, ``fused_conv3x3.tc_launches`` those of the
-tensor-core kernel. The backward (CUDA cores, bound by the f32 FMA rate)
-is two launches: dx with the da/db reductions (at stride 2 one
-parity class of input pixels per block, so only the taps that reach it
-are visited), and a split-M dW. The fold ``dy + 2 y ds2``, a separate
-pass before the TPU kernel, happens in the kernels' loads. The sums over
-all pixels (s1, s2, da, db) are per-block f32 partials added with f64
-atomics and rounded to f32 here, so block order does not show in them; dW
-is added with f32 atomics (one per chunk of 1024 output pixels), so its
-last bits depend on block order. On CPU tensors it computes
-:func:`fused_conv3x3_plain` and :func:`fused_conv3x3_bwd_plain`.
+and ``_bwd_call``). Both directions have two routes, chosen by shape in
+:func:`_tc_plan` and :func:`_tc_bwd_plan`: bf16 with K % 16 == 0 and N % 8
+== 0 (all five layers of ``packed=3``) runs on the tensor cores
+(``mma.sync`` bf16 -> f32 fed by ``ldmatrix``); f32 (whose tensor-core
+route would be TF32) and K = 3 run on the CUDA cores, implicit GEMMs that
+gather their window by index and recompute the prologue once per tap.
+
+- Forward on the tensor cores: one block per 8 x 16 output pixels and
+  all of N <= 128; per slice of 16 input channels it stages the raw input
+  halo with ``cp.async``, runs the prologue once per halo element, and
+  feeds nine shifted tiles of the activated halo to ``mma.sync``. It is
+  bound by bytes and by the prologue's f32 arithmetic.
+- Backward on the tensor cores, three launches: a tiny pass folds ds1
+  into a per-(tap, k) f32 table ``sum_n ds1[n] w[tap, k, n]``; the dx
+  kernel (one block per 8 x 16 output-grid positions: at stride 2 the
+  input pixels of all four parity classes there, each reached by only 1,
+  2 or 4 taps; slices of 16 output channels through a two-stage
+  ``cp.async`` ring) builds e = T(dy + 2 y ds2) once per element of the
+  tile's output-pixel halo and adds the table entries of the taps whose
+  output pixel exists in its epilogue, with dx and the da/db
+  reductions; the dW kernel (one warp per tap, 32 input x 64 output
+  channels a block) activates the input halo and builds T(dyf + ds1)
+  once per element per tile, contracts over pixels, and adds its
+  chunk's sums into dW with f32 atomics.
+- On the CUDA cores the backward is two launches: dx with the da/db
+  reductions (by parity class at stride 2), and a split-M dW (chunks of
+  1024 output pixels); ds1 is added to e in f32 in the operand.
+
+``fused_conv3x3.launches`` counts every forward launch,
+``fused_conv3x3.tc_launches`` those on the tensor cores;
+``fused_conv3x3.bwd_launches`` counts every backward call,
+``fused_conv3x3.tc_bwd_launches`` those whose kernels ran on the tensor
+cores. The fold ``dy + 2 y ds2``, a separate pass before the TPU kernel,
+happens in the kernels' loads. The sums over all pixels (s1, s2, da, db)
+are per-block f32 partials added with f64 atomics and rounded to f32
+here, so block order does not show in them; dW is added with f32 atomics
+(one per block), so its last bits depend on block order. On CPU tensors
+it computes :func:`fused_conv3x3_plain` and
+:func:`fused_conv3x3_bwd_plain`.
 
 Not carried over (TPU machinery): the (h, w, b)-major row layout with its
 ``spatial`` argument, the halo blocks with clamped index maps and edge
@@ -62,13 +80,15 @@ takes K as small as 3).
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 from torch.nn.grad import conv2d_input, conv2d_weight
 
 from ._build import load_library
-from .conv_bn import SMEM_MAX, Plan
-from .fused_gemm import _ACT_CODES, _DTYPE_CODES, _prologue
+from .conv_bn import _SMS, SMEM_MAX, Plan
+from .conv_bn import _TC_TILES as _DX_TILES
+from .fused_gemm import _ACT_CODES, _DTYPE_CODES, _check_aligned, _prologue
 
 # source and extra nvcc flags: no contraction, so the f32 prologue
 # rounds as the plain version does
@@ -80,6 +100,10 @@ _DW_CHUNK = 1024               # output pixels per dW block (M_CHUNK)
 _TC_TH, _TC_TW, _TC_KC = 8, 16, 16
 _TC_TILES = {0: (128, 2), 1: (64, 4)}  # config: (BN, warps along M)
 _CC_TILE = 64                          # the CUDA-core kernel's BM = BN
+# the backward's tensor-core tiles: dx takes BN of K by config (the
+# conv's tiles, _DX_TILES); dW blocks of 32 input x 64 output channels,
+# 9 warps
+_DW_KC, _DW_BN = 32, 64
 
 
 def _tc_smem(config, stride):
@@ -121,6 +145,87 @@ def _tc_plan(bsz, h, wd, k, n, stride, dtype):
                                       -(-n // _CC_TILE), 1), 0)
     if plan.grid[0] > _INT32_MAX or max(plan.grid[1:]) > 65535 \
             or plan.smem_bytes > SMEM_MAX:
+        raise ValueError(f"unsupported size {(bsz, h, wd, k)} -> {n}")
+    return plan
+
+
+class BwdPlan(NamedTuple):
+    """How one backward launches: ``route`` "tc" or "cuda_core"; the dx
+    kernel's tile ``dx_config`` (-1 on the CUDA cores), ``dx_grid`` and
+    ``dx_smem``; the dW kernel's ``dw_grid`` (x: chunks of output pixels)
+    and ``dw_smem`` (0 on the CUDA cores: static shared memory)."""
+    route: str
+    dx_config: int
+    dx_grid: tuple
+    dx_smem: int
+    dw_grid: tuple
+    dw_smem: int
+
+
+def _tc_bwd_smem(dx_config, stride):
+    """Bytes of dynamic shared memory of the tensor-core dx kernel (two
+    stages of: the output-pixel halo of a slice of 16 channels as e, rows
+    of 16 + 8 bf16, and as raw y, rows of 16; the nine taps' weight rows,
+    BN of 16 + 8 each; or the epilogue; then the [9][BN] f32 ds1 table
+    and its [classes][BN] sums) and of the dW kernel (the input halo of
+    32 channels, rows of 32 + 8; dyt, 128 rows of 64 + 8; raw y, 128 rows
+    of 64), as ``DxSmem`` and ``DwSmem`` in fused_conv3x3.cu."""
+    bn, warps_m = _DX_TILES[dx_config]
+    eh, ew = (_TC_TH + 2, _TC_TW + 2) if stride == 1 else (_TC_TH + 1,
+                                                          _TC_TW + 1)
+    main = 2 * (eh * ew * (_TC_KC + 8) + eh * ew * _TC_KC
+                + 9 * bn * (_TC_KC + 8)) * 2
+    epilogue = 128 * (bn + 8) * 2 + 2 * warps_m * bn * 4
+    dx = -(-max(main, epilogue) // 16) * 16 \
+        + (9 + stride * stride) * bn * 4
+    halo = (stride * (_TC_TH - 1) + 3) * (stride * (_TC_TW - 1) + 3)
+    dw = (halo * (_DW_KC + 8) + 128 * (_DW_BN + 8) + 128 * _DW_BN) * 2
+    return dx, dw
+
+
+def _tc_bwd_plan(bsz, h, wd, k, n, stride, dtype):
+    """The backward's launch plan (pure Python: the CPU tests reach it).
+    bf16 with K % 16 == 0 and N % 8 == 0 takes the tensor cores: dx grid
+    (tiles of 8 x 16 output-grid positions, each the input pixels of all
+    parity classes there; column blocks of BN = 32, 64 or 128: at stride
+    1 the narrowest that holds K, else 128, at stride 2 always 32, which
+    holds the four classes' accumulators; images);
+    dW grid (chunks of output-pixel tiles, blocks of 32 input x 64 output
+    channels), with about two blocks per SM in all. Anything else of a
+    supported dtype (f32, K = 3) the CUDA-core kernels: dx grid (64-row
+    blocks of a class's pixels, 64-column blocks, classes), dW grid
+    (64-row blocks of 9K, 64-column blocks, chunks of 1024 output
+    pixels). Raises ValueError on a shape the kernels do not take."""
+    if stride not in (1, 2):
+        raise ValueError(f"unsupported stride {stride}")
+    if stride == 2 and (h % 2 or wd % 2):
+        raise ValueError(f"stride 2 needs even H and W, got {h}x{wd}")
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"unsupported dtype {dtype}")
+    if min(bsz, h, wd, k, n) < 1:
+        raise ValueError(f"empty conv {(bsz, h, wd, k)} -> {n}")
+    ho, wo = h // stride, wd // stride
+    classes = stride * stride
+    if dtype == torch.bfloat16 and k % _TC_KC == 0 and n % 8 == 0:
+        config = 2 if k <= 32 or stride == 2 else 1 if k <= 64 else 0
+        dx_grid = (-(-ho // _TC_TH) * -(-wo // _TC_TW),
+                   -(-k // _DX_TILES[config][0]), bsz)
+        tiles = bsz * -(-ho // _TC_TH) * -(-wo // _TC_TW)
+        blocks = -(-k // _DW_KC) * -(-n // _DW_BN)
+        per_chunk = -(-tiles // -(-2 * _SMS // blocks))
+        dx_smem, dw_smem = _tc_bwd_smem(config, stride)
+        plan = BwdPlan("tc", config, dx_grid, dx_smem,
+                       (-(-tiles // per_chunk), blocks, 1), dw_smem)
+    else:
+        plan = BwdPlan(
+            "cuda_core", -1,
+            (-(-bsz * ho * wo // _CC_TILE), -(-k // _CC_TILE), classes), 0,
+            (-(-9 * k // _CC_TILE), -(-n // _CC_TILE),
+             -(-bsz * ho * wo // _DW_CHUNK)), 0)
+    grids = plan.dx_grid + plan.dw_grid
+    if max(grids[0], grids[3]) > _INT32_MAX \
+            or max(grids[1:3] + grids[4:]) > 65535 \
+            or max(plan.dx_smem, plan.dw_smem) > SMEM_MAX:
         raise ValueError(f"unsupported size {(bsz, h, wd, k)} -> {n}")
     return plan
 
@@ -232,6 +337,9 @@ def _library():
     lib.fused_conv3x3_bwd_launch.argtypes = [ctypes.c_void_p] * 12 \
         + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.fused_conv3x3_bwd_launch.restype = ctypes.c_int
+    lib.fused_conv3x3_bwd_tc_launch.argtypes = [ctypes.c_void_p] * 13 \
+        + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+    lib.fused_conv3x3_bwd_tc_launch.restype = ctypes.c_int
     return lib
 
 
@@ -260,26 +368,38 @@ def _forward_cuda(x4, w, a, b, stride, act, dims):
 
 
 def _backward_cuda(x4, w, a, b, y, dy, ds1, ds2, stride, act):
-    lib = _library()
     bsz, h, wd, k = x4.shape
     n = y.shape[-1]
+    plan = _tc_bwd_plan(bsz, h, wd, k, n, stride, y.dtype)
+    lib = _library()
     dx = torch.empty_like(x4)
     dw = torch.zeros((3, 3, k, n), dtype=torch.float32, device=x4.device)
     dab = None
     if a is not None:
         dab = torch.zeros((2, k), dtype=torch.float64, device=x4.device)
-    err = lib.fused_conv3x3_bwd_launch(
-        x4.data_ptr(), w.data_ptr(), _ptr(a), _ptr(b), y.data_ptr(),
-        dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr(), dx.data_ptr(),
-        dw.data_ptr(), None if dab is None else dab[0].data_ptr(),
-        None if dab is None else dab[1].data_ptr(), bsz, h, wd, k, n,
-        stride, _DTYPE_CODES[y.dtype], _ACT_CODES[act],
-        torch.cuda.current_stream(y.device).cuda_stream)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    head = (x4.data_ptr(), w.data_ptr(), _ptr(a), _ptr(b), y.data_ptr(),
+            dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr())
+    tail = (dx.data_ptr(), dw.data_ptr(),
+            None if dab is None else dab[0].data_ptr(),
+            None if dab is None else dab[1].data_ptr(), bsz, h, wd, k, n,
+            stride)
+    if plan.route == "tc":
+        _check_aligned([x4, w, y, dy, dx], "fused_conv3x3 backward")
+        ctab = torch.empty(9 * k, dtype=torch.float32, device=x4.device)
+        err = lib.fused_conv3x3_bwd_tc_launch(
+            *head, ctab.data_ptr(), *tail, _ACT_CODES[act], plan.dx_config,
+            *plan.dx_grid, plan.dx_smem, *plan.dw_grid[:2], plan.dw_smem,
+            stream)
+    else:
+        err = lib.fused_conv3x3_bwd_launch(
+            *head, *tail, _DTYPE_CODES[y.dtype], _ACT_CODES[act], stream)
     if err != 0:
         raise RuntimeError(f"fused_conv3x3 backward launch failed: "
-                           f"cudaError {err}")
-    # one count per call: its dx kernel and its dW kernel
+                           f"cudaError {err} ({plan})")
+    # one count per call: all its kernels
     fused_conv3x3.bwd_launches += 1
+    fused_conv3x3.tc_bwd_launches += plan.route == "tc"
     da, db = (None, None) if dab is None else dab.float()
     return dx, dw, da, db
 
@@ -339,3 +459,4 @@ def fused_conv3x3(x4, w, affine, stride=1, act="mish", dtype=torch.bfloat16,
 fused_conv3x3.launches = 0
 fused_conv3x3.tc_launches = 0
 fused_conv3x3.bwd_launches = 0
+fused_conv3x3.tc_bwd_launches = 0

@@ -15,18 +15,26 @@ and backward both launch hand-written kernels on CUDA tensors.
 Source note. On CUDA tensors this launches ``csrc/fused_gemm.cu``, the
 Hopper port of the Pallas TPU kernels ``_fwd_kernel`` and ``_bwd_kernel``
 (tf2_yolo_tpu/ops/pallas/packed_gemm.py, reached through ``_fwd_call``
-and ``_bwd_call``). The kernels are tiled f32-FMA GEMMs on the CUDA
-cores, bounded by their FMA rate. The backward reads the stored y
-instead of recomputing it (the consumer keeps y alive anyway), and is two
-launches per input: dx with the da/db reductions, and a split-M dW. The
-column sums over M (s1, s2, da, db) are per-block f32 partials added
-with f64 atomics and rounded to f32 here, so block order does not show
-in them; dW is added with f32 atomics (one per chunk of 1024 rows), so
-its last bits depend on block order. On CPU tensors it computes
-:func:`fused_gemm_plain` and :func:`fused_gemm_bwd_plain`, which repeat
-the TPU kernels' arithmetic step by step with the same roundings. The
-TPU row-block sizing (``mblk_fwd``/``mblk_bwd``) is not carried over: any
-M >= 1 is taken.
+and ``_bwd_call``). The forward has two kernels, one per route, chosen by
+shape in :func:`_tc_plan`: bf16 with every K_i % 8 == 0 and N % 8 == 0
+(all 43 GEMMs of a ``packed=3`` step) runs on the tensor cores
+(``mma.sync`` bf16 -> f32 fed by ``ldmatrix`` from a 4-stage ``cp.async``
+ring; 128-row tiles of 128, 64 or 32 columns; an input with a prologue is
+activated once per element in shared memory per column block), bound by
+bytes and by the prologue's f32 arithmetic; f32 (whose tensor-core route
+would be TF32) runs on the CUDA cores, tiled f32-FMA GEMMs bounded by
+their FMA rate. ``fused_gemm.launches`` counts every forward launch,
+``fused_gemm.tc_launches`` those on the tensor cores. The backward (CUDA
+cores) reads the stored y instead of recomputing it (the consumer keeps y
+alive anyway), and is two launches per input: dx with the da/db
+reductions, and a split-M dW. The column sums over M (s1, s2, da, db) are
+per-block f32 partials added with f64 atomics and rounded to f32 here,
+so block order does not show in them; dW is added with f32 atomics (one
+per chunk of 1024 rows), so its last bits depend on block order. On CPU
+tensors it computes :func:`fused_gemm_plain` and
+:func:`fused_gemm_bwd_plain`, which repeat the TPU kernels' arithmetic
+step by step with the same roundings. The TPU row-block sizing
+(``mblk_fwd``/``mblk_bwd``) is not carried over: any M >= 1 is taken.
 """
 
 import ctypes
@@ -35,6 +43,7 @@ import functools
 import torch
 
 from ._build import load_library
+from .conv_bn import _SMS, _TC_BM, _TC_TILES, SMEM_MAX, Plan, _tc_smem
 
 # source and extra nvcc flags: no contraction, so the f32 prologue
 # rounds as the plain version does
@@ -43,6 +52,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODES = {"mish": 0, "leaky": 1, "linear": 2}
 MAX_INPUTS = 9
 _INT32_MAX = 2 ** 31 - 1
+_CC_TILE = 64                          # the CUDA-core kernel's BM = BN
 
 
 def act_and_grad(z, act):
@@ -72,6 +82,37 @@ def _prologue(x, a, b, act):
     xf = x.float()
     g, gp = act_and_grad(xf * a + b, act)
     return g.to(x.dtype), gp, xf
+
+
+def _tc_plan(m, ks, n, dtype):
+    """The forward's launch plan (pure Python: the CPU tests reach it).
+    bf16 with every K_i % 8 == 0 and N % 8 == 0 (16-byte rows) takes the
+    tensor cores, with the widest tile of 128, 64 or 32 columns that N
+    fills, halved while the grid would not cover the 132 SMs once: grid
+    (128-row blocks, column blocks); the tiles and the ring of 4 slices
+    32 deep are the conv's (``conv_bn._TC_TILES``, ``tc::Ring``).
+    Anything else of a supported dtype (f32) takes the CUDA-core kernel:
+    grid (64-row blocks, 64-column blocks). Raises ValueError on a shape
+    the kernels do not take."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"unsupported dtype {dtype}")
+    if not 1 <= len(ks) <= MAX_INPUTS or min(m, n, *ks) < 1:
+        raise ValueError(f"unsupported gemm M={m}, K={list(ks)}, N={n}")
+    if dtype == torch.bfloat16 and all(k % 8 == 0 for k in ks) \
+            and n % 8 == 0:
+        config = next(c for c, (bn, _) in _TC_TILES.items()
+                      if bn <= n or c == 2)
+        grid = lambda c: (-(-m // _TC_BM), -(-n // _TC_TILES[c][0]))
+        while config < 2 and grid(config)[0] * grid(config)[1] < _SMS:
+            config += 1
+        plan = Plan("tc", config, grid(config), _tc_smem(config))
+    else:
+        plan = Plan("cuda_core", -1, (-(-m // _CC_TILE), -(-n // _CC_TILE)),
+                    0)
+    if plan.grid[0] > _INT32_MAX or plan.grid[1] > 65535 \
+            or plan.smem_bytes > SMEM_MAX:
+        raise ValueError(f"unsupported gemm M={m}, K={list(ks)}, N={n}")
+    return plan
 
 
 def _check(xs, ws, aas, bbs, act):
@@ -167,12 +208,15 @@ def fused_gemm_bwd_plain(xs, ws, aas, bbs, y, dy, ds1, ds2, act):
 def _library():
     lib = load_library(*SOURCE)
     ptrs = ctypes.POINTER(ctypes.c_void_p)
+    ints = ctypes.POINTER(ctypes.c_int)
     lib.fused_gemm_fwd_launch.argtypes = [
-        ptrs, ptrs, ptrs, ptrs, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ptrs, ptrs, ptrs, ptrs, ints, ctypes.c_int] \
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.fused_gemm_fwd_launch.restype = ctypes.c_int
+    lib.fused_gemm_fwd_tc_launch.argtypes = [
+        ptrs, ptrs, ptrs, ptrs, ints, ctypes.c_int] \
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.fused_gemm_fwd_tc_launch.restype = ctypes.c_int
     lib.fused_gemm_bwd_launch.argtypes = [ctypes.c_void_p] * 12 \
         + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.fused_gemm_bwd_launch.restype = ctypes.c_int
@@ -184,27 +228,46 @@ def _ptr_array(tensors):
         *[None if t is None else t.data_ptr() for t in tensors])
 
 
+def _check_aligned(tensors, what):
+    """The tensor-core kernels copy 16-byte chunks: every tensor must
+    start on a 16-byte boundary (a row slice of a larger tensor may not)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: the tensor-core route needs 16-byte "
+                         "aligned tensors")
+
+
 def _forward_cuda(xs, ws, aas, bbs, act, m, n, raw_stats=False):
-    """Launch the forward kernel. ``raw_stats`` sums the f32 product
-    before it is rounded (the probe kernel of
-    ``tools/bench_packed_probe.py``, which counts its own launches)."""
-    lib = _library()
+    """Launch the forward kernel of the plan's route. ``raw_stats`` sums
+    the f32 product before it is rounded (the probe kernel of
+    ``tools/bench_packed_probe.py``, which counts its own launches).
+    Returns (y, s1, s2) and the plan."""
     x0 = xs[0]
+    plan = _tc_plan(m, [x.shape[1] for x in xs], n, x0.dtype)
+    lib = _library()
     y = torch.empty((m, n), dtype=x0.dtype, device=x0.device)
     s = torch.zeros((2, n), dtype=torch.float64, device=x0.device)
     ks = (ctypes.c_int * len(xs))(*[x.shape[1] for x in xs])
-    err = lib.fused_gemm_fwd_launch(
-        _ptr_array(xs), _ptr_array(ws), _ptr_array(aas), _ptr_array(bbs), ks,
-        len(xs), y.data_ptr(), s[0].data_ptr(), s[1].data_ptr(), m, n,
-        _DTYPE_CODES[x0.dtype], _ACT_CODES[act], int(raw_stats),
-        torch.cuda.current_stream(x0.device).cuda_stream)
+    args = (_ptr_array(xs), _ptr_array(ws), _ptr_array(aas), _ptr_array(bbs),
+            ks, len(xs), y.data_ptr(), s[0].data_ptr(), s[1].data_ptr(), m,
+            n)
+    stream = torch.cuda.current_stream(x0.device).cuda_stream
+    if plan.route == "tc":
+        _check_aligned([*xs, *ws, y], "fused_gemm")
+        err = lib.fused_gemm_fwd_tc_launch(
+            *args, _ACT_CODES[act], int(raw_stats), plan.config, *plan.grid,
+            plan.smem_bytes, stream)
+    else:
+        err = lib.fused_gemm_fwd_launch(
+            *args, _DTYPE_CODES[x0.dtype], _ACT_CODES[act], int(raw_stats),
+            stream)
     if err != 0:
         raise RuntimeError(f"fused_gemm forward launch failed: cudaError "
-                           f"{err}")
+                           f"{err} ({plan})")
     if not raw_stats:
         fused_gemm.launches += 1
+        fused_gemm.tc_launches += plan.route == "tc"
     s1, s2 = s.float()
-    return y, s1, s2
+    return (y, s1, s2), plan
 
 
 def _backward_cuda(xs, ws, aas, bbs, y, dy, ds1, ds2, act):
@@ -253,7 +316,7 @@ class _FusedGemm(torch.autograd.Function):
         if plain or device == "cpu":
             y, s1, s2 = fused_gemm_plain(xs, ws, aas, bbs, act)
         elif device == "cuda":
-            y, s1, s2 = _forward_cuda(xs, ws, aas, bbs, act, m, n)
+            (y, s1, s2), _ = _forward_cuda(xs, ws, aas, bbs, act, m, n)
         else:
             raise ValueError(f"no fused_gemm kernel for {xs[0].device}")
         ctx.act, ctx.plain, ctx.nx = act, plain, nx
@@ -304,4 +367,5 @@ def fused_gemm(xs, ws, affines, act="mish", dtype=torch.bfloat16,
 
 
 fused_gemm.launches = 0
+fused_gemm.tc_launches = 0
 fused_gemm.bwd_launches = 0

@@ -20,9 +20,11 @@ pass, a statistics pass and a normalise + mish pass.
 Source note. On a CUDA tensor :func:`probe_layer` launches the forward
 kernel of ``csrc/fused_gemm.cu`` with its ``raw_stats`` flag, the Hopper
 port of ``fused_kernel`` (tools/bench_packed_probe.py, reached through
-``fused_chain``); it is bounded by the bytes of x and y. On a CPU tensor
-it computes :func:`probe_layer_plain`. The TPU's row-block size (``MBLK``)
-is not carried over.
+``fused_chain``): in bf16 the tensor-core kernel (``RAW``), in f32 the
+CUDA-core one, by the fused GEMM's plan (``probe_layer.tc_launches``
+counts the former). It is bounded by the bytes of x and y. On a CPU
+tensor it computes :func:`probe_layer_plain`. The TPU's row-block size
+(``MBLK``) is not carried over.
 
 Prints ms per layer of the fused chain, of the plain chain and of the
 eager chain with the bound (x read and y written once at the card's
@@ -67,13 +69,15 @@ def probe_layer(x, w, a, b, plain=False):
         return probe_layer_plain(x, w, aas[0], bbs[0])
     if x.device.type != "cuda":
         raise ValueError(f"no probe kernel for {x.device}")
-    out = gemm_mod._forward_cuda([x], [w], aas, bbs, "mish", m, n,
-                                 raw_stats=True)
+    out, plan = gemm_mod._forward_cuda([x], [w], aas, bbs, "mish", m, n,
+                                       raw_stats=True)
     probe_layer.launches += 1
+    probe_layer.tc_launches += plan.route == "tc"
     return out
 
 
 probe_layer.launches = 0
+probe_layer.tc_launches = 0
 
 
 def fused_chain(x, ws, aas, bbs, plain=False):

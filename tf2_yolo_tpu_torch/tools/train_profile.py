@@ -129,9 +129,13 @@ CATEGORIES = (
     ("fused conv3x3 forward", ("fused_conv3x3_fwd_kernel",
                                "fused_conv3x3_fwd_tc_kernel")),
     ("fused conv3x3 backward", ("fused_conv3x3_dx_kernel",
-                                "fused_conv3x3_dw_kernel")),
+                                "fused_conv3x3_dw_kernel",
+                                "fused_conv3x3_dx_tc_kernel",
+                                "fused_conv3x3_dw_tc_kernel",
+                                "fused_conv3x3_ctab_kernel")),
     ("conv forward", ("conv_bn_stats_kernel", "conv_bn_stats_tc_kernel")),
-    ("fused gemm forward", ("fused_gemm_fwd_kernel",)),
+    ("fused gemm forward", ("fused_gemm_fwd_kernel",
+                            "fused_gemm_fwd_tc_kernel")),
     ("fused gemm backward", ("fused_gemm_dx_kernel", "fused_gemm_dw_kernel")),
     ("optimizer", ("multi_tensor_apply", "adam")),
     ("nms", ("nms_keep_kernel",)),
