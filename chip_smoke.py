@@ -13,8 +13,9 @@ Phases (each raises on failure, so the exit code is nonzero):
      YOLOv4@416 layer shapes, bf16 and f32 (TF32 off for the plain
      versions), printing each shape's launch plan (route: tensor cores
      for bf16, CUDA cores for f32 and the shapes without 16-byte rows;
-     tile config, grid, shared memory): conv + statistics, the fused
-     GEMM forward and backward, and the fused 3x3 conv forward and
+     tile config, grid, shared memory): conv + statistics (the stem, Ci
+     = 3, and a ragged stem-like shape through the small-Ci kernel), the
+     fused GEMM forward and backward, and the fused 3x3 conv forward and
      backward (with two ragged shapes) at the serving and the training
      batch (and again at the halved batch if phase 7 had to fall back),
      and NMS; time each, the tensor-core kernels also launched alone and
@@ -23,11 +24,13 @@ Phases (each raises on failure, so the exit code is nonzero):
      ``torch.matmul`` or ``aten.convolution_backward`` on the activated
      input: a yardstick only; the port never calls it); the probe layer
      of ``tools/bench_packed_probe.py`` the same way, and its chain of
-     four layers driven once with its counters read;
+     four layers driven once with its counters read; then hand each
+     tensor-core route a contiguous view that starts 2 bytes past a
+     16-byte boundary and expect the ValueError, with no launch counted;
   4. serve ``--requests`` batches of ``--batch`` images through
      ``make_serving_fn`` in bf16, with launch counters proving that every
      conv (107 ConvBN + 3 head convs) and every NMS ran the kernels, every
-     conv but the stem on the tensor cores, and no fused kernel ran;
+     conv on the tensor cores, and no fused kernel ran;
   5. in f32 on the same weights, compare the head logits and outputs of
      the kernel route with the plain route, then the NMS kernel with the
      plain NMS on the same decoded rows;
@@ -40,12 +43,12 @@ Phases (each raises on failure, so the exit code is nonzero):
      1-2 ran the fused conv kernels (5 forwards, 5 backwards), every 1x1
      ConvBN of the backbone the fused GEMM kernels (43 forwards; 52
      backwards, one per input operand) and every other conv the conv
-     kernel (62); the five fused convs (both ways), the 43 fused GEMM
-     forwards and every conv but the stem on the tensor cores; loss and
-     gradients finite, running statistics moved. Then one step of
-     ``YoloV4(packed=True)`` (stages 1-2 on the plain path: 32 fused
-     GEMM forwards, all on the tensor cores, 35 backward operands, 78
-     convs) the same way;
+     kernel (62); every one of them on the tensor cores (the five fused
+     convs both ways, the 43 fused GEMM forwards and 52 backward
+     operands, the 62 convs); loss and gradients finite, running
+     statistics moved. Then one step of ``YoloV4(packed=True)`` (stages
+     1-2 on the plain path: 32 fused GEMM forwards and 35 backward
+     operands, 78 convs, all on the tensor cores) the same way;
   8. one f32 step of ``packed=3`` at batch 2 on the kernel route and on
      the plain route from the same state: loss, every gradient, every
      updated parameter;
@@ -116,26 +119,25 @@ CONVS_PER_STEP = CONVS_PER_FORWARD - GEMMS_PER_STEP
 # 1x1 onto the fused GEMM, whose sum-GEMMs read 1, 2 or 3 terms
 # (backward operands, stage 1: cross 1, pre 1, squeeze 1, post 2, out 2;
 # stage 2: cross 1, pre 1, squeezes 1 + 2, post 3, out 2)
-# The bf16 convs run on the tensor cores but for the stem (Ci = 3 has no
-# 16-byte rows), which the launch plan routes to the CUDA cores; every
-# bf16 fused GEMM forward and fused conv (forward and backward) of a
-# training step runs on the tensor cores.
-STEM_CONVS = 1
+# Every bf16 kernel of a training step and a request runs on the tensor
+# cores: the stem (Ci = 3) through the conv's small-Ci kernel.
 TRAIN_LAUNCHES = {
     1: dict(fused_conv3x3_fwd=0, fused_conv3x3_fwd_tc=0,
             fused_conv3x3_bwd=0, fused_conv3x3_bwd_tc=0,
             fused_gemm_fwd=GEMMS_PER_STEP,
             fused_gemm_fwd_tc=GEMMS_PER_STEP,
             fused_gemm_bwd=GEMM_BWD_INPUTS_PER_STEP,
+            fused_gemm_bwd_tc=GEMM_BWD_INPUTS_PER_STEP,
             conv_bn_stats=CONVS_PER_STEP,
-            conv_bn_stats_tc=CONVS_PER_STEP - STEM_CONVS),
+            conv_bn_stats_tc=CONVS_PER_STEP),
     3: dict(fused_conv3x3_fwd=5, fused_conv3x3_fwd_tc=5,
             fused_conv3x3_bwd=5, fused_conv3x3_bwd_tc=5,
             fused_gemm_fwd=GEMMS_PER_STEP + 5 + 6,
             fused_gemm_fwd_tc=GEMMS_PER_STEP + 5 + 6,
             fused_gemm_bwd=GEMM_BWD_INPUTS_PER_STEP + 7 + 10,
+            fused_gemm_bwd_tc=GEMM_BWD_INPUTS_PER_STEP + 7 + 10,
             conv_bn_stats=CONVS_PER_STEP - 16,
-            conv_bn_stats_tc=CONVS_PER_STEP - 16 - STEM_CONVS),
+            conv_bn_stats_tc=CONVS_PER_STEP - 16),
 }
 
 # H100 SXM data sheet: device memory rate and dense peak rates
@@ -154,9 +156,12 @@ def bound_ms(nbytes, flops, dtype):
 # serving batch and at the training batch (whose statistics sum four
 # times the rows): the layers that carry the conv time (the 3x3 s1
 # expands of stages 3-5 and the neck) and the ragged edges of the tiles
-# (13^2 rows that end inside a tile, N = 24 in a 32-wide tile)
+# (13^2 rows that end inside a tile, N = 24 in a 32-wide tile, and a
+# stem-like 9 x 7 image whose edges fall inside the small-Ci kernel's
+# 8 x 16 pixel tile)
 CONV_SHAPES = [
     ("stem 416^2 3->32 3x3s1", 416, 416, 3, 32, 3, 1),
+    ("ragged stem 9x7 3->24 3x3s1", 9, 7, 3, 24, 3, 1),
     ("stage1.down 416^2 32->64 3x3s2", 416, 416, 32, 64, 3, 2),
     ("stage3.pre 52^2 256->128 1x1", 52, 52, 256, 128, 1, 1),
     ("stage3.block.expand 52^2 128->128 3x3s1", 52, 52, 128, 128, 3, 1),
@@ -274,6 +279,14 @@ def rel_l2(a, b):
 def plan_line(plan):
     return (f"{plan.route} config {plan.config} grid {plan.grid} smem "
             f"{plan.smem_bytes}")
+
+
+def gemm_bwd_plan_line(plan):
+    if plan.route != "tc":
+        return plan.route
+    return (f"tc dx config {plan.dx_config} grid {plan.dx_grid} smem "
+            f"{plan.dx_smem}, dW config {plan.dw_config} grid "
+            f"{plan.dw_grid} smem {plan.dw_smem} rows {plan.dw_rows}")
 
 
 def bwd_plan_line(plan):
@@ -414,6 +427,88 @@ def gemm_library_call(xs, ws, affines, act):
     g = torch.cat(gs, 1) if len(gs) > 1 else gs[0]
     w = torch.cat(ws, 0) if len(ws) > 1 else ws[0]
     return lambda: torch.matmul(g, w)
+
+
+def gemm_bwd_launch_call(xs, ws, affines, y, cts, act, route):
+    """The fused GEMM backward's kernels of ``route`` ("tc": the ds1
+    table, dx and dW of the plan, all inputs in one call; "cuda_core":
+    the CUDA-core dx and dW per input) on the same inputs through their
+    C entry, with outputs and arguments made beforehand, as
+    :func:`gemm_launch_call`. dW, da and db accumulate over repeated
+    runs (timing only); not counted."""
+    m, n, ks = y.shape[0], y.shape[1], [x.shape[1] for x in xs]
+    aas = [None if aff is None else aff[0].float().contiguous()
+           for aff in affines]
+    bbs = [None if aff is None else aff[1].float().contiguous()
+           for aff in affines]
+    dy = cts[0].contiguous()
+    ds1, ds2 = cts[1].float().contiguous(), cts[2].float().contiguous()
+    dxs = [torch.empty_like(x) for x in xs]
+    dws = [torch.zeros(k, n, dtype=torch.float32, device="cuda")
+           for k in ks]
+    dab = torch.zeros(2, sum(ks), dtype=torch.float64, device="cuda")
+    lib = gemm_mod._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    act_code = gemm_mod._ACT_CODES[act]
+    if route == "tc":
+        plan = gemm_mod._tc_bwd_plan(m, ks, n, xs[0].dtype)
+        check(plan.route == "tc", f"gemm {ks}->{n}: no tensor-core "
+                                  "backward plan")
+        ctab = torch.empty(sum(ks), dtype=torch.float32, device="cuda")
+        ptrs = gemm_mod._ptr_array
+        args = (ptrs(xs), ptrs(ws), ptrs(aas), ptrs(bbs),
+                (ctypes.c_int * len(xs))(*ks), len(xs), y.data_ptr(),
+                dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr(),
+                ctab.data_ptr(), ptrs(dxs), ptrs(dws), dab[0].data_ptr(),
+                dab[1].data_ptr(), m, n, act_code, plan.dx_config,
+                *plan.dx_grid, plan.dx_smem, plan.dw_config, *plan.dw_grid,
+                plan.dw_smem, plan.dw_rows, stream)
+        launch = lambda: lib.fused_gemm_bwd_tc_launch(*args)
+        keep = (ctab,)
+    else:
+        offs = [sum(ks[:i]) for i in range(len(ks))]
+        per_input = [
+            (x.data_ptr(), w.data_ptr(), conv3_mod._ptr(a),
+             conv3_mod._ptr(b), y.data_ptr(), dy.data_ptr(),
+             ds1.data_ptr(), ds2.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+             dab[0, off:].data_ptr(), dab[1, off:].data_ptr(), m,
+             x.shape[1], n, gemm_mod._DTYPE_CODES[x.dtype], act_code,
+             stream)
+            for x, w, a, b, dx, dw, off in zip(xs, ws, aas, bbs, dxs, dws,
+                                               offs)]
+        launch = lambda: max(lib.fused_gemm_bwd_launch(*a)
+                             for a in per_input)
+        keep = ()
+
+    def run():
+        err = launch()
+        check(err == 0, f"{route} gemm backward launch failed: cudaError "
+                        f"{err}")
+    run.keep = (aas, bbs, dy, ds1, ds2, dxs, dws, dab, keep)
+    return run
+
+
+def gemm_bwd_library_call(xs, ws, affines, y, cts, act):
+    """``aten.convolution_backward`` (dx and dW, bf16, channels_last) of
+    the 1x1 conv on the ACTIVATED inputs, concatenated along K, with the
+    folded cotangent dyt = T(dy + ds1 + 2 y ds2), all made beforehand:
+    the GEMM core of the fused backward, as :func:`conv_bwd_library_call`
+    is of the fused 3x3 conv's. The rows are one image of M x 1 pixels. A
+    yardstick only."""
+    gs = [x if aff is None else
+          act_and_grad(x.float() * aff[0] + aff[1], act)[0].to(x.dtype)
+          for x, aff in zip(xs, affines)]
+    g = torch.cat(gs, 1) if len(gs) > 1 else gs[0]
+    w = torch.cat(ws, 0) if len(ws) > 1 else ws[0]
+    dy, ds1, ds2 = cts
+    dyt = (dy.float() + ds1 + 2.0 * y.float() * ds2).to(y.dtype)
+    m, k = g.shape
+    xc = g.view(1, m, 1, k).permute(0, 3, 1, 2)
+    wc = w.t().contiguous().view(w.shape[1], k, 1, 1)
+    go = dyt.view(1, m, 1, -1).permute(0, 3, 1, 2)
+    return lambda: torch.ops.aten.convolution_backward(
+        go, xc, wc, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1,
+        [True, True, False])
 
 
 def conv3_bwd_launch_call(x, wt, affine, y, cts, stride, route):
@@ -668,10 +763,15 @@ def gemm_run(xs, ws, affines, act, dtype, cts, plain):
 def phase_gemm_checks(gen, batch):
     """Every fused GEMM shape at batch ``batch`` (the ragged rows at
     their own M), forward and backward, against the plain versions,
-    printing each shape's forward plan. Times: the wrapper (``ms``), the
-    routed kernel launched alone (``launch_ms``), the CUDA-core instance
-    on the same bf16 inputs (``cuda_core_ms``) and torch.matmul of the
-    activated inputs (``library_ms``)."""
+    printing each shape's forward and backward plans. Forward times: the
+    wrapper (``ms``), the routed kernel launched alone (``launch_ms``),
+    the CUDA-core instance on the same bf16 inputs (``cuda_core_ms``)
+    and torch.matmul of the activated inputs (``library_ms``). Backward
+    times: through autograd and the wrapper (``bwd_ms``), the routed
+    kernels launched alone (``bwd_launch_ms``), the CUDA-core kernels on
+    the same bf16 inputs (``bwd_cuda_core_ms``) and
+    ``aten.convolution_backward`` on the activated inputs with the
+    folded cotangent (``bwd_library_ms``)."""
     results = []
     for dtype in (torch.bfloat16, torch.float32):
         tol = GEMM_TOL[dtype]
@@ -681,13 +781,16 @@ def phase_gemm_checks(gen, batch):
             xs, ws, affines, cts = gemm_case(gen, dtype, m, ks, n, pattern,
                                              equal_w)
             plan = gemm_mod._tc_plan(m, ks, n, dtype)
+            bplan = gemm_mod._tc_bwd_plan(m, ks, n, dtype)
             fwd0, bwd0 = fused_gemm.launches, fused_gemm.bwd_launches
-            tc0 = fused_gemm.tc_launches
+            tc0, btc0 = fused_gemm.tc_launches, fused_gemm.bwd_tc_launches
             (y, s1, s2), leaves, grads = gemm_run(
                 xs, ws, affines, act, dtype, cts, plain=False)
             check(fused_gemm.launches == fwd0 + 1
                   and fused_gemm.bwd_launches == bwd0 + len(ks)
-                  and fused_gemm.tc_launches == tc0 + (plan.route == "tc"),
+                  and fused_gemm.tc_launches == tc0 + (plan.route == "tc")
+                  and fused_gemm.bwd_tc_launches
+                  == btc0 + len(ks) * (bplan.route == "tc"),
                   f"gemm {name}: the wrapper did not launch its kernels")
             (yp, s1p, s2p), _, grads_p = gemm_run(
                 xs, ws, affines, act, dtype, cts, plain=True)
@@ -726,6 +829,16 @@ def phase_gemm_checks(gen, batch):
                                                 retain_graph=True)
             bwd_ms = cuda_ms(lambda: bwd(outs_k), 5)
             bwd_plain_ms = cuda_ms(lambda: bwd(outs_p), 5)
+            del outs_k, outs_p
+            y = y.detach()
+            bwd_launch_ms = cuda_ms(gemm_bwd_launch_call(
+                xs, ws, affines, y, cts, act, bplan.route), 10)
+            bwd_cc_ms = None
+            if bplan.route == "tc":
+                bwd_cc_ms = cuda_ms(gemm_bwd_launch_call(
+                    xs, ws, affines, y, cts, act, "cuda_core"), 3)
+            bwd_library_ms = cuda_ms(gemm_bwd_library_call(
+                xs, ws, affines, y, cts, act), 10)
             r = dict(shape=name, m=m, batch=batch,
                      dtype=str(dtype).replace("torch.", ""),
                      **fwd, dx_rel_to_max=dx_err, red_rel_l2=red_err,
@@ -737,10 +850,16 @@ def phase_gemm_checks(gen, batch):
                      bwd_bound_by=bby,
                      fwd_tflops=flops / launch_ms / 1e9,
                      bound_share=fb / launch_ms,
-                     bwd_tflops=2 * flops / bwd_ms / 1e9)
+                     bwd_tflops=2 * flops / bwd_ms / 1e9,
+                     bwd_route=bplan.route, bwd_launch_ms=bwd_launch_ms,
+                     bwd_cuda_core_ms=bwd_cc_ms,
+                     bwd_library_ms=bwd_library_ms,
+                     bwd_launch_tflops=2 * flops / bwd_launch_ms / 1e9,
+                     bwd_bound_share=bb / bwd_launch_ms)
             results.append(r)
             print(f"  gemm {r['dtype']:8s} {name:38s} M={m} "
-                  f"[{plan_line(plan)}]: {forward_line(r, tol)}; "
+                  f"[{plan_line(plan)}; backward {gemm_bwd_plan_line(bplan)}]"
+                  f": {forward_line(r, tol)}; "
                   f"{backward_line(dx_err, red_err, tol)} | fwd kernel "
                   f"{launch_ms:.3f} ms ({r['fwd_tflops']:.2f} TFLOP/s, "
                   f"{fb / launch_ms:.1%} of bound), through the wrapper "
@@ -749,9 +868,15 @@ def phase_gemm_checks(gen, batch):
                      else f", CUDA-core kernel {cc_ms:.3f}")
                   + f", plain {plain_ms:.3f}, torch.matmul on the "
                   f"activated input {library_ms:.3f}, bound {fb:.4f} "
-                  f"({fby}) | bwd {bwd_ms:.3f} ms "
-                  f"({r['bwd_tflops']:.2f} TFLOP/s) plain "
-                  f"{bwd_plain_ms:.3f} bound {bb:.4f} ({bby})")
+                  f"({fby}) | bwd kernels {bwd_launch_ms:.3f} ms "
+                  f"({r['bwd_launch_tflops']:.2f} TFLOP/s, "
+                  f"{bb / bwd_launch_ms:.1%} of bound), through autograd "
+                  f"{bwd_ms:.3f}"
+                  + ("" if bwd_cc_ms is None
+                     else f", CUDA-core kernels {bwd_cc_ms:.3f}")
+                  + f", plain {bwd_plain_ms:.3f}, convolution_backward on "
+                  f"the activated input {bwd_library_ms:.3f}, bound "
+                  f"{bb:.4f} ({bby})")
             y_ok, s_ok = forward_ok(r, tol)
             check(y_ok, f"gemm {name} {dtype}: y outside the bound")
             check(s_ok, f"gemm {name} {dtype}: statistics outside the bound")
@@ -946,6 +1071,71 @@ def phase_conv3_checks(gen, n):
     return results
 
 
+def misaligned(gen, shape, dtype=torch.bfloat16):
+    """A contiguous tensor of ``shape`` on the card that starts 2 bytes
+    past a 16-byte boundary (a view one element into a larger buffer)."""
+    numel = int(np.prod(shape))
+    base = torch.randn(numel + 1, generator=gen, device="cuda").to(dtype)
+    view = base[1:].view(shape)
+    check(view.is_contiguous() and view.data_ptr() % 16 != 0,
+          "misaligned view")
+    return view
+
+
+def all_counters():
+    return (conv_bn_stats.launches, conv_bn_stats.tc_launches,
+            *fused_counters().values())
+
+
+def phase_alignment_checks(gen):
+    """Each tensor-core route handed one contiguous but misaligned bf16
+    tensor (16-byte ``cp.async`` copies would fault on it) must raise
+    ValueError before it launches anything: the conv (ring and small-Ci
+    kernels), the fused GEMM forward and backward, the fused 3x3 conv
+    forward and backward. Any other outcome fails the phase."""
+    bf = torch.bfloat16
+    rnd = lambda *shape: torch.randn(*shape, generator=gen,
+                                     device="cuda").to(bf)
+    f32 = lambda *shape: 1e-3 * torch.randn(*shape, generator=gen,
+                                            device="cuda")
+    gx, gw = rnd(200, 64), rnd(64, 64)
+    gy = torch.empty(200, 64, dtype=bf, device="cuda")
+    cx = rnd(1, 9, 11, 16)
+    cw = rnd(3, 3, 16, 8)
+    cy = torch.empty(1, 9, 11, 8, dtype=bf, device="cuda")
+    cases = [
+        ("conv_bn_stats tc, x", lambda: conv_bn_stats(
+            misaligned(gen, (2, 13, 13, 32)), rnd(3, 3, 32, 32), rnd(32),
+            1)),
+        ("conv_bn_stats small-Ci tc, w", lambda: conv_bn_stats(
+            rnd(2, 9, 7, 3), misaligned(gen, (3, 3, 3, 32)), rnd(32), 1)),
+        ("fused_gemm forward tc, x", lambda: fused_gemm(
+            [misaligned(gen, (200, 64))], [gw], [None])),
+        ("fused_gemm backward tc, dy", lambda: gemm_mod._backward_cuda(
+            [gx], [gw], [None], [None], gy, misaligned(gen, (200, 64)),
+            f32(64), f32(64), "mish")),
+        ("fused_conv3x3 forward tc, x", lambda: fused_conv3x3(
+            misaligned(gen, (1, 9, 11, 16)), cw, None)),
+        ("fused_conv3x3 backward tc, dy", lambda: conv3_mod._backward_cuda(
+            cx, cw, None, None, cy, misaligned(gen, (1, 9, 11, 8)), f32(8),
+            f32(8), 1, "mish")),
+    ]
+    raised = []
+    for name, run in cases:
+        before = all_counters()
+        try:
+            run()
+        except ValueError as e:
+            check("aligned" in str(e), f"{name}: {e}")
+            check(all_counters() == before, f"{name}: counted a launch")
+            raised.append(name)
+            print(f"  misaligned {name}: ValueError ({e})")
+            continue
+        raise RuntimeError(f"misaligned {name}: no ValueError")
+    torch.cuda.synchronize()
+    return raised
+
+
 def phase_probe_checks(gen, n):
     """The probe layer (the fused GEMM forward with the statistics of the
     unrounded product) against its plain version at the probe's shape,
@@ -1104,17 +1294,16 @@ def phase_serve(args, model, threshold, images):
     forwards = args.requests + 1
     conv_launches, nms_launches = conv_bn_stats.launches, nms_keep.launches
     tc_launches = conv_bn_stats.tc_launches
-    want_tc = CONVS_PER_FORWARD - STEM_CONVS
     print(f"  launches in {forwards} requests: conv_bn_stats "
           f"{conv_launches} ({conv_launches / forwards:g} per forward, "
           f"want {CONVS_PER_FORWARD}), of them on the tensor cores "
           f"{tc_launches} ({tc_launches / forwards:g} per forward, want "
-          f"{want_tc}: all but the stem), nms_keep {nms_launches} "
+          f"{CONVS_PER_FORWARD}: all), nms_keep {nms_launches} "
           f"(want {forwards})")
     check(conv_launches == CONVS_PER_FORWARD * forwards,
           "not every conv of the forward ran the kernel")
-    check(tc_launches == want_tc * forwards,
-          "not every bf16 conv but the stem ran on the tensor cores")
+    check(tc_launches == CONVS_PER_FORWARD * forwards,
+          "not every bf16 conv ran on the tensor cores")
     check(nms_launches == forwards, "not every request ran the NMS kernel")
     fused = fused_counters()
     print(f"  fused kernels in {forwards} requests (want 0 each): "
@@ -1218,7 +1407,7 @@ def phase_timing(args, model, threshold, images, card):
 
 def reset_fused_counters():
     fused_gemm.launches = fused_gemm.tc_launches = 0
-    fused_gemm.bwd_launches = 0
+    fused_gemm.bwd_launches = fused_gemm.bwd_tc_launches = 0
     fused_conv3x3.launches = fused_conv3x3.tc_launches = 0
     fused_conv3x3.bwd_launches = fused_conv3x3.tc_bwd_launches = 0
 
@@ -1230,7 +1419,8 @@ def fused_counters():
                 fused_conv3x3_bwd_tc=fused_conv3x3.tc_bwd_launches,
                 fused_gemm_fwd=fused_gemm.launches,
                 fused_gemm_fwd_tc=fused_gemm.tc_launches,
-                fused_gemm_bwd=fused_gemm.bwd_launches)
+                fused_gemm_bwd=fused_gemm.bwd_launches,
+                fused_gemm_bwd_tc=fused_gemm.bwd_tc_launches)
 
 
 def reset_train_counters():
@@ -1466,6 +1656,7 @@ def main(argv=None):
     probe_res, probe_chain = phase_probe_checks(gen, args.train_batch)
     conv3_res = phase_conv3_checks(gen, args.batch)
     conv3_res += phase_conv3_checks(gen, args.train_batch)
+    aligned = phase_alignment_checks(gen)
 
     print(f"phase 4: serving {args.requests} requests of {args.batch} x "
           f"{args.size}^2 in bf16 (HE_NORMAL kernels, seed {args.seed}, "
@@ -1517,7 +1708,8 @@ def main(argv=None):
         return [r for r in results
                 if r["dtype"] == "bfloat16" and r["shape"] == shape][-1]
 
-    conv_at = bf16_at(conv_res, CONV_SHAPES[3][0])   # at the batch trained
+    conv_at = bf16_at(conv_res, CONV_SHAPES[4][0])   # at the batch trained
+    stem_at = bf16_at(conv_res, CONV_SHAPES[0][0])
     nms_at = [r for r in nms_res if r["k"] == 128 and r["iou_mode"] == 1][0]
     fwd_at = bf16_at(gemm_res, GEMM_SHAPES[1][0])
     bwd_at = bf16_at(gemm_res, GEMM_SHAPES[0][0])
@@ -1549,7 +1741,12 @@ def main(argv=None):
              library_ms=conv_at["library_ms"],
              tflops=conv_at["kernel_tflops"],
              bound_share=conv_at["bound_share"],
-             cuda_core_ms=conv_at["cuda_core_ms"]),
+             cuda_core_ms=conv_at["cuda_core_ms"],
+             # the stem's small-Ci kernel, at the batch trained
+             stem_ms=stem_at["ms"], stem_plain_ms=stem_at["plain_ms"],
+             stem_bound_ms=stem_at["bound_ms"],
+             stem_library_ms=stem_at["library_ms"],
+             stem_cuda_core_ms=stem_at["cuda_core_ms"]),
         dict(name="nms_keep", route="cuda",
              source="tf2_yolo_tpu_torch/csrc/nms.cu",
              replaces="tf2_yolo_tpu/ops/pallas/nms_kernel.py:182",
@@ -1559,7 +1756,7 @@ def main(argv=None):
              ms=nms_at["ms"], plain_ms=nms_at["plain_ms"],
              bound_ms=nms_at["bound_ms"], bound_by=nms_at["bound_by"],
              library_ms=None),
-        # K2, K3' and P: ``ms`` is the kernel launched alone (the
+        # K2, K2', K3' and P: ``ms`` is the kernel launched alone (the
         # routed, tensor-core kernel), ``wrapper_ms`` the public wrapper
         # around it, ``cuda_core_ms`` the CUDA-core instance on the same
         # inputs; ``library_ms`` torch.matmul / convolution_backward on
@@ -1581,11 +1778,17 @@ def main(argv=None):
              source="tf2_yolo_tpu_torch/csrc/fused_gemm.cu",
              replaces="tf2_yolo_tpu/ops/pallas/packed_gemm.py:272",
              **train_launches("fused_gemm_bwd"),
+             launches_tc=train_launches("fused_gemm_bwd_tc")["launches"],
              max_abs_err=max(r["dx_rel_to_max"] for r in gemm_res),
              at=f"{bwd_at['shape']}, M={bwd_at['m']}, bf16",
-             ms=bwd_at["bwd_ms"], plain_ms=bwd_at["bwd_plain_ms"],
+             ms=bwd_at["bwd_launch_ms"], wrapper_ms=bwd_at["bwd_ms"],
+             plain_ms=bwd_at["bwd_plain_ms"],
              bound_ms=bwd_at["bwd_bound_ms"],
-             bound_by=bwd_at["bwd_bound_by"], library_ms=None),
+             bound_by=bwd_at["bwd_bound_by"],
+             library_ms=bwd_at["bwd_library_ms"],
+             tflops=bwd_at["bwd_launch_tflops"],
+             bound_share=bwd_at["bwd_bound_share"],
+             cuda_core_ms=bwd_at["bwd_cuda_core_ms"]),
         # with the prologue no one PyTorch call computes the function;
         # ``bare_ms`` / ``bare_library_ms`` are the kernel and F.conv2d
         # (bf16, channels_last) on the activated input at the same shape
@@ -1643,7 +1846,7 @@ def main(argv=None):
     record = dict(card=card, build_seconds=build_s, conv=conv_res,
                   nms=nms_res, gemm=gemm_res, conv3x3=conv3_res,
                   probe=probe_res, probe_chain=probe_chain,
-                  threshold=threshold,
+                  misaligned_raised=aligned, threshold=threshold,
                   served=served, routes_f32=routes, timing=timing,
                   trained=trained, trained_packed1=trained1,
                   train_routes_f32=train_routes,

@@ -2,14 +2,16 @@
 meet, on the CPU.
 
 ``conv_bn._tc_plan`` and ``fused_conv3x3._tc_plan`` pick, per shape, the
-route (bf16 on the tensor cores, f32 and the stem on the CUDA cores), the
-tile config, the grid and the dynamic shared memory that the C launchers
-take as they are. They are held here over every conv of YOLOv4@416 (110
-convs, enumerated from the port's own model, and the five fused 3x3
-convs of ``packed=3``) at batches 1 to 128. The plain versions, which the
+route (bf16 on the tensor cores, the stem's Ci = 3 through the conv's
+small-Ci kernel; f32 on the CUDA cores), the tile config, the grid and
+the dynamic shared memory that the C launchers take as they are. They
+are held here over every conv of YOLOv4@416 (110 convs, enumerated from
+the port's own model, and the five fused 3x3 convs of ``packed=3``) at
+batches 1 to 128. The plain versions, which the
 card holds the kernels to, are held to the JAX package's Pallas kernels
 in interpret mode at the shapes where the new tiles have ragged edges:
-odd spatial sizes, 24 output channels, 8 input channels, stride 2 from
+odd spatial sizes, 24 output channels, 3 and 8 input channels (the
+small-Ci kernel's K = 27 and 72, padded to 32 and 96), stride 2 from
 26^2 to 13^2, and a batch whose last 128-row tile spans two images. The
 CUDA kernels themselves run only on the card, through ``chip_smoke.py``.
 """
@@ -36,9 +38,11 @@ BATCHES = (1, 8, 32, 128)
 GRID_YZ_MAX = 65535
 GRID_X_MAX = 2 ** 31 - 1
 # the block tile of the tensor-core conv: 128 output pixels; its column
-# widths by config; the fused conv's output tile of 8 x 16 pixels
+# widths by config (the small-Ci kernel's configs are 3 + these, its
+# pixel tile 8 x 16); the fused conv's output tile of 8 x 16 pixels
 TC_BM = 128
 K1_BN = {0: 128, 1: 64, 2: 32}
+IC_CONFIG = 3
 K3_BN = {0: 128, 1: 64}
 # the five fused 3x3 convs of packed=3 (stages 1-2 of the backbone)
 K3_LAYERS = ("backbone.stage1.down", "backbone.stage1.block1.expand",
@@ -92,7 +96,13 @@ def test_conv_plan_covers_every_yolo_conv(yolo_convs, batch, dtype):
         assert plan.smem_bytes <= conv_bn.SMEM_MAX, (name, plan)
         assert plan.grid[0] <= GRID_X_MAX and plan.grid[1] <= GRID_YZ_MAX
         m = batch * (h // stride) * (w // stride)
-        if plan.route == "tc":
+        if plan.route == "tc" and ci < 32:
+            # the stem: the small-Ci kernel, 8 x 16 pixel tiles of every
+            # image, one 32-wide column block, K = 27 padded to 32
+            assert name == "backbone.stem" and plan.config == IC_CONFIG + 2
+            assert plan.grid == (batch * -(-h // 8) * -(-w // 16), 1)
+            assert plan.smem_bytes == conv_bn._ic_smem(2, ci) < 48 * 1024
+        elif plan.route == "tc":
             bn = K1_BN[plan.config]
             assert plan.smem_bytes > 48 * 1024, name     # dynamic memory
             assert plan.grid == (-(-m // TC_BM), -(-co // bn)), name
@@ -102,8 +112,8 @@ def test_conv_plan_covers_every_yolo_conv(yolo_convs, batch, dtype):
         else:
             assert plan.config == -1 and plan.smem_bytes == 0
             assert plan.grid == (-(-m // 64), -(-co // 64)), name
-    want_tc = {n for n in yolo_convs if n != "backbone.stem"} \
-        if dtype == torch.bfloat16 else set()
+    # every bf16 conv on the tensor cores, the stem included
+    want_tc = set(yolo_convs) if dtype == torch.bfloat16 else set()
     assert {n for n, r in routes.items() if r == "tc"} == want_tc
 
 
@@ -140,6 +150,36 @@ def test_conv_plan_rejects(dims, dtype, err):
         conv_bn._tc_plan(*dims, dtype)
 
 
+@pytest.mark.parametrize("ci", [1, 3, 8, 31])
+@pytest.mark.parametrize("co", [8, 32, 64, 128, 256])
+def test_small_ci_plan(ci, co):
+    # bf16 3x3 stride 1 with Ci < 32 and Co % 8 == 0 takes the small-Ci
+    # kernel: the widest column tile that Co fills (narrowed while the
+    # grid would not cover the SMs), 8 x 16 pixel tiles of every image,
+    # and the shared memory of its A, B, halo and tap table
+    n, h, w = 32, 416, 416
+    plan = conv_bn._tc_plan(n, h, w, ci, co, 3, 1, torch.bfloat16)
+    tile = plan.config - IC_CONFIG
+    assert plan.route == "tc" and tile in K1_BN
+    bn = K1_BN[tile]
+    assert bn <= max(co, 32) and (bn == 128 or bn >= co or tile == 2)
+    assert plan.grid == (n * 52 * 26, -(-co // bn))
+    kp = -(-9 * ci // 32) * 32
+    main = (128 * (kp + 8) + kp * (bn + 8)) * 2 \
+        + -(-10 * 18 * ci * 2 // 16) * 16 + 4 * kp
+    warps_m = {0: 2, 1: 4, 2: 4}[tile]
+    epilogue = 128 * (bn + 8) * 2 + 2 * warps_m * bn * 4
+    assert plan.smem_bytes == max(main, epilogue)
+    assert plan.smem_bytes <= conv_bn.SMEM_MAX
+    # the other geometries and f32 keep their kernels
+    assert conv_bn._tc_plan(n, h, w, ci, co, 3, 2, torch.bfloat16).route \
+        == "cuda_core"
+    assert conv_bn._tc_plan(n, h, w, ci, co, 1, 1, torch.bfloat16).route \
+        == "cuda_core"
+    assert conv_bn._tc_plan(n, h, w, ci, co, 3, 1, torch.float32).route \
+        == "cuda_core"
+
+
 @pytest.mark.parametrize("dims,dtype,err", [
     ((2, 8, 8, 32, 32, 3), torch.bfloat16, ValueError),        # stride 3
     ((2, 7, 8, 32, 32, 2), torch.bfloat16, ValueError),        # odd s2
@@ -168,7 +208,12 @@ JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
     (1, 7, 9, 32, 64, 1, 1, "tc"),
     (1, 7, 9, 32, 32, 3, 1, "tc"),
     (2, 13, 13, 32, 24, 1, 1, "tc"),     # Co = 24 in a 32-wide tile
-    (2, 9, 7, 8, 16, 3, 1, "cuda_core"),  # Ci = 8: no 32-deep slice
+    (2, 9, 7, 8, 16, 3, 1, "tc"),        # Ci = 8: small-Ci, K 72 -> 96
+    (2, 9, 7, 3, 24, 3, 1, "tc"),        # the stem's Ci = 3, K 27 -> 32;
+                                         # 9 x 7 inside one 8 x 16 tile
+    (3, 26, 18, 3, 32, 3, 1, "tc"),      # 26 x 18: tiles overhang both
+                                         # ways, three images
+    (2, 9, 7, 8, 16, 1, 1, "cuda_core"),  # Ci = 8, 1x1: no 32-deep slice
     (1, 26, 26, 32, 64, 3, 2, "tc"),     # stride 2, 26^2 -> 13^2
     (3, 7, 9, 32, 32, 3, 1, "tc"),       # rows 128-188: images 2 and 3
 ])

@@ -1,12 +1,15 @@
-"""Launch plans of the tensor-core fused GEMM forward and fused 3x3 conv
-backward, and the edges their tiles meet, on the CPU.
+"""Launch plans of the tensor-core fused GEMM forward and backward and
+fused 3x3 conv backward, and the edges their tiles meet, on the CPU.
 
-``fused_gemm._tc_plan`` and ``fused_conv3x3._tc_bwd_plan`` pick, per
-shape, the route (bf16 on the tensor cores, f32 and K = 3 on the CUDA
-cores), the tile config, the grids and the dynamic shared memory that the
-C launchers take as they are. They are held here over every fused GEMM
-and every fused 3x3 conv of one ``packed=3`` training step of YOLOv4@416
-(enumerated from the port's own model) at batches 1 to 128. The plain
+``fused_gemm._tc_plan``, ``fused_gemm._tc_bwd_plan`` and
+``fused_conv3x3._tc_bwd_plan`` pick, per shape, the route (bf16 on the
+tensor cores, f32 and K = 3 on the CUDA cores), the tile configs, the
+grids and the dynamic shared memory that the C launchers take as they
+are. They are held here over every fused GEMM and every fused 3x3 conv
+of one ``packed=3`` and one ``packed=True`` training step of YOLOv4@416
+(enumerated from the port's own model) at batches 1 to 128. Every
+tensor-core route checks the 16-byte alignment of its tensors before it
+loads its library, which the CPU reaches. The plain
 versions, which the card holds the kernels to, are held to the JAX
 package's Pallas kernels in interpret mode at the shapes where the new
 tiles have ragged edges: M that ends inside a 128-row tile, N of 24, 32
@@ -33,7 +36,7 @@ from tests.test_torch_fused_gemm import _case as _gemm_case
 from tf2_yolo_tpu_torch.models import YoloV4
 from tf2_yolo_tpu_torch.models import packed_region as region
 from tf2_yolo_tpu_torch.ops.kernels import conv_bn, fused_conv3x3, fused_gemm
-from tf2_yolo_tpu_torch.ops.kernels.fused_gemm import _check_aligned
+from tf2_yolo_tpu_torch.ops.kernels.conv_bn import _check_aligned
 
 torch.set_num_threads(1)
 
@@ -47,6 +50,10 @@ GEMM_BN = {0: 128, 1: 64, 2: 32}
 # the dx kernel's tile: 8 x 16 pixels of a parity class, BN of K by
 # config; the dW kernel's blocks of 32 input x 64 output channels
 DX_BN = {0: 128, 1: 64, 2: 32}
+# the fused GEMM backward over the inputs' K ranges as one column space:
+# dx tiles of 128 rows x BN columns (DX_BN), dW tiles of columns x N by
+# config, chunks of rows in multiples of 32
+GEMM_DW_TILE = {0: (128, 128), 1: (64, 64), 2: (128, 64), 3: (64, 128)}
 ANCHORS = np.stack([np.linspace(0.05, 0.75, 9),
                     np.linspace(0.07, 0.65, 9)], axis=1)
 
@@ -172,6 +179,60 @@ def test_conv3x3_bwd_plan_covers_the_five_layers(packed_calls, batch,
                                     -(-batch * ho * wo // 1024))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("packed", [3, 1])
+def test_gemm_bwd_plan_covers_every_packed_gemm(packed_calls, packed, batch,
+                                                dtype):
+    for rows, ks, n in packed_calls[packed][0]:
+        m = batch * rows
+        plan = fused_gemm._tc_bwd_plan(m, ks, n, dtype)
+        if dtype == torch.float32:
+            assert plan.route == "cuda_core" and plan.dx_config == -1
+            continue
+        assert plan.route == "tc"
+        assert max(plan.dx_smem, plan.dw_smem) <= conv_bn.SMEM_MAX
+        assert min(plan.dx_smem, plan.dw_smem) > 32 * 1024
+        # dx: 128-row blocks against the inputs' K ranges as one column
+        # space, the widest tile that divides it (every column space of
+        # a step is a multiple of 32), narrowed only while the grid would
+        # not cover the 132 SMs once
+        ktot = sum(ks)
+        bn = DX_BN[plan.dx_config]
+        assert plan.dx_grid == (-(-m // TC_BM), -(-ktot // bn))
+        assert ktot % bn == 0
+        assert bn == 128 or ktot % (2 * bn) \
+            or -(-m // TC_BM) * (ktot // (2 * bn)) < SMS
+        # dW: tiles of 128 columns (or rows of N) where 128 divides them,
+        # else 64; the chunks of rows (multiples of 32) cover M once,
+        # about two blocks per SM in all
+        tk, tn = GEMM_DW_TILE[plan.dw_config]
+        assert (tk == 128) == (ktot % 128 == 0)
+        assert (tn == 128) == (n % 128 == 0)
+        tiles = -(-ktot // tk) * -(-n // tn)
+        chunks = plan.dw_grid[0]
+        assert plan.dw_grid[1:] == (-(-ktot // tk), -(-n // tn))
+        assert plan.dw_rows * (chunks - 1) < m <= plan.dw_rows * chunks
+        want = max(1, -(-2 * SMS // tiles))
+        per_chunk = -(-m // want)
+        assert plan.dw_rows == -(-per_chunk // 32) * 32 and chunks <= want
+
+
+@pytest.mark.parametrize("args,err", [
+    ((100, [64], 64, torch.float16), TypeError),
+    ((0, [64], 64, torch.bfloat16), ValueError),               # empty
+    ((100, [64] * 10, 64, torch.bfloat16), ValueError),        # 10 inputs
+    ((100, [64, 0], 64, torch.bfloat16), ValueError),
+    ((100, [64] * 8 + [128 * 65536], 64, torch.bfloat16),
+     ValueError),                                              # dx grid.y
+    ((100, [128], 128 * 65536, torch.bfloat16), ValueError),   # dW grid.z
+    ((1024 * 65536 + 1, [64], 64, torch.float32), ValueError),  # chunks
+])
+def test_gemm_bwd_plan_rejects(args, err):
+    with pytest.raises(err):
+        fused_gemm._tc_bwd_plan(*args)
+
+
 def test_conv3x3_bwd_plan_routes_the_stem_shape_to_the_cuda_cores():
     plan = fused_conv3x3._tc_bwd_plan(32, 416, 416, 3, 32, 1,
                                       torch.bfloat16)
@@ -209,6 +270,70 @@ def test_tensor_core_route_needs_aligned_tensors():
     _check_aligned([base, base[8:]], "test")           # 16 bytes in
     with pytest.raises(ValueError, match="aligned"):
         _check_aligned([base, base[4:]], "test")
+    # one check, shared by every wrapper
+    assert fused_gemm._check_aligned is fused_conv3x3._check_aligned \
+        is _check_aligned
+
+
+def _misaligned(*shape):
+    """A contiguous bf16 tensor that starts 2 bytes past a 16-byte
+    boundary."""
+    base = torch.ones(int(np.prod(shape)) + 1, dtype=torch.bfloat16)
+    t = base[1:].view(shape)
+    assert t.is_contiguous() and t.data_ptr() % 16
+    return t
+
+
+def _counters():
+    return (conv_bn.conv_bn_stats.launches, conv_bn.conv_bn_stats.tc_launches,
+            fused_gemm.fused_gemm.launches, fused_gemm.fused_gemm.tc_launches,
+            fused_gemm.fused_gemm.bwd_launches,
+            fused_gemm.fused_gemm.bwd_tc_launches,
+            fused_conv3x3.fused_conv3x3.launches,
+            fused_conv3x3.fused_conv3x3.bwd_launches)
+
+
+def _ones(*shape, dtype=torch.bfloat16):
+    return torch.ones(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("route", [
+    "conv ring", "conv small-Ci", "gemm forward", "gemm backward",
+    "conv3x3 forward", "conv3x3 backward"])
+def test_tensor_core_routes_raise_on_misaligned_tensors(route):
+    # each route's CUDA entry checks its tensors before it loads its
+    # library or launches: a CPU tensor reaches the check here
+    f32 = lambda n: torch.zeros(n)
+    if route == "conv ring":
+        x, w, b = _misaligned(2, 13, 13, 32), _ones(3, 3, 32, 32), _ones(32)
+        run = lambda: conv_bn._forward_cuda(
+            x, w, b, 1, True, conv_bn._check(x, w, b, 1))
+    elif route == "conv small-Ci":
+        x, w, b = _ones(2, 9, 7, 3), _misaligned(3, 3, 3, 32), _ones(32)
+        run = lambda: conv_bn._forward_cuda(
+            x, w, b, 1, True, conv_bn._check(x, w, b, 1))
+    elif route == "gemm forward":
+        run = lambda: fused_gemm._forward_cuda(
+            [_misaligned(200, 64)], [_ones(64, 64)], [None], [None], "mish",
+            200, 64)
+    elif route == "gemm backward":
+        run = lambda: fused_gemm._backward_cuda(
+            [_ones(200, 64)], [_ones(64, 64)], [f32(64)], [f32(64)],
+            _ones(200, 64), _misaligned(200, 64), f32(64), f32(64), "mish")
+    elif route == "conv3x3 forward":
+        x, w = _misaligned(1, 9, 11, 16), _ones(3, 3, 16, 8)
+        run = lambda: fused_conv3x3._forward_cuda(
+            x, w, None, None, 1, "mish",
+            fused_conv3x3._check(x, w, None, None, 1, "mish"))
+    else:
+        run = lambda: fused_conv3x3._backward_cuda(
+            _ones(1, 9, 11, 16), _ones(3, 3, 16, 8), None, None,
+            _ones(1, 9, 11, 8), _misaligned(1, 9, 11, 8), f32(8), f32(8), 1,
+            "mish")
+    before = _counters()
+    with pytest.raises(ValueError, match="aligned"):
+        run()
+    assert _counters() == before
 
 
 def _gemm_matches_pallas(m, ks, n, pattern, act, dtype):
@@ -264,6 +389,13 @@ def test_gemm_edges_match_pallas(gemm_interpret, m, ks, n, pattern, act,
     # the SMs): N = 24 and 72 end inside one
     plan = fused_gemm._tc_plan(m, ks, n, torch.bfloat16)
     assert plan.route == "tc" and plan.config == 2
+    # and the backward's tiles: dx columns of 32 over the inputs' K
+    # ranges as one column space (96 + 40: a tile spans both inputs),
+    # dW tiles of 64 or 128 columns by 64 or 128 of N (N = 24, 72 end
+    # inside one), chunks of rows that end inside a 32-row slice
+    bplan = fused_gemm._tc_bwd_plan(m, ks, n, torch.bfloat16)
+    assert bplan.route == "tc" and bplan.dx_config == 2
+    assert m % 32 and bplan.dw_grid[0] * bplan.dw_rows >= m
     _gemm_matches_pallas(m, ks, n, pattern, act, dtype)
 
 

@@ -127,6 +127,25 @@ def test_yolo_loss_v4_value_and_gradient_match_jax(case, kwargs):
         assert int((np.asarray(iou) > 0.3).sum()) > 0
 
 
+@pytest.mark.parametrize("binary_weight", [[0.7], [0.25, 1.0, 2.5]])
+def test_yolo_loss_v4_array_binary_weight_matches_jax(binary_weight):
+    # an array weight (as utils/tools.get_class_weight gives one) makes
+    # the JAX loss an array whose mean is returned; the port follows
+    y_true, y_pred = _batch(4)
+    bw = np.asarray(binary_weight, np.float32)
+    jloss = jwrap_yolo_loss_v4(GRID, BOXES, CLASSES, ANCHORS,
+                               binary_weight=bw)
+    want, want_grad = jax.value_and_grad(
+        lambda pp: jloss(jnp.asarray(y_true), pp))(jnp.asarray(y_pred))
+    tp = torch.from_numpy(y_pred).requires_grad_()
+    got = wrap_yolo_loss_v4(GRID, BOXES, CLASSES, ANCHORS,
+                            binary_weight=bw)(torch.from_numpy(y_true), tp)
+    got.backward()
+    assert got.dtype == torch.float32 and got.dim() == 0
+    np.testing.assert_allclose(got.item(), float(want), rtol=RTOL)
+    _assert_close(tp.grad.numpy(), want_grad, f"binary_weight {bw}")
+
+
 def test_yolo_loss_v4_takes_bf16_predictions_in_f32():
     y_true, y_pred = _batch(3)
     loss = wrap_yolo_loss_v4(GRID, BOXES, CLASSES, ANCHORS)

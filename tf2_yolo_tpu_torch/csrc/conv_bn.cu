@@ -15,7 +15,7 @@
 // (1,0),(1,0) pad.
 //
 // GEMM view: M = N*Ho*Wo output pixels, Co columns, K = ks*ks*Ci.  The
-// HWIO weight tensor is already the row-major (K, Co) B matrix.  Two
+// HWIO weight tensor is already the row-major (K, Co) B matrix.  Three
 // kernels compute it, chosen per shape by the Python plan
 // (ops/kernels/conv_bn.py, _tc_plan), which passes the tile config, the
 // grid and the dynamic shared memory:
@@ -31,8 +31,18 @@
 //   shared memory, f32 accumulators), with one __syncthreads per slice.
 //   Epilogue in conv_mma.cuh: bias in f32, one rounding to bf16, 16-byte
 //   stores through shared memory, statistics of the rounded values.
+// * conv_bn_stats_ic_kernel, bf16 3x3 stride 1 with Ci < 32 and Co % 8
+//   == 0 (the stem, Ci = 3: a pixel is 6 bytes, no 16-byte rows):
+//   tensor cores through an im2col in shared memory.  A block takes an
+//   8 x 16 tile of output pixels of one image and BN (128, 64 or 32)
+//   channels: it copies the tile's input halo, 10 x 18 pixels, once
+//   (2-byte loads of each halo row's contiguous span, zero outside the
+//   image), builds the A tile [128 pixels][K] with K = 9 Ci rounded up
+//   to 32 (zero columns past 9 Ci) from it through a table of tap
+//   offsets, copies the weights [K][BN] (zero rows past 9 Ci) with
+//   16-byte cp.async, runs K / 16 mma.sync steps and the same epilogue.
 // * conv_bn_stats_kernel, f32 (the tensor cores' f32 route would be TF32)
-//   and the bf16 stem (Ci = 3 has no 16-byte rows): 64 x 64 tiles on the
+//   and bf16 shapes no tensor-core kernel takes: 64 x 64 tiles on the
 //   CUDA cores, a BK = 16 slice gathered element by element (zero-filled
 //   halo) into f32 shared memory, a 4 x 4 FMA micro-tile per thread.
 //
@@ -40,7 +50,9 @@
 // operations for the 3x3 layers at 52^2 and below with Ci >= 128 (K =
 // 1152-4608), where mma.sync reaches a fraction of the 989 TFLOP/s that
 // wgmma could, and by bytes for the 1x1 layers and the wide early layers
-// (the A operand is re-read ks*ks times, through L2).  The CUDA-core
+// (the A operand is re-read ks*ks times, through L2).  The small-Ci
+// kernel is bound by the bytes of y (the stem writes 32 channels for 3
+// it reads: 354 MB of y against 33 MB of x at batch 32).  The CUDA-core
 // kernel is bound by the f32 FMA rate (67 TFLOP/s peak).
 //
 // Statistics: the TPU kernel carries s1/s2 across its sequential grid.
@@ -244,6 +256,9 @@ void launch(const void* x, const void* w, const void* b, void* y, double* s1,
 constexpr int TC_BK = tc::RING_BK;
 constexpr int TC_STAGES = tc::RING_STAGES;
 constexpr int TC_APITCH = tc::RING_APITCH;
+// configs 0-2 of the plan: the ring kernel's tiles; 3-5 the small-Ci
+// kernel's (Tile128, Tile64, Tile32)
+constexpr int IC_CONFIG = 3;
 
 template <int KS, int STRIDE, bool STATS, class TL>
 __global__ void __launch_bounds__(tc::THREADS)
@@ -399,11 +414,201 @@ int dispatch_tc(const void* x, const void* w, const void* b, void* y,
   return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------------- tensor cores, small Ci (bf16)
+
+// The small-Ci kernel's output tile (8 x 16 = tc::BM pixels) and halo.
+constexpr int IC_TH = 8;
+constexpr int IC_TW = 16;
+constexpr int IC_HH = IC_TH + 2;
+constexpr int IC_HW = IC_TW + 2;
+
+// K = 9 Ci rounded up to whole 32-deep slices
+__host__ __device__ constexpr int ic_kp(int ci) {
+  return (9 * ci + TC_BK - 1) / TC_BK * TC_BK;
+}
+
+// Shared memory: the A tile [128][K + 8] (80-byte rows at K = 32, so the
+// 8 rows of an ldmatrix hit 8 banks), the B tile [K][BN + 8], the halo
+// [10][18 Ci] (to 16 bytes) and the tap table [K] ints; or the
+// epilogue's, whichever is larger (_ic_smem in ops/kernels/conv_bn.py).
+template <class TL>
+struct IcSmem {
+  __host__ __device__ static int a_elems(int ci) {
+    return tc::BM * (ic_kp(ci) + 8);
+  }
+  __host__ __device__ static int b_elems(int ci) {
+    return ic_kp(ci) * (TL::BN + 8);
+  }
+  __host__ __device__ static int halo_bytes(int ci) {
+    return (IC_HH * IC_HW * ci * 2 + 15) / 16 * 16;
+  }
+  __host__ __device__ static int main_bytes(int ci) {
+    return (a_elems(ci) + b_elems(ci)) * 2 + halo_bytes(ci)
+           + ic_kp(ci) * 4;
+  }
+  static int bytes(int ci) {
+    const int m = main_bytes(ci);
+    return m > TL::EPI_BYTES ? m : TL::EPI_BYTES;
+  }
+};
+
+// One block: output pixels (i0 .. i0 + 8) x (j0 .. j0 + 16) of image
+// blockIdx.x / tiles, channels blockIdx.y * BN .. + BN; 3x3 stride 1
+// SAME.  A[r][k] for tile pixel r = (ty, tx) and k = (ky * 3 + kx) * Ci +
+// c (the HWIO row order) is halo[ty + ky][(tx + kx) * Ci + c]: for one ky
+// the 3 Ci values of a row are contiguous in the halo row, so the table
+// holds ky * (halo pitch) + (k - 3 Ci ky) per k, -1 past 9 Ci.
+template <bool STATS, class TL>
+__global__ void __launch_bounds__(tc::THREADS)
+conv_bn_stats_ic_kernel(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ w,
+                        const __nv_bfloat16* __restrict__ b,
+                        __nv_bfloat16* __restrict__ y,
+                        double* __restrict__ s1, double* __restrict__ s2,
+                        int n, int h, int wd, int ci, int co) {
+  using SM = IcSmem<TL>;
+  constexpr int BN = TL::BN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kp = ic_kp(ci), k_real = 9 * ci;
+  const int apitch = kp + 8, bpitch = BN + 8, hp = IC_HW * ci;
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* bs = as + SM::a_elems(ci);
+  __nv_bfloat16* halo = bs + SM::b_elems(ci);
+  int* koff = reinterpret_cast<int*>(
+      smem + (SM::a_elems(ci) + SM::b_elems(ci)) * 2 + SM::halo_bytes(ci));
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / TL::WARPS_N, wn = warp % TL::WARPS_N;
+  const int tiles_x = (wd + IC_TW - 1) / IC_TW;
+  const int per_img = tiles_x * ((h + IC_TH - 1) / IC_TH);
+  const int img = blockIdx.x / per_img, rem = blockIdx.x % per_img;
+  const int i0 = (rem / tiles_x) * IC_TH, j0 = (rem % tiles_x) * IC_TW;
+  const int c0 = blockIdx.y * BN;
+
+  // B: rows k < 9 Ci of w at columns c0 .., zero elsewhere
+  for (int i = tid; i < kp * (BN / 8); i += tc::THREADS) {
+    const int kr = i / (BN / 8), col = (i % (BN / 8)) * 8;
+    const bool ok = kr < k_real && c0 + col < co;
+    tc::cp_async16(bs + kr * bpitch + col,
+                   ok ? w + (int64_t)kr * co + c0 + col : w, ok);
+  }
+  tc::cp_async_commit();
+  for (int k = tid; k < kp; k += tc::THREADS) {
+    int off = -1;
+    if (k < k_real) {
+      const int ky = k / (3 * ci);
+      off = ky * hp + (k - ky * 3 * ci);
+    }
+    koff[k] = off;
+  }
+  // halo row hy is input row i0 - 1 + hy, columns j0 - 1 .. j0 + 16: one
+  // contiguous span of 18 Ci elements, of which [lo, hi) lie inside the
+  // image
+  const int lo = j0 == 0 ? ci : 0;
+  const int hi = (wd - j0 + 1) * ci;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  for (int i = tid; i < IC_HH * hp; i += tc::THREADS) {
+    const int hy = i / hp, e = i - hy * hp;
+    const int iy = i0 - 1 + hy;
+    __nv_bfloat16 v = zero;
+    if (iy >= 0 && iy < h && e >= lo && e < hi)
+      v = x[(((int64_t)img * h + iy) * wd + j0 - 1) * ci + e];
+    halo[i] = v;
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  // the im2col, two columns a thread at a time
+  const int pairs = kp / 2;
+  for (int p = tid; p < tc::BM * pairs; p += tc::THREADS) {
+    const int r = p / pairs, k = 2 * (p - r * pairs);
+    const int base = (r / IC_TW) * hp + (r % IC_TW) * ci;
+    const int o0 = koff[k], o1 = koff[k + 1];
+    __nv_bfloat162 v;
+    v.x = o0 >= 0 ? halo[base + o0] : zero;
+    v.y = o1 >= 0 ? halo[base + o1] : zero;
+    *reinterpret_cast<__nv_bfloat162*>(as + r * apitch + k) = v;
+  }
+  __syncthreads();
+
+  float acc[TL::MI][TL::NI][4];
+#pragma unroll
+  for (int mi = 0; mi < TL::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < TL::NI; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
+  for (int kk = 0; kk < kp; kk += 16) {
+    const __nv_bfloat16* a_rows[TL::MI];
+#pragma unroll
+    for (int mi = 0; mi < TL::MI; ++mi)
+      a_rows[mi] = as + (wm * TL::WTM + mi * 16 + (lane & 15)) * apitch + kk
+                   + (lane >> 4) * 8;
+    tc::mma_k16<TL>(acc, a_rows,
+                    bs + (kk + (lane & 15)) * bpitch + wn * TL::WTN
+                        + (lane >> 4) * 8);
+  }
+  __syncthreads();   // the epilogue reuses the A tile's memory
+  tc::store_tile<TL, STATS>(
+      acc, smem, b, c0, co,
+      [&](int r) -> int64_t {
+        const int i = i0 + r / IC_TW, j = j0 + r % IC_TW;
+        return i < h && j < wd ? (((int64_t)img * h + i) * wd + j) * co
+                               : -1;
+      },
+      y, s1, s2);
+}
+
+template <bool STATS, class TL>
+int launch_ic(const void* x, const void* w, const void* b, void* y,
+              double* s1, double* s2, int n, int h, int wd, int ci, int co,
+              dim3 grid, int smem_bytes, cudaStream_t stream) {
+  // the plan's shared memory must be this config's
+  if (ci < 1 || ci >= TC_BK || co % 8 || smem_bytes != IcSmem<TL>::bytes(ci))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = conv_bn_stats_ic_kernel<STATS, TL>;
+  static int allowed[tc::MAX_DEVICES] = {0};   // per instance and device
+  int err = tc::allow_smem((const void*)kernel, smem_bytes, allowed);
+  if (err != 0) return err;
+  kernel<<<grid, tc::THREADS, smem_bytes, stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
+      (const __nv_bfloat16*)b, (__nv_bfloat16*)y, s1, s2, n, h, wd, ci, co);
+  return 0;
+}
+
+template <bool STATS>
+int dispatch_ic(const void* x, const void* w, const void* b, void* y,
+                double* s1, double* s2, int n, int h, int wd, int ci, int co,
+                int tile, dim3 grid, int smem_bytes, cudaStream_t stream) {
+  switch (tile) {
+    case 0:
+      return launch_ic<STATS, tc::Tile128>(x, w, b, y, s1, s2, n, h, wd, ci,
+                                           co, grid, smem_bytes, stream);
+    case 1:
+      return launch_ic<STATS, tc::Tile64>(x, w, b, y, s1, s2, n, h, wd, ci,
+                                          co, grid, smem_bytes, stream);
+    case 2:
+      return launch_ic<STATS, tc::Tile32>(x, w, b, y, s1, s2, n, h, wd, ci,
+                                          co, grid, smem_bytes, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int KS, int STRIDE>
 int launch_geom(const void* x, const void* w, const void* b, void* y,
                 double* s1, double* s2, int n, int h, int wd, int ci, int co,
                 int dtype, int want_stats, int config, dim3 grid,
                 int smem_bytes, cudaStream_t stream) {
+  if (config >= IC_CONFIG) {
+    if (dtype != 1 || KS != 3 || STRIDE != 1)
+      return (int)cudaErrorInvalidValue;
+    return want_stats
+               ? dispatch_ic<true>(x, w, b, y, s1, s2, n, h, wd, ci, co,
+                                   config - IC_CONFIG, grid, smem_bytes,
+                                   stream)
+               : dispatch_ic<false>(x, w, b, y, s1, s2, n, h, wd, ci, co,
+                                    config - IC_CONFIG, grid, smem_bytes,
+                                    stream);
+  }
   if (config >= 0) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
     return want_stats
@@ -432,7 +637,10 @@ int launch_geom(const void* x, const void* w, const void* b, void* y,
 // smem_bytes come from the Python plan: config -1 runs the CUDA-core
 // kernel (64 x 64 tiles, static shared memory), 0/1/2 the tensor-core
 // kernel with BN = 128/64/32 (bf16 only) and smem_bytes of dynamic
-// shared memory.  Returns the cudaError_t of the launch.
+// shared memory, 3/4/5 the small-Ci tensor-core kernel with BN =
+// 128/64/32 (bf16 3x3 stride 1, Ci < 32; grid.x walks the 8 x 16 pixel
+// tiles of every image).  Tensor-core routes need w and y 16-byte
+// aligned.  Returns the cudaError_t of the launch.
 extern "C" int conv_bn_stats_launch(const void* x, const void* w,
                                     const void* b, void* y, double* s1,
                                     double* s2, int n, int h, int wd, int ci,

@@ -184,19 +184,20 @@ __device__ __forceinline__ void mma_k16(float (&acc)[TL::MI][TL::NI][4],
 // Epilogue: every accumulator pair (tile row r, global columns c, c + 1)
 // becomes fn(r, c, v0, v1, t1, t2), a bf16 pair stored through shared
 // memory (`smem`, at least TL::EPI_BYTES, free: the caller has waited
-// for its copies and synchronised) as 16-byte rows; row r of the tile
-// goes to element offset row_off(r) of out (its column 0; negative for a
-// row outside the output), columns c0 .. c0 + BN - 1 where < co
-// (co % 8 == 0).  fn sets t1, t2, the pair's terms of the two column
-// sums (read only for a valid row).  With SUMS, s1 += sum t1 and s2 +=
-// sum t2 per column over the valid rows: f32 within the block (own rows,
-// then warp shuffles over the 8 row groups, then the WARPS_M warps in
-// order), one f64 atomic per column.
-template <class TL, bool SUMS, class RowOff, class Fn>
-__device__ __forceinline__ void epilogue(
+// for its copies and synchronised) as 16-byte chunks of 8 columns;
+// store(row_off(r), c, chunk) writes the chunk of tile row r that starts
+// at global column c, for rows with row_off(r) >= 0 (negative: outside
+// the output) and columns c0 .. c0 + BN - 1 where < co (co % 8 == 0).
+// fn sets t1, t2, the pair's terms of the two column sums (read only
+// for a valid row).  With SUMS, s1 += sum t1 and s2 += sum t2 per
+// column over the valid rows: f32 within the block (own rows, then warp
+// shuffles over the 8 row groups, then the WARPS_M warps in order), one
+// f64 atomic per column.
+template <class TL, bool SUMS, class RowOff, class Fn, class Store>
+__device__ __forceinline__ void epilogue_to(
     float (&acc)[TL::MI][TL::NI][4], unsigned char* smem, int c0, int co,
-    RowOff row_off, Fn fn, __nv_bfloat16* __restrict__ out,
-    double* __restrict__ s1, double* __restrict__ s2) {
+    RowOff row_off, Fn fn, Store store, double* __restrict__ s1,
+    double* __restrict__ s2) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / TL::WARPS_N, wn = warp % TL::WARPS_N;
   const int g = lane >> 2, t = lane & 3;
@@ -256,8 +257,8 @@ __device__ __forceinline__ void epilogue(
     const int r = i / CHUNKS, col = (i % CHUNKS) * 8;
     const int64_t off = row_off(r);
     if (off >= 0 && c0 + col < co)
-      *reinterpret_cast<uint4*>(out + off + c0 + col) =
-          *reinterpret_cast<const uint4*>(cs + r * TL::CPITCH + col);
+      store(off, c0 + col,
+            *reinterpret_cast<const uint4*>(cs + r * TL::CPITCH + col));
   }
   if (SUMS && tid < TL::BN && c0 + tid < co) {
     float t1 = 0.f, t2 = 0.f;
@@ -269,6 +270,21 @@ __device__ __forceinline__ void epilogue(
     atomicAdd(&s1[c0 + tid], (double)t1);
     atomicAdd(&s2[c0 + tid], (double)t2);
   }
+}
+
+// The epilogue into one output: row r of the tile goes to element offset
+// row_off(r) of out (its column 0).
+template <class TL, bool SUMS, class RowOff, class Fn>
+__device__ __forceinline__ void epilogue(
+    float (&acc)[TL::MI][TL::NI][4], unsigned char* smem, int c0, int co,
+    RowOff row_off, Fn fn, __nv_bfloat16* __restrict__ out,
+    double* __restrict__ s1, double* __restrict__ s2) {
+  epilogue_to<TL, SUMS>(
+      acc, smem, c0, co, row_off, fn,
+      [&](int64_t off, int c, const uint4& v) {
+        *reinterpret_cast<uint4*>(out + off + c) = v;
+      },
+      s1, s2);
 }
 
 // The convolutions' and the GEMM's epilogue: y = bf16(acc + bias) (bias

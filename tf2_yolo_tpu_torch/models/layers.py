@@ -140,10 +140,12 @@ class BNState(nn.Module):
 
 
 class ConvBN(nn.Module):
-    """Conv (+ BatchNorm) + activation, the math of the JAX fused path:
-    y = conv(x) in the compute dtype, then
-    (y - mean) * rsqrt(var + 1e-3) * scale + bias in that dtype, then the
-    activation. In train mode mean = s1 / M and var = s2 / M - mean^2
+    """Conv (+ BatchNorm) + activation, the math of the JAX default
+    route (``nn.BatchNorm``, which ``bench.py`` and ``make_serving_fn``
+    take): y = conv(x) in the compute dtype, then
+    (y - mean) * (rsqrt(var + 1e-3) * scale) + bias in f32, rounded once
+    to the compute dtype, then the activation in that dtype. In train
+    mode mean = s1 / M and var = s2 / M - mean^2
     come from the conv kernel's sums over the M = N*H*W pixels (f32), the
     running statistics are updated in place, and mish takes its training
     form; in eval mode the running statistics normalise.
@@ -172,8 +174,9 @@ class ConvBN(nn.Module):
                 bn.update_running(mean, var)
             else:
                 mean, var = bn.mean, bn.var
-            y = ((y - mean.to(dt)) * torch.rsqrt(var.to(dt) + BN_EPS)
-                 * bn.scale.to(dt) + bn.bias.to(dt))
+            y = ((y.float() - mean)
+                 * (torch.rsqrt(var + BN_EPS) * bn.scale)
+                 + bn.bias).to(dt)
         return (ACTS if self.training else ACTS_EVAL)[self.act](y)
 
 

@@ -16,15 +16,21 @@ Source note. On a CUDA tensor this launches ``csrc/conv_bn.cu``, the
 Hopper port of the Pallas TPU kernels ``conv1x1_stats`` and
 ``conv3x3_stats`` (tf2_yolo_tpu/ops/pallas/conv_bn_kernel.py,
 ``_conv1x1_stats_fwd_impl`` and ``_conv3x3_stats_fwd_impl``). It is an
-implicit-GEMM conv with two kernels, one per route, chosen by shape in
+implicit-GEMM conv with three kernels, chosen by shape in
 :func:`_tc_plan`: bf16 with Ci % 32 == 0 and Co % 8 == 0 (every conv of
 YOLOv4 but the stem) runs on the tensor cores (``mma.sync`` bf16 -> f32
 fed by a 4-stage ``cp.async`` ring; 128-pixel tiles of 128, 64 or 32
 channels), bound by operations on the 3x3 layers at 52^2 and below with
-Ci >= 128 and by bytes elsewhere; f32 (whose tensor-core route would be
-TF32) and the bf16 stem (Ci = 3) run on the CUDA cores, bound by their
-FMA rate. ``conv_bn_stats.launches`` counts every launch,
-``conv_bn_stats.tc_launches`` those of the tensor-core kernel. The
+Ci >= 128 and by bytes elsewhere; bf16 3x3 stride 1 with Ci < 32 and Co
+% 8 == 0 (the stem, Ci = 3) runs on the tensor cores as well, through an
+im2col in shared memory (an 8 x 16 pixel tile stages its input halo
+once, builds its [128 pixels x 9 Ci] A tile padded to a multiple of 32,
+and runs K / 16 ``mma.sync`` steps), bound by the bytes of y; f32 (whose
+tensor-core route would be TF32) and the other shapes run on the CUDA
+cores, bound by their FMA rate. ``conv_bn_stats.launches`` counts every
+launch, ``conv_bn_stats.tc_launches`` those of the tensor-core kernels.
+The tensor-core routes copy 16-byte chunks and raise on a tensor that
+does not start on a 16-byte boundary (:func:`_check_aligned`). The
 statistics are per-block partial sums added with f64 atomics and
 rounded to f32 here, so block order does not show in them even where a
 training batch sums millions of rows. On a CPU tensor it computes
@@ -56,6 +62,10 @@ SMEM_MAX = 232448
 _TC_BM, _TC_BK, _TC_STAGES = 128, 32, 4
 _TC_TILES = {0: (128, 2), 1: (64, 4), 2: (32, 4)}
 _CC_TILE = 64                          # the CUDA-core kernel's BM = BN
+# the small-Ci (im2col) kernel: config _IM2COL + tile id; an output tile
+# of 8 x 16 pixels and its halo of 10 x 18
+_IM2COL = 3
+_IC_TH, _IC_TW = 8, 16
 
 
 class Plan(NamedTuple):
@@ -80,14 +90,33 @@ def _tc_smem(config):
     return max(ring, epilogue)
 
 
+def _ic_smem(config, ci):
+    """Bytes of dynamic shared memory of the small-Ci kernel with tile
+    ``config`` (0, 1, 2) at ``ci`` input channels: the A tile (128 rows
+    of K + 8 bf16, K = 9 Ci rounded up to 32), the B tile (K rows of BN +
+    8), the input halo (10 x 18 x Ci bf16, to 16 bytes) and the tap
+    table (K ints), or the epilogue's, whichever is larger
+    (``IcSmem`` in conv_bn.cu)."""
+    bn, warps_m = _TC_TILES[config]
+    kp = -(-9 * ci // _TC_BK) * _TC_BK
+    halo = -(-(_IC_TH + 2) * (_IC_TW + 2) * ci * 2 // 16) * 16
+    main = (_TC_BM * (kp + 8) + kp * (bn + 8)) * 2 + halo + kp * 4
+    epilogue = _TC_BM * (bn + 8) * 2 + 2 * warps_m * bn * 4
+    return max(main, epilogue)
+
+
 def _tc_plan(n, h, wd, ci, co, ksize, stride, dtype):
     """The launch plan of one conv (pure Python: the CPU tests reach it).
     bf16 with Ci % 32 == 0 (a 32-deep slice lies in one tap) and Co % 8
     == 0 (16-byte rows) takes the tensor cores, with the widest tile of
     128, 64 or 32 channels that Co fills, halved while the grid would not
-    cover the 132 SMs once. Anything else of a supported dtype (f32, the
-    stem's Ci = 3) takes the CUDA-core kernel. Raises ValueError on a
-    shape the kernels do not take."""
+    cover the 132 SMs once: grid (128-row blocks, column blocks). bf16
+    3x3 stride 1 with Ci < 32 and Co % 8 == 0 (the stem) takes the
+    small-Ci tensor-core kernel, config ``_IM2COL`` + tile, tiles chosen
+    the same way: grid (8 x 16 pixel tiles of all images, column
+    blocks). Anything else of a supported dtype (f32) takes the
+    CUDA-core kernel. Raises ValueError on a shape the kernels do not
+    take."""
     if (ksize, stride) not in _GEOMETRIES:
         raise ValueError(f"unsupported conv {ksize}x{ksize} stride {stride}")
     if stride == 2 and (h % 2 or wd % 2):
@@ -97,13 +126,21 @@ def _tc_plan(n, h, wd, ci, co, ksize, stride, dtype):
     if min(n, h, wd, ci, co) < 1:
         raise ValueError(f"empty conv {(n, h, wd, ci)} -> {co}")
     m = n * (h // stride) * (wd // stride)
-    if dtype == torch.bfloat16 and ci % _TC_BK == 0 and co % 8 == 0:
+    ring = ci % _TC_BK == 0
+    small_ci = ci < _TC_BK and ksize == 3 and stride == 1
+    if dtype == torch.bfloat16 and co % 8 == 0 and (ring or small_ci):
+        rows = -(-m // _TC_BM) if ring else \
+            n * -(-h // _IC_TH) * -(-wd // _IC_TW)
         config = next(c for c, (bn, _) in _TC_TILES.items()
                       if bn <= co or c == 2)
-        grid = lambda c: (-(-m // _TC_BM), -(-co // _TC_TILES[c][0]))
+        grid = lambda c: (rows, -(-co // _TC_TILES[c][0]))
         while config < 2 and grid(config)[0] * grid(config)[1] < _SMS:
             config += 1
-        plan = Plan("tc", config, grid(config), _tc_smem(config))
+        if ring:
+            plan = Plan("tc", config, grid(config), _tc_smem(config))
+        else:
+            plan = Plan("tc", _IM2COL + config, grid(config),
+                        _ic_smem(config, ci))
     else:
         plan = Plan("cuda_core", -1,
                     (-(-m // _CC_TILE), -(-co // _CC_TILE)), 0)
@@ -111,6 +148,15 @@ def _tc_plan(n, h, wd, ci, co, ksize, stride, dtype):
             or plan.smem_bytes > SMEM_MAX:
         raise ValueError(f"unsupported size {(n, h, wd, ci)} -> {co}")
     return plan
+
+
+def _check_aligned(tensors, what):
+    """The tensor-core kernels copy 16-byte chunks: every tensor must
+    start on a 16-byte boundary (a row slice of a larger tensor may not).
+    Raises ValueError before anything is launched."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: the tensor-core route needs 16-byte "
+                         "aligned tensors")
 
 
 def _check(x, w, b, stride):
@@ -172,9 +218,11 @@ def _launcher():
 def _forward_cuda(x, w, b, stride, want_stats, dims):
     n, h, wd, ci, co, ks = dims
     plan = _tc_plan(n, h, wd, ci, co, ks, stride, x.dtype)
-    launch = _launcher()
     y = torch.empty((n, h // stride, wd // stride, co), dtype=x.dtype,
                     device=x.device)
+    if plan.route == "tc":
+        _check_aligned([x, w, y], "conv_bn_stats")
+    launch = _launcher()
     s = None
     if want_stats:
         s = torch.zeros((2, co), dtype=torch.float64, device=x.device)

@@ -62,12 +62,13 @@ gather their window by index and recompute the prologue once per tap.
 ``fused_conv3x3.tc_launches`` those on the tensor cores;
 ``fused_conv3x3.bwd_launches`` counts every backward call,
 ``fused_conv3x3.tc_bwd_launches`` those whose kernels ran on the tensor
-cores. The fold ``dy + 2 y ds2``, a separate pass before the TPU kernel,
-happens in the kernels' loads. The sums over all pixels (s1, s2, da, db)
-are per-block f32 partials added with f64 atomics and rounded to f32
-here, so block order does not show in them; dW is added with f32 atomics
-(one per block), so its last bits depend on block order. On CPU tensors
-it computes :func:`fused_conv3x3_plain` and
+cores. The tensor-core routes raise on a tensor that does not start on a
+16-byte boundary. The fold ``dy + 2 y ds2``, a separate pass before the
+TPU kernel, happens in the kernels' loads. The sums over all pixels (s1,
+s2, da, db) are per-block f32 partials added with f64 atomics and
+rounded to f32 here, so block order does not show in them; dW is added
+with f32 atomics (one per block), so its last bits depend on block
+order. On CPU tensors it computes :func:`fused_conv3x3_plain` and
 :func:`fused_conv3x3_bwd_plain`.
 
 Not carried over (TPU machinery): the (h, w, b)-major row layout with its
@@ -86,9 +87,9 @@ import torch
 from torch.nn.grad import conv2d_input, conv2d_weight
 
 from ._build import load_library
-from .conv_bn import _SMS, SMEM_MAX, Plan
+from .conv_bn import _SMS, SMEM_MAX, Plan, _check_aligned
 from .conv_bn import _TC_TILES as _DX_TILES
-from .fused_gemm import _ACT_CODES, _DTYPE_CODES, _check_aligned, _prologue
+from .fused_gemm import _ACT_CODES, _DTYPE_CODES, _prologue
 
 # source and extra nvcc flags: no contraction, so the f32 prologue
 # rounds as the plain version does
@@ -350,9 +351,11 @@ def _ptr(t):
 def _forward_cuda(x4, w, a, b, stride, act, dims):
     bsz, h, wd, k, n, ho, wo = dims
     plan = _tc_plan(bsz, h, wd, k, n, stride, x4.dtype)
-    lib = _library()
     y = torch.empty((bsz, ho, wo, n), dtype=x4.dtype, device=x4.device)
     s = torch.zeros((2, n), dtype=torch.float64, device=x4.device)
+    if plan.route == "tc":
+        _check_aligned([x4, w, y], "fused_conv3x3")
+    lib = _library()
     err = lib.fused_conv3x3_fwd_launch(
         x4.data_ptr(), w.data_ptr(), _ptr(a), _ptr(b), y.data_ptr(),
         s[0].data_ptr(), s[1].data_ptr(), bsz, h, wd, k, n, stride,
@@ -371,12 +374,14 @@ def _backward_cuda(x4, w, a, b, y, dy, ds1, ds2, stride, act):
     bsz, h, wd, k = x4.shape
     n = y.shape[-1]
     plan = _tc_bwd_plan(bsz, h, wd, k, n, stride, y.dtype)
-    lib = _library()
     dx = torch.empty_like(x4)
     dw = torch.zeros((3, 3, k, n), dtype=torch.float32, device=x4.device)
     dab = None
     if a is not None:
         dab = torch.zeros((2, k), dtype=torch.float64, device=x4.device)
+    if plan.route == "tc":
+        _check_aligned([x4, w, y, dy, dx], "fused_conv3x3 backward")
+    lib = _library()
     stream = torch.cuda.current_stream(y.device).cuda_stream
     head = (x4.data_ptr(), w.data_ptr(), _ptr(a), _ptr(b), y.data_ptr(),
             dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr())
@@ -385,7 +390,6 @@ def _backward_cuda(x4, w, a, b, y, dy, ds1, ds2, stride, act):
             None if dab is None else dab[1].data_ptr(), bsz, h, wd, k, n,
             stride)
     if plan.route == "tc":
-        _check_aligned([x4, w, y, dy, dx], "fused_conv3x3 backward")
         ctab = torch.empty(9 * k, dtype=torch.float32, device=x4.device)
         err = lib.fused_conv3x3_bwd_tc_launch(
             *head, ctab.data_ptr(), *tail, _ACT_CODES[act], plan.dx_config,

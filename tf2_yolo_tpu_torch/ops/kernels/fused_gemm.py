@@ -15,23 +15,49 @@ and backward both launch hand-written kernels on CUDA tensors.
 Source note. On CUDA tensors this launches ``csrc/fused_gemm.cu``, the
 Hopper port of the Pallas TPU kernels ``_fwd_kernel`` and ``_bwd_kernel``
 (tf2_yolo_tpu/ops/pallas/packed_gemm.py, reached through ``_fwd_call``
-and ``_bwd_call``). The forward has two kernels, one per route, chosen by
-shape in :func:`_tc_plan`: bf16 with every K_i % 8 == 0 and N % 8 == 0
-(all 43 GEMMs of a ``packed=3`` step) runs on the tensor cores
-(``mma.sync`` bf16 -> f32 fed by ``ldmatrix`` from a 4-stage ``cp.async``
-ring; 128-row tiles of 128, 64 or 32 columns; an input with a prologue is
-activated once per element in shared memory per column block), bound by
-bytes and by the prologue's f32 arithmetic; f32 (whose tensor-core route
-would be TF32) runs on the CUDA cores, tiled f32-FMA GEMMs bounded by
-their FMA rate. ``fused_gemm.launches`` counts every forward launch,
-``fused_gemm.tc_launches`` those on the tensor cores. The backward (CUDA
-cores) reads the stored y instead of recomputing it (the consumer keeps y
-alive anyway), and is two launches per input: dx with the da/db
-reductions, and a split-M dW. The column sums over M (s1, s2, da, db) are
-per-block f32 partials added with f64 atomics and rounded to f32 here,
-so block order does not show in them; dW is added with f32 atomics (one
-per chunk of 1024 rows), so its last bits depend on block order. On CPU
-tensors it computes :func:`fused_gemm_plain` and
+and ``_bwd_call``). Both directions have two routes, chosen by shape in
+:func:`_tc_plan` and :func:`_tc_bwd_plan`: bf16 with every K_i % 8 == 0
+and N % 8 == 0 (every GEMM of a ``packed=3`` step) runs on the tensor
+cores (``mma.sync`` bf16 -> f32 fed by ``ldmatrix`` from a ring of
+``cp.async`` slices 32 deep); f32 (whose tensor-core route would be
+TF32) runs on the CUDA cores, tiled f32-FMA GEMMs bounded by their FMA
+rate.
+
+- Forward on the tensor cores: 128-row tiles of 128, 64 or 32 columns,
+  the inputs' K ranges walked as one sequence of slices; an input with a
+  prologue is activated once per element in shared memory per column
+  block. Bound by bytes and by the prologue's f32 arithmetic.
+- Backward on the tensor cores, three launches for all inputs, whose K
+  ranges are one column space of sum K_i columns (a block may span
+  inputs, so dy and y are read once for all of them): a tiny pass folds
+  ds1 (rounded to the compute dtype) into an f32 vector ``c =
+  T(ds1) @ w_i^T``, so that ds1 never enters a bf16 operand; the dx
+  kernel (128 rows x 128, 64 or 32 columns) stages dy and y per 32-deep
+  slice of N in a 2-stage ``cp.async`` ring and the x tile of its
+  columns beside them, builds ``T(y * T(2 ds2))`` once per element in
+  place, runs both products into one f32 accumulator against the same
+  slice of w (read without ``.trans``), and its epilogue adds ``c``,
+  recomputes the prologue's derivative, writes dx and adds da, db with
+  f64 atomics; the dW kernel (tiles of 128 or 64 of the column space by
+  128 or 64 of N, split over chunks of rows so that about two blocks per
+  SM run) activates x and builds ``dyt = T(dy + ds1 + 2 y ds2)`` once
+  per element per block, contracts over rows with both operands through
+  ``ldmatrix .trans``, and adds its tile to the zeroed dW with f32
+  atomics.
+- Backward on the CUDA cores (f32): two launches per input, dx with the
+  da/db reductions, and a split-M dW.
+
+``fused_gemm.launches`` counts every forward launch,
+``fused_gemm.tc_launches`` those on the tensor cores;
+``fused_gemm.bwd_launches`` counts the input operands of every backward,
+``fused_gemm.bwd_tc_launches`` those whose kernels ran on the tensor
+cores. The tensor-core routes raise on a tensor that does not start on a
+16-byte boundary. The backward reads the stored y instead of recomputing
+it (the consumer keeps y alive anyway). The column sums over M (s1, s2,
+da, db) are per-block f32 partials added with f64 atomics and rounded to
+f32 here, so block order does not show in them; dW is added with f32
+atomics (one per chunk of rows), so its last bits depend on block order.
+On CPU tensors it computes :func:`fused_gemm_plain` and
 :func:`fused_gemm_bwd_plain`, which repeat the TPU kernels' arithmetic
 step by step with the same roundings. The TPU row-block sizing
 (``mblk_fwd``/``mblk_bwd``) is not carried over: any M >= 1 is taken.
@@ -39,11 +65,13 @@ step by step with the same roundings. The TPU row-block sizing
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from ._build import load_library
-from .conv_bn import _SMS, _TC_BM, _TC_TILES, SMEM_MAX, Plan, _tc_smem
+from .conv_bn import (_SMS, _TC_BM, _TC_TILES, SMEM_MAX, Plan,
+                      _check_aligned, _tc_smem)
 
 # source and extra nvcc flags: no contraction, so the f32 prologue
 # rounds as the plain version does
@@ -53,6 +81,13 @@ _ACT_CODES = {"mish": 0, "leaky": 1, "linear": 2}
 MAX_INPUTS = 9
 _INT32_MAX = 2 ** 31 - 1
 _CC_TILE = 64                          # the CUDA-core kernel's BM = BN
+# the tensor-core backward, over the inputs' K ranges as one column
+# space: the dx kernel's ring of 2 slices, 32 deep; the dW kernel's
+# tiles of (column space, N) by config (8 warps as 2 x 4), its ring of 3
+# slices of 32 rows, and the rows of a chunk (a multiple of 32)
+_DX_STAGES, _DW_STAGES = 2, 3
+_DW_TILES = {0: (128, 128), 1: (64, 64), 2: (128, 64), 3: (64, 128)}
+_BK = 32
 
 
 def act_and_grad(z, act):
@@ -111,6 +146,87 @@ def _tc_plan(m, ks, n, dtype):
                     0)
     if plan.grid[0] > _INT32_MAX or plan.grid[1] > 65535 \
             or plan.smem_bytes > SMEM_MAX:
+        raise ValueError(f"unsupported gemm M={m}, K={list(ks)}, N={n}")
+    return plan
+
+
+class BwdPlan(NamedTuple):
+    """How one fused GEMM backward launches: ``route`` "tc" or
+    "cuda_core"; on the tensor cores, over the inputs' K ranges as one
+    column space, the dx kernel's tile config (0, 1, 2: BN = 128, 64, 32
+    columns), grid (128-row blocks, column blocks) and shared memory, and
+    the dW kernel's tile config (``_DW_TILES``), grid (chunks of rows,
+    column tiles, N tiles), shared memory and rows a chunk. On the CUDA
+    cores the C entry sizes its own grids (-1 and 0 here)."""
+    route: str
+    dx_config: int
+    dx_grid: tuple
+    dx_smem: int
+    dw_config: int
+    dw_grid: tuple
+    dw_smem: int
+    dw_rows: int
+
+
+def _tc_bwd_smem(dx_config, dw_config):
+    """Bytes of dynamic shared memory of the backward's dx and dW
+    kernels (``DxSmem`` and ``DwTile`` in fused_gemm.cu): the dx kernel's
+    ring holds per stage the dy and y tiles (128 rows of 32 + 8) and the
+    w tile (BN rows of 32 + 8), or the epilogue, whichever is larger,
+    then the x tile (128 rows of BN + 8) and three f32 per column; the
+    dW ring per stage the x tile (32 rows of TK + 8), the dy tile (32
+    rows of TN + 8) and the y tile (32 rows of TN)."""
+    bn, warps_m = _TC_TILES[dx_config]
+    ring = _DX_STAGES * (2 * _TC_BM + bn) * (_BK + 8) * 2
+    epilogue = _TC_BM * (bn + 8) * 2 + 2 * warps_m * bn * 4
+    dx = max(ring, epilogue) + _TC_BM * (bn + 8) * 2 + 3 * bn * 4
+    tk, tn = _DW_TILES[dw_config]
+    dw = _DW_STAGES * _BK * ((tk + 8) + (tn + 8) + tn) * 2
+    return dx, dw
+
+
+def _tc_bwd_plan(m, ks, n, dtype):
+    """The backward's launch plan (pure Python: the CPU tests reach it).
+    bf16 with every K_i % 8 == 0 and N % 8 == 0 takes the tensor cores,
+    the inputs' K ranges taken as one column space of sum K_i columns (a
+    block may span inputs, so dy and y are read once for all of them):
+    the dx tile is the widest of 128, 64 or 32 columns that divides the
+    column space (else the widest it fills), halved while the grid would
+    not cover the 132 SMs once; the dW tile is 128 or 64 of the column
+    space (128 where 128 divides it) by 128 or 64 of N (likewise); its
+    tiles come first and chunks of rows (multiples of 32) cover what is
+    left of about two blocks per SM.
+    Anything else of a supported dtype (f32) takes the CUDA-core
+    kernels. Raises ValueError on a shape the kernels do not take."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"unsupported dtype {dtype}")
+    if not 1 <= len(ks) <= MAX_INPUTS or min(m, n, *ks) < 1:
+        raise ValueError(f"unsupported gemm M={m}, K={list(ks)}, N={n}")
+    if dtype != torch.bfloat16 or any(k % 8 for k in ks) or n % 8:
+        if -(-m // 1024) > 65535 or -(-n // _CC_TILE) > 65535:
+            raise ValueError(f"unsupported gemm M={m}, K={list(ks)}, N={n}")
+        return BwdPlan("cuda_core", -1, (), 0, -1, (), 0, 0)
+    ktot = sum(ks)
+    fits = [c for c, (bn, _) in _TC_TILES.items() if bn <= ktot] or [2]
+    dx_config = next((c for c in fits if ktot % _TC_TILES[c][0] == 0),
+                     fits[0])
+    cols = lambda c: -(-ktot // _TC_TILES[c][0])
+    while dx_config < 2 and -(-m // _TC_BM) * cols(dx_config) < _SMS:
+        dx_config += 1
+    tiles = tuple(128 if size % 128 == 0 else 64 for size in (ktot, n))
+    dw_config = next(c for c, t in _DW_TILES.items() if t == tiles)
+    tk, tn = tiles
+    k_tiles, n_tiles = -(-ktot // tk), -(-n // tn)
+    chunks = max(1, -(-2 * _SMS // (k_tiles * n_tiles)))
+    per_chunk = -(-m // chunks)
+    rows = -(-per_chunk // _BK) * _BK
+    dx_smem, dw_smem = _tc_bwd_smem(dx_config, dw_config)
+    plan = BwdPlan("tc", dx_config, (-(-m // _TC_BM), cols(dx_config)),
+                   dx_smem, dw_config, (-(-m // rows), k_tiles, n_tiles),
+                   dw_smem, rows)
+    if plan.dx_grid[0] > _INT32_MAX \
+            or max(plan.dx_grid[1], *plan.dw_grid[1:]) > 65535 \
+            or max(dx_smem, dw_smem) > SMEM_MAX:
         raise ValueError(f"unsupported gemm M={m}, K={list(ks)}, N={n}")
     return plan
 
@@ -220,20 +336,17 @@ def _library():
     lib.fused_gemm_bwd_launch.argtypes = [ctypes.c_void_p] * 12 \
         + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.fused_gemm_bwd_launch.restype = ctypes.c_int
+    lib.fused_gemm_bwd_tc_launch.argtypes = [
+        ptrs, ptrs, ptrs, ptrs, ints, ctypes.c_int] \
+        + [ctypes.c_void_p] * 5 + [ptrs] * 2 + [ctypes.c_void_p] * 2 \
+        + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    lib.fused_gemm_bwd_tc_launch.restype = ctypes.c_int
     return lib
 
 
 def _ptr_array(tensors):
     return (ctypes.c_void_p * len(tensors))(
         *[None if t is None else t.data_ptr() for t in tensors])
-
-
-def _check_aligned(tensors, what):
-    """The tensor-core kernels copy 16-byte chunks: every tensor must
-    start on a 16-byte boundary (a row slice of a larger tensor may not)."""
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{what}: the tensor-core route needs 16-byte "
-                         "aligned tensors")
 
 
 def _forward_cuda(xs, ws, aas, bbs, act, m, n, raw_stats=False):
@@ -243,16 +356,17 @@ def _forward_cuda(xs, ws, aas, bbs, act, m, n, raw_stats=False):
     Returns (y, s1, s2) and the plan."""
     x0 = xs[0]
     plan = _tc_plan(m, [x.shape[1] for x in xs], n, x0.dtype)
-    lib = _library()
     y = torch.empty((m, n), dtype=x0.dtype, device=x0.device)
     s = torch.zeros((2, n), dtype=torch.float64, device=x0.device)
+    if plan.route == "tc":
+        _check_aligned([*xs, *ws, y], "fused_gemm")
+    lib = _library()
     ks = (ctypes.c_int * len(xs))(*[x.shape[1] for x in xs])
     args = (_ptr_array(xs), _ptr_array(ws), _ptr_array(aas), _ptr_array(bbs),
             ks, len(xs), y.data_ptr(), s[0].data_ptr(), s[1].data_ptr(), m,
             n)
     stream = torch.cuda.current_stream(x0.device).cuda_stream
     if plan.route == "tc":
-        _check_aligned([*xs, *ws, y], "fused_gemm")
         err = lib.fused_gemm_fwd_tc_launch(
             *args, _ACT_CODES[act], int(raw_stats), plan.config, *plan.grid,
             plan.smem_bytes, stream)
@@ -271,36 +385,56 @@ def _forward_cuda(xs, ws, aas, bbs, act, m, n, raw_stats=False):
 
 
 def _backward_cuda(xs, ws, aas, bbs, y, dy, ds1, ds2, act):
-    lib = _library()
     m, n = y.shape
+    ks = [x.shape[1] for x in xs]
+    plan = _tc_bwd_plan(m, ks, n, y.dtype)
+    dxs = [torch.empty_like(x) for x in xs]
+    dws = [torch.zeros((k, n), dtype=torch.float32, device=y.device)
+           for k in ks]
+    # da, db of every input with a prologue, at its offset in the column
+    # space of the concatenated K ranges
+    dab = torch.zeros((2, sum(ks)), dtype=torch.float64, device=y.device)
+    offs = [sum(ks[:i]) for i in range(len(ks))]
+    if plan.route == "tc":
+        _check_aligned([*xs, *ws, y, dy, *dxs], "fused_gemm backward")
+    lib = _library()
     stream = torch.cuda.current_stream(y.device).cuda_stream
-    dxs, dws, das, dbs = [], [], [], []
-    for x, w, a, b in zip(xs, ws, aas, bbs):
-        k = x.shape[1]
-        dx = torch.empty_like(x)
-        dw = torch.zeros((k, n), dtype=torch.float32, device=x.device)
-        dab = None
-        if a is not None:
-            dab = torch.zeros((2, k), dtype=torch.float64, device=x.device)
-        err = lib.fused_gemm_bwd_launch(
-            x.data_ptr(), w.data_ptr(),
-            None if a is None else a.data_ptr(),
-            None if a is None else b.data_ptr(),
+    if plan.route == "tc":
+        ctab = torch.empty(sum(ks), dtype=torch.float32, device=y.device)
+        err = lib.fused_gemm_bwd_tc_launch(
+            _ptr_array(xs), _ptr_array(ws), _ptr_array(aas),
+            _ptr_array(bbs), (ctypes.c_int * len(xs))(*ks), len(xs),
             y.data_ptr(), dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr(),
-            dx.data_ptr(), dw.data_ptr(),
-            None if dab is None else dab[0].data_ptr(),
-            None if dab is None else dab[1].data_ptr(),
-            m, k, n, _DTYPE_CODES[y.dtype], _ACT_CODES[act], stream)
+            ctab.data_ptr(), _ptr_array(dxs), _ptr_array(dws),
+            dab[0].data_ptr(), dab[1].data_ptr(), m, n, _ACT_CODES[act],
+            plan.dx_config, *plan.dx_grid, plan.dx_smem, plan.dw_config,
+            *plan.dw_grid, plan.dw_smem, plan.dw_rows, stream)
         if err != 0:
             raise RuntimeError(f"fused_gemm backward launch failed: "
-                               f"cudaError {err}")
-        # one count per input: its dx kernel and its dW kernel
-        fused_gemm.bwd_launches += 1
-        dxs.append(dx)
-        dws.append(dw)
-        da, db = (None, None) if dab is None else dab.float()
-        das.append(da)
-        dbs.append(db)
+                               f"cudaError {err} ({plan})")
+    else:
+        for x, w, a, b, dx, dw, off in zip(xs, ws, aas, bbs, dxs, dws,
+                                           offs):
+            k = x.shape[1]
+            err = lib.fused_gemm_bwd_launch(
+                x.data_ptr(), w.data_ptr(),
+                None if a is None else a.data_ptr(),
+                None if a is None else b.data_ptr(),
+                y.data_ptr(), dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr(),
+                dx.data_ptr(), dw.data_ptr(), dab[0, off:off + k].data_ptr(),
+                dab[1, off:off + k].data_ptr(), m, k, n,
+                _DTYPE_CODES[y.dtype], _ACT_CODES[act], stream)
+            if err != 0:
+                raise RuntimeError(f"fused_gemm backward launch failed: "
+                                   f"cudaError {err}")
+    # one count per input operand: its share of the launches
+    fused_gemm.bwd_launches += len(xs)
+    fused_gemm.bwd_tc_launches += len(xs) * (plan.route == "tc")
+    dabf = dab.float()
+    das = [None if a is None else dabf[0, off:off + x.shape[1]]
+           for x, a, off in zip(xs, aas, offs)]
+    dbs = [None if a is None else dabf[1, off:off + x.shape[1]]
+           for x, a, off in zip(xs, aas, offs)]
     return dxs, dws, das, dbs
 
 
@@ -369,3 +503,4 @@ def fused_gemm(xs, ws, affines, act="mish", dtype=torch.bfloat16,
 fused_gemm.launches = 0
 fused_gemm.tc_launches = 0
 fused_gemm.bwd_launches = 0
+fused_gemm.bwd_tc_launches = 0

@@ -41,11 +41,15 @@ def wrap_yolo_loss_v4(grid_shape,
                       focal_loss_gamma=2):
     """YOLOv4 loss: CIoU box term, focal conf with label smoothing,
     BCE class loss, log-space wh regularizer, 3-way loss weights. The
-    ``anchors`` here are constants (the head's are parameters)."""
+    ``anchors`` here are constants (the head's are parameters).
+    ``binary_weight`` may be an array, as in the JAX package: the loss
+    is then computed per weight and their mean returned (equal to the
+    loss at the weights' mean)."""
     grid_shape = tuple(int(g) for g in grid_shape)
     if anchors is not None:
         anchors = torch.as_tensor(anchors, dtype=torch.float32).reshape(
             1, 1, 1, bbox_num, 2)
+    binary_weight = torch.as_tensor(binary_weight, dtype=torch.float32)
 
     def yolo_loss(y_true, y_pred):
         y_pred = y_pred.float().reshape(
@@ -80,7 +84,10 @@ def wrap_yolo_loss_v4(grid_shape,
         no_obj_c = -_sum_batch_mean(
             no_obj * no_obj_error ** focal_loss_gamma
             * torch.log(1.0 - no_obj_error))
-        c_loss = has_obj_c + float(binary_weight) * no_obj_c
+        # a 0-d weight joins a CUDA tensor from the CPU without a copy
+        bw = binary_weight.to(y_pred.device) if binary_weight.dim() \
+            else binary_weight
+        c_loss = has_obj_c + bw * no_obj_c
 
         p_true = y_true[..., -class_num:]
         p_pred = clip(y_pred[..., -class_num:], EPSILON, 1 - EPSILON)
@@ -96,6 +103,6 @@ def wrap_yolo_loss_v4(grid_shape,
         return (loss_weight[0] * box_loss
                 + loss_weight[1] * c_loss
                 + loss_weight[2] * p_loss
-                + wh_reg_weight * wh_reg)
+                + wh_reg_weight * wh_reg).mean()
 
     return yolo_loss

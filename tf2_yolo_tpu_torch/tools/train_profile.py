@@ -13,7 +13,7 @@ kernel by category. With ``--serve`` it traces ``--steps`` requests of
 ``--batch 8`` for the served micro-batch). The categories:
 
   conv forward       the hand-written conv + statistics kernels (tensor
-                     cores, and the CUDA cores for the stem)
+                     cores; the stem through the small-Ci kernel)
   conv backward      the library conv VJP (cuDNN / CUTLASS kernels and
                      the layout changes around them)
   fused gemm fwd/bwd the hand-written fused GEMM kernels
@@ -25,7 +25,8 @@ kernel by category. With ``--serve`` it traces ``--steps`` requests of
                      backward, casts, reductions, the loss, copies)
 
 and prints one JSON object with ms per step (or request) of each, the
-wall time per step with and without the profiler, and the device's idle
+fused GEMM backward by kernel (its route shows in the names), the wall
+time per step with and without the profiler, and the device's idle
 share
 (1 - kernel time / untraced wall time: the profiler's own host cost
 stretches the traced wall time). Needs CUDA; prints the card's name and
@@ -133,10 +134,14 @@ CATEGORIES = (
                                 "fused_conv3x3_dx_tc_kernel",
                                 "fused_conv3x3_dw_tc_kernel",
                                 "fused_conv3x3_ctab_kernel")),
-    ("conv forward", ("conv_bn_stats_kernel", "conv_bn_stats_tc_kernel")),
+    ("conv forward", ("conv_bn_stats_kernel", "conv_bn_stats_tc_kernel",
+                      "conv_bn_stats_ic_kernel")),
     ("fused gemm forward", ("fused_gemm_fwd_kernel",
                             "fused_gemm_fwd_tc_kernel")),
-    ("fused gemm backward", ("fused_gemm_dx_kernel", "fused_gemm_dw_kernel")),
+    ("fused gemm backward", ("fused_gemm_dx_kernel", "fused_gemm_dw_kernel",
+                             "fused_gemm_dx_tc_kernel",
+                             "fused_gemm_dw_tc_kernel",
+                             "fused_gemm_ctab_kernel")),
     ("optimizer", ("multi_tensor_apply", "adam")),
     ("nms", ("nms_keep_kernel",)),
     # SPP's max-pool kernels carry "nhwc" in their names
@@ -209,6 +214,14 @@ def main(argv=None):
         raise SystemExit("train_profile: no device time in the "
                          "trace; time with CUDA events instead")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:25]
+    # the fused GEMM backward by kernel (the route shows in the names:
+    # ``_tc_`` kernels and the ds1 table on the tensor cores)
+    gemm_bwd = {}
+    for k, v in by_kernel.items():
+        if category(k) == "fused gemm backward":
+            base = next(n for n in dict(CATEGORIES)["fused gemm backward"]
+                        if n in k)
+            gemm_bwd[base] = gemm_bwd.get(base, 0.0) + v
     untraced_ms = sum(untraced) / len(untraced)
     result = dict(card=card, batch=args.batch, size=args.size,
                   packed=None if args.serve else args.packed,
@@ -219,6 +232,7 @@ def main(argv=None):
                   idle_share=max(0.0, 1.0 - busy / untraced_ms),
                   launches_per_step=launches / args.steps,
                   ms_per_step=dict(sorted(by_cat.items())),
+                  fused_gemm_backward_ms=dict(sorted(gemm_bwd.items())),
                   top_kernels=[dict(name=k[:120], ms_per_step=v,
                                     category=category(k)) for k, v in top])
     for k, v in top:
