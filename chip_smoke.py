@@ -18,8 +18,15 @@ Phases (each raises on failure, so the exit code is nonzero):
      fused GEMM forward and backward, and the fused 3x3 conv forward and
      backward (with two ragged shapes) at the serving and the training
      batch (and again at the halved batch if phase 7 had to fall back),
-     and NMS; time each, the tensor-core kernels also launched alone and
-     beside the CUDA-core instance on the same bf16 inputs, with the
+     greedy NMS (its lattice words held to ``suppression_words_plain``;
+     N=8 and 32 at K=128, N=8 at K=1024 and one image at MAX_K, IoU and
+     DIoU) and Soft-NMS (mismatches outside the band where the plain
+     decayed confidence lies within 4 eps conf_threshold of it, at
+     sigma 0.3 and 0.5, and at sigma 0.005 on coincident boxes, whose
+     decay underflows to 0; the NMS kernels timed launched alone in a
+     CUDA graph); time each, the tensor-core
+     kernels also launched alone and beside the CUDA-core instance on
+     the same bf16 inputs, with the
      one-call PyTorch equivalent where there is one (``F.conv2d``,
      ``torch.matmul`` or ``aten.convolution_backward`` on the activated
      input: a yardstick only; the port never calls it); the probe layer
@@ -28,12 +35,14 @@ Phases (each raises on failure, so the exit code is nonzero):
      tensor-core route a contiguous view that starts 2 bytes past a
      16-byte boundary and expect the ValueError, with no launch counted;
   4. serve ``--requests`` batches of ``--batch`` images through
-     ``make_serving_fn`` in bf16, with launch counters proving that every
-     conv (107 ConvBN + 3 head convs) and every NMS ran the kernels, every
-     conv on the tensor cores, and no fused kernel ran;
+     ``make_serving_fn`` in bf16 with greedy NMS, then one with Soft-NMS
+     (``nms_mode=2``), with launch counters proving that every conv (107
+     ConvBN + 3 head convs) and every NMS ran the kernels (the kernel of
+     its mode, once a request), every conv on the tensor cores, and no
+     fused kernel ran;
   5. in f32 on the same weights, compare the head logits and outputs of
-     the kernel route with the plain route, then the NMS kernel with the
-     plain NMS on the same decoded rows;
+     the kernel route with the plain route, then the NMS kernels (greedy
+     IoU and DIoU, Soft-NMS) with the plain NMS on the same decoded rows;
   6. time both serving routes per request;
   7. train ``--steps`` steps of ``YoloV4(packed=3)`` in bf16 at batch
      ``--train-batch`` (halved once if it does not fit, which is printed
@@ -96,7 +105,12 @@ from tf2_yolo_tpu_torch.ops.kernels.conv_bn import (conv_bn_stats,
 from tf2_yolo_tpu_torch.ops.kernels.fused_conv3x3 import fused_conv3x3
 from tf2_yolo_tpu_torch.ops.kernels.fused_gemm import (act_and_grad,
                                                        fused_gemm)
-from tf2_yolo_tpu_torch.ops.kernels.nms import nms_keep, nms_keep_plain
+from tf2_yolo_tpu_torch.ops.geometry import pair_iou
+from tf2_yolo_tpu_torch.ops.kernels.nms import (nms_keep, nms_keep_plain,
+                                                soft_nms_keep,
+                                                soft_nms_keep_plain,
+                                                soft_nms_scan_plain,
+                                                suppression_words_plain)
 from tf2_yolo_tpu_torch.ops.nms import _sorted_by_conf
 from tf2_yolo_tpu_torch.parallel import create_train_state, make_optimizer
 from tf2_yolo_tpu_torch.tools import bench_packed_probe as probe
@@ -187,7 +201,14 @@ CONV_SHAPES = [
 SUM_TOL = 2e-6
 TOL = {torch.float32: dict(y_rel=1e-4, y_scale=1e-4, s_rel=1e-5),
        torch.bfloat16: dict(y_rel=2 ** -7, y_scale=1e-3, s_rel=2 ** -7)}
-NMS_CASES = [(8, 128), (8, 1024)]
+# greedy: the serving batch, bench_infer.py's batch 32, a large K, and
+# one image at the largest K; Soft-NMS the first three, at a confidence
+# threshold that deletes some decayed boxes and keeps others, at two
+# sigmas, then coincident boxes at a sigma whose decay underflows
+NMS_CASES = [(8, 128), (32, 128), (8, 1024), (1, nms_mod.MAX_K)]
+SOFT_CASES = [(n, k, sigma, False) for n, k in NMS_CASES[:3]
+              for sigma in (0.3, 0.5)] + [(8, 128, 0.005, True)]
+SOFT_CONF = 0.2
 
 
 def check(cond, msg):
@@ -300,7 +321,7 @@ def phase_build(log_dir):
     _build.build_libraries([conv_mod.SOURCE, nms_mod.SOURCE,
                             gemm_mod.SOURCE, conv3_mod.SOURCE])
     conv_mod._launcher()
-    nms_mod._launcher()
+    nms_mod._ready(torch.cuda.current_device())
     gemm_mod._library()
     conv3_mod._library()
     seconds = time.perf_counter() - t0
@@ -649,18 +670,57 @@ def sorted_boxes(gen, n, k, n_box, classes=3):
     return torch.cat([rows, valid[..., None].float()], -1).contiguous()
 
 
+def graph_ms(fn, reps=20, iters=5):
+    """Device time of one ``fn()`` launched alone: ``reps`` calls captured
+    in a CUDA graph, replayed ``iters`` times between CUDA events, so
+    that the host's time per call (ctypes, allocation) does not show."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * reps)
+    del graph
+    return ms
+
+
 def phase_nms_checks(gen):
+    """Greedy NMS against the plain version (keep masks, and the lattice
+    in scratch against ``suppression_words_plain``), timed launched alone
+    and through the wrapper."""
     results = []
     for n, k in NMS_CASES:
         boxes = sorted_boxes(gen, n, k, n_box=k * 3 // 4)
         for mode in (1, 2):
-            keep = nms_keep(boxes, 0.45, mode)
+            plan = nms_mod._plan(n, k)
             keep_p = nms_keep_plain(boxes, 0.45, mode)
+            keep, lattice = nms_mod._launch(boxes, 0.45, mode, plan)
             torch.cuda.synchronize()
             mismatches = int((keep != keep_p).sum())
-            max_abs_err = (keep - keep_p).abs().max().item()
-            ms = cuda_ms(lambda: nms_keep(boxes, 0.45, mode), 10)
-            plain_ms = cuda_ms(lambda: nms_keep_plain(boxes, 0.45, mode), 2)
+            words_p = suppression_words_plain(boxes, 0.45, mode)
+            word_mismatches = int((lattice != words_p).sum())
+            del words_p, lattice
+            check(mismatches == 0 and word_mismatches == 0,
+                  f"nms K={k} mode {mode}: {mismatches} keep, "
+                  f"{word_mismatches} word mismatches")
+            ms = graph_ms(lambda: nms_mod._launch(boxes, 0.45, mode, plan))
+            wrapper_ms = cuda_ms(lambda: nms_keep(boxes, 0.45, mode), 10)
+            iters = 2 if k <= 1024 else 1
+            plain_ms = cuda_ms(lambda: nms_keep_plain(boxes, 0.45, mode),
+                               iters)
             # least work: each box read and each flag written once; a
             # greedy pass needs an overlap (about 25 f32 operations) of
             # every kept box with every valid box after it
@@ -669,19 +729,113 @@ def phase_nms_checks(gen):
             pairs = float((keep * valid_after).sum())
             bound, bound_by = bound_ms(boxes.numel() * 4 + keep.numel() * 4,
                                        25.0 * pairs, torch.float32)
-            r = dict(n=n, k=k, iou_mode=mode, mismatches=mismatches,
-                     max_abs_err=max_abs_err,
+            r = dict(n=n, k=k, iou_mode=mode, plan=plan._asdict(),
+                     mismatches=mismatches, word_mismatches=word_mismatches,
+                     max_abs_err=(keep - keep_p).abs().max().item(),
                      kept=int(keep.sum()), valid=int(boxes[..., 7].sum()),
-                     ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                     bound_by=bound_by)
+                     ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                     bound_ms=bound, bound_by=bound_by,
+                     bound_share=bound / ms)
             results.append(r)
             print(f"  nms N={n} K={k} {'IoU' if mode == 1 else 'DIoU'}: "
-                  f"{mismatches} mismatches (bound 0), kept {r['kept']} of "
-                  f"{r['valid']} | kernel {ms:.3f} ms plain "
-                  f"{plain_ms:.3f} ms (no one-call equivalent), bound "
-                  f"{bound:.2e} ms ({bound_by})")
-            check(mismatches == 0, f"nms K={k} mode {mode}: masks differ")
+                  f"{plan.words} words a row, lattice grid "
+                  f"{plan.lattice_grid}, scan smem {plan.smem_bytes}; kept "
+                  f"{r['kept']} of {r['valid']}; 0 mismatches (bound 0)")
+            print(f"    alone {ms:.4f} ms | wrapper {wrapper_ms:.4f} ms | "
+                  f"plain {plain_ms:.3f} ms (no one-call equivalent) | "
+                  f"bound {bound:.2e} ms ({bound_by}), share "
+                  f"{bound / ms:.2e}")
             check(0 < r["kept"] < r["valid"], "nms: degenerate test rows")
+    return results
+
+
+def coincident_boxes(gen, n, k):
+    """(n, k, 8) sorted rows: half of them random, the other half their
+    copies at 0.9 of the confidence (IoU 1 with the original)."""
+    rows = torch.rand(n, k // 2, 7, generator=gen, device="cuda")
+    rows[..., :2] = 0.5 + 0.15 * torch.randn(n, k // 2, 2, generator=gen,
+                                             device="cuda")
+    rows[..., 2:4] = rows[..., 2:4] * 0.3 + 0.05
+    rows[..., 5] = torch.randint(0, 3, (n, k // 2), generator=gen,
+                                 device="cuda").float()
+    copies = rows.clone()
+    copies[..., 4] *= 0.9
+    rows = torch.cat([rows, copies], 1)
+    valid = torch.ones(n, k, dtype=torch.bool, device="cuda")
+    rows, valid = _sorted_by_conf(rows, valid)
+    return torch.cat([rows, valid[..., None].float()], -1).contiguous()
+
+
+def soft_band(boxes, keep, nms_threshold, conf_threshold, sigma):
+    """Kernel keep against the plain scan: mismatches outside and inside
+    the band where the plain decayed confidence lies within
+    4 eps_f32 * conf_threshold of the threshold (expf against the plain
+    version's exp may round either way there), and the band's size."""
+    valid, deleted, conf = soft_nms_scan_plain(boxes, nms_threshold,
+                                               conf_threshold, sigma)
+    keep_p = (valid & ~deleted).float()
+    band = valid & ((conf - conf_threshold).abs()
+                    <= 4 * torch.finfo(torch.float32).eps * conf_threshold)
+    differ = keep != keep_p
+    return dict(mismatches_outside=int((differ & ~band).sum()),
+                mismatches_in_band=int((differ & band).sum()),
+                in_band=int(band.sum()),
+                max_abs_err=(keep - keep_p).abs().max().item(),
+                kept=int(keep.sum()), kept_plain=int(keep_p.sum()),
+                valid=int(valid.sum()), deleted_plain=int(deleted.sum()),
+                zero_conf=int((valid & (conf == 0)).sum()))
+
+
+def phase_soft_checks(gen):
+    """Soft-NMS: the kernel against the plain scan at each case, timed
+    launched alone and through the wrapper."""
+    results = []
+    for n, k, sigma, coincident in SOFT_CASES:
+        boxes = (coincident_boxes(gen, n, k) if coincident
+                 else sorted_boxes(gen, n, k, n_box=k * 3 // 4))
+        keep = soft_nms_keep(boxes, 0.45, SOFT_CONF, sigma)
+        torch.cuda.synchronize()
+        r = dict(n=n, k=k, sigma=sigma, coincident=coincident,
+                 conf_threshold=SOFT_CONF,
+                 **soft_band(boxes, keep, 0.45, SOFT_CONF, sigma))
+        r["ms"] = graph_ms(lambda: soft_nms_keep(boxes, 0.45, SOFT_CONF,
+                                                 sigma))
+        r["wrapper_ms"] = cuda_ms(
+            lambda: soft_nms_keep(boxes, 0.45, SOFT_CONF, sigma), 10)
+        r["plain_ms"] = cuda_ms(lambda: soft_nms_keep_plain(
+            boxes, 0.45, SOFT_CONF, sigma), 2)
+        # least work: an IoU (about 25 f32 operations) for every valid,
+        # same-class pair i < j, and a decay (exp, about 10 more) for
+        # each such pair that overlaps
+        v = boxes[..., 7] != 0
+        same = ((boxes[:, :, None, 5] == boxes[:, None, :, 5])
+                & v[:, :, None] & v[:, None, :]).triu(diagonal=1)
+        over = same & (pair_iou(boxes[:, :, None, :4],
+                                boxes[:, None, :, :4]) >= 0.45)
+        ops = 25.0 * float(same.sum()) + 10.0 * float(over.sum())
+        del same, over
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            boxes.numel() * 4 + keep.numel() * 4, ops, torch.float32)
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        results.append(r)
+        print(f"  soft-nms N={n} K={k} sigma {sigma}"
+              f"{' coincident' if coincident else ''}: kept {r['kept']} "
+              f"of {r['valid']} (plain deleted {r['deleted_plain']}, "
+              f"{r['zero_conf']} decayed to 0); "
+              f"{r['mismatches_outside']} mismatches outside the band "
+              f"(bound 0), {r['mismatches_in_band']} inside, "
+              f"{r['in_band']} boxes in the band | alone "
+              f"{r['ms']:.4f} ms, wrapper {r['wrapper_ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.3f} ms (no one-call equivalent) "
+              f"| bound {r['bound_ms']:.2e} ms ({r['bound_by']}), "
+              f"share {r['bound_share']:.2e}")
+        check(r["mismatches_outside"] == 0,
+              f"soft-nms K={k} sigma {sigma}: masks differ")
+        check(0 < r["kept"] < r["valid"] and r["deleted_plain"] > 0,
+              "soft-nms: degenerate test rows")
+        # every copy's decay by its original underflows to 0
+        check(not coincident or r["zero_conf"] >= n * (k // 2),
+              "soft-nms: coincident rows did not underflow")
     return results
 
 
@@ -1276,47 +1430,63 @@ def serve_stats(rows, keep, threshold):
 def phase_serve(args, model, threshold, images):
     serve = make_serving_fn(model, CLASSES, 4, threshold=threshold,
                             nms_mode=1, nms_threshold=0.45)
+    serve_soft = make_serving_fn(model, CLASSES, 4, threshold=threshold,
+                                 nms_mode=2, nms_threshold=0.45,
+                                 nms_sigma=0.5)
+    check(not getattr(model, "plain", False), "served on the plain route")
     conv_bn_stats.launches = conv_bn_stats.tc_launches = 0
-    nms_keep.launches = 0
+    nms_keep.launches = soft_nms_keep.launches = 0
     reset_fused_counters()
     times, stats = [], []
-    for req in range(args.requests + 1):     # request 0 warms up
+    # request 0 warms up; the last one runs Soft-NMS
+    for req in range(args.requests + 2):
+        soft = req == args.requests + 1
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rows, keep = serve(images[req])
+        rows, keep = (serve_soft if soft else serve)(
+            images[1 if soft else req])
         torch.cuda.synchronize()
-        if req:
+        if req and not soft:
             times.append((time.perf_counter() - t0) * 1e3)
         check(bool(torch.isfinite(rows).all()), "non-finite served rows")
         check(rows.shape == (args.batch, 128, 7)
               and keep.shape == (args.batch, 128), "served shapes")
         stats.append(serve_stats(rows, keep, threshold))
-    forwards = args.requests + 1
+    forwards = args.requests + 2
+    greedy, soft_requests = args.requests + 1, 1
     conv_launches, nms_launches = conv_bn_stats.launches, nms_keep.launches
+    soft_launches = soft_nms_keep.launches
     tc_launches = conv_bn_stats.tc_launches
-    print(f"  launches in {forwards} requests: conv_bn_stats "
+    print(f"  launches in {forwards} requests ({greedy} greedy NMS, "
+          f"{soft_requests} Soft-NMS): conv_bn_stats "
           f"{conv_launches} ({conv_launches / forwards:g} per forward, "
           f"want {CONVS_PER_FORWARD}), of them on the tensor cores "
           f"{tc_launches} ({tc_launches / forwards:g} per forward, want "
           f"{CONVS_PER_FORWARD}: all), nms_keep {nms_launches} "
-          f"(want {forwards})")
+          f"(want {greedy}), soft_nms_keep {soft_launches} (want "
+          f"{soft_requests})")
     check(conv_launches == CONVS_PER_FORWARD * forwards,
           "not every conv of the forward ran the kernel")
     check(tc_launches == CONVS_PER_FORWARD * forwards,
           "not every bf16 conv ran on the tensor cores")
-    check(nms_launches == forwards, "not every request ran the NMS kernel")
+    check(nms_launches == greedy,
+          "not every greedy request ran the NMS kernel, once")
+    check(soft_launches == soft_requests,
+          "not every Soft-NMS request ran the Soft-NMS kernel, once")
     fused = fused_counters()
     print(f"  fused kernels in {forwards} requests (want 0 each): "
           + ", ".join(f"{k} {v}" for k, v in fused.items()))
     check(not any(fused.values()), "a served request ran a fused kernel")
     for req, (valid, kept) in enumerate(stats):
-        print(f"  request {req}: valid {valid}, kept {kept}, suppressed "
-              f"{valid - kept}")
+        mode = "Soft-NMS" if req == forwards - 1 else "greedy"
+        print(f"  request {req} ({mode}): valid {valid}, kept {kept}, "
+              f"dropped {valid - kept}")
         check(0 < kept < valid, "degenerate detections")
     return dict(ms_per_request=times, conv_launches=conv_launches,
                 conv_tc_launches=tc_launches,
-                nms_launches=nms_launches, forwards=forwards,
-                valid_kept=stats)
+                nms_launches=nms_launches, soft_nms_launches=soft_launches,
+                forwards=forwards, greedy_requests=greedy,
+                soft_requests=soft_requests, valid_kept=stats)
 
 
 def head_logits(model, x):
@@ -1376,6 +1546,16 @@ def phase_routes_f32(model16, images):
               f"kernel vs plain {mism} mismatches (bound 0), kept "
               f"{int(keep.sum())} of {int(valid.sum())}")
         check(mism == 0, "NMS kernel differs on decoded rows")
+    keep = soft_nms_keep(boxes, 0.45, threshold, 0.5)
+    soft = soft_band(boxes, keep, 0.45, threshold, 0.5)
+    res["soft_nms"] = soft
+    print(f"  f32 decoded rows, Soft-NMS (sigma 0.5, conf_threshold = the "
+          f"threshold): kernel vs plain {soft['mismatches_outside']} "
+          f"mismatches outside the band (bound 0), "
+          f"{soft['mismatches_in_band']} inside, {soft['in_band']} in the "
+          f"band; kept {soft['kept']} of {soft['valid']}")
+    check(soft["mismatches_outside"] == 0,
+          "Soft-NMS kernel differs on decoded rows")
     return res
 
 
@@ -1651,6 +1831,7 @@ def main(argv=None):
     conv_res = phase_conv_checks(gen, args.batch)
     conv_res += phase_conv_checks(gen, args.train_batch)
     nms_res = phase_nms_checks(gen)
+    soft_res = phase_soft_checks(gen)
     gemm_res = phase_gemm_checks(gen, args.batch)
     gemm_res += phase_gemm_checks(gen, args.train_batch)
     probe_res, probe_chain = phase_probe_checks(gen, args.train_batch)
@@ -1711,6 +1892,7 @@ def main(argv=None):
     conv_at = bf16_at(conv_res, CONV_SHAPES[4][0])   # at the batch trained
     stem_at = bf16_at(conv_res, CONV_SHAPES[0][0])
     nms_at = [r for r in nms_res if r["k"] == 128 and r["iou_mode"] == 1][0]
+    soft_at = [r for r in soft_res if r["k"] == 128 and r["sigma"] == 0.5][0]
     fwd_at = bf16_at(gemm_res, GEMM_SHAPES[1][0])
     bwd_at = bf16_at(gemm_res, GEMM_SHAPES[0][0])
     conv3_at = bf16_at(conv3_res, CONV3_SHAPES[0][0])
@@ -1747,15 +1929,36 @@ def main(argv=None):
              stem_bound_ms=stem_at["bound_ms"],
              stem_library_ms=stem_at["library_ms"],
              stem_cuda_core_ms=stem_at["cuda_core_ms"]),
+        # ``ms`` both launches alone (CUDA graph),
+        # ``wrapper_ms`` through the wrapper; launches one a greedy request
         dict(name="nms_keep", route="cuda",
              source="tf2_yolo_tpu_torch/csrc/nms.cu",
              replaces="tf2_yolo_tpu/ops/pallas/nms_kernel.py:182",
              launches=served["nms_launches"],
+             launches_per_request=served["nms_launches"]
+             / served["greedy_requests"],
              max_abs_err=max(r["max_abs_err"] for r in nms_res),
              at="N=8, K=128, IoU",
-             ms=nms_at["ms"], plain_ms=nms_at["plain_ms"],
+             ms=nms_at["ms"], wrapper_ms=nms_at["wrapper_ms"],
+             plain_ms=nms_at["plain_ms"],
              bound_ms=nms_at["bound_ms"], bound_by=nms_at["bound_by"],
-             library_ms=None),
+             bound_share=nms_at["bound_share"], library_ms=None),
+        # no Pallas counterpart: the JAX package's Soft-NMS is a lax.scan
+        dict(name="soft_nms_keep", route="cuda",
+             source="tf2_yolo_tpu_torch/csrc/nms.cu",
+             replaces="tf2_yolo_tpu/ops/nms.py:108 (lax.scan, no Pallas "
+                      "kernel)",
+             launches=served["soft_nms_launches"],
+             launches_per_request=served["soft_nms_launches"]
+             / served["soft_requests"],
+             max_abs_err=max(r["max_abs_err"] for r in soft_res),
+             mismatches_in_band=sum(r["mismatches_in_band"]
+                                    for r in soft_res),
+             at="N=8, K=128, sigma 0.5",
+             ms=soft_at["ms"], wrapper_ms=soft_at["wrapper_ms"],
+             plain_ms=soft_at["plain_ms"], bound_ms=soft_at["bound_ms"],
+             bound_by=soft_at["bound_by"],
+             bound_share=soft_at["bound_share"], library_ms=None),
         # K2, K2', K3' and P: ``ms`` is the kernel launched alone (the
         # routed, tensor-core kernel), ``wrapper_ms`` the public wrapper
         # around it, ``cuda_core_ms`` the CUDA-core instance on the same
@@ -1844,7 +2047,9 @@ def main(argv=None):
         check(k["launches"] > 0, f"{k['name']} was never launched")
     seconds = time.perf_counter() - t_start
     record = dict(card=card, build_seconds=build_s, conv=conv_res,
-                  nms=nms_res, gemm=gemm_res, conv3x3=conv3_res,
+                  nms=nms_res,
+                  soft_nms=soft_res, gemm=gemm_res,
+                  conv3x3=conv3_res,
                   probe=probe_res, probe_chain=probe_chain,
                   misaligned_raised=aligned, threshold=threshold,
                   served=served, routes_f32=routes, timing=timing,

@@ -218,8 +218,17 @@ def test_apply_nms_device_modes_0_and_2():
     r, v = apply_nms_device(torch.from_numpy(rows), torch.from_numpy(valid),
                             nms_mode=0)
     assert torch.equal(v, torch.from_numpy(valid))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        apply_nms_device(r, v, nms_mode=2)
+    # Soft-NMS: the rows sorted as JAX sorts them, the same keep mask
+    jr, jk = japply_nms(jnp.asarray(rows), jnp.asarray(valid), nms_mode=2,
+                        nms_threshold=0.45, conf_threshold=0.5,
+                        nms_sigma=0.5)
+    tr, tk = apply_nms_device(r, v, nms_mode=2, nms_threshold=0.45,
+                              conf_threshold=0.5, nms_sigma=0.5)
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    assert 0 < tk.sum() < valid.sum()
+    with pytest.raises(ValueError, match="nms_mode"):
+        apply_nms_device(r, v, nms_mode=4)
 
 
 def test_port_imports_no_jax():

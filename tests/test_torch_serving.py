@@ -156,22 +156,25 @@ def _joint(outs):
         for o in outs], axis=1)
 
 
-def test_serving_kept_rows_match_jax(slice_pair):
-    joint = _joint(slice_pair["jax_outs"])
-    assert np.abs(joint - THRESHOLD).min() > THRESHOLD_GAP
-    assert np.abs(_joint(slice_pair["port_outs"]) - joint).max() \
-        < THRESHOLD_GAP
-
+def _serve_both(slice_pair, **nms):
+    """Serve the test batch through the JAX and the port's serving
+    functions with the same NMS settings; return (JAX rows, JAX keep,
+    port rows, port keep) as numpy."""
     x = slice_pair["x"]
     jrows, jkeep = jax_make_serving_fn(
         slice_pair["jmodel"], slice_pair["variables"], CLASSES, 4,
-        threshold=THRESHOLD)(jnp.asarray(x))
+        threshold=THRESHOLD, **nms)(jnp.asarray(x))
     rows, keep = make_serving_fn(slice_pair["model"], CLASSES, 4,
-                                 threshold=THRESHOLD)(torch.from_numpy(x))
+                                 threshold=THRESHOLD, **nms)(
+        torch.from_numpy(x))
     assert rows.shape == (2, 128, 7) and keep.shape == (2, 128)
     assert keep.dtype == torch.bool
+    return np.asarray(jrows), np.asarray(jkeep), rows.numpy(), keep.numpy()
+
+
+def _assert_same_kept(jrows, jkeep, rows, keep, joint):
     want = _kept(jrows, jkeep)
-    got = _kept(rows.numpy(), keep.numpy())
+    got = _kept(rows, keep)
     n_valid = int((joint >= THRESHOLD).sum())
     assert 0 < len(want) < n_valid
     assert got.shape == want.shape
@@ -179,3 +182,49 @@ def test_serving_kept_rows_match_jax(slice_pair):
     # above); class ids are exact
     np.testing.assert_array_equal(got[:, 5], want[:, 5])
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-3)
+
+
+def test_serving_kept_rows_match_jax(slice_pair):
+    joint = _joint(slice_pair["jax_outs"])
+    assert np.abs(joint - THRESHOLD).min() > THRESHOLD_GAP
+    assert np.abs(_joint(slice_pair["port_outs"]) - joint).max() \
+        < THRESHOLD_GAP
+    _assert_same_kept(*_serve_both(slice_pair), joint)
+
+
+def _soft_decisions(rows, valid, sigma):
+    """Soft-NMS over one image's sorted rows in f64: the decayed
+    confidence of each valid box that an earlier one decays."""
+    k = rows.shape[0]
+    xy, wh = rows[:, None, :2], rows[:, None, 2:4]
+    lo, hi = xy - wh / 2, xy + wh / 2
+    inter = np.clip(np.minimum(hi, hi.transpose(1, 0, 2))
+                    - np.maximum(lo, lo.transpose(1, 0, 2)), 0, None)
+    inter = inter[..., 0] * inter[..., 1]
+    area = wh[:, 0, 0] * wh[:, 0, 1]
+    iou = inter / (area[:, None] + area[None, :] - inter + 1e-7)
+    pairs = (np.triu(np.ones((k, k), bool), 1) & valid[:, None]
+             & valid[None, :] & (rows[:, None, 5] == rows[None, :, 5]))
+    decay = np.where(pairs & (iou >= 0.45), np.exp(-iou ** 2 / sigma), 1.0)
+    conf = rows[:, 4] * rows[:, 6] * decay.prod(axis=0)
+    decayed = (decay < 1.0).any(axis=0)
+    return conf[decayed]
+
+
+def test_serving_soft_nms_kept_rows_match_jax(slice_pair):
+    """``nms_mode=2``: Soft-NMS with ``conf_threshold=threshold``, as the
+    JAX serving function passes it."""
+    joint = _joint(slice_pair["jax_outs"])
+    jrows, jkeep, rows, keep = _serve_both(slice_pair, nms_mode=2,
+                                           nms_sigma=0.5)
+    # a decayed confidence nearer the threshold than the two sides'
+    # joint confidences differ (< THRESHOLD_GAP, asserted in the greedy
+    # test) could fall on either side: none lies within it (measured
+    # margin 0.127)
+    valid = (jrows[..., 4] * jrows[..., 6]) >= THRESHOLD
+    for img in range(2):
+        conf = _soft_decisions(jrows[img].astype(np.float64), valid[img],
+                               0.5)
+        assert len(conf) > 0
+        assert np.abs(conf - THRESHOLD).min() > THRESHOLD_GAP
+    _assert_same_kept(jrows, jkeep, rows, keep, joint)

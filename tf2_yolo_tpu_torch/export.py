@@ -11,13 +11,15 @@ from .ops.nms import apply_nms_device
 
 
 def make_serving_fn(model, class_num, version=4, threshold=0.5, nms_mode=1,
-                    nms_threshold=0.45, max_boxes=128):
+                    nms_threshold=0.45, nms_sigma=0.5, max_boxes=128):
     """Return ``serve(images) -> (rows, keep)`` for NHWC f32 images:
     rows (N, max_boxes, 7) = [x, y, w, h, conf, class_idx, class_prob]
     and keep (N, max_boxes) bool, under ``torch.inference_mode()``.
 
-    The NMS takes the model's route: the kernel by default, the plain
-    version after ``models.layers.use_plain_route(model)``.
+    ``threshold`` is also the confidence under which Soft-NMS
+    (``nms_mode=2``, decay ``nms_sigma``) drops a decayed box, as in the
+    JAX version. The NMS takes the model's route: the kernel by default,
+    the plain version after ``models.layers.use_plain_route(model)``.
     """
     if version not in (2, 3, 4):
         raise NotImplementedError(
@@ -33,6 +35,8 @@ def make_serving_fn(model, class_num, version=4, threshold=0.5, nms_mode=1,
             class_num=class_num, threshold=threshold, max_boxes=max_boxes)
         return apply_nms_device(rows, valid, nms_mode=nms_mode,
                                 nms_threshold=nms_threshold,
+                                conf_threshold=threshold,
+                                nms_sigma=nms_sigma,
                                 plain=getattr(model, "plain", False))
 
     return serve

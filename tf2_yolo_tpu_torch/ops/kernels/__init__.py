@@ -9,7 +9,8 @@ shares its module's name, so it is imported from the module:
 ``from .fused_gemm import fused_gemm``."""
 
 from .conv_bn import conv_bn_stats, conv_bn_stats_plain
-from .nms import nms_keep, nms_keep_plain
+from .nms import (nms_keep, nms_keep_plain, soft_nms_keep,
+                  soft_nms_keep_plain)
 
 __all__ = ["conv_bn_stats", "conv_bn_stats_plain", "nms_keep",
-           "nms_keep_plain"]
+           "nms_keep_plain", "soft_nms_keep", "soft_nms_keep_plain"]

@@ -20,7 +20,7 @@ kernel by category. With ``--serve`` it traces ``--steps`` requests of
   fused conv3x3 forward / backward
                      the hand-written fused 3x3 conv kernels (``--packed 3``)
   optimizer          Adam's multi-tensor kernels
-  nms                the hand-written NMS kernel (``--serve``)
+  nms                the hand-written NMS kernels (``--serve``)
   elementwise        everything else (BN normalise, mish, leaky and their
                      backward, casts, reductions, the loss, copies)
 
@@ -143,7 +143,8 @@ CATEGORIES = (
                              "fused_gemm_dw_tc_kernel",
                              "fused_gemm_ctab_kernel")),
     ("optimizer", ("multi_tensor_apply", "adam")),
-    ("nms", ("nms_keep_kernel",)),
+    ("nms", ("nms_lattice_kernel", "nms_scan_kernel",
+             "soft_nms_keep_kernel")),
     # SPP's max-pool kernels carry "nhwc" in their names
     ("elementwise", ("max_pool",)),
     ("conv backward", ("cudnn", "cutlass", "xmma", "dgrad", "wgrad", "nhwc",
