@@ -63,7 +63,27 @@ Phases (each raises on failure, so the exit code is nonzero):
      updated parameter;
   9. time ``packed=3`` on both routes and ``packed=True`` on the kernel
      route per step, in turns, with the launch counters of every timed
-     run held to those of phase 7 (none on the plain route).
+     run held to those of phase 7 (none on the plain route);
+ 10. drive the user's path: ``yolov4.Yolo(416^2, 3 classes)`` ->
+     ``create_model(packed=3, bf16, seed)`` -> ``compile("adam",
+     yolo.loss(), yolo.metrics("obj+iou+recall0.5"))`` -> ``fit`` of 32
+     in-memory uint8 images (labels encoded by the port's
+     ``encode_to_grid`` / ``down2xlabel`` from seeded boxes) for 2 epochs
+     at batch 16, with 8 validation images, EarlyStopping,
+     ReduceLROnPlateau, CSVLogger and a checkpoint each epoch; then a
+     ``resume=True`` fit that must skip both epochs, ``evaluate``,
+     ``predict`` (equal, bit for bit, to the module in eval mode on the
+     same batch, and uint8 equal to float / 255), a ``save_weights`` /
+     ``load_weights`` round trip, and one step of sgd, rmsprop, adamw,
+     ``accumulate_steps=2`` (no update after the first) and
+     ``ema_decay=0.999``. Launch counters: phase 7's per train step, 110
+     convs per evaluate / predict batch, all on the tensor cores. Then
+     ``prefetch=2`` against the inline feed: the same batches bit for
+     bit with a train step between them, and one epoch of ``fit`` from
+     one saved state with each feed within two inline runs' spread. Last,
+     ms/step through ``fit`` (inline feed and ``prefetch=2``) against the
+     same train step called directly on batches already on the card, and
+     the feed alone, in turns: the engine's host cost.
 
 Weights are random, from ``--seed``: conv kernels drawn with the port's
 HE_NORMAL from a seeded ``torch.Generator``. With BN at its init
@@ -85,12 +105,15 @@ import ctypes
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tf2_yolo_tpu_torch import engine, yolov4
+from tf2_yolo_tpu_torch.data import encode_to_grid
 from tf2_yolo_tpu_torch.export import make_serving_fn
 from tf2_yolo_tpu_torch.models import YoloV4, use_plain_route
 from tf2_yolo_tpu_torch.models.layers import Conv, ConvBN, he_normal_
@@ -112,11 +135,13 @@ from tf2_yolo_tpu_torch.ops.kernels.nms import (nms_keep, nms_keep_plain,
                                                 soft_nms_scan_plain,
                                                 suppression_words_plain)
 from tf2_yolo_tpu_torch.ops.nms import _sorted_by_conf
-from tf2_yolo_tpu_torch.parallel import create_train_state, make_optimizer
+from tf2_yolo_tpu_torch.parallel import (create_train_state, make_optimizer,
+                                         make_train_step)
 from tf2_yolo_tpu_torch.tools import bench_packed_probe as probe
 from tf2_yolo_tpu_torch.tools.train_profile import (ANCHORS, CLASSES,
                                                     card_line, make_training,
                                                     timed_steps)
+from tf2_yolo_tpu_torch.utils.tools import down2xlabel
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONVS_PER_FORWARD = 110          # 107 ConvBN + 3 head convs
@@ -1802,6 +1827,291 @@ def phase_train_timing(args, handles3, handles1, card):
     return out
 
 
+def sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+FACADE_TRAIN = 32                # phase 10: images trained, a batch of
+FACADE_BATCH = 16                # 16, so 2 steps an epoch
+FACADE_VAL = 8                   # validation images, one eval batch
+FACADE_SPEC = "obj+iou+recall0.5"
+
+
+def facade_data(seed, n, size):
+    """``n`` random uint8 images and their label pyramids (coarse to
+    fine) from seeded boxes, encoded by the port's ``encode_to_grid``
+    and ``down2xlabel`` as its readers do."""
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 256, (n, size, size, 3)).astype(np.uint8)
+    fine = np.zeros((n, size // 8, size // 8, 5 + CLASSES))
+    for i in range(n):
+        k = rng.randint(1, 6)
+        xy = rng.uniform(0, size * 0.8, (k, 2))
+        wh = rng.uniform(size * 0.05, size * 0.2, (k, 2))
+        boxes = np.concatenate([xy, np.minimum(xy + wh, size - 1)], axis=1)
+        encode_to_grid(boxes, rng.randint(0, CLASSES, k), (size, size),
+                       fine.shape[1:3], CLASSES, out=fine[i])
+    mid = down2xlabel(fine)
+    return images, [down2xlabel(mid), mid, fine]
+
+
+def conv_counters():
+    return dict(conv_bn_stats=conv_bn_stats.launches,
+                conv_bn_stats_tc=conv_bn_stats.tc_launches)
+
+
+def phase_facade(args, card, device="cuda"):
+    """Phase 10: the user's path, ``yolov4.Yolo`` -> ``create_model`` ->
+    ``compile`` -> ``fit`` -> ``evaluate`` -> ``predict``, at full width
+    on the card, with launch counters set to 0 just before each call and
+    read just after."""
+    yolo = yolov4.Yolo(input_shape=(args.size, args.size, 3),
+                       class_names=["a", "b", "c"])
+    model = yolo.create_model(anchors=ANCHORS, pretrained_body=None,
+                              dtype=torch.bfloat16, packed=3,
+                              seed=args.seed, device=device)
+    check(next(model.module.parameters()).device.type == device,
+          "the model is not on the card")
+    n = FACADE_TRAIN + FACADE_VAL
+    images, labels = facade_data(args.seed, n, args.size)
+    x, y = images[:FACADE_TRAIN], [v[:FACADE_TRAIN] for v in labels]
+    xv, yv = images[FACADE_TRAIN:], [v[FACADE_TRAIN:] for v in labels]
+    loss, metrics = yolo.loss(), yolo.metrics(FACADE_SPEC)
+    model.compile("adam", loss=loss, metrics=metrics, learning_rate=1e-3)
+    out = {}
+    steps = 2 * FACADE_TRAIN // FACADE_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, csv = os.path.join(tmp, "ckpt"), os.path.join(tmp, "log.csv")
+        callbacks = [engine.EarlyStopping(patience=3),
+                     engine.ReduceLROnPlateau(patience=3),
+                     engine.CSVLogger(csv)]
+        reset_train_counters()
+        hist = model.fit(x, y, epochs=2, batch_size=FACADE_BATCH,
+                         seed=args.seed, verbose=0,
+                         validation_data=(xv, yv), callbacks=callbacks,
+                         checkpoint_dir=ckpt, checkpoint_every=1,
+                         checkpoint_keep=1)
+        sync(device)
+        counts = train_counters()
+        # a step's launches as phase 7's, and one eval batch (110 convs)
+        # of the validation data after each epoch
+        want = {k: v * steps for k, v in TRAIN_LAUNCHES[3].items()}
+        want["conv_bn_stats"] += 2 * CONVS_PER_FORWARD
+        want["conv_bn_stats_tc"] += 2 * CONVS_PER_FORWARD
+        logs = {k: v for k, v in hist.items() if k != "epoch_time"}
+        print(f"  fit: 2 epochs x {steps // 2} steps of {FACADE_BATCH}, "
+              f"bf16 packed=3, {args.size}^2: "
+              + ", ".join(f"{k} {' '.join(f'{v:.4f}' for v in vs)}"
+                          for k, vs in logs.items()))
+        print("  launches in fit: " + ", ".join(
+            f"{k} {v} (want {want[k]})" for k, v in counts.items()))
+        check(len(hist["loss"]) == 2, "fit did not run two epochs")
+        check(all(np.isfinite(v) for vs in logs.values() for v in vs),
+              "non-finite loss or metric in fit")
+        check(counts == want, f"fit launches {counts}, want {want}")
+        check(len(open(csv).read().splitlines()) == 3,
+              "CSVLogger did not write two rows")
+        out["fit"] = dict(history=logs, launches=counts)
+
+        reset_train_counters()
+        again = model.fit(x, y, epochs=2, batch_size=FACADE_BATCH,
+                          seed=args.seed, verbose=0, checkpoint_dir=ckpt,
+                          resume=True)
+        check(again["loss"] == [] and model._state.step == steps
+              and sum(train_counters().values()) == 0,
+              "fit(resume=True) did not skip the two epochs trained")
+
+        reset_train_counters()
+        ev = model.evaluate(xv, yv, batch_size=FACADE_VAL, verbose=0)
+        sync(device)
+        ev_counts = conv_counters()
+        reset_train_counters()
+        pred = model.predict(xv, batch_size=FACADE_VAL)
+        sync(device)
+        pred_counts = conv_counters()
+        print("  evaluate: " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in ev.items())
+              + f"; launches evaluate {ev_counts}, predict {pred_counts} "
+              f"(want {CONVS_PER_FORWARD} each, all tc)")
+        check(all(np.isfinite(v) for v in ev.values()),
+              "non-finite evaluate logs")
+        for c in (ev_counts, pred_counts):
+            check(c == dict(conv_bn_stats=CONVS_PER_FORWARD,
+                            conv_bn_stats_tc=CONVS_PER_FORWARD),
+                  f"evaluate/predict launches {c}")
+        model.module.eval()
+        with torch.inference_mode():
+            direct = model.module(torch.from_numpy(xv).to(device).float()
+                                  * model.input_rescale)
+        same = [np.array_equal(p, d.float().cpu().numpy())
+                for p, d in zip(pred, direct)]
+        scaled = model.predict(xv.astype(np.float32) * np.float32(1 / 255),
+                               batch_size=FACADE_VAL)
+        same_u8 = [np.array_equal(p, s) for p, s in zip(pred, scaled)]
+        print(f"  predict: shapes {[p.shape for p in pred]}, equal to "
+              f"model(x) in eval mode {same}, uint8 equal to float / 255 "
+              f"{same_u8}")
+        check(all(np.isfinite(p).all() for p in pred), "non-finite predict")
+        check(all(same), "predict differs from model(x) in eval mode")
+        check(all(same_u8), "uint8 predict differs from float / 255")
+
+        path = os.path.join(tmp, "weights.pt")
+        saved = {k: v.clone() for k, v in model.variables.items()}
+        model.save_weights(path)
+        with torch.no_grad():
+            for p in model.module.parameters():
+                p.zero_()
+        model.load_weights(path)
+        check(all(torch.equal(v, saved[k])
+                  for k, v in model.variables.items()),
+              "load_weights did not restore the saved weights")
+        out["evaluate"], out["predict_equal"] = ev, same
+        out["evaluate_predict_launches"] = {
+            k: ev_counts[k] + pred_counts[k] for k in ev_counts}
+
+    out["optimizers"] = facade_optimizers(model, loss, x, y)
+    out["prefetch"] = facade_prefetch(model, loss, x, y, device)
+    out["timing"] = facade_timing(args, model, loss, metrics, x, y, card,
+                                  device)
+    return out
+
+
+def facade_optimizers(model, loss, x, y):
+    """One step of each other optimizer chain through fit (two for
+    accumulate_steps=2: no update after the first)."""
+    out = {}
+    xb, yb = x[:FACADE_BATCH], [v[:FACADE_BATCH] for v in y]
+    for name, kw in (("sgd", {}), ("rmsprop", {}), ("adamw", {}),
+                     ("adam", dict(accumulate_steps=2)),
+                     ("adam", dict(ema_decay=0.999))):
+        label = name + "".join(f" {k}={v}" for k, v in kw.items())
+        model.compile(name, loss=loss, learning_rate=1e-3, **kw)
+        before = [p.detach().clone() for p in model.module.parameters()]
+
+        def moved():
+            return sum(not torch.equal(b, p) for b, p in
+                       zip(before, model.module.parameters()))
+        hist = model.fit(xb, yb, epochs=1, batch_size=FACADE_BATCH,
+                         verbose=0)
+        first = moved()
+        if kw.get("accumulate_steps"):
+            check(first == 0, f"{label}: parameters moved on mini-step 1")
+            hist = model.fit(xb, yb, epochs=1, batch_size=FACADE_BATCH,
+                             verbose=0)
+        n_moved = moved()
+        print(f"  {label}: loss {hist['loss'][0]:.4f}, parameters moved "
+              f"{n_moved} of {len(before)}")
+        check(np.isfinite(hist["loss"][0]), f"{label}: non-finite loss")
+        # the frozen anchors (3 heads) stay; an update below the ulp of
+        # its parameter may leave a small leaf in place
+        check(n_moved >= 0.9 * len(before), f"{label}: parameters unmoved")
+        out[label] = dict(loss=hist["loss"][0], moved=n_moved,
+                          moved_after_first=first)
+    return out
+
+
+def facade_prefetch(model, loss, x, y, device):
+    """``prefetch=2`` against the inline feed on the card. First the
+    batches themselves, bit for bit, with a train step on the consumer's
+    stream after each (a batch read before its copy lands, or memory
+    reused while a copy is in flight, shows as a batch that differs).
+    Then one epoch of ``fit`` from one saved state with each feed: the
+    loss within the spread of two inline runs (the kernels' atomics make
+    runs differ) or 1e-3 of it."""
+    model.compile("adam", loss=loss, learning_rate=1e-3)
+    model._ensure_state()
+    step = make_train_step(loss)
+    batch = FACADE_BATCH // 2
+    fed = {}
+    for prefetch in (0, 2):
+        got = []
+        pairs = model._iterate(x, y, batch, True, np.random.RandomState(3))
+        for xb, yb in model._feed(pairs, prefetch=prefetch):
+            got.append([xb.clone()] + [v.clone() for v in yb])
+            step(model._state, xb, yb)
+        fed[prefetch] = got
+    sync(device)
+    same = len(fed[0]) == len(fed[2]) == FACADE_TRAIN // batch and all(
+        all(torch.equal(a, b) for a, b in zip(u, v))
+        for u, v in zip(fed[0], fed[2]))
+
+    saved = {k: v.clone() for k, v in model.variables.items()}
+    losses = {}
+    for name, prefetch in (("inline", 0), ("prefetch=2", 2),
+                           ("inline again", 0)):
+        model.set_variables(saved)          # and a fresh optimizer
+        hist = model.fit(x, y, epochs=1, batch_size=FACADE_BATCH, seed=5,
+                         verbose=0, prefetch=prefetch)
+        losses[name] = hist["loss"][0]
+    spread = abs(losses["inline again"] - losses["inline"])
+    diff = abs(losses["prefetch=2"] - losses["inline"])
+    bound = max(spread, 1e-3 * abs(losses["inline"]))
+    print(f"  prefetch=2: {len(fed[2])} batches of {batch} equal to the "
+          f"inline feed's {same}; one epoch's loss inline "
+          f"{losses['inline']:.6f} / {losses['inline again']:.6f}, "
+          f"prefetch=2 {losses['prefetch=2']:.6f} (|d| {diff:.3g}, "
+          f"bound {bound:.3g})")
+    check(same, "prefetch=2 fed other batches than the inline feed")
+    check(diff <= bound, "fit(prefetch=2) differs from the inline fit by "
+          f"{diff}, more than {bound}")
+    return dict(batches_equal=same, losses=losses, diff=diff, bound=bound)
+
+
+def facade_timing(args, model, loss, metrics, x, y, card, device):
+    """ms/step of fit (inline feed, and prefetch=2) against the same
+    train step called directly on batches already on the card, in
+    turns: the engine's host cost."""
+    model.compile("adam", loss=loss, metrics=metrics, learning_rate=1e-3)
+    model._ensure_state()
+    steps = 2 * FACADE_TRAIN // FACADE_BATCH      # two epochs a run
+    on_card = [(torch.from_numpy(x[i:i + FACADE_BATCH]).to(device),
+                tuple(torch.from_numpy(v[i:i + FACADE_BATCH]).float()
+                      .to(device) for v in y))
+               for i in range(0, FACADE_TRAIN, FACADE_BATCH)]
+    names = model._metric_names
+    step = make_train_step(loss, metrics, names)
+
+    def feed():
+        """fit's feed alone: slicing, pinning and copying two epochs."""
+        rng = np.random.RandomState(0)
+        for _ in range(2):
+            for _ in model._feed(model._iterate(x, y, FACADE_BATCH, True,
+                                                rng)):
+                pass
+
+    def direct():
+        for _ in range(2):
+            for xb, yb in on_card:
+                step(model._state, xb, yb)
+
+    runs = {"fit": lambda: model.fit(x, y, epochs=2,
+                                     batch_size=FACADE_BATCH, verbose=0),
+            "fit prefetch=2": lambda: model.fit(
+                x, y, epochs=2, batch_size=FACADE_BATCH, verbose=0,
+                prefetch=2),
+            "make_train_step": direct, "feed alone": feed}
+    times = {k: [] for k in runs}
+    order = list(runs)
+    for name in (order + order[::-1]) * 2 + order:
+        sync(device)
+        t0 = time.perf_counter()
+        runs[name]()
+        sync(device)
+        times[name].append((time.perf_counter() - t0) * 1e3 / steps)
+    out = {k: dict(ms_per_step=float(np.median(v)), runs=v)
+           for k, v in times.items()}
+    engine_ms = out["fit"]["ms_per_step"] - out["make_train_step"][
+        "ms_per_step"]
+    print(f"  ms/step bf16 b{FACADE_BATCH} {args.size}^2 packed=3 (median of "
+          f"5 turns of {steps} steps): fit {out['fit']['ms_per_step']:.2f}, fit prefetch=2 "
+          f"{out['fit prefetch=2']['ms_per_step']:.2f}, make_train_step "
+          f"direct {out['make_train_step']['ms_per_step']:.2f}, the feed "
+          f"alone {out['feed alone']['ms_per_step']:.2f}; engine host cost "
+          f"{engine_ms:.2f} ms/step [{card}]")
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1884,6 +2194,12 @@ def main(argv=None):
     print("phase 9: ms/step, packed=3 on both routes and packed=True")
     train_timing = phase_train_timing(args, handles3, handles1, card)
     del handles3, handles1
+    torch.cuda.empty_cache()
+
+    print(f"phase 10: the facade, yolov4.Yolo -> create_model(packed=3, "
+          f"bf16) -> compile -> fit -> evaluate -> predict at "
+          f"{args.size}^2")
+    facade = phase_facade(args, card)
 
     def bf16_at(results, shape):
         return [r for r in results
@@ -1898,10 +2214,13 @@ def main(argv=None):
     conv3_at = bf16_at(conv3_res, CONV3_SHAPES[0][0])
 
     def train_launches(name):
-        """Launches in the packed=3 run, the packed=True run, and both."""
-        both = trained["launches"][name], trained1["launches"][name]
-        return dict(launches=sum(both), launches_training_packed3=both[0],
-                    launches_training_packed1=both[1])
+        """Launches in the packed=3 run, the packed=True run and the
+        facade's fit (phase 10), and all of them."""
+        runs = (trained["launches"][name], trained1["launches"][name],
+                facade["fit"]["launches"][name])
+        return dict(launches=sum(runs), launches_training_packed3=runs[0],
+                    launches_training_packed1=runs[1],
+                    launches_facade_fit=runs[2])
     # times, bounds and library times at one shape each (``at``); errors
     # are the largest over every shape and dtype checked; launches are
     # the counts of the serving and the training runs above
@@ -1912,10 +2231,14 @@ def main(argv=None):
                       "and :346",
              **{**train_launches("conv_bn_stats"),
                 "launches": served["conv_launches"]
-                + train_launches("conv_bn_stats")["launches"]},
+                + train_launches("conv_bn_stats")["launches"]
+                + facade["evaluate_predict_launches"]["conv_bn_stats"]},
              launches_serving=served["conv_launches"],
+             launches_facade_evaluate_predict=facade[
+                 "evaluate_predict_launches"]["conv_bn_stats"],
              launches_tc=served["conv_tc_launches"]
-             + train_launches("conv_bn_stats_tc")["launches"],
+             + train_launches("conv_bn_stats_tc")["launches"]
+             + facade["evaluate_predict_launches"]["conv_bn_stats_tc"],
              max_abs_err=max(r["max_abs_err"] for r in conv_res),
              at=f"{conv_at['shape']}, batch {conv_at['batch']}, bf16",
              ms=conv_at["ms"], plain_ms=conv_at["plain_ms"],
@@ -2055,7 +2378,8 @@ def main(argv=None):
                   served=served, routes_f32=routes, timing=timing,
                   trained=trained, trained_packed1=trained1,
                   train_routes_f32=train_routes,
-                  train_timing=train_timing, kernels=kernels,
+                  train_timing=train_timing, facade=facade,
+                  kernels=kernels,
                   seconds=seconds)
     os.makedirs(args.log_dir, exist_ok=True)
     with open(os.path.join(args.log_dir, "chip_smoke.json"), "w") as f:

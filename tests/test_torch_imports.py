@@ -34,7 +34,16 @@ def test_the_walk_finds_the_port():
                  "tf2_yolo_tpu_torch.tools.bench_packed_probe",
                  "tf2_yolo_tpu_torch.ops.losses",
                  "tf2_yolo_tpu_torch.parallel.train",
-                 "tf2_yolo_tpu_torch.tools.train_profile"):
+                 "tf2_yolo_tpu_torch.tools.train_profile",
+                 "tf2_yolo_tpu_torch.engine",
+                 "tf2_yolo_tpu_torch.yolov4",
+                 "tf2_yolo_tpu_torch.facade_base",
+                 "tf2_yolo_tpu_torch.data.dataset",
+                 "tf2_yolo_tpu_torch.data.pipeline",
+                 "tf2_yolo_tpu_torch.ops.metrics",
+                 "tf2_yolo_tpu_torch.parallel.checkpoint",
+                 "tf2_yolo_tpu_torch.utils.kmeans",
+                 "tf2_yolo_tpu_torch.utils.tools"):
         assert name in MODULES
 
 
@@ -47,4 +56,18 @@ def test_every_module_of_the_port_imports_without_jax():
 
 def test_chip_smoke_imports_without_jax():
     proc = _imports_cleanly("import chip_smoke")
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_the_port_imports_without_image_libraries():
+    """The card's machine may have no PIL, cv2 or matplotlib: the
+    readers, augmenters and plots import them when they run, never when
+    a module of the port is imported."""
+    code = ("import importlib, sys; "
+            f"[importlib.import_module(m) for m in {MODULES!r}]; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('PIL', 'cv2', 'matplotlib', 'imgaug')); assert not bad, bad")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

@@ -19,7 +19,7 @@ kernel by category. With ``--serve`` it traces ``--steps`` requests of
   fused gemm fwd/bwd the hand-written fused GEMM kernels
   fused conv3x3 forward / backward
                      the hand-written fused 3x3 conv kernels (``--packed 3``)
-  optimizer          Adam's multi-tensor kernels
+  optimizer          the optimizer chain's multi-tensor kernels
   nms                the hand-written NMS kernels (``--serve``)
   elementwise        everything else (BN normalise, mish, leaky and their
                      backward, casts, reductions, the loss, copies)
