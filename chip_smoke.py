@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's YOLOv4 serving and training paths on
-one CUDA card.
+"""Smoke run of the PyTorch port's YOLOv4 serving, deployment and
+training paths on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--batch 8] [--size 416]
                           [--requests 2] [--train-batch 32] [--steps 3]
@@ -31,9 +31,14 @@ Phases (each raises on failure, so the exit code is nonzero):
      ``torch.matmul`` or ``aten.convolution_backward`` on the activated
      input: a yardstick only; the port never calls it); the probe layer
      of ``tools/bench_packed_probe.py`` the same way, and its chain of
-     four layers driven once with its counters read; then hand each
-     tensor-core route a contiguous view that starts 2 bytes past a
-     16-byte boundary and expect the ValueError, with no launch counted;
+     four layers driven once with its counters read; the int8 conv
+     (kernel Q) against ``conv_int8_plain`` at four YOLOv4 shapes (the
+     stem, a 52^2 1x1, two 3x3 layers) at the serving batch, bf16 and
+     f32 (and the served stem's f32 image to bf16), equal bit for bit,
+     timed beside K1 and, at the 1x1 shape, ``torch._int_mm``; then hand
+     each tensor-core route (Q's ring route too) a contiguous view that
+     starts 2 bytes past a 16-byte boundary and expect the ValueError,
+     with no launch counted;
   4. serve ``--requests`` batches of ``--batch`` images through
      ``make_serving_fn`` in bf16 with greedy NMS, then one with Soft-NMS
      (``nms_mode=2``), with launch counters proving that every conv (107
@@ -83,7 +88,44 @@ Phases (each raises on failure, so the exit code is nonzero):
      one saved state with each feed within two inline runs' spread. Last,
      ms/step through ``fit`` (inline feed and ``prefetch=2``) against the
      same train step called directly on batches already on the card, and
-     the feed alone, in turns: the engine's host cost.
+     the feed alone, in turns: the engine's host cost;
+ 11. deployment, on phase 4's weights: the f32 head outputs of the
+     BN-folded model against the unfolded one's within phase 5's
+     bounds, and a folded bf16 request's launches (110 convs, one NMS);
+     ``calibrate_int8`` on two seeded batches, then int8 serving at gates
+     256 and 0 (61 and 107 int8 launches a request, all on the tensor
+     cores, beside 110 minus those conv launches and one NMS), as a
+     sanity check the confidence field of its sorted rows within
+     max(0.15, the JAX package's own int8 bound; twice the bf16 rows'
+     distance from the f32 rows') of the bf16 rows'; the kernel route
+     against the plain route: at gate 0 the head logits (the int8 chain
+     is exact on both, so only the three bf16 head convs differ), at
+     gate 256 layer by layer on the kernel route's own inputs (each
+     Int8ConvBN equal bit for bit, each K1 conv within its bf16 bound),
+     and the whole programs' head logits printed beside; a gate-256
+     request with the wrappers through their custom ops against the
+     same request calling the implementations directly, in turns; then
+     ``Yolo.export_model`` with buckets [1, ``--batch``], folded and int8
+     at gate 256, ``load_serving``, and each loaded program's (rows,
+     keep) equal bit for bit to ``make_serving_fn``'s at the batch and at
+     3 (padded into the bucket), with the same launches; last, ms/request
+     of unfolded, folded, int8 at 256, int8 at 0, the loaded folded
+     artifact and a copy of it without export's dtype asserts (outputs
+     and launches held equal) in turns at the serving batch and at
+     ``bench_infer.py``'s
+     32 (chunked through the artifact's largest bucket), and the seconds
+     the export and the load took;
+ 12. the frozen-statistics BatchNorm backward (``scope="backbone"``):
+     which ConvBNs it freezes (17 at ``packed=True``: the stem and stages
+     1-2; none at ``packed=3``, whose backbone runs in packed regions,
+     as the JAX package's), one f32 step at batch 2 of ``packed=True``
+     and one of ``packed=3`` on the kernel route against the plain route
+     as phase 8 holds them, the
+     frozen step's gradients against the exact step's (the 17 frozen
+     conv kernels move, the rest stay within noise), and ms/step of
+     exact BN against the frozen backward at the training batch in bf16
+     for ``packed=True`` and ``packed=3``, in turns, with phase 7's
+     launches a step.
 
 Weights are random, from ``--seed``: conv kernels drawn with the port's
 HE_NORMAL from a seeded ``torch.Generator``. With BN at its init
@@ -100,6 +142,7 @@ every measurement go to ``--log-dir`` (default ``build/chip_smoke/``).
 """
 
 import argparse
+import contextlib
 import copy
 import ctypes
 import json
@@ -114,17 +157,24 @@ import torch.nn.functional as F
 
 from tf2_yolo_tpu_torch import engine, yolov4
 from tf2_yolo_tpu_torch.data import encode_to_grid
-from tf2_yolo_tpu_torch.export import make_serving_fn
+from tf2_yolo_tpu_torch.export import (calibrate_int8, folded_copy,
+                                       load_serving, make_serving_fn)
 from tf2_yolo_tpu_torch.models import YoloV4, use_plain_route
-from tf2_yolo_tpu_torch.models.layers import Conv, ConvBN, he_normal_
+from tf2_yolo_tpu_torch.models import layers as layers_mod
+from tf2_yolo_tpu_torch.models.layers import (Conv, ConvBN, Int8ConvBN,
+                                              he_normal_, set_bn_stats_sg)
+from tf2_yolo_tpu_torch.ops import nms as nms_ops
 from tf2_yolo_tpu_torch.ops.decode import decode_multi_level
 from tf2_yolo_tpu_torch.ops.kernels import _build
 from tf2_yolo_tpu_torch.ops.kernels import conv_bn as conv_mod
+from tf2_yolo_tpu_torch.ops.kernels import conv_int8 as int8_mod
 from tf2_yolo_tpu_torch.ops.kernels import fused_conv3x3 as conv3_mod
 from tf2_yolo_tpu_torch.ops.kernels import fused_gemm as gemm_mod
 from tf2_yolo_tpu_torch.ops.kernels import nms as nms_mod
 from tf2_yolo_tpu_torch.ops.kernels.conv_bn import (conv_bn_stats,
                                                     conv_bn_stats_plain)
+from tf2_yolo_tpu_torch.ops.kernels.conv_int8 import (conv_int8,
+                                                      conv_int8_plain)
 from tf2_yolo_tpu_torch.ops.kernels.fused_conv3x3 import fused_conv3x3
 from tf2_yolo_tpu_torch.ops.kernels.fused_gemm import (act_and_grad,
                                                        fused_gemm)
@@ -179,9 +229,11 @@ TRAIN_LAUNCHES = {
             conv_bn_stats_tc=CONVS_PER_STEP - 16),
 }
 
-# H100 SXM data sheet: device memory rate and dense peak rates
+# H100 SXM data sheet: device memory rate and dense peak rates (int8:
+# operations of the s8 tensor cores)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -344,8 +396,10 @@ def bwd_plan_line(plan):
 def phase_build(log_dir):
     t0 = time.perf_counter()
     _build.build_libraries([conv_mod.SOURCE, nms_mod.SOURCE,
-                            gemm_mod.SOURCE, conv3_mod.SOURCE])
+                            gemm_mod.SOURCE, conv3_mod.SOURCE,
+                            int8_mod.SOURCE])
     conv_mod._launcher()
+    int8_mod._launcher()
     nms_mod._ready(torch.cuda.current_device())
     gemm_mod._library()
     conv3_mod._library()
@@ -677,6 +731,108 @@ def phase_conv_checks(gen, n):
                 failed.append(f"{name} b{n} {r['dtype']}: statistics")
             del x, y, yp
     check(not failed, f"conv outside the bound: {failed}")
+    return results
+
+
+# (name, H, W, Ci, Co, k, stride): YOLOv4@416 ConvBNs that the int8
+# program quantizes: the stem (a gate of 0 only; Ci = 3, the gather
+# route), a 1x1 and two 3x3 layers of the deep stages
+INT8_SHAPES = [
+    ("stem 416^2 3->32 3x3s1", 416, 416, 3, 32, 3, 1),
+    ("stage3.pre 52^2 256->128 1x1", 52, 52, 256, 128, 1, 1),
+    ("td1_pre2 13^2 512->1024 3x3s1", 13, 13, 512, 1024, 3, 1),
+    ("td2.conv2 26^2 256->512 3x3s1", 26, 26, 256, 512, 3, 1),
+]
+
+
+def phase_int8_checks(gen, n):
+    """Kernel Q against ``conv_int8_plain`` at each INT8_SHAPES shape at
+    batch ``n``, bf16 -> bf16 and f32 -> f32 (and the served stem's f32
+    image -> bf16): equal bit for bit (int32 sums are exact and the
+    epilogue has no FMA contraction). Times the kernel launched alone
+    (``ms``: in a CUDA graph, so that the wrapper's host work does not
+    show), through its wrapper and through the wrapper's implementation
+    without the custom op (its dispatch cost, where the card runs dry at
+    small shapes), the plain version, K1
+    (``conv_bn_stats``, bf16, no statistics) at the same shape alone,
+    and for the 1x1 shape the one-call yardstick ``torch._int_mm`` on the
+    same int8 operands alone."""
+    results, failed = [], []
+    bf, f32 = torch.bfloat16, torch.float32
+    for name, h, w, ci, co, k, stride in INT8_SHAPES:
+        kern = torch.empty(k, k, ci, co, device="cuda")
+        he_normal_(kern, gen)
+        wq8, sw = int8_mod.quantize_weights(kern)
+        wq = int8_mod.weight_layout(wq8)
+        t = 0.1 * torch.randn(co, generator=gen, device="cuda")
+        plan = int8_mod._plan(n, h, w, ci, co, k, stride)
+        dtypes = [(bf, bf), (f32, f32)] + ([(f32, bf)] if ci == 3 else [])
+        for in_dt, out_dt in dtypes:
+            x = torch.randn(n, h, w, ci, generator=gen,
+                            device="cuda").to(in_dt)
+            sx = float((x.float().abs().amax() / 127.0).item())
+            c = ((sx * sw) * (0.5 + torch.rand(co, generator=gen,
+                                               device="cuda"))).contiguous()
+            before = conv_int8.launches, conv_int8.tc_launches
+            y = conv_int8(x, wq, c, t, sx, k, stride, out_dt)
+            check((conv_int8.launches, conv_int8.tc_launches)
+                  == (before[0] + 1, before[1] + 1),
+                  f"int8 {name}: the wrapper did not launch its kernel")
+            yp = conv_int8_plain(x, wq, c, t, sx, k, stride, out_dt)
+            torch.cuda.synchronize()
+            equal = torch.equal(y, yp)
+            err = (y.float() - yp.float()).abs().max().item()
+            ms = graph_ms(lambda: conv_int8(x, wq, c, t, sx, k, stride,
+                                            out_dt))
+            wrapper_ms = cuda_ms(lambda: conv_int8(x, wq, c, t, sx, k,
+                                                   stride, out_dt), 20)
+            # the same launch without the custom op's dispatch
+            direct_ms = cuda_ms(lambda: int8_mod._impl(x, wq, c, t, sx, k,
+                                                       stride, out_dt), 20)
+            plain_ms = cuda_ms(lambda: conv_int8_plain(
+                x, wq, c, t, sx, k, stride, out_dt), 2)
+            m = n * (h // stride) * (w // stride)
+            ops = 2.0 * m * co * k * k * ci
+            nbytes = (x.numel() * x.element_size() + wq.numel() + 8 * co
+                      + y.numel() * y.element_size())
+            bound, bound_by = bound_ms(nbytes, ops, torch.int8)
+            k1_ms = library_ms = None
+            if in_dt == bf:
+                kb, bb = kern.to(bf), torch.zeros(co, dtype=bf,
+                                                  device="cuda")
+                k1_ms = graph_ms(lambda: conv_bn_stats(x, kb, bb, stride,
+                                                       False))
+            if k == 1:
+                xq = int8_mod.quantize_plain(x, sx).reshape(m, ci)
+                wt = wq[:, :ci].t().contiguous()
+                library_ms = graph_ms(lambda: torch._int_mm(xq, wt))
+            r = dict(shape=name, batch=n, dtype=f"{in_dt} -> {out_dt}"
+                     .replace("torch.", ""), equal=equal, max_abs_err=err,
+                     ms=ms, wrapper_ms=wrapper_ms, direct_ms=direct_ms,
+                     plain_ms=plain_ms,
+                     bound_ms=bound,
+                     bound_by=bound_by, library_ms=library_ms,
+                     k1_bf16_ms=k1_ms, tops=ops / ms / 1e9,
+                     bound_share=bound / ms, route=plan.route,
+                     config=plan.config)
+            results.append(r)
+            print(f"  int8 {r['dtype']:20s} b{n:<2d} {name:32s} [{plan.route} "
+                  f"config {plan.config} grid {plan.grid} kp {plan.kp}] "
+                  f"equal {equal} (max|d| {err:.3g}) | kernel alone "
+                  f"{ms:.3f} ms ({r['tops']:.1f} TOP/s, {bound / ms:.1%} of "
+                  f"bound), through the wrapper {wrapper_ms:.3f} ms (its "
+                  f"implementation without the custom op {direct_ms:.3f} "
+                  f"ms), plain "
+                  f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by})"
+                  + ("" if k1_ms is None
+                     else f", K1 bf16 alone {k1_ms:.3f} ms")
+                  + ("" if library_ms is None
+                     else f", torch._int_mm {library_ms:.3f} ms"))
+            if not equal:
+                failed.append(f"{name} {r['dtype']}")
+            del x, y, yp
+    check(not failed, f"int8 kernel differs from its plain version: "
+          f"{failed}")
     return results
 
 
@@ -1263,15 +1419,17 @@ def misaligned(gen, shape, dtype=torch.bfloat16):
 
 def all_counters():
     return (conv_bn_stats.launches, conv_bn_stats.tc_launches,
+            conv_int8.launches, conv_int8.tc_launches,
             *fused_counters().values())
 
 
 def phase_alignment_checks(gen):
     """Each tensor-core route handed one contiguous but misaligned bf16
     tensor (16-byte ``cp.async`` copies would fault on it) must raise
-    ValueError before it launches anything: the conv (ring and small-Ci
-    kernels), the fused GEMM forward and backward, the fused 3x3 conv
-    forward and backward. Any other outcome fails the phase."""
+    ValueError before it launches anything: the int8 conv's ring route,
+    the conv (ring and small-Ci kernels), the fused GEMM forward and
+    backward, the fused 3x3 conv forward and backward. Any other outcome
+    fails the phase."""
     bf = torch.bfloat16
     rnd = lambda *shape: torch.randn(*shape, generator=gen,
                                      device="cuda").to(bf)
@@ -1282,7 +1440,12 @@ def phase_alignment_checks(gen):
     cx = rnd(1, 9, 11, 16)
     cw = rnd(3, 3, 16, 8)
     cy = torch.empty(1, 9, 11, 8, dtype=bf, device="cuda")
+    qw = int8_mod.weight_layout(int8_mod.quantize_weights(
+        f32(3, 3, 32, 32))[0])
+    qc, qt = f32(32) + 1e-2, f32(32)
     cases = [
+        ("conv_int8 ring, x", lambda: conv_int8(
+            misaligned(gen, (2, 13, 13, 32)), qw, qc, qt, 0.1, 3, 1, bf)),
         ("conv_bn_stats tc, x", lambda: conv_bn_stats(
             misaligned(gen, (2, 13, 13, 32)), rnd(3, 3, 32, 32), rnd(32),
             1)),
@@ -1694,8 +1857,10 @@ def phase_train(args, packed, steps, batch):
                 running_statistics=len(stats0)), (state, step, x, ys)
 
 
-def phase_train_routes_f32(args):
-    """One f32 step at batch 2 on both routes from the same state.
+def phase_train_routes_f32(args, packed=3, scope=None):
+    """One f32 step of ``YoloV4(packed)`` at batch 2 on both routes
+    from the same state (with the frozen-statistics BatchNorm backward on
+    the ConvBNs of ``scope`` when it is given, phase 12).
 
     The untrained YOLOv4 is chaotically conditioned: 107 BatchNorm + mish
     layers amplify a 1e-6 change of the input into about 5% relative L2
@@ -1718,7 +1883,9 @@ def phase_train_routes_f32(args):
     distance (measured 1.39-1.44 times; unrelated directions give 5.6
     times)."""
     state, step, x, ys = make_training(args.seed, 2, args.size,
-                                       torch.float32, packed=3)
+                                       torch.float32, packed=packed)
+    if scope is not None:
+        set_bn_stats_sg(state.model, True, scope)
 
     def plain_copy():
         return create_train_state(
@@ -2112,6 +2279,501 @@ def facade_timing(args, model, loss, metrics, x, y, card, device):
     return out
 
 
+# int8 ConvBNs of YOLOv4@416 by gate: min(Ci, Co) >= 256, and all 107
+DEPLOY_INT8 = {256: 61, 0: 107}
+# The JAX package's own int8 check (tests/test_quant.py:85): the
+# confidence field of the sorted int8 rows within 0.15 of the float ones,
+# on its small init-statistics network. The random 416^2 network here
+# amplifies rounding chaotically (phase 5), so the bound is that or twice
+# the distance at which bf16 rounding alone puts the bf16 rows from the
+# f32 rows of the same weights and images, whichever is larger.
+INT8_CONF_BOUND = 0.15
+DEPLOY_BIG_BATCH = 32            # bench_infer.py's batch
+DISPATCH_REPS = 10               # requests a turn of the dispatch A/B
+DEPLOY_REPS = 5                  # requests a turn of each timed variant
+
+
+def reset_serve_counters():
+    conv_bn_stats.launches = conv_bn_stats.tc_launches = 0
+    conv_int8.launches = conv_int8.tc_launches = 0
+    nms_keep.launches = soft_nms_keep.launches = 0
+    reset_fused_counters()
+
+
+def serve_counters():
+    return dict(conv_bn_stats=conv_bn_stats.launches,
+                conv_bn_stats_tc=conv_bn_stats.tc_launches,
+                conv_int8=conv_int8.launches,
+                conv_int8_tc=conv_int8.tc_launches,
+                nms_keep=nms_keep.launches,
+                soft_nms_keep=soft_nms_keep.launches,
+                fused=sum(fused_counters().values()))
+
+
+def want_serve(int8_convs):
+    """A greedy request's launches with ``int8_convs`` ConvBNs on Q: the
+    rest of the 110 convs on K1, every one on the tensor cores, one NMS
+    kernel, no fused kernel."""
+    k1 = CONVS_PER_FORWARD - int8_convs
+    return dict(conv_bn_stats=k1, conv_bn_stats_tc=k1, conv_int8=int8_convs,
+                conv_int8_tc=int8_convs, nms_keep=1, soft_nms_keep=0,
+                fused=0)
+
+
+def counted(serve, x):
+    """``serve(x)`` with the counters set to 0 just before and read just
+    after: ((rows, keep), counters)."""
+    torch.cuda.synchronize()
+    reset_serve_counters()
+    out = serve(x)
+    torch.cuda.synchronize()
+    return out, serve_counters()
+
+
+def head_bound_check(lk, lp, ok, op, what):
+    """Phase 5's bounds on head logits and outputs; returns the errors."""
+    res = {}
+    for i in range(3):
+        scale = max(1.0, lp[i].abs().max().item())
+        d_logit = (lk[i] - lp[i]).abs().max().item()
+        d_out = (ok[i] - op[i]).abs()
+        out_ok = bool((d_out <= 5e-3 + 2e-2 * op[i].abs()).all())
+        res[f"head{i + 1}"] = dict(logit_max_abs_err=d_logit,
+                                   logit_scale=scale,
+                                   out_max_abs_err=d_out.max().item())
+        print(f"  {what} head{i + 1}: logits max|d| {d_logit:.3e} (scale "
+              f"{scale:.3g}, bound 2e-2*scale); outputs max|d| "
+              f"{d_out.max().item():.3e} (bound 5e-3 + 2e-2*|out|)")
+        check(d_logit <= 2e-2 * scale and out_ok
+              and bool(torch.isfinite(ok[i]).all()),
+              f"{what}: head{i + 1} outside the bound")
+    return res
+
+
+def layer_routes(program, x):
+    """Every conv of one served request, kernel route against the plain
+    route on the input the kernel route gave it (captured as the request
+    runs): each ``Int8ConvBN`` (Q, then the activation) equal bit for
+    bit, each K1 conv within the conv's bf16 bound (``TOL``). Returns
+    counts and the largest K1 error."""
+    tol = TOL[torch.bfloat16]
+    res = dict(int8_layers=0, int8_equal=0, k1_layers=0, k1_within=0,
+               k1_max_abs_err=0.0)
+
+    def hook(m, args, out):
+        m.plain = True
+        try:
+            ref = m.forward(*args)
+        finally:
+            m.plain = False
+        if isinstance(m, Int8ConvBN):
+            res["int8_layers"] += 1
+            res["int8_equal"] += int(torch.equal(out, ref))
+            return
+        y, yp = out[0].float(), ref[0].float()
+        err = (y - yp).abs()
+        bound = tol["y_rel"] * yp.abs() + tol["y_scale"] * max(
+            1.0, yp.abs().max().item())
+        res["k1_layers"] += 1
+        res["k1_within"] += int(bool((err <= bound).all()))
+        res["k1_max_abs_err"] = max(res["k1_max_abs_err"],
+                                    err.max().item())
+
+    handles = [m.register_forward_hook(hook) for m in program.modules()
+               if isinstance(m, (Int8ConvBN, Conv))]
+    try:
+        with torch.inference_mode():
+            program(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return res
+
+
+@contextlib.contextmanager
+def direct_wrappers():
+    """``conv_int8`` and ``nms_keep`` as the model and the NMS layer call
+    them, but calling their implementations directly instead of through
+    their custom ops: the same launches without the dispatcher, for the
+    A/B of the ops' host cost only."""
+    def conv(x, wq, c, t, sx, ksize, stride, out_dtype, plain=False):
+        if plain:
+            return conv_int8_plain(x, wq, c, t, sx, ksize, stride, out_dtype)
+        return int8_mod._impl(x, wq, c, t, sx, ksize, stride, out_dtype)
+
+    saved = layers_mod.conv_int8, nms_ops.nms_keep
+    layers_mod.conv_int8, nms_ops.nms_keep = conv, nms_mod._nms_keep_impl
+    try:
+        yield
+    finally:
+        layers_mod.conv_int8, nms_ops.nms_keep = saved
+
+
+def dispatch_cost(serve, x, reps):
+    """ms/request of ``serve(x)`` with the wrappers through their custom
+    ops (as shipped) and calling the implementations directly, in turns
+    (op, direct, direct, op; ``reps`` requests each), with each way's
+    launches."""
+    times, launches = {}, {}
+    for way in ("custom op", "direct", "direct", "custom op"):
+        ctx = direct_wrappers() if way == "direct" else contextlib.nullcontext()
+        with ctx:
+            _, launches[way] = counted(serve, x)
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                serve(x)
+                torch.cuda.synchronize()
+                times.setdefault(way, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+    check(launches["custom op"] == launches["direct"],
+          f"dispatch A/B: launches differ {launches}")
+    return {way: dict(ms_per_request=float(np.median(ts)), runs=ts)
+            for way, ts in times.items()}
+
+
+def without_metadata_asserts(served):
+    """A copy of a loaded artifact without the ``aten._assert_tensor_metadata``
+    nodes that ``torch.export`` puts before each dtype cast: a measurement
+    of their host cost only."""
+    served = copy.deepcopy(served)
+    target = torch.ops.aten._assert_tensor_metadata.default
+    for gm in served._fns.values():
+        for node in list(gm.graph.nodes):
+            if node.op == "call_function" and node.target is target:
+                gm.graph.erase_node(node)
+        gm.recompile()
+    return served
+
+
+def phase_deploy(args, model, threshold, images, card):
+    """Phase 11: the deployment path at 416^2, 3 classes, bf16, on phase
+    4's weights: BN folding, static-scale int8 at gates 256 and 0, the
+    serving artifact through ``Yolo.export_model`` and ``load_serving``,
+    and ms/request of every variant in turns."""
+    x = images[1]
+    out = {}
+    # 1. folded. The f32 head outputs against the unfolded model's, both
+    # on the kernel route (phase 5's bounds: the fold's f32 rounding
+    # through the random stack); then the bf16 programs' launches.
+    m32 = YoloV4(ANCHORS, CLASSES, dtype=torch.float32, device="cuda").eval()
+    m32.load_state_dict(model.state_dict())
+    lk, ok = head_logits(m32, x[:2])
+    lf, of = head_logits(folded_copy(m32), x[:2])
+    torch.cuda.synchronize()
+    out["folded_f32"] = head_bound_check(lf, lk, of, ok,
+                                         "f32 folded vs unfolded")
+    rows_32, _ = make_serving_fn(m32, CLASSES, 4, threshold=threshold)(x)
+    del m32, lk, ok, lf, of
+    serves = {"unfolded": make_serving_fn(model, CLASSES, 4,
+                                          threshold=threshold),
+              "folded": make_serving_fn(folded_copy(model), CLASSES, 4,
+                                        threshold=threshold)}
+    (rows_b, keep_b), _ = counted(serves["unfolded"], x)
+    bf16_d = (rows_b[..., 4] - rows_32[..., 4]).abs().max().item()
+    conf_bound = max(INT8_CONF_BOUND, 2 * bf16_d)
+    print(f"  confidence field of the sorted bf16 rows against the f32 "
+          f"rows' (same weights and images): max|d| {bf16_d:.4f}; the "
+          f"int8 bound max({INT8_CONF_BOUND}, 2 x that) = {conf_bound:.4f}")
+    out.update(bf16_vs_f32_conf_max_abs_diff=bf16_d,
+               int8_conf_bound=conf_bound)
+    for name in ("unfolded", "folded"):
+        _, cnt = counted(serves[name], x)
+        print(f"  {name} request: launches {cnt}")
+        check(cnt == want_serve(0), f"{name}: launches {cnt}, want "
+              f"{want_serve(0)}")
+    # 2. int8: calibrated on two seeded batches, gates 256 and 0
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 11)
+    calib = [torch.rand(args.batch, args.size, args.size, 3, generator=g,
+                        device="cuda") for _ in range(2)]
+    t0 = time.perf_counter()
+    quant = calibrate_int8(model, calib)
+    calib_s = time.perf_counter() - t0
+    scales = [v for stage in quant["quant"].values()
+              for v in _tree_leaves(stage)]
+    check(len(scales) == 107 and all(float(v) > 0 for v in scales),
+          "calibration: want 107 positive scales")
+    int8_launches = int8_tc = 0
+    out["int8"] = {}
+    for gate, n_q in DEPLOY_INT8.items():
+        serve = make_serving_fn(model, CLASSES, 4, threshold=threshold,
+                                quant=quant, int8_min_channels=gate)
+        check(sum(isinstance(m, Int8ConvBN)
+                  for m in serve.program.modules()) == n_q,
+              f"gate {gate}: want {n_q} int8 ConvBNs")
+        (rows_q, keep_q), cnt = counted(serve, x)
+        int8_launches += cnt["conv_int8"]
+        int8_tc += cnt["conv_int8_tc"]
+        check(cnt == want_serve(n_q), f"int8 gate {gate}: launches {cnt}, "
+              f"want {want_serve(n_q)}")
+        conf_d = (rows_q[..., 4] - rows_b[..., 4]).abs().max().item()
+        valid, kept = serve_stats(rows_q, keep_q, threshold)
+        out["int8"][gate] = dict(launches=cnt, conf_max_abs_diff=conf_d,
+                                 valid=valid, kept=kept,
+                                 valid_kept_bf16=serve_stats(
+                                     rows_b, keep_b, threshold))
+        print(f"  int8 gate {gate}: {n_q} ConvBNs on Q; launches {cnt}; "
+              f"sanity check, confidence field of the sorted rows against "
+              f"bf16 max|d| {conf_d:.4f} (bound {conf_bound:.4f}); valid {valid} kept "
+              f"{kept} (bf16: {out['int8'][gate]['valid_kept_bf16']})")
+        check(bool(torch.isfinite(rows_q).all()) and conf_d <= conf_bound,
+              f"int8 gate {gate} rows")
+        serves[f"int8 gate {gate}"] = serve
+    check(not any(isinstance(m, Int8ConvBN) for m in model.modules()),
+          "make_serving_fn changed the caller's model")
+    # gate 0, kernel route against the plain route: every quantized
+    # ConvBN's output is exact on both (phase 3: equal bit for bit), so
+    # the two differ only in the three bf16 head convs (K1 against the
+    # plain conv): the conv's bf16 bound on the logits
+    plain = use_plain_route(copy.deepcopy(model))
+    sp = make_serving_fn(plain, CLASSES, 4, threshold=threshold,
+                         quant=quant, int8_min_channels=0)
+    lq, _ = head_logits(serves["int8 gate 0"].program.model, x)
+    lp, _ = head_logits(sp.program.model, x)
+    torch.cuda.synchronize()
+    tol = TOL[torch.bfloat16]
+    route = {}
+    for i in range(3):
+        scale = max(1.0, lp[i].abs().max().item())
+        d = (lq[i] - lp[i]).abs()
+        ok_i = bool((d <= tol["y_rel"] * lp[i].abs()
+                     + tol["y_scale"] * scale).all())
+        route[f"head{i + 1}"] = dict(logit_max_abs_err=d.max().item(),
+                                     logit_scale=scale)
+        print(f"  int8 gate 0 kernel vs plain route head{i + 1}: logits "
+              f"max|d| {d.max().item():.3e} (scale {scale:.3g}; bound "
+              f"{tol['y_rel']:.3g}*|l| + {tol['y_scale']:.0e}*scale)")
+        check(ok_i, f"int8 routes differ at head{i + 1}")
+    out["int8_gate0_routes"] = route
+    # gate 256, kernel route against the plain route: layer by layer, on
+    # the inputs of the kernel route's request
+    lr = layer_routes(serves["int8 gate 256"].program.model, x)
+    print(f"  int8 gate 256 kernel vs plain route, layer by layer: "
+          f"{lr['int8_equal']}/{lr['int8_layers']} Int8ConvBN outputs equal "
+          f"bit for bit, {lr['k1_within']}/{lr['k1_layers']} K1 convs "
+          f"within {tol['y_rel']:.3g}*|y| + {tol['y_scale']:.0e}*scale "
+          f"(max|d| {lr['k1_max_abs_err']:.3e})")
+    check(lr["int8_layers"] == DEPLOY_INT8[256] == lr["int8_equal"]
+          and lr["k1_layers"] == CONVS_PER_FORWARD - DEPLOY_INT8[256]
+          == lr["k1_within"], "int8 gate 256: a layer's routes differ")
+    # and as whole programs (each route on its own inputs)
+    sp = make_serving_fn(plain, CLASSES, 4, threshold=threshold,
+                         quant=quant, int8_min_channels=256)
+    lq, _ = head_logits(serves["int8 gate 256"].program.model, x)
+    lp, _ = head_logits(sp.program.model, x)
+    torch.cuda.synchronize()
+    whole = {}
+    for i in range(3):
+        scale = max(1.0, lp[i].abs().max().item())
+        d = (lq[i] - lp[i]).abs()
+        whole[f"head{i + 1}"] = dict(
+            logit_max_abs_err=d.max().item(), logit_scale=scale,
+            within_tol=bool((d <= tol["y_rel"] * lp[i].abs()
+                             + tol["y_scale"] * scale).all()))
+        print(f"  int8 gate 256 kernel vs plain route as whole programs "
+              f"head{i + 1}: logits max|d| {d.max().item():.3e} (scale "
+              f"{scale:.3g}; within {tol['y_rel']:.3g}*|l| + "
+              f"{tol['y_scale']:.0e}*scale: "
+              f"{whole[f'head{i + 1}']['within_tol']})")
+    out["int8_gate256_routes"] = dict(layers=lr, whole=whole)
+    del plain, sp, lq, lp
+    # the custom ops' host cost: a gate-256 request through the ops
+    # against the same request calling the implementations directly
+    dc = dispatch_cost(serves["int8 gate 256"], x, DISPATCH_REPS)
+    out["dispatch_ab"] = dc
+    print(f"  int8 gate 256 b{x.shape[0]} request, wrappers through their "
+          f"custom ops {dc['custom op']['ms_per_request']:.3f} ms, calling "
+          f"the implementations directly {dc['direct']['ms_per_request']:.3f}"
+          f" ms (median of {len(dc['direct']['runs'])}, in turns; "
+          f"{DEPLOY_INT8[256] + 1} op calls a request) [{card}]")
+    # 3. the artifact, through the facade
+    yolo = yolov4.Yolo(input_shape=(args.size, args.size, 3),
+                       class_names=["a", "b", "c"])
+    yolo.create_model(anchors=ANCHORS, pretrained_body=None,
+                      dtype=torch.bfloat16, device="cuda")
+    module = yolo.model.module
+    module.load_state_dict(model.state_dict())
+    buckets = [1, args.batch]
+    arts = {"folded": {}, "int8 gate 256": dict(
+        int8_calibration=calib, int8_min_channels=256)}
+    loaded, art = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (kind, kw) in enumerate(arts.items()):
+            path = os.path.join(tmp, f"yolov4_{i}.tysrv")
+            t0 = time.perf_counter()
+            yolo.export_model(path, batch_size=buckets, threshold=threshold,
+                              **kw)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded[kind] = load_serving(path)
+            load_s = time.perf_counter() - t0
+            art[kind] = dict(export_s=export_s, load_s=load_s,
+                             mib=os.path.getsize(path) / 2 ** 20,
+                             meta_int8=loaded[kind].meta["int8"])
+            print(f"  artifact {kind}: buckets {buckets}, export "
+                  f"{export_s:.2f} s, load {load_s:.2f} s, "
+                  f"{art[kind]['mib']:.1f} MiB")
+    wants = {"folded": make_serving_fn(folded_copy(module), CLASSES, 4,
+                                       threshold=threshold),
+             "int8 gate 256": make_serving_fn(
+                 module, CLASSES, 4, threshold=threshold,
+                 quant=calibrate_int8(module, calib),
+                 int8_min_channels=256)}
+    for kind, want_fn in wants.items():
+        for xb in (x, x[:3]):
+            (rl, kl), cl = counted(loaded[kind], xb)
+            (rw, kw), cw = counted(want_fn, xb)
+            int8_launches += cl["conv_int8"] + cw["conv_int8"]
+            int8_tc += cl["conv_int8_tc"] + cw["conv_int8_tc"]
+            print(f"  loaded {kind} b{xb.shape[0]}: equal to "
+                  f"make_serving_fn {torch.equal(rl, rw)} / "
+                  f"{torch.equal(kl, kw)}; launches {cl} (make_serving_fn "
+                  f"{cw})")
+            check(torch.equal(rl, rw) and torch.equal(kl, kw),
+                  f"loaded {kind} b{xb.shape[0]} differs")
+            check(cl == cw == want_serve(
+                DEPLOY_INT8[256] if "int8" in kind else 0),
+                  f"loaded {kind}: launches {cl}, make_serving_fn {cw}")
+    out["artifact"] = art
+    del wants, yolo, module
+    # 4. ms/request in turns, at the serving batch and at bench_infer's
+    # (and a copy of the loaded folded artifact without export's dtype
+    # asserts, for the asserts' host cost)
+    no_asserts = without_metadata_asserts(loaded["folded"])
+    (ra, ka), ca = counted(no_asserts, x)
+    (rl, kl), cl = counted(loaded["folded"], x)
+    check(torch.equal(ra, rl) and torch.equal(ka, kl) and ca == cl,
+          "the loaded artifact without its asserts differs")
+    variants = dict(serves, **{"loaded artifact (folded)": loaded["folded"],
+                               "loaded, asserts dropped": no_asserts})
+    big = torch.rand(DEPLOY_BIG_BATCH, args.size, args.size, 3, generator=g,
+                     device="cuda")
+    times = {}
+    for xb in (x, big):
+        b = xb.shape[0]
+        order = list(variants)
+        for name in order + order[::-1]:
+            fn = variants[name]
+            fn(xb)
+            for _ in range(DEPLOY_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(xb)
+                torch.cuda.synchronize()
+                times.setdefault((name, b), []).append(
+                    (time.perf_counter() - t0) * 1e3)
+    out["times"] = {}
+    for (name, b), ts in times.items():
+        ms = float(np.median(ts))
+        out["times"][f"{name} b{b}"] = dict(
+            ms_per_request=ms, img_per_s=b / (ms / 1e3), runs=ts)
+        print(f"  {name:26s} bf16 b{b:<2d} {args.size}^2: {ms:.2f} "
+              f"ms/request (median of {len(ts)}), {b / (ms / 1e3):.1f} "
+              f"img/s [{card}]")
+    out.update(calibrate_s=calib_s, int8_launches=int8_launches,
+               int8_tc_launches=int8_tc)
+    return out
+
+
+def _tree_leaves(node):
+    if hasattr(node, "items"):
+        return [v for child in node.values() for v in _tree_leaves(child)]
+    return [node]
+
+
+def phase_bn_sg(args, card, batch):
+    """Phase 12: the frozen-statistics BatchNorm backward
+    (``set_bn_stats_sg``, ``scope="backbone"``)."""
+    out = {}
+    # which ConvBNs it freezes: those whose forward runs in train mode
+    # with bn_sg (the packed regions read their parameters without
+    # calling them, as the JAX package's keep exact BN)
+    frozen = {}
+    for packed in (1, 3):
+        m = set_bn_stats_sg(YoloV4(ANCHORS, CLASSES, device="cuda",
+                                   packed=packed), True, "backbone")
+        ran = set()
+        hooks = [c.register_forward_pre_hook(
+            lambda mod, a, name=name: ran.add(name) if mod.bn_sg else None)
+            for name, c in m.named_modules() if isinstance(c, ConvBN)]
+        with torch.no_grad():
+            m.train()(torch.rand(2, args.size, args.size, 3,
+                                 device="cuda"))
+        for h in hooks:
+            h.remove()
+        frozen[packed] = sorted(ran)
+        del m
+    print(f"  scope='backbone' freezes {len(frozen[1])} ConvBNs at "
+          f"packed=True (the stem and stages 1-2: "
+          f"{len(frozen[1]) * 3} leaves, conv kernel, BN scale and bias) "
+          f"and {len(frozen[3])} at packed=3")
+    check(len(frozen[1]) == 17 and not frozen[3],
+          "the frozen ConvBNs are not the JAX package's")
+    # 1. the check at packed=True, where it acts: kernel route against
+    # plain route (phase 8's probe-bounded check), then the frozen step
+    # against the exact one on the kernel route from one state
+    out["routes_f32"] = phase_train_routes_f32(args, packed=1,
+                                               scope="backbone")
+    # and at packed=3, where it freezes nothing: the step is phase 8's
+    out["routes_f32_packed3"] = phase_train_routes_f32(args, packed=3,
+                                                       scope="backbone")
+    state, step, x, ys = make_training(args.seed, 2, args.size,
+                                       torch.float32, packed=1)
+    exact = create_train_state(copy.deepcopy(state.model),
+                               make_optimizer("adam", 1e-3))
+    set_bn_stats_sg(state.model, True, "backbone")
+    step(state, x, ys)
+    step(exact, x, ys)
+    torch.cuda.synchronize()
+    grads = dict(exact.model.named_parameters())
+    rel = {k: rel_l2(p.grad, grads[k].grad)
+           for k, p in state.model.named_parameters()}
+    kernels = [f"{n}.conv.kernel" for n in frozen[1]]
+    inside = tuple(f"{n}." for n in frozen[1])
+    others = [k for k in rel if not k.startswith(inside)]
+    med_k = float(np.median([rel[k] for k in kernels]))
+    med_o = float(np.median([rel[k] for k in others]))
+    max_o = max(rel[k] for k in others)
+    print(f"  frozen against exact step, f32 b2 packed=True: gradient rel "
+          f"L2 of the 17 frozen conv kernels median {med_k:.3e}; of the "
+          f"{len(others)} leaves outside them median {med_o:.3e}, largest "
+          f"{max_o:.3e}")
+    check(med_k > 10 * max(med_o, 1e-9),
+          "the frozen statistics term did not change the gradients")
+    out["frozen_vs_exact"] = dict(kernels_median=med_k, others_median=med_o,
+                                  others_max=max_o, frozen=frozen)
+    del state, step, x, ys, exact
+    torch.cuda.empty_cache()
+    # 2. ms/step, exact BN against scope="backbone", bf16, in turns
+    runs = {}
+    for packed in (1, 3):
+        for scope in (None, "backbone"):
+            h = make_training(args.seed, batch, args.size, torch.bfloat16,
+                              packed=packed)
+            set_bn_stats_sg(h[0].model, scope is not None, scope)
+            timed_steps(*h, 1)                 # warm-up
+            runs[(packed, scope)] = h
+    times = {name: [] for name in runs}
+    order = list(runs)
+    for name in order + order[::-1]:
+        reset_train_counters()
+        times[name] += timed_steps(*runs[name], args.steps)[0]
+        counts = train_counters()
+        want = TRAIN_LAUNCHES[name[0]]
+        check(all(v == want[k] * args.steps for k, v in counts.items()),
+              f"bn_sg {name}: launches {counts}, want {want} a step")
+    out["times"] = {}
+    for (packed, scope), ts in times.items():
+        ms = float(np.median(ts))
+        key = f"packed={packed} {'backbone' if scope else 'exact'}"
+        out["times"][key] = dict(ms_per_step=ms,
+                                 img_per_s=batch / (ms / 1e3), runs=ts)
+        print(f"  {key:26s} bf16 b{batch} {args.size}^2: {ms:.2f} ms/step "
+              f"(median of {len(ts)}), {batch / (ms / 1e3):.1f} img/s "
+              f"[{card}]")
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2147,6 +2809,7 @@ def main(argv=None):
     probe_res, probe_chain = phase_probe_checks(gen, args.train_batch)
     conv3_res = phase_conv3_checks(gen, args.batch)
     conv3_res += phase_conv3_checks(gen, args.train_batch)
+    int8_res = phase_int8_checks(gen, args.batch)
     aligned = phase_alignment_checks(gen)
 
     print(f"phase 4: serving {args.requests} requests of {args.batch} x "
@@ -2171,8 +2834,6 @@ def main(argv=None):
 
     print("phase 6: ms/request, both routes")
     timing = phase_timing(args, model, threshold, images, card)
-    del model, images
-    torch.cuda.empty_cache()
 
     print(f"phase 7: training {args.steps} steps (after one warm-up) of "
           "YoloV4(packed=3), then 1 step of YoloV4(packed=True), Adam "
@@ -2201,6 +2862,17 @@ def main(argv=None):
           f"{args.size}^2")
     facade = phase_facade(args, card)
 
+    print(f"phase 11: deployment at {args.size}^2 on phase 4's weights: BN "
+          "folding, int8 at gates 256 and 0, the serving artifact, "
+          "ms/request")
+    deploy = phase_deploy(args, model, threshold, images, card)
+    del model, images
+    torch.cuda.empty_cache()
+
+    print("phase 12: the frozen-statistics BatchNorm backward "
+          "(scope='backbone')")
+    bn_sg = phase_bn_sg(args, card, trained["batch"])
+
     def bf16_at(results, shape):
         return [r for r in results
                 if r["dtype"] == "bfloat16" and r["shape"] == shape][-1]
@@ -2212,6 +2884,10 @@ def main(argv=None):
     fwd_at = bf16_at(gemm_res, GEMM_SHAPES[1][0])
     bwd_at = bf16_at(gemm_res, GEMM_SHAPES[0][0])
     conv3_at = bf16_at(conv3_res, CONV3_SHAPES[0][0])
+    int8_at = [r for r in int8_res if r["shape"] == INT8_SHAPES[1][0]
+               and r["dtype"] == "bfloat16 -> bfloat16"][0]
+    int8_3x3 = [r for r in int8_res if r["shape"] == INT8_SHAPES[2][0]
+                and r["dtype"] == "bfloat16 -> bfloat16"][0]
 
     def train_launches(name):
         """Launches in the packed=3 run, the packed=True run and the
@@ -2348,6 +3024,30 @@ def main(argv=None):
              tflops=conv3_at["bwd_launch_tflops"],
              bound_share=conv3_at["bwd_bound_share"],
              cuda_core_ms=conv3_at["bwd_cuda_core_ms"]),
+        # Q: no Pallas counterpart (XLA's s8 x s8 -> s32 conv); launches
+        # those of phase 11's counted requests (int8 gates 256 and 0,
+        # the int8 artifact and make_serving_fn beside it); ``ms`` the
+        # kernel alone (CUDA graph) at the 1x1 shape, whose yardstick is
+        # torch._int_mm on the same int8 operands; the 3x3 td1_pre2
+        # beside it (no yardstick)
+        dict(name="conv_int8", route="cuda",
+             source="tf2_yolo_tpu_torch/csrc/conv_int8.cu",
+             replaces="tf2_yolo_tpu/models/layers.py:389 "
+                      "(ConvBN._quant_call, XLA conv_general_dilated s8 x "
+                      "s8 -> s32, no Pallas kernel)",
+             launches=deploy["int8_launches"],
+             launches_tc=deploy["int8_tc_launches"],
+             max_abs_err=max(r["max_abs_err"] for r in int8_res),
+             at=f"{int8_at['shape']}, batch {int8_at['batch']}, bf16",
+             ms=int8_at["ms"], wrapper_ms=int8_at["wrapper_ms"],
+             plain_ms=int8_at["plain_ms"],
+             bound_ms=int8_at["bound_ms"], bound_by=int8_at["bound_by"],
+             library_ms=int8_at["library_ms"], tops=int8_at["tops"],
+             bound_share=int8_at["bound_share"],
+             k1_bf16_ms=int8_at["k1_bf16_ms"],
+             td1_pre2_ms=int8_3x3["ms"],
+             td1_pre2_bound_ms=int8_3x3["bound_ms"],
+             td1_pre2_k1_bf16_ms=int8_3x3["k1_bf16_ms"]),
         # a tool's kernel, on no model path: its launches are those of
         # the probe's own chain of four layers
         dict(name="probe_layer", route="cuda",
@@ -2379,6 +3079,7 @@ def main(argv=None):
                   trained=trained, trained_packed1=trained1,
                   train_routes_f32=train_routes,
                   train_timing=train_timing, facade=facade,
+                  int8=int8_res, deploy=deploy, bn_sg=bn_sg,
                   kernels=kernels,
                   seconds=seconds)
     os.makedirs(args.log_dir, exist_ok=True)

@@ -27,7 +27,18 @@ def from_flax(variables):
     """``{"params": ..., "batch_stats": ...}`` of numpy arrays (or
     anything ``np.asarray`` takes), or a JAX ``TrainState`` (anything
     with ``params`` and ``batch_stats`` attributes), -> ``state_dict`` of
-    CPU tensors. The v4 head ``anchors`` are parameters on both sides."""
+    CPU tensors. The v4 head ``anchors`` are parameters on both sides.
+
+    The int8 scales tree of the JAX package's ``calibrate_int8``,
+    ``{"quant": ...}``, comes across as the same tree of 0-dim f32 CPU
+    tensors, which ``export.make_serving_fn(quant=...)`` takes. It is
+    converted on its own: a ``quant`` collection beside ``params`` raises
+    ValueError."""
+    if not hasattr(variables, "params") and "quant" in variables:
+        if set(variables) != {"quant"}:
+            raise ValueError("convert the quant collection on its own: "
+                             "from_flax({'quant': ...})")
+        return {"quant": _tree_to_torch(variables["quant"])}
     if hasattr(variables, "params"):
         variables = {"params": variables.params,
                      "batch_stats": variables.batch_stats}
@@ -36,6 +47,12 @@ def from_flax(variables):
         for path, leaf in _flatten(variables.get(collection, {})):
             out[".".join(path)] = torch.from_numpy(np.array(leaf))
     return out
+
+
+def _tree_to_torch(tree):
+    return {name: (_tree_to_torch(node) if hasattr(node, "items")
+                   else torch.from_numpy(np.array(node, np.float32)))
+            for name, node in tree.items()}
 
 
 def to_flax(state_dict):

@@ -11,8 +11,8 @@ fit position) live in :mod:`tf2_yolo_tpu_torch.parallel.checkpoint`.
 A step's logs stay tensors on the device: ``fit`` reads them to the host
 once an epoch (and ``evaluate`` once a call), unless a batch-end callback
 reads them, so the host queues the next steps while the card runs.
-(Multi-device training, XLA options and the frozen-statistics BatchNorm
-backward are not ported; ``compile`` raises for them.)
+(Multi-device training and XLA options are not ported; ``compile``
+raises for them.)
 """
 
 import itertools
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .data.pipeline import prefetch_to_device, threaded_prefetch, to_device
+from .models.layers import set_bn_stats_sg
 from .parallel.train import (TrainState, _cast_input, get_lr_multiplier,
                              make_eval_step, make_optimizer,
                              make_train_step, set_lr_multiplier)
@@ -427,10 +428,18 @@ class Model:
             accumulate_steps: gradient accumulation factor (> 1 averages
                 that many gradients and applies them once).
             ema_decay: optional EMA smoothing of the parameter updates.
-            xla_options, n_model, tp_min_channels, bn_stats_sg_scope:
-                the JAX engine's XLA options, tensor parallelism and
-                frozen-statistics BatchNorm backward; not ported, and
-                anything but their defaults raises NotImplementedError.
+            bn_stats_sg_scope: the frozen-statistics BatchNorm backward
+                (``models.layers.set_bn_stats_sg``) on this model's
+                ConvBNs: ``True`` on all of them, a name (or a sequence
+                of names) on those whose qualified name has that
+                component, e.g. ``"backbone"``; ``None`` and other falsy
+                values keep exact BatchNorm gradients. The forward, the
+                loss and the running statistics are unchanged; only the
+                backward drops the batch statistics' term. Each compile
+                sets it anew.
+            xla_options, n_model, tp_min_channels: the JAX engine's XLA
+                options and tensor parallelism; not ported, and anything
+                but their defaults raises NotImplementedError.
         """
         del tp_min_channels          # read only when n_model > 1
         if int(n_model) > 1:
@@ -441,10 +450,17 @@ class Model:
             raise NotImplementedError(
                 "xla_options: XLA compiler options have no counterpart in "
                 "the port (ROADMAP.md, 'Not ported')")
-        if bn_stats_sg_scope:
-            raise NotImplementedError(
-                "bn_stats_sg_scope: the frozen-statistics BatchNorm "
-                "backward is not ported yet (ROADMAP.md, queue 1, item 3)")
+        # falsy (None/False/""/()) means off; anything else must be
+        # True, a name or a non-empty sequence of names
+        if bn_stats_sg_scope and not (
+                bn_stats_sg_scope is True
+                or isinstance(bn_stats_sg_scope, str)
+                or (isinstance(bn_stats_sg_scope, (list, tuple))
+                    and all(isinstance(s, str) for s in bn_stats_sg_scope))):
+            raise ValueError(
+                "bn_stats_sg_scope must be None/False (off), True "
+                "(everywhere), or a module-name str / sequence of "
+                f"strs; got {bn_stats_sg_scope!r}")
         if loss is None:
             raise ValueError("compile() requires a loss")
         if frozen is None:
@@ -483,6 +499,10 @@ class Model:
         self._loss_fns = loss_fns
         self._metric_fns = metric_fns
         self._metric_names = metric_names
+        set_bn_stats_sg(
+            self.module, bool(bn_stats_sg_scope),
+            None if bn_stats_sg_scope is True or not bn_stats_sg_scope
+            else bn_stats_sg_scope)
         self._train_step = make_train_step(
             loss_fns, metric_fns, metric_names,
             input_rescale=self.input_rescale)

@@ -4,8 +4,9 @@ Port of tf2_yolo_tpu/facade_base.py: dataset/sequence readers, vis_img,
 metric-spec parsing ("obj+iou+recall0.6"), the multi-level label pyramid
 of v3/v4, and pretrained-weight resolution from a local weight cache (no
 downloads). Weight files are the port's own ``torch.save`` files
-(``Model.save_weights``). The YOLOv4 facade is ported; the v1.5, v2 and
-v3 facades, export and the reference h5 files are not yet.
+(``Model.save_weights``). The YOLOv4 facade is ported, its serving
+artifact (``export_model``) included; the v1.5, v2 and v3 facades and the
+reference h5 files are not yet.
 """
 
 import functools
@@ -53,8 +54,8 @@ def resolve_pretrained(name, kind):
 
 def _not_ported(what):
     raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1, item 4: the "
-        "serving artifact, and item 7: convert.py)")
+        f"{what} is not ported yet (ROADMAP.md, queue 1, item 7: "
+        "convert.py)")
 
 
 def graft_backbone_file(model, path):
@@ -220,10 +221,45 @@ class YoloBase:
         the converter (``convert.py``), not ported yet."""
         _not_ported("export_reference_h5")
 
-    def export_model(self, path, **kwargs):
-        """Export a fixed-shape serving artifact: not ported yet (the
-        port serves through ``export.make_serving_fn``)."""
-        _not_ported("export_model")
+    def export_model(self, path, batch_size=1, threshold=0.5,
+                     nms_mode=1, nms_threshold=0.45, nms_sigma=0.5,
+                     max_boxes=128, fold_bn=True, platforms=None,
+                     int8_calibration=None, int8_min_channels=256):
+        """Export a fixed-shape serving artifact (forward + decode +
+        NMS, weights inside, BatchNorm folded) with ``torch.export``, on
+        the model's device.
+
+        The artifact is reloaded with
+        ``tf2_yolo_tpu_torch.export.load_serving(path)`` and called on
+        (batch, H, W, 3) f32 images; no model-building code runs.
+        ``batch_size`` may be a list of bucket sizes shipped in one file;
+        the loaded model dispatches per call. ``.meta`` holds the class
+        names, thresholds and shapes.
+
+        ``int8_calibration``: sample image batches; when given, static
+        per-layer int8 scales are calibrated on them
+        (``export.calibrate_int8``) and the artifact serves every
+        calibrated ConvBN with min(Ci, Co) >= ``int8_min_channels``
+        through the int8 kernel; BN folding is skipped, since its
+        epilogue already carries BN. ``platforms`` is the JAX package's
+        lowering list: only ``None`` is taken."""
+        from .export import calibrate_int8, save_serving
+
+        if self.model is None:
+            raise ValueError("Call create_model() before export_model()")
+        module = self.model.module
+        serving = dict(threshold=threshold, nms_mode=nms_mode,
+                       nms_threshold=nms_threshold, nms_sigma=nms_sigma,
+                       max_boxes=max_boxes)
+        if int8_calibration is not None:
+            serving.update(quant=calibrate_int8(module, int8_calibration),
+                           int8_min_channels=int8_min_channels)
+            fold_bn = False
+        return save_serving(
+            path, module, input_shape=self.input_shape,
+            batch_size=batch_size, class_num=self.class_num,
+            version=self.version, class_names=self.class_names,
+            fold_bn=fold_bn, platforms=platforms, **serving)
 
     # ------------------------------------------------------------------
     @staticmethod

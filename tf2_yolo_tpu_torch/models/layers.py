@@ -16,8 +16,17 @@ Parameters stay f32; a module casts them to its compute ``dtype`` at
 each call, as flax does. ``nn.Module.train()`` / ``.eval()`` select
 batch or running statistics and the training or eval form of mish.
 Modules are built on the card unless ``device`` says otherwise.
+
+Deployment: :class:`Int8ConvBN` is the static-scale int8 form of an
+eval-mode ConvBN (``ConvBN._quant_call`` of the JAX package), built by
+``export.make_serving_fn(quant=...)``; :func:`capture_input_absmax` is
+the calibration capture that ``export.calibrate_int8`` switches on.
+Training: :func:`set_bn_stats_sg` sets the frozen-statistics BatchNorm
+backward on one model's ConvBNs (``set_bn_stats_stop_gradient`` of the
+JAX package, per model instead of process-global).
 """
 
+import contextlib
 import math
 
 import torch
@@ -25,6 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.conv_bn import conv_bn_stats
+from ..ops.kernels.conv_int8 import conv_int8, quantize_weights, \
+    weight_layout
 from ..ops.kernels.fused_gemm import act_and_grad
 
 BN_EPS = 1e-3                  # tf.keras default, as the JAX package
@@ -149,7 +160,14 @@ class ConvBN(nn.Module):
     come from the conv kernel's sums over the M = N*H*W pixels (f32), the
     running statistics are updated in place, and mish takes its training
     form; in eval mode the running statistics normalise.
-    ``use_bn=False`` gives a plain biased conv."""
+    ``use_bn=False`` gives a plain biased conv.
+
+    ``bn_sg`` (default False; :func:`set_bn_stats_sg`) takes the JAX
+    package's frozen-statistics route in train mode (``_sg_batch_norm``):
+    the same batch statistics, detached, so the backward drops their
+    term, and the normalisation in the compute dtype,
+    (y - mean) * (scale * rsqrt(var + 1e-3)) + bias with each operand
+    cast to it first."""
 
     def __init__(self, ci, features, kernel=3, stride=1, act="leaky",
                  use_bn=True, dtype=torch.float32, init=he_normal_,
@@ -162,6 +180,7 @@ class ConvBN(nn.Module):
         self.bn = BNState(features, device) if use_bn else None
         self.act = act
         self.dtype = dtype
+        self.bn_sg = False
 
     def forward(self, x):
         bn = self.bn
@@ -172,12 +191,105 @@ class ConvBN(nn.Module):
             if train:
                 mean, var = batch_stats(s1, s2, y.numel() // y.shape[-1])
                 bn.update_running(mean, var)
+                if self.bn_sg:
+                    mean, var = mean.detach(), var.detach()
+                    mul = (bn.scale * torch.rsqrt(var + BN_EPS)).to(dt)
+                    y = (y - mean.to(dt)) * mul + bn.bias.to(dt)
+                    return ACTS[self.act](y)
             else:
                 mean, var = bn.mean, bn.var
             y = ((y.float() - mean)
                  * (torch.rsqrt(var + BN_EPS) * bn.scale)
                  + bn.bias).to(dt)
         return (ACTS if self.training else ACTS_EVAL)[self.act](y)
+
+
+def set_bn_stats_sg(model, on, scope=None):
+    """Set the frozen-statistics BatchNorm backward on ``model``'s
+    ConvBNs (their ``bn_sg``): on all of them when ``on`` and ``scope``
+    is None, else on those whose qualified name has a component equal to
+    ``scope`` (a name, or any of a sequence of names): ``"backbone"``
+    takes ``backbone.stage1.down`` and not ``backbone_neck.conv``, as the
+    JAX package tests ``s in self.path``. ``on=False`` clears it
+    everywhere. The packed regions (``packed=True`` / ``3`` in train
+    mode) read their ConvBNs' parameters without calling them and keep
+    exact BatchNorm, as the JAX package's do. Returns ``model``."""
+    if scope is not None:
+        scope = (scope,) if isinstance(scope, str) else tuple(scope)
+    for name, m in model.named_modules():
+        if isinstance(m, ConvBN):
+            m.bn_sg = bool(on) and (
+                scope is None or any(s in name.split(".") for s in scope))
+    return model
+
+
+class Int8ConvBN(nn.Module):
+    """The static-scale int8 form of an eval-mode ConvBN with BN (the
+    JAX package's ``ConvBN._quant_call``), for serving only.
+
+    Built once from ``convbn`` and its calibrated input scale ``sx``:
+    the weights are quantized per output channel
+    (:func:`~tf2_yolo_tpu_torch.ops.kernels.conv_int8.quantize_weights`)
+    into the kernel's layout, and dequantisation, BN (running
+    statistics) and bias collapse into one f32 affine, c = (sx * sw) *
+    s_bn and t = bias - mean * s_bn with s_bn = scale * rsqrt(var +
+    1e-3). ``forward`` quantizes its input as it comes (the image at the
+    stem) and runs ``conv_int8``, whose output is rounded once to the
+    ConvBN's dtype; the activation (eval form) runs in that dtype.
+    ``plain`` follows ``use_plain_route``."""
+
+    def __init__(self, convbn, sx):
+        super().__init__()
+        if convbn.bn is None:
+            raise ValueError("Int8ConvBN needs a ConvBN with BatchNorm")
+        kernel = convbn.conv.kernel
+        wq, sw = quantize_weights(kernel)
+        bn = convbn.bn
+        with torch.no_grad():
+            sx_t = torch.as_tensor(float(sx), dtype=torch.float32,
+                                   device=kernel.device)
+            s_bn = bn.scale * torch.rsqrt(bn.var + BN_EPS)
+            self.register_buffer("wq", weight_layout(wq))
+            self.register_buffer("c", ((sx_t * sw) * s_bn).contiguous())
+            self.register_buffer("t", (bn.bias - bn.mean * s_bn)
+                                 .contiguous())
+        self.sx = float(sx_t)
+        self.ksize = kernel.shape[0]
+        self.stride = convbn.conv.stride
+        self.act = convbn.act
+        self.dtype = convbn.dtype
+        self.plain = convbn.conv.plain
+
+    def forward(self, x):
+        y = conv_int8(x.contiguous(), self.wq, self.c, self.t, self.sx,
+                      self.ksize, self.stride, self.dtype, self.plain)
+        return ACTS_EVAL[self.act](y)
+
+
+@contextlib.contextmanager
+def capture_input_absmax(model):
+    """The calibration capture (the JAX ConvBN's ``sow("quant_calib",
+    "in_absmax", max|x|)``): inside the block, every eval-mode forward of
+    a ConvBN with BN records the running maximum of |x| over its inputs,
+    x as it comes, into the yielded ``{qualified name: f32 tensor}``.
+    Nothing is captured outside the block or in train mode."""
+    absmax = {}
+
+    def capture(module, args, name):
+        if not module.training:
+            v = args[0].detach().abs().amax().float()
+            prev = absmax.get(name)
+            absmax[name] = v if prev is None else torch.maximum(prev, v)
+
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, name=name: capture(mod, args, name))
+        for name, m in model.named_modules()
+        if isinstance(m, ConvBN) and m.bn is not None]
+    try:
+        yield absmax
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 def batch_stats(s1, s2, count):

@@ -39,6 +39,11 @@ training batch sums millions of rows. On a CPU tensor it computes
 Geometries: 1x1 stride 1; 3x3 stride 1 SAME; 3x3 stride 2 with the
 darknet top/left pad then VALID (H and W even). Weights are HWIO, the
 flax layout, which is the kernel's row-major (K, Co) matrix.
+
+Under ``torch.export`` the forward without statistics (the served conv)
+is the custom op ``tf2_yolo_tpu_torch::conv_bn_forward`` (its fake
+implementation gives the shape), so an exported program calls the kernel,
+or on the CPU the plain version.
 """
 
 import ctypes
@@ -264,6 +269,9 @@ class _ConvBNStats(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, b, stride, want_stats, plain):
+        # a cotangent of s1 / s2 that no consumer produced (statistics
+        # detached, as the frozen-statistics BatchNorm does) stays None
+        ctx.set_materialize_grads(False)
         dims = _check(x, w, b, stride)
         if plain or x.device.type == "cpu":
             y, s1, s2 = conv_bn_stats_plain(x, w, b, stride, want_stats)
@@ -281,10 +289,16 @@ class _ConvBNStats(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, ds1=None, ds2=None):
         x, w, y = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(y)
         g = dy
-        if y is not None:
-            g = (dy.float() + ds1.float()
-                 + 2.0 * y.float() * ds2.float()).to(dy.dtype)
+        if ds1 is not None or ds2 is not None:
+            gf = dy.float()
+            if ds1 is not None:
+                gf = gf + ds1.float()
+            if ds2 is not None:
+                gf = gf + 2.0 * y.float() * ds2.float()
+            g = gf.to(dy.dtype)
         db = None
         if ctx.needs_input_grad[2]:
             db = g.float().sum(dim=(0, 1, 2)).to(x.dtype)
@@ -292,10 +306,34 @@ class _ConvBNStats(torch.autograd.Function):
         return dx, dw, db, None, None, None
 
 
+def _forward_impl(x, w, b, stride):
+    dims = _check(x, w, b, stride)
+    if x.device.type == "cpu":
+        return conv_bn_stats_plain(x, w, b, stride, False)[0]
+    if x.device.type == "cuda":
+        return _forward_cuda(x, w, b, stride, False, dims)[0]
+    raise ValueError(f"no conv_bn_stats kernel for {x.device}")
+
+
+@torch.library.custom_op("tf2_yolo_tpu_torch::conv_bn_forward",
+                         mutates_args=())
+def _forward_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                stride: int) -> torch.Tensor:
+    return _forward_impl(x, w, b, stride)
+
+
+@_forward_op.register_fake
+def _(x, w, b, stride):
+    n, h, wd, _ = x.shape
+    return x.new_empty((n, h // stride, wd // stride, w.shape[-1]))
+
+
 def conv_bn_stats(x, w, b, stride=1, want_stats=True, plain=False):
     """See the module docstring. CPU tensors take the plain version;
     CUDA tensors launch the kernel, or raise. ``plain=True`` forces the
     plain version on any device (the reference route)."""
+    if not (want_stats or plain) and torch.compiler.is_compiling():
+        return _forward_op(x, w, b, stride), None, None
     out = _ConvBNStats.apply(x, w, b, stride, want_stats, plain)
     return out if want_stats else (out, None, None)
 

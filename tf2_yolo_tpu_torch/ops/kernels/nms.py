@@ -28,6 +28,11 @@ of pairs at once. K is limited to ``MAX_K``, not by the TPU kernel's
 K <= 1024 cap or its multiple-of-128 padding. On a CPU tensor they
 compute :func:`nms_keep_plain` (the semantics of ``nms_scan``) and
 :func:`soft_nms_keep_plain` (``soft_nms``'s scan, step by step).
+
+Both wrappers call custom ops (``tf2_yolo_tpu_torch::nms_keep``,
+``::soft_nms_keep``; their fake implementations give the shape), so a
+program traced by ``torch.export`` calls the kernels, or on the CPU the
+plain versions.
 """
 
 import ctypes
@@ -229,9 +234,7 @@ def _launch(boxes, threshold, iou_mode, plan):
     return keep, lattice
 
 
-def nms_keep(boxes, threshold=0.45, iou_mode=1):
-    """See the module docstring. CPU tensors take the plain version;
-    CUDA tensors launch the kernels, or raise."""
+def _nms_keep_impl(boxes, threshold, iou_mode):
     _check(boxes, iou_mode)
     _check_wrapper(boxes, "nms_keep")
     if boxes.device.type == "cpu":
@@ -240,12 +243,36 @@ def nms_keep(boxes, threshold=0.45, iou_mode=1):
     return _launch(boxes, threshold, iou_mode, _plan(n, k))[0]
 
 
+@torch.library.custom_op("tf2_yolo_tpu_torch::nms_keep", mutates_args=())
+def _nms_keep_op(boxes: torch.Tensor, threshold: float,
+                 iou_mode: int) -> torch.Tensor:
+    return _nms_keep_impl(boxes, threshold, iou_mode)
+
+
+@_nms_keep_op.register_fake
+def _(boxes, threshold, iou_mode):
+    return boxes.new_empty(boxes.shape[:2])
+
+
+def nms_keep(boxes, threshold=0.45, iou_mode=1):
+    """See the module docstring. CPU tensors take the plain version;
+    CUDA tensors launch the kernels, or raise."""
+    _check_wrapper(boxes, "nms_keep")     # a meta tensor would pass the op
+    return _nms_keep_op(boxes, float(threshold), int(iou_mode))
+
+
 nms_keep.launches = 0
 
 
 def soft_nms_keep(boxes, nms_threshold=0.45, conf_threshold=0.5, sigma=0.5):
     """See the module docstring. CPU tensors take the plain version;
     CUDA tensors launch the kernel, or raise."""
+    _check_wrapper(boxes, "soft_nms_keep")
+    return _soft_nms_keep_op(boxes, float(nms_threshold),
+                             float(conf_threshold), float(sigma))
+
+
+def _soft_nms_keep_impl(boxes, nms_threshold, conf_threshold, sigma):
     _check(boxes)
     _check_wrapper(boxes, "soft_nms_keep")
     if boxes.device.type == "cpu":
@@ -268,3 +295,15 @@ def soft_nms_keep(boxes, nms_threshold=0.45, conf_threshold=0.5, sigma=0.5):
 
 
 soft_nms_keep.launches = 0
+
+
+@torch.library.custom_op("tf2_yolo_tpu_torch::soft_nms_keep",
+                         mutates_args=())
+def _soft_nms_keep_op(boxes: torch.Tensor, nms_threshold: float,
+                      conf_threshold: float, sigma: float) -> torch.Tensor:
+    return _soft_nms_keep_impl(boxes, nms_threshold, conf_threshold, sigma)
+
+
+@_soft_nms_keep_op.register_fake
+def _(boxes, nms_threshold, conf_threshold, sigma):
+    return boxes.new_empty(boxes.shape[:2])
