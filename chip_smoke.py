@@ -32,12 +32,18 @@ Phases (each raises on failure, so the exit code is nonzero):
      input: a yardstick only; the port never calls it); the probe layer
      of ``tools/bench_packed_probe.py`` the same way, and its chain of
      four layers driven once with its counters read; the int8 conv
-     (kernel Q) against ``conv_int8_plain`` at four YOLOv4 shapes (the
-     stem, a 52^2 1x1, two 3x3 layers) at the serving batch, bf16 and
-     f32 (and the served stem's f32 image to bf16), equal bit for bit,
-     timed beside K1 and, at the 1x1 shape, ``torch._int_mm``; then hand
-     each tensor-core route (Q's ring route too) a contiguous view that
-     starts 2 bytes past a 16-byte boundary and expect the ValueError,
+     (kernel Q: a quantize pass, then the ``wgmma`` conv) against
+     ``conv_int8_plain`` at six YOLOv4 shapes (the stem on the gather
+     route, a 52^2 1x1, four 3x3 layers, split over K at the serving
+     batch where the tiles alone leave SMs idle, one of stride 2) at the
+     serving batch and at 32, bf16 and f32 (and the served stem's f32
+     image to bf16), equal bit for bit, Q, its quantize pass and its
+     conv launch timed alone beside the first kernel (quantizing in its
+     prologue, kept for this column), K1 and, at the 1x1 shape,
+     ``torch._int_mm``; then hand each tensor-core route (Q's ring and
+     gather routes and its int8 weights too) a contiguous view that
+     starts one element past a 16-byte boundary and expect the
+     ValueError,
      with no launch counted;
   4. serve ``--requests`` batches of ``--batch`` images through
      ``make_serving_fn`` in bf16 with greedy NMS, then one with Soft-NMS
@@ -94,7 +100,8 @@ Phases (each raises on failure, so the exit code is nonzero):
      bounds, and a folded bf16 request's launches (110 convs, one NMS);
      ``calibrate_int8`` on two seeded batches, then int8 serving at gates
      256 and 0 (61 and 107 int8 launches a request, all on the tensor
-     cores, beside 110 minus those conv launches and one NMS), as a
+     cores, and as many quantize passes, beside 110 minus those conv
+     launches and one NMS), as a
      sanity check the confidence field of its sorted rows within
      max(0.15, the JAX package's own int8 bound; twice the bf16 rows'
      distance from the f32 rows') of the bf16 rows'; the kernel route
@@ -399,7 +406,7 @@ def phase_build(log_dir):
                             gemm_mod.SOURCE, conv3_mod.SOURCE,
                             int8_mod.SOURCE])
     conv_mod._launcher()
-    int8_mod._launcher()
+    int8_mod._library()
     nms_mod._ready(torch.cuda.current_device())
     gemm_mod._library()
     conv3_mod._library()
@@ -736,29 +743,44 @@ def phase_conv_checks(gen, n):
 
 # (name, H, W, Ci, Co, k, stride): YOLOv4@416 ConvBNs that the int8
 # program quantizes: the stem (a gate of 0 only; Ci = 3, the gather
-# route), a 1x1 and two 3x3 layers of the deep stages
+# route), a 1x1 and four 3x3 layers of the deep stages (the 26^2
+# 256->256 expand runs 8 times a request, the 52^2 down is the stride-2
+# route); at the serving batch the 13^2 and 26^2 256->256 layers split K
 INT8_SHAPES = [
     ("stem 416^2 3->32 3x3s1", 416, 416, 3, 32, 3, 1),
     ("stage3.pre 52^2 256->128 1x1", 52, 52, 256, 128, 1, 1),
     ("td1_pre2 13^2 512->1024 3x3s1", 13, 13, 512, 1024, 3, 1),
     ("td2.conv2 26^2 256->512 3x3s1", 26, 26, 256, 512, 3, 1),
+    ("stage4.block.expand 26^2 256->256 3x3s1", 26, 26, 256, 256, 3, 1),
+    ("stage4.down 52^2 256->512 3x3s2", 52, 52, 256, 512, 3, 2),
 ]
+
+
+def int8_plan_line(plan):
+    return (f"{plan.route} config {plan.config} grid {plan.grid} split "
+            f"{plan.splits} stages {plan.stages} kp {plan.kp} smem "
+            f"{plan.smem_bytes}")
 
 
 def phase_int8_checks(gen, n):
     """Kernel Q against ``conv_int8_plain`` at each INT8_SHAPES shape at
     batch ``n``, bf16 -> bf16 and f32 -> f32 (and the served stem's f32
     image -> bf16): equal bit for bit (int32 sums are exact and the
-    epilogue has no FMA contraction). Times the kernel launched alone
-    (``ms``: in a CUDA graph, so that the wrapper's host work does not
-    show), through its wrapper and through the wrapper's implementation
-    without the custom op (its dispatch cost, where the card runs dry at
-    small shapes), the plain version, K1
-    (``conv_bn_stats``, bf16, no statistics) at the same shape alone,
-    and for the 1x1 shape the one-call yardstick ``torch._int_mm`` on the
-    same int8 operands alone."""
+    epilogue has no FMA contraction), on the route, tile, split and ring
+    that ``_plan`` picks. Times, each launched alone in a CUDA graph (so
+    that the wrapper's host work does not show): Q (``ms``: its two
+    launches), the quantize pass alone, the conv launch alone on the
+    pass's output (replayed, so its split-K counters must clear
+    themselves: its output is held equal too), the first kernel
+    (``conv_int8_before_launch``, quantizing in its prologue; also held
+    equal) and K1 (``conv_bn_stats``, bf16, no statistics) at the same
+    shape; Q through its wrapper and through the wrapper's implementation
+    without the custom op (its dispatch cost), the plain version, and for
+    the 1x1 shape the one-call yardstick ``torch._int_mm`` on the same
+    int8 operands alone."""
     results, failed = [], []
     bf, f32 = torch.bfloat16, torch.float32
+    stream = lambda: torch.cuda.current_stream().cuda_stream
     for name, h, w, ci, co, k, stride in INT8_SHAPES:
         kern = torch.empty(k, k, ci, co, device="cuda")
         he_normal_(kern, gen)
@@ -773,20 +795,39 @@ def phase_int8_checks(gen, n):
             sx = float((x.float().abs().amax() / 127.0).item())
             c = ((sx * sw) * (0.5 + torch.rand(co, generator=gen,
                                                device="cuda"))).contiguous()
-            before = conv_int8.launches, conv_int8.tc_launches
+            before = (conv_int8.launches, conv_int8.tc_launches,
+                      conv_int8.quant_launches)
             y = conv_int8(x, wq, c, t, sx, k, stride, out_dt)
-            check((conv_int8.launches, conv_int8.tc_launches)
-                  == (before[0] + 1, before[1] + 1),
-                  f"int8 {name}: the wrapper did not launch its kernel")
+            check((conv_int8.launches, conv_int8.tc_launches,
+                   conv_int8.quant_launches)
+                  == (before[0] + 1, before[1] + 1, before[2] + 1),
+                  f"int8 {name}: the wrapper did not launch its kernels")
             yp = conv_int8_plain(x, wq, c, t, sx, k, stride, out_dt)
             torch.cuda.synchronize()
             equal = torch.equal(y, yp)
             err = (y.float() - yp.float()).abs().max().item()
             ms = graph_ms(lambda: conv_int8(x, wq, c, t, sx, k, stride,
                                             out_dt))
+            # the two launches apart, on scratch of the same plan
+            xq, ws, counters = int8_mod._buffers(x, plan, co, k, stride)
+            y_conv = torch.empty_like(y)
+            int8_mod._quantize_launch(x, sx, xq, counters, k, stride, plan,
+                                      stream())
+            quant_ms = graph_ms(lambda: int8_mod._quantize_launch(
+                x, sx, xq, None, k, stride, plan, stream()))
+            conv_ms = graph_ms(lambda: int8_mod._conv_launch(
+                xq, wq, c, t, y_conv, ws, counters, k, stride, plan,
+                stream()))
+            y_before = int8_mod._before_forward(x, wq, c, t, sx, k, stride,
+                                                out_dt)
+            before_ms = graph_ms(lambda: int8_mod._before_forward(
+                x, wq, c, t, sx, k, stride, out_dt))
+            torch.cuda.synchronize()
+            conv_equal = torch.equal(y_conv, yp)
+            before_equal = torch.equal(y_before, yp)
             wrapper_ms = cuda_ms(lambda: conv_int8(x, wq, c, t, sx, k,
                                                    stride, out_dt), 20)
-            # the same launch without the custom op's dispatch
+            # the same launches without the custom op's dispatch
             direct_ms = cuda_ms(lambda: int8_mod._impl(x, wq, c, t, sx, k,
                                                        stride, out_dt), 20)
             plain_ms = cuda_ms(lambda: conv_int8_plain(
@@ -803,34 +844,39 @@ def phase_int8_checks(gen, n):
                 k1_ms = graph_ms(lambda: conv_bn_stats(x, kb, bb, stride,
                                                        False))
             if k == 1:
-                xq = int8_mod.quantize_plain(x, sx).reshape(m, ci)
+                xm = int8_mod.quantize_int8_plain(x, sx).reshape(m, ci)
                 wt = wq[:, :ci].t().contiguous()
-                library_ms = graph_ms(lambda: torch._int_mm(xq, wt))
+                library_ms = graph_ms(lambda: torch._int_mm(xm, wt))
             r = dict(shape=name, batch=n, dtype=f"{in_dt} -> {out_dt}"
-                     .replace("torch.", ""), equal=equal, max_abs_err=err,
-                     ms=ms, wrapper_ms=wrapper_ms, direct_ms=direct_ms,
-                     plain_ms=plain_ms,
-                     bound_ms=bound,
-                     bound_by=bound_by, library_ms=library_ms,
-                     k1_bf16_ms=k1_ms, tops=ops / ms / 1e9,
-                     bound_share=bound / ms, route=plan.route,
-                     config=plan.config)
+                     .replace("torch.", ""), equal=equal,
+                     conv_equal=conv_equal, before_equal=before_equal,
+                     max_abs_err=err, ms=ms, quant_ms=quant_ms,
+                     conv_ms=conv_ms, before_ms=before_ms,
+                     wrapper_ms=wrapper_ms, direct_ms=direct_ms,
+                     plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                     library_ms=library_ms, k1_bf16_ms=k1_ms,
+                     tops=ops / ms / 1e9, bound_share=bound / ms,
+                     route=plan.route, config=plan.config,
+                     grid=list(plan.grid), splits=plan.splits,
+                     stages=plan.stages)
             results.append(r)
-            print(f"  int8 {r['dtype']:20s} b{n:<2d} {name:32s} [{plan.route} "
-                  f"config {plan.config} grid {plan.grid} kp {plan.kp}] "
-                  f"equal {equal} (max|d| {err:.3g}) | kernel alone "
-                  f"{ms:.3f} ms ({r['tops']:.1f} TOP/s, {bound / ms:.1%} of "
-                  f"bound), through the wrapper {wrapper_ms:.3f} ms (its "
-                  f"implementation without the custom op {direct_ms:.3f} "
-                  f"ms), plain "
-                  f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by})"
+            print(f"  int8 {r['dtype']:20s} b{n:<2d} {name:40s} "
+                  f"[{int8_plan_line(plan)}] equal {equal} (max|d| "
+                  f"{err:.3g}; the conv launch replayed alone {conv_equal}, "
+                  f"the first kernel {before_equal}) | Q alone {ms:.4f} ms "
+                  f"({r['tops']:.1f} TOP/s, {bound / ms:.1%} of bound): "
+                  f"quantize pass {quant_ms:.4f} + conv {conv_ms:.4f} ms; "
+                  f"before (the first kernel) {before_ms:.4f} ms; through "
+                  f"the wrapper {wrapper_ms:.3f} ms (without the custom op "
+                  f"{direct_ms:.3f} ms), plain {plain_ms:.3f} ms, bound "
+                  f"{bound:.4f} ms ({bound_by})"
                   + ("" if k1_ms is None
-                     else f", K1 bf16 alone {k1_ms:.3f} ms")
+                     else f", K1 bf16 alone {k1_ms:.4f} ms")
                   + ("" if library_ms is None
-                     else f", torch._int_mm {library_ms:.3f} ms"))
-            if not equal:
-                failed.append(f"{name} {r['dtype']}")
-            del x, y, yp
+                     else f", torch._int_mm {library_ms:.4f} ms"))
+            if not (equal and conv_equal and before_equal):
+                failed.append(f"{name} b{n} {r['dtype']}")
+            del x, y, yp, xq, ws, counters, y_conv, y_before
     check(not failed, f"int8 kernel differs from its plain version: "
           f"{failed}")
     return results
@@ -1407,8 +1453,8 @@ def phase_conv3_checks(gen, n):
 
 
 def misaligned(gen, shape, dtype=torch.bfloat16):
-    """A contiguous tensor of ``shape`` on the card that starts 2 bytes
-    past a 16-byte boundary (a view one element into a larger buffer)."""
+    """A contiguous tensor of ``shape`` on the card that starts one
+    element past a 16-byte boundary (a view into a larger buffer)."""
     numel = int(np.prod(shape))
     base = torch.randn(numel + 1, generator=gen, device="cuda").to(dtype)
     view = base[1:].view(shape)
@@ -1420,16 +1466,18 @@ def misaligned(gen, shape, dtype=torch.bfloat16):
 def all_counters():
     return (conv_bn_stats.launches, conv_bn_stats.tc_launches,
             conv_int8.launches, conv_int8.tc_launches,
+            conv_int8.quant_launches,
             *fused_counters().values())
 
 
 def phase_alignment_checks(gen):
-    """Each tensor-core route handed one contiguous but misaligned bf16
-    tensor (16-byte ``cp.async`` copies would fault on it) must raise
-    ValueError before it launches anything: the int8 conv's ring route,
-    the conv (ring and small-Ci kernels), the fused GEMM forward and
-    backward, the fused 3x3 conv forward and backward. Any other outcome
-    fails the phase."""
+    """Each tensor-core route handed one contiguous but misaligned tensor
+    (16-byte loads and ``cp.async`` copies would fault on it) must raise
+    ValueError before it launches anything: the int8 conv's input on its
+    ring and gather routes (the quantize pass reads 16-byte chunks) and
+    its int8 weights, the conv (ring and small-Ci kernels), the fused
+    GEMM forward and backward, the fused 3x3 conv forward and backward.
+    Any other outcome fails the phase."""
     bf = torch.bfloat16
     rnd = lambda *shape: torch.randn(*shape, generator=gen,
                                      device="cuda").to(bf)
@@ -1442,10 +1490,17 @@ def phase_alignment_checks(gen):
     cy = torch.empty(1, 9, 11, 8, dtype=bf, device="cuda")
     qw = int8_mod.weight_layout(int8_mod.quantize_weights(
         f32(3, 3, 32, 32))[0])
+    qw3 = int8_mod.weight_layout(int8_mod.quantize_weights(
+        f32(3, 3, 3, 32))[0])
     qc, qt = f32(32) + 1e-2, f32(32)
     cases = [
         ("conv_int8 ring, x", lambda: conv_int8(
             misaligned(gen, (2, 13, 13, 32)), qw, qc, qt, 0.1, 3, 1, bf)),
+        ("conv_int8 gather, x", lambda: conv_int8(
+            misaligned(gen, (2, 9, 7, 3)), qw3, qc, qt, 0.1, 3, 1, bf)),
+        ("conv_int8, int8 weights", lambda: conv_int8(
+            rnd(2, 13, 13, 32), misaligned(gen, qw.shape, torch.int8), qc,
+            qt, 0.1, 3, 1, bf)),
         ("conv_bn_stats tc, x", lambda: conv_bn_stats(
             misaligned(gen, (2, 13, 13, 32)), rnd(3, 3, 32, 32), rnd(32),
             1)),
@@ -2296,6 +2351,7 @@ DEPLOY_REPS = 5                  # requests a turn of each timed variant
 def reset_serve_counters():
     conv_bn_stats.launches = conv_bn_stats.tc_launches = 0
     conv_int8.launches = conv_int8.tc_launches = 0
+    conv_int8.quant_launches = 0
     nms_keep.launches = soft_nms_keep.launches = 0
     reset_fused_counters()
 
@@ -2305,19 +2361,20 @@ def serve_counters():
                 conv_bn_stats_tc=conv_bn_stats.tc_launches,
                 conv_int8=conv_int8.launches,
                 conv_int8_tc=conv_int8.tc_launches,
+                conv_int8_quant=conv_int8.quant_launches,
                 nms_keep=nms_keep.launches,
                 soft_nms_keep=soft_nms_keep.launches,
                 fused=sum(fused_counters().values()))
 
 
 def want_serve(int8_convs):
-    """A greedy request's launches with ``int8_convs`` ConvBNs on Q: the
-    rest of the 110 convs on K1, every one on the tensor cores, one NMS
-    kernel, no fused kernel."""
+    """A greedy request's launches with ``int8_convs`` ConvBNs on Q (its
+    conv launch and its quantize pass each): the rest of the 110 convs on
+    K1, every one on the tensor cores, one NMS kernel, no fused kernel."""
     k1 = CONVS_PER_FORWARD - int8_convs
     return dict(conv_bn_stats=k1, conv_bn_stats_tc=k1, conv_int8=int8_convs,
-                conv_int8_tc=int8_convs, nms_keep=1, soft_nms_keep=0,
-                fused=0)
+                conv_int8_tc=int8_convs, conv_int8_quant=int8_convs,
+                nms_keep=1, soft_nms_keep=0, fused=0)
 
 
 def counted(serve, x):
@@ -2493,7 +2550,7 @@ def phase_deploy(args, model, threshold, images, card):
               for v in _tree_leaves(stage)]
     check(len(scales) == 107 and all(float(v) > 0 for v in scales),
           "calibration: want 107 positive scales")
-    int8_launches = int8_tc = 0
+    int8_launches = int8_tc = int8_quant = 0
     out["int8"] = {}
     for gate, n_q in DEPLOY_INT8.items():
         serve = make_serving_fn(model, CLASSES, 4, threshold=threshold,
@@ -2504,6 +2561,7 @@ def phase_deploy(args, model, threshold, images, card):
         (rows_q, keep_q), cnt = counted(serve, x)
         int8_launches += cnt["conv_int8"]
         int8_tc += cnt["conv_int8_tc"]
+        int8_quant += cnt["conv_int8_quant"]
         check(cnt == want_serve(n_q), f"int8 gate {gate}: launches {cnt}, "
               f"want {want_serve(n_q)}")
         conf_d = (rows_q[..., 4] - rows_b[..., 4]).abs().max().item()
@@ -2625,6 +2683,7 @@ def phase_deploy(args, model, threshold, images, card):
             (rw, kw), cw = counted(want_fn, xb)
             int8_launches += cl["conv_int8"] + cw["conv_int8"]
             int8_tc += cl["conv_int8_tc"] + cw["conv_int8_tc"]
+            int8_quant += cl["conv_int8_quant"] + cw["conv_int8_quant"]
             print(f"  loaded {kind} b{xb.shape[0]}: equal to "
                   f"make_serving_fn {torch.equal(rl, rw)} / "
                   f"{torch.equal(kl, kw)}; launches {cl} (make_serving_fn "
@@ -2671,7 +2730,7 @@ def phase_deploy(args, model, threshold, images, card):
               f"ms/request (median of {len(ts)}), {b / (ms / 1e3):.1f} "
               f"img/s [{card}]")
     out.update(calibrate_s=calib_s, int8_launches=int8_launches,
-               int8_tc_launches=int8_tc)
+               int8_tc_launches=int8_tc, int8_quant_launches=int8_quant)
     return out
 
 
@@ -2810,6 +2869,7 @@ def main(argv=None):
     conv3_res = phase_conv3_checks(gen, args.batch)
     conv3_res += phase_conv3_checks(gen, args.train_batch)
     int8_res = phase_int8_checks(gen, args.batch)
+    int8_res += phase_int8_checks(gen, DEPLOY_BIG_BATCH)
     aligned = phase_alignment_checks(gen)
 
     print(f"phase 4: serving {args.requests} requests of {args.batch} x "
@@ -2884,10 +2944,14 @@ def main(argv=None):
     fwd_at = bf16_at(gemm_res, GEMM_SHAPES[1][0])
     bwd_at = bf16_at(gemm_res, GEMM_SHAPES[0][0])
     conv3_at = bf16_at(conv3_res, CONV3_SHAPES[0][0])
-    int8_at = [r for r in int8_res if r["shape"] == INT8_SHAPES[1][0]
-               and r["dtype"] == "bfloat16 -> bfloat16"][0]
-    int8_3x3 = [r for r in int8_res if r["shape"] == INT8_SHAPES[2][0]
+    def int8_bf16(shape, batch):
+        return [r for r in int8_res if r["shape"] == shape
+                and r["batch"] == batch
                 and r["dtype"] == "bfloat16 -> bfloat16"][0]
+
+    int8_at = int8_bf16(INT8_SHAPES[1][0], args.batch)
+    int8_td1 = int8_bf16(INT8_SHAPES[2][0], DEPLOY_BIG_BATCH)
+    int8_td2 = int8_bf16(INT8_SHAPES[3][0], DEPLOY_BIG_BATCH)
 
     def train_launches(name):
         """Launches in the packed=3 run, the packed=True run and the
@@ -3026,10 +3090,12 @@ def main(argv=None):
              cuda_core_ms=conv3_at["bwd_cuda_core_ms"]),
         # Q: no Pallas counterpart (XLA's s8 x s8 -> s32 conv); launches
         # those of phase 11's counted requests (int8 gates 256 and 0,
-        # the int8 artifact and make_serving_fn beside it); ``ms`` the
-        # kernel alone (CUDA graph) at the 1x1 shape, whose yardstick is
-        # torch._int_mm on the same int8 operands; the 3x3 td1_pre2
-        # beside it (no yardstick)
+        # the int8 artifact and make_serving_fn beside it), each with
+        # one quantize pass (``quant_launches``); ``ms`` Q alone (CUDA
+        # graph, both launches) at the 1x1 shape, whose yardstick is
+        # torch._int_mm on the same int8 operands, ``before_ms`` the
+        # first kernel there; the 3x3 td1_pre2 and td2.conv2 at
+        # bench_infer.py's batch 32 beside it (no yardstick)
         dict(name="conv_int8", route="cuda",
              source="tf2_yolo_tpu_torch/csrc/conv_int8.cu",
              replaces="tf2_yolo_tpu/models/layers.py:389 "
@@ -3037,17 +3103,22 @@ def main(argv=None):
                       "s8 -> s32, no Pallas kernel)",
              launches=deploy["int8_launches"],
              launches_tc=deploy["int8_tc_launches"],
+             quant_launches=deploy["int8_quant_launches"],
              max_abs_err=max(r["max_abs_err"] for r in int8_res),
              at=f"{int8_at['shape']}, batch {int8_at['batch']}, bf16",
-             ms=int8_at["ms"], wrapper_ms=int8_at["wrapper_ms"],
+             ms=int8_at["ms"], quant_ms=int8_at["quant_ms"],
+             conv_ms=int8_at["conv_ms"], before_ms=int8_at["before_ms"],
+             wrapper_ms=int8_at["wrapper_ms"],
              plain_ms=int8_at["plain_ms"],
              bound_ms=int8_at["bound_ms"], bound_by=int8_at["bound_by"],
              library_ms=int8_at["library_ms"], tops=int8_at["tops"],
              bound_share=int8_at["bound_share"],
              k1_bf16_ms=int8_at["k1_bf16_ms"],
-             td1_pre2_ms=int8_3x3["ms"],
-             td1_pre2_bound_ms=int8_3x3["bound_ms"],
-             td1_pre2_k1_bf16_ms=int8_3x3["k1_bf16_ms"]),
+             **{f"{key}_b32_{field}": r[field]
+                for key, r in (("td1_pre2", int8_td1),
+                               ("td2_conv2", int8_td2))
+                for field in ("ms", "before_ms", "bound_ms",
+                              "k1_bf16_ms")}),
         # a tool's kernel, on no model path: its launches are those of
         # the probe's own chain of four layers
         dict(name="probe_layer", route="cuda",

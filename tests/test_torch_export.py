@@ -264,7 +264,7 @@ def test_int8_convbn_matches_jax(case, gate):
     if quantized:
         # the int8 inputs: equal (a flip would be counted and bounded;
         # measured none)
-        xq = q.quantize_plain(torch.from_numpy(x), float(sx)).numpy()
+        xq = q.quantize_int8_plain(torch.from_numpy(x), float(sx)).numpy()
         jxq = np.asarray(jnp.clip(jnp.round(jnp.asarray(x) / sx), -127,
                                   127).astype(jnp.int8))
         assert (xq != jxq).sum() == 0
@@ -293,7 +293,7 @@ def test_int8_kernel_geometry_and_plan():
         t = torch.from_numpy(rng.randn(co).astype(np.float32))
         y = q.conv_int8(x, q.weight_layout(wq8), c, t, 0.02, k, stride,
                         torch.float32)
-        xq = q.quantize_plain(x, 0.02).double().permute(0, 3, 1, 2)
+        xq = q.quantize_int8_plain(x, 0.02).double().permute(0, 3, 1, 2)
         if stride == 2:
             xq = torch.nn.functional.pad(xq, (1, 0, 1, 0))
         acc = torch.nn.functional.conv2d(
@@ -303,9 +303,9 @@ def test_int8_kernel_geometry_and_plan():
         torch.testing.assert_close(y, want.permute(0, 2, 3, 1),
                                    rtol=0, atol=0)
     assert q._plan(8, 416, 416, 3, 32, 3, 1) == q.Plan(
-        "gather", 2, (10816, 1), 32)
+        "gather", 3, (10816, 1), 32, 1, 4)
     assert q._plan(8, 13, 13, 512, 1024, 3, 1) == q.Plan(
-        "ring", 1, (11, 16), 4608)
+        "ring", 1, (11, 8), 4608, 2, 6)
     assert q._plan(8, 52, 52, 256, 128, 1, 1).route == "ring"
     with pytest.raises(ValueError, match="even"):
         q._plan(1, 9, 8, 32, 32, 3, 2)

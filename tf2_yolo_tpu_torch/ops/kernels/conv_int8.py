@@ -1,4 +1,4 @@
-"""Static-scale int8 conv with its quantize prologue and affine epilogue.
+"""Static-scale int8 conv with its quantize pass and affine epilogue.
 
 ``conv_int8(x, wq, c, t, sx, ksize, stride, out_dtype)`` computes, on an
 NHWC ``x`` (bf16 or f32):
@@ -18,19 +18,27 @@ Source note. On a CUDA tensor this launches ``csrc/conv_int8.cu``, the
 port of the JAX package's static-scale int8 ConvBN (``ConvBN._quant_call``,
 tf2_yolo_tpu/models/layers.py:362-398: XLA's ``conv_general_dilated``
 s8 x s8 -> s32, no Pallas kernel; PyTorch has no int8 convolution on
-CUDA). An implicit GEMM on ``mma.sync.m16n8k32`` s8 tensor cores: the
-prologue quantizes x into shared memory (16-byte chunks for Ci % 32 ==
-0, the "ring" route; element by element otherwise, the "gather" route,
-which takes the stem's Ci = 3, K = 27 zero-padded to 32), the weights
-arrive by ``cp.async``, and the epilogue applies the affine from the
-int32 accumulators. Bound by bytes at 3.35 TB/s on every YOLOv4 layer but
-the 3x3 ones at 26^2 and below with Ci >= 256 (int8 peak 1979 TOP/s).
-``conv_int8.launches`` counts every launch, ``conv_int8.tc_launches`` those
-on the tensor cores (every route is). The ring route reads x in 16-byte
-chunks and raises ValueError on tensors off a 16-byte boundary
+CUDA), as two launches a call: a quantize pass that writes x once as
+int8 into scratch (``conv_int8.quant_launches``), then an implicit GEMM
+on ``wgmma.mma_async`` s8 tensor cores (``conv_int8.launches``, all of
+them ``tc_launches``) fed by a ring of 128-byte K slices through 16-byte
+``cp.async`` copies into 128-byte-swizzled shared memory, split over K
+where the tiles alone would not cover the 132 SMs (the last split to
+arrive applies the epilogue to the exact int32 sum). Chunks of 16 bytes
+lie in one tap for Ci % 16 == 0 (the "ring" route); for other Ci (the
+"gather" route: the stem's Ci = 3, K = 27 zero-padded to 32) the
+quantize pass writes the implicit GEMM's (M, kp) int8 rows, which the
+conv reads as a 1x1 conv. :func:`_plan` picks the route, the tile, the
+split and the ring's depth. Bound by bytes at 3.35 TB/s on every YOLOv4
+layer but the 3x3 ones at 26^2 and below with Ci >= 256 (int8 peak 1979
+TOP/s). Every operand is copied in 16-byte chunks: the wrapper raises
+ValueError on a tensor off a 16-byte boundary
 (``conv_bn._check_aligned``). On a CPU tensor the wrapper computes
 :func:`conv_int8_plain`, exact: the conv of the int8 values runs in f64,
-where every sum of these products is an integer below 2**53.
+where every sum of these products is an integer below 2**53. Its two
+halves, :func:`quantize_int8_plain` and :func:`conv_int8_xq_plain` (with
+the int32 sums over any range of K, :func:`conv_int8_acc_plain`), are
+for the tests.
 
 The wrapper calls the custom op ``tf2_yolo_tpu_torch::conv_int8`` (its
 fake implementation gives the shape), so a program traced by
@@ -52,48 +60,108 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _GEOMETRIES = {(1, 1), (3, 1), (3, 2)}
 _INT32_MAX = 2 ** 31 - 1
 _SMS = 132                           # H100 SMs
-_BM, _BK = 128, 32                   # output rows a block, K a slice
-_TILES = {0: 128, 1: 64, 2: 32}      # config id -> output channels a block
+_BM = 128                            # output rows a block
+_KP_ALIGN = 32                       # kp: K rounded up to one k32 step
+_SLICE = 128                         # bytes of K a ring slot
+_MIN_SLICES = 2                      # slices a split, at least
+_TILES = {0: 256, 1: 128, 2: 64, 3: 32}   # config id -> channels a block
 QMAX = 127
 
 
 class Plan(NamedTuple):
-    """How one int8 conv launches: ``route`` "ring" (Ci % 32 == 0) or
-    "gather"; ``config`` the tile id (0/1/2: 128/64/32 channels);
-    ``grid`` (x, y); ``kp`` the padded contraction depth."""
+    """How one int8 conv launches: ``route`` "ring" (Ci % 16 == 0) or
+    "gather"; ``config`` the tile id (0/1/2/3: 256/128/64/32 channels);
+    ``grid`` (row tiles, column tiles); ``kp`` the padded contraction
+    depth; ``splits`` the split of K's ceil(kp / 128) slices (it divides
+    them); ``stages`` the ring's slots."""
     route: str
     config: int
     grid: tuple
     kp: int
+    splits: int
+    stages: int
+
+    @property
+    def smem_bytes(self):
+        """Dynamic shared memory: the slots a block uses (its slices, at
+        most ``stages``) and 1 KB to align them to the swizzle's repeat."""
+        slots = min(self.stages, -(-self.kp // _SLICE) // self.splits)
+        return slots * (_BM + _TILES[self.config]) * _SLICE + 1024
 
 
 def padded_k(ksize, ci):
     """K = ksize * ksize * Ci rounded up to a multiple of 32."""
-    return -(-ksize * ksize * ci // _BK) * _BK
+    return -(-ksize * ksize * ci // _KP_ALIGN) * _KP_ALIGN
 
 
-def _plan(n, h, wd, ci, co, ksize, stride):
-    """The launch plan (pure Python: the CPU tests reach it): the widest
-    tile of 128, 64 or 32 channels that Co fills, halved while the grid
-    would not cover the 132 SMs once. Raises ValueError on a shape the
-    kernel does not take."""
+def _split_choices(slices):
+    """The splits of ``slices`` K slices that a plan may take: the
+    divisors that leave each split at least two slices (and 1)."""
+    return [d for d in range(1, slices + 1)
+            if slices % d == 0 and (d == 1 or slices // d >= _MIN_SLICES)]
+
+
+def _geometry(n, h, wd, ci, co, ksize, stride):
     if (ksize, stride) not in _GEOMETRIES:
         raise ValueError(f"unsupported conv {ksize}x{ksize} stride {stride}")
     if stride == 2 and (h % 2 or wd % 2):
         raise ValueError(f"stride 2 needs even H and W, got {h}x{wd}")
     if min(n, h, wd, ci, co) < 1:
         raise ValueError(f"empty conv {(n, h, wd, ci)} -> {co}")
-    m = n * (h // stride) * (wd // stride)
+    return n * (h // stride) * (wd // stride)
+
+
+def _plan(n, h, wd, ci, co, ksize, stride):
+    """The launch plan (pure Python: the CPU tests reach it). The
+    256-channel tile where it alone gives two waves of blocks (it reads
+    a quarter fewer bytes from L2 an operation, but holds an SM alone with
+    a 4-slot ring, and loses wherever it would leave SMs idle or split
+    K; measured on the card). Otherwise the widest tile of 128, 64 or 32
+    channels that Co fills and the fewest splits of K that together give
+    at least one block to each of the 132 SMs (tried widest tile first);
+    where none does, the narrowest tile and the largest split. A ring of
+    6 slots keeps 4 slices in flight; 4 slots where a split has 2 slices
+    or fewer, on the gather route, and with the 256-channel tile (whose 4
+    slots fill the shared memory). Raises ValueError on a shape the
+    kernel does not take."""
+    m = _geometry(n, h, wd, ci, co, ksize, stride)
     rows = -(-m // _BM)
-    config = next(c for c, bn in _TILES.items() if bn <= co or c == 2)
-    cols = lambda c: -(-co // _TILES[c])
-    while config < 2 and rows * cols(config) < _SMS:
-        config += 1
-    plan = Plan("ring" if ci % _BK == 0 else "gather", config,
-                (rows, cols(config)), padded_k(ksize, ci))
+    kp = padded_k(ksize, ci)
+    choices = _split_choices(-(-kp // _SLICE))
+    last = len(_TILES) - 1
+    first = next(c for c, bn in _TILES.items() if bn <= co or c == last)
+    if first == 0 and rows * -(-co // _TILES[0]) >= 2 * _SMS:
+        config, splits = 0, 1
+    else:
+        config, splits = last, choices[-1]
+        for cfg in range(max(first, 1), last + 1):
+            cols = -(-co // _TILES[cfg])
+            fit = [d for d in choices if rows * cols * d >= _SMS]
+            if fit:
+                config, splits = cfg, fit[0]
+                break
+    route = "ring" if ci % 16 == 0 else "gather"
+    slices = -(-kp // _SLICE) // splits
+    stages = 4 if route == "gather" or slices <= 2 or config == 0 else 6
+    plan = Plan(route, config, (rows, -(-co // _TILES[config])), kp, splits,
+                stages)
     if rows > _INT32_MAX or plan.grid[1] > 65535:
         raise ValueError(f"unsupported size {(n, h, wd, ci)} -> {co}")
     return plan
+
+
+def _before_plan(n, h, wd, ci, co, ksize, stride):
+    """The plan of the first kernel (``conv_int8_before_launch``, kept
+    for chip_smoke.py's before/after timing): (ring, config, grid), the
+    widest tile that Co fills, halved while the grid would not cover the
+    132 SMs; ring for Ci % 32 == 0."""
+    rows = -(-_geometry(n, h, wd, ci, co, ksize, stride) // _BM)
+    tiles = {0: 128, 1: 64, 2: 32}       # its config ids
+    config = next(c for c, bn in tiles.items() if bn <= co or c == 2)
+    cols = lambda c: -(-co // tiles[c])
+    while config < 2 and rows * cols(config) < _SMS:
+        config += 1
+    return ci % 32 == 0, config, (rows, cols(config))
 
 
 def quantize_weights(kernel):
@@ -117,7 +185,7 @@ def weight_layout(wq):
     return out.contiguous()
 
 
-def quantize_plain(x, sx):
+def quantize_int8_plain(x, sx):
     """clamp(round(x / sx), -127, 127) as int8, round half to even. The
     divisor is a full tensor, so that no backend divides by multiplying
     with the reciprocal of a scalar."""
@@ -168,7 +236,7 @@ def conv_int8_plain(x, wq, c, t, sx, ksize, stride, out_dtype):
     integer below 9 * 2048 * 127**2 < 2**53), cast to int32; then
     float(acc) * c and + t as two separate operations."""
     n, h, wd, ci, co = _check(x, wq, c, t, sx, ksize, stride, out_dtype)
-    xq = quantize_plain(x, sx).double().permute(0, 3, 1, 2)
+    xq = quantize_int8_plain(x, sx).double().permute(0, 3, 1, 2)
     # (Co, ky, kx, c) -> (Co, c, ky, kx): unfold's order of the columns
     w = wq[:, :ksize * ksize * ci].double().reshape(co, ksize, ksize, ci)
     w = w.permute(0, 3, 1, 2).reshape(co, ci * ksize * ksize)
@@ -185,13 +253,112 @@ def conv_int8_plain(x, wq, c, t, sx, ksize, stride, out_dtype):
         .contiguous()
 
 
+def _columns_int8(xq, ksize, stride, kp):
+    """(N, H, W, Ci) int8 -> the (M, kp) f64 rows of the implicit GEMM in
+    the kernel's K order (ky, kx, c): input pixel (ho * stride - pad + ky,
+    wo * stride - pad + kx), zero outside the image and past K."""
+    n, h, wd, ci = xq.shape
+    ho, wo = h // stride, wd // stride
+    pad = 1 if ksize == 3 else 0
+    xp = F.pad(xq.double(), (0, 0, pad, pad, pad, pad))
+    taps = [xp[:, ky:ky + stride * (ho - 1) + 1:stride,
+               kx:kx + stride * (wo - 1) + 1:stride]
+            for ky in range(ksize) for kx in range(ksize)]
+    cols = torch.cat(taps, -1).reshape(n * ho * wo, ksize * ksize * ci)
+    return F.pad(cols, (0, kp - cols.shape[1]))
+
+
+def conv_int8_acc_plain(xq, wq, ksize, stride, k0=0, k1=None):
+    """The int32 sums of the conv of int8 ``xq`` (N, H, W, Ci) with the
+    (Co, kp) matrix ``wq`` over the K columns k0 .. k1 only (all of them
+    by default), (N, Ho, Wo, Co): what one split of the kernel's K slices
+    adds. f64 products of the unfolded values, exact below 2**53."""
+    n, h, wd, _ = xq.shape
+    cols = _columns_int8(xq, ksize, stride, wq.shape[1])[:, k0:k1]
+    acc = torch.matmul(cols, wq[:, k0:k1].double().t())
+    return acc.to(torch.int32).reshape(n, h // stride, wd // stride, -1)
+
+
+def conv_int8_xq_plain(xq, wq, c, t, ksize, stride, out_dtype):
+    """The conv half of :func:`conv_int8_plain` on an already quantized
+    int8 ``xq``: float(acc) * c, then + t, rounded once to ``out_dtype``.
+    ``conv_int8_xq_plain(quantize_int8_plain(x, sx), ...)`` equals
+    ``conv_int8_plain(x, ..., sx, ...)`` bit for bit."""
+    y = conv_int8_acc_plain(xq, wq, ksize, stride).float() * c
+    y = y + t
+    return y.to(out_dtype)
+
+
 @functools.cache
-def _launcher():
-    fn = load_library(*SOURCE).conv_int8_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 \
-        + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _library():
+    lib = load_library(*SOURCE)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.conv_int8_quantize_launch.argtypes = [ptr] * 2 + [i32] * 9 \
+        + [ctypes.c_float, ptr, i32, ptr]
+    lib.conv_int8_launch.argtypes = [ptr] * 7 + [i32] * 14 + [ptr]
+    lib.conv_int8_before_launch.argtypes = [ptr] * 5 + [i32] * 10 \
+        + [ctypes.c_float] + [i32] * 4 + [ptr]
+    for fn in (lib.conv_int8_quantize_launch, lib.conv_int8_launch,
+               lib.conv_int8_before_launch):
+        fn.restype = i32
+    return lib
+
+
+def _raise_on(err, what, plan=None):
+    if err != 0:
+        raise RuntimeError(f"conv_int8 {what} launch failed: cudaError "
+                           f"{err}" + (f" ({plan})" if plan else ""))
+
+
+def _quantize_launch(x, sx, xq, counters, ksize, stride, plan, stream):
+    """The quantize pass into ``xq`` (by ``plan.route``); clears
+    ``counters``."""
+    n, h, wd, ci = x.shape
+    err = _library().conv_int8_quantize_launch(
+        x.data_ptr(), xq.data_ptr(), n, h, wd, ci, ksize, stride, plan.kp,
+        int(plan.route == "gather"), _DTYPE_CODES[x.dtype], float(sx),
+        None if counters is None else counters.data_ptr(),
+        0 if counters is None else counters.numel(), stream)
+    _raise_on(err, "quantize", plan)
+    conv_int8.quant_launches += 1
+
+
+def _conv_launch(xq, wq, c, t, y, ws, counters, ksize, stride, plan,
+                 stream):
+    """The int8 conv of the quantize pass's ``xq`` into ``y`` by
+    ``plan``; the gather route's rows are a 1x1 conv over kp channels."""
+    if plan.route == "gather":
+        (n, h), (wd, ci), ksize, stride = (1, 1), xq.shape, 1, 1
+    else:
+        n, h, wd, ci = xq.shape
+    co, kp = wq.shape
+    ptr = lambda v: None if v is None else v.data_ptr()
+    err = _library().conv_int8_launch(
+        xq.data_ptr(), wq.data_ptr(), c.data_ptr(), t.data_ptr(),
+        y.data_ptr(), ptr(ws), ptr(counters), n, h, wd, ci, co, kp, ksize,
+        stride, _DTYPE_CODES[y.dtype], plan.config, plan.stages, *plan.grid,
+        plan.splits, stream)
+    _raise_on(err, "conv", plan)
+    conv_int8.launches += 1
+    conv_int8.tc_launches += 1
+
+
+def _buffers(x, plan, co, ksize, stride):
+    """The scratch of one call: the int8 copy of x (ring route) or the
+    (M, kp) int8 rows of the implicit GEMM (gather route); where K is
+    split, the int32 partial tiles (splits, M * Co) and one counter a
+    tile (None otherwise)."""
+    n, h, wd, _ = x.shape
+    m = n * (h // stride) * (wd // stride)
+    shape = (m, plan.kp) if plan.route == "gather" else x.shape
+    xq = torch.empty(shape, dtype=torch.int8, device=x.device)
+    if plan.splits == 1:
+        return xq, None, None
+    ws = torch.empty((plan.splits, m * co), dtype=torch.int32,
+                     device=x.device)
+    counters = torch.empty(plan.grid[0] * plan.grid[1], dtype=torch.int32,
+                           device=x.device)
+    return xq, ws, counters
 
 
 def _forward_cuda(x, wq, c, t, sx, ksize, stride, out_dtype, dims):
@@ -199,20 +366,30 @@ def _forward_cuda(x, wq, c, t, sx, ksize, stride, out_dtype, dims):
     plan = _plan(n, h, wd, ci, co, ksize, stride)
     y = torch.empty((n, h // stride, wd // stride, co), dtype=out_dtype,
                     device=x.device)
-    _check_aligned([x, wq, y] if plan.route == "ring" else [wq, y],
-                   "conv_int8")
+    xq, ws, counters = _buffers(x, plan, co, ksize, stride)
+    _check_aligned([v for v in (x, wq, xq, y, ws, counters)
+                    if v is not None], "conv_int8")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _launcher()(x.data_ptr(), wq.data_ptr(), c.data_ptr(),
-                      t.data_ptr(), y.data_ptr(), n, h, wd, ci, co, plan.kp,
-                      ksize, stride, _DTYPE_CODES[x.dtype],
-                      _DTYPE_CODES[out_dtype], float(sx),
-                      int(plan.route == "ring"), plan.config, *plan.grid,
-                      stream)
-    if err != 0:
-        raise RuntimeError(f"conv_int8 kernel launch failed: cudaError "
-                           f"{err} ({plan})")
-    conv_int8.launches += 1
-    conv_int8.tc_launches += 1
+    _quantize_launch(x, sx, xq, counters, ksize, stride, plan, stream)
+    _conv_launch(xq, wq, c, t, y, ws, counters, ksize, stride, plan, stream)
+    return y
+
+
+def _before_forward(x, wq, c, t, sx, ksize, stride, out_dtype):
+    """The first kernel on the same call (chip_smoke.py's "before"
+    column; not counted, on no model path)."""
+    n, h, wd, ci, co = _check(x, wq, c, t, sx, ksize, stride, out_dtype)
+    ring, config, grid = _before_plan(n, h, wd, ci, co, ksize, stride)
+    y = torch.empty((n, h // stride, wd // stride, co), dtype=out_dtype,
+                    device=x.device)
+    _check_aligned([x, wq, y], "conv_int8")
+    err = _library().conv_int8_before_launch(
+        x.data_ptr(), wq.data_ptr(), c.data_ptr(), t.data_ptr(),
+        y.data_ptr(), n, h, wd, ci, co, wq.shape[1], ksize, stride,
+        _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], float(sx),
+        int(ring), config, *grid,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "before")
     return y
 
 
@@ -252,3 +429,4 @@ def conv_int8(x, wq, c, t, sx, ksize, stride, out_dtype, plain=False):
 
 conv_int8.launches = 0
 conv_int8.tc_launches = 0
+conv_int8.quant_launches = 0
