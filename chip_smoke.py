@@ -19,10 +19,12 @@ Phases (each raises on failure, so the exit code is nonzero):
      backward (with two ragged shapes) at the serving and the training
      batch (and again at the halved batch if phase 7 had to fall back),
      greedy NMS (its lattice words held to ``suppression_words_plain``;
-     N=8 and 32 at K=128, N=8 at K=1024 and one image at MAX_K, IoU and
-     DIoU) and Soft-NMS (mismatches outside the band where the plain
-     decayed confidence lies within 4 eps conf_threshold of it, at
-     sigma 0.3 and 0.5, and at sigma 0.005 on coincident boxes, whose
+     N=8 and 32 at K=128, 64 at K=256 (a chunk of phase 13), N=8 at
+     K=1024 and one image at MAX_K, IoU and DIoU) and Soft-NMS at the
+     same cells (its transposed lattice words held to
+     ``soft_overlap_words_plain``; keep mismatches outside the band where
+     the plain decayed confidence lies within 4 eps conf_threshold of it,
+     at sigma 0.3 and 0.5, and at sigma 0.005 on coincident boxes, whose
      decay underflows to 0; the NMS kernels timed launched alone in a
      CUDA graph); time each, the tensor-core
      kernels also launched alone and beside the CUDA-core instance on
@@ -132,7 +134,27 @@ Phases (each raises on failure, so the exit code is nonzero):
      conv kernels move, the rest stay within noise), and ms/step of
      exact BN against the frozen backward at the training batch in bf16
      for ``packed=True`` and ``packed=3``, in turns, with phase 7's
-     launches a step.
+     launches a step;
+ 13. device-side evaluation on phase 4's network: 64 seeded uint8
+     images through ``engine.Model.predict`` at batch 32, labels from
+     seeded boxes (and the top predictions, moved) through
+     ``encode_to_grid``, a confidence threshold that leaves each image
+     at most 250 candidates (printed; the saturation warning must not
+     fire); then ``create_score_mat`` (precision modes 0-2) and
+     ``PRfunc`` (``max_per_img`` 100, ``get_map`` in all four modes)
+     with ``device=True`` (decode, the NMS kernel, matching on the card,
+     ``device_max_boxes`` 256: one chunk of N=64, K=256) against
+     ``device=False`` (the host path), for greedy, Soft and DIoU NMS:
+     the kept boxes of each image equal but for Soft-NMS boxes whose
+     decayed f32 confidence lies within (4 + 16 decays) eps of the
+     threshold (the host decays in f64); the tables, the swept
+     detections and the PR curves at the end of each group of equal f32
+     confidences equal, and the whole curves and maps too where no two
+     detections tie (the host ranks f64 products, the device f32 ones,
+     both with NumPy's unstable argsort); K4 (modes 1, 3) or S (mode 2)
+     launched once a chunk; the best-GT argmax on the card the first of
+     tied maxima; ms of each path for the 64 images and of the chunk's
+     NMS alone.
 
 Weights are random, from ``--seed``: conv kernels drawn with the port's
 HE_NORMAL from a seeded ``torch.Generator``. With BN at its init
@@ -157,6 +179,7 @@ import os
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -172,6 +195,7 @@ from tf2_yolo_tpu_torch.models.layers import (Conv, ConvBN, Int8ConvBN,
                                               he_normal_, set_bn_stats_sg)
 from tf2_yolo_tpu_torch.ops import nms as nms_ops
 from tf2_yolo_tpu_torch.ops.decode import decode_multi_level
+from tf2_yolo_tpu_torch.ops.evalmatch import match_pred_arrays
 from tf2_yolo_tpu_torch.ops.kernels import _build
 from tf2_yolo_tpu_torch.ops.kernels import conv_bn as conv_mod
 from tf2_yolo_tpu_torch.ops.kernels import conv_int8 as int8_mod
@@ -185,19 +209,23 @@ from tf2_yolo_tpu_torch.ops.kernels.conv_int8 import (conv_int8,
 from tf2_yolo_tpu_torch.ops.kernels.fused_conv3x3 import fused_conv3x3
 from tf2_yolo_tpu_torch.ops.kernels.fused_gemm import (act_and_grad,
                                                        fused_gemm)
-from tf2_yolo_tpu_torch.ops.geometry import pair_iou
 from tf2_yolo_tpu_torch.ops.kernels.nms import (nms_keep, nms_keep_plain,
                                                 soft_nms_keep,
                                                 soft_nms_keep_plain,
                                                 soft_nms_scan_plain,
+                                                soft_overlap_words_plain,
                                                 suppression_words_plain)
-from tf2_yolo_tpu_torch.ops.nms import _sorted_by_conf
+from tf2_yolo_tpu_torch.ops.nms import _sorted_by_conf, apply_nms_device
 from tf2_yolo_tpu_torch.parallel import (create_train_state, make_optimizer,
                                          make_train_step)
 from tf2_yolo_tpu_torch.tools import bench_packed_probe as probe
 from tf2_yolo_tpu_torch.tools.train_profile import (ANCHORS, CLASSES,
                                                     card_line, make_training,
                                                     timed_steps)
+from tf2_yolo_tpu_torch.utils.measurement import (PRfunc, _decode_pair,
+                                                  create_score_mat,
+                                                  decode_batch_device)
+from tf2_yolo_tpu_torch.utils.tools import decode as host_decode
 from tf2_yolo_tpu_torch.utils.tools import down2xlabel
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -285,12 +313,13 @@ CONV_SHAPES = [
 SUM_TOL = 2e-6
 TOL = {torch.float32: dict(y_rel=1e-4, y_scale=1e-4, s_rel=1e-5),
        torch.bfloat16: dict(y_rel=2 ** -7, y_scale=1e-3, s_rel=2 ** -7)}
-# greedy: the serving batch, bench_infer.py's batch 32, a large K, and
-# one image at the largest K; Soft-NMS the first three, at a confidence
+# greedy: the serving batch, bench_infer.py's batch 32, a chunk of the
+# device evaluation (64 images of 256 candidates, phase 13), a large K,
+# and one image at the largest K; Soft-NMS the same, at a confidence
 # threshold that deletes some decayed boxes and keeps others, at two
 # sigmas, then coincident boxes at a sigma whose decay underflows
-NMS_CASES = [(8, 128), (32, 128), (8, 1024), (1, nms_mod.MAX_K)]
-SOFT_CASES = [(n, k, sigma, False) for n, k in NMS_CASES[:3]
+NMS_CASES = [(8, 128), (32, 128), (64, 256), (8, 1024), (1, nms_mod.MAX_K)]
+SOFT_CASES = [(n, k, sigma, False) for n, k in NMS_CASES
               for sigma in (0.3, 0.5)] + [(8, 128, 0.005, True)]
 SOFT_CONF = 0.2
 
@@ -1014,33 +1043,40 @@ def soft_band(boxes, keep, nms_threshold, conf_threshold, sigma):
 
 
 def phase_soft_checks(gen):
-    """Soft-NMS: the kernel against the plain scan at each case, timed
-    launched alone and through the wrapper."""
+    """Soft-NMS: the kernel against the plain scan at each case (keep
+    masks, and the transposed lattice in scratch against
+    ``soft_overlap_words_plain``), timed launched alone and through the
+    wrapper."""
     results = []
     for n, k, sigma, coincident in SOFT_CASES:
         boxes = (coincident_boxes(gen, n, k) if coincident
                  else sorted_boxes(gen, n, k, n_box=k * 3 // 4))
-        keep = soft_nms_keep(boxes, 0.45, SOFT_CONF, sigma)
+        plan = nms_mod._plan(n, k)
+        keep, lattice = nms_mod._soft_launch(boxes, 0.45, SOFT_CONF, sigma,
+                                             plan)
         torch.cuda.synchronize()
+        words_p = soft_overlap_words_plain(boxes, 0.45)
+        word_mismatches = int((lattice != words_p).sum())
+        overlaps = sum(int(((words_p >> b) & 1).sum()) for b in range(64))
+        del words_p, lattice
         r = dict(n=n, k=k, sigma=sigma, coincident=coincident,
-                 conf_threshold=SOFT_CONF,
+                 conf_threshold=SOFT_CONF, plan=plan._asdict(),
+                 word_mismatches=word_mismatches, overlaps=overlaps,
                  **soft_band(boxes, keep, 0.45, SOFT_CONF, sigma))
-        r["ms"] = graph_ms(lambda: soft_nms_keep(boxes, 0.45, SOFT_CONF,
-                                                 sigma))
+        r["ms"] = graph_ms(lambda: nms_mod._soft_launch(
+            boxes, 0.45, SOFT_CONF, sigma, plan))
         r["wrapper_ms"] = cuda_ms(
             lambda: soft_nms_keep(boxes, 0.45, SOFT_CONF, sigma), 10)
         r["plain_ms"] = cuda_ms(lambda: soft_nms_keep_plain(
-            boxes, 0.45, SOFT_CONF, sigma), 2)
+            boxes, 0.45, SOFT_CONF, sigma), 2 if k <= 1024 else 1)
         # least work: an IoU (about 25 f32 operations) for every valid,
         # same-class pair i < j, and a decay (exp, about 10 more) for
         # each such pair that overlaps
         v = boxes[..., 7] != 0
         same = ((boxes[:, :, None, 5] == boxes[:, None, :, 5])
                 & v[:, :, None] & v[:, None, :]).triu(diagonal=1)
-        over = same & (pair_iou(boxes[:, :, None, :4],
-                                boxes[:, None, :, :4]) >= 0.45)
-        ops = 25.0 * float(same.sum()) + 10.0 * float(over.sum())
-        del same, over
+        ops = 25.0 * float(same.sum()) + 10.0 * overlaps
+        del same
         r["bound_ms"], r["bound_by"] = bound_ms(
             boxes.numel() * 4 + keep.numel() * 4, ops, torch.float32)
         r["bound_share"] = r["bound_ms"] / r["ms"]
@@ -1048,16 +1084,19 @@ def phase_soft_checks(gen):
         print(f"  soft-nms N={n} K={k} sigma {sigma}"
               f"{' coincident' if coincident else ''}: kept {r['kept']} "
               f"of {r['valid']} (plain deleted {r['deleted_plain']}, "
-              f"{r['zero_conf']} decayed to 0); "
-              f"{r['mismatches_outside']} mismatches outside the band "
-              f"(bound 0), {r['mismatches_in_band']} inside, "
-              f"{r['in_band']} boxes in the band | alone "
+              f"{r['zero_conf']} decayed to 0, {overlaps} overlapping "
+              f"pairs); {r['mismatches_outside']} mismatches outside the "
+              f"band (bound 0), {r['mismatches_in_band']} inside, "
+              f"{r['in_band']} boxes in the band; {word_mismatches} word "
+              f"mismatches (bound 0) | alone "
               f"{r['ms']:.4f} ms, wrapper {r['wrapper_ms']:.4f} ms, "
               f"plain {r['plain_ms']:.3f} ms (no one-call equivalent) "
               f"| bound {r['bound_ms']:.2e} ms ({r['bound_by']}), "
               f"share {r['bound_share']:.2e}")
-        check(r["mismatches_outside"] == 0,
-              f"soft-nms K={k} sigma {sigma}: masks differ")
+        check(r["mismatches_outside"] == 0 and word_mismatches == 0,
+              f"soft-nms N={n} K={k} sigma {sigma}: "
+              f"{r['mismatches_outside']} keep, {word_mismatches} word "
+              f"mismatches")
         check(0 < r["kept"] < r["valid"] and r["deleted_plain"] > 0,
               "soft-nms: degenerate test rows")
         # every copy's decay by its original underflows to 0
@@ -2833,6 +2872,368 @@ def phase_bn_sg(args, card, batch):
     return out
 
 
+EVAL_IMAGES = 64                 # phase 13: one chunk of the device path
+EVAL_PREDICT_BATCH = 32
+EVAL_MAX_BOXES = 256             # device_max_boxes: K of the NMS kernels
+EVAL_CANDIDATES = 250            # the most candidates an image may have
+EVAL_MAX_PER_IMG = 100
+EVAL_NAMES = ["a", "b", "c"]
+MAP_MODES = ("voc2007", "voc2012", "area", "smootharea")
+
+
+def eval_labels(rng, preds, threshold, size):
+    """The finest label grid of each image (what ``create_score_mat``
+    decodes as ``y_trues``), encoded by the port's ``encode_to_grid``
+    from seeded boxes: 1-5 random boxes, and the image's three most
+    confident predictions moved by up to 3 pixels, so that the curves
+    have hits and misses."""
+    n, grid = len(preds[0]), preds[-1].shape[1]
+    out = np.zeros((n, grid, grid, 5 + CLASSES))
+    for i in range(n):
+        rows = host_decode(*[p[i] for p in preds], class_num=CLASSES,
+                           threshold=threshold, version=4)
+        rows = rows[np.argsort(-rows[:, 4] * rows[:, 6], kind="stable")[:3]]
+        xy = rows[:, :2] * size + rng.uniform(-3, 3, (len(rows), 2))
+        half = np.minimum(rows[:, 2:4], 0.5) * size / 2
+        k = rng.randint(1, 6)
+        rxy = rng.uniform(0, size * 0.8, (k, 2))
+        boxes = np.concatenate([
+            np.concatenate([xy - half, xy + half], 1),
+            np.concatenate([rxy, rxy + rng.uniform(size * 0.05, size * 0.2,
+                                                   (k, 2))], 1)])
+        labels = np.concatenate([rows[:, 5].astype(int),
+                                 rng.randint(0, CLASSES, k)])
+        encode_to_grid(np.clip(boxes, 0, size - 1), labels, (size, size),
+                       (grid, grid), CLASSES, out=out[i])
+    return out
+
+
+def row_index(rows, values=None):
+    """{(w, h, conf, class, prob): [(x, y, value), ...]} of decoded rows.
+    Both paths copy those five fields unchanged from the f32 predictions;
+    x and y the host path computes in f64 and the device path in f32, so
+    they are matched within ``XY_TOL``."""
+    out = {}
+    for i, r in enumerate(rows):
+        key = tuple(float(v) for v in r[[2, 3, 4, 5, 6]])
+        out.setdefault(key, []).append(
+            (float(r[0]), float(r[1]), None if values is None else values[i]))
+    return out
+
+
+XY_TOL = 1e-5
+
+
+def find_row(index, key, x, y):
+    """The entry of ``index`` for the row (key, x, y), or None."""
+    for entry in index.get(key, ()):
+        if abs(entry[0] - x) <= XY_TOL and abs(entry[1] - y) <= XY_TOL:
+            return entry
+    return None
+
+
+def kept_set_differences(dev_rows, host_rows):
+    """Per image, the boxes one path keeps and the other does not, as
+    (image, key, x, y)."""
+    diff = []
+    for img, (d, h) in enumerate(zip(dev_rows, host_rows)):
+        for mine, other in ((row_index(d), row_index(h)),
+                            (row_index(h), row_index(d))):
+            for key, entries in mine.items():
+                for x, y, _ in entries:
+                    if find_row(other, key, x, y) is None:
+                        diff.append((img, key, x, y))
+    return diff
+
+
+def cap_ties(dev_rows, cap):
+    """(image, class) groups whose ``cap``-th and next joint confidences
+    are equal: there the host path's unstable NumPy argsort and the
+    device path's tie-break may keep different rows."""
+    ties = 0
+    for rows in dev_rows:
+        for c in range(CLASSES):
+            joint = np.sort((rows[:, 4] * rows[:, 6])[rows[:, 5] == c])[::-1]
+            ties += int(len(joint) > cap and joint[cap - 1] == joint[cap])
+    return ties
+
+
+def curves_equal(a, b):
+    return all(np.array_equal(x, y) for x, y in zip(
+        a.precisions + a.recalls, b.precisions + b.recalls))
+
+
+def conf_hit_sorted(rows):
+    """Detection rows (conf, gt_id, hit) as sorted (f32 conf, hit) pairs."""
+    conf = rows[:, 0].astype(np.float32)
+    return np.stack([conf, rows[:, 2]], 1)[np.lexsort((rows[:, 2], conf))]
+
+
+def sweep_parity(dev_det, host_det, dev_gts, host_gts, dev_pr, host_pr):
+    """How the two paths' PR sweeps compare. The host path's joint
+    confidence is the f64 product of the f32 conf and prob, the device
+    path's their f32 product (in the JAX package too), the f64 one
+    rounded. So the two rank the same detections, but inside a group of
+    equal f32 confidences the device path's order is what NumPy's
+    unstable argsort makes of its row order, and the running counts
+    inside the group may pass through other values; at the group's end
+    they cannot differ. Returns (the GT counts, and each class's
+    detections as (f32 confidence, hit) multisets, equal; the curves
+    equal at the end of every group and at the terminal point; the
+    detections that share their f32 confidence with another)."""
+    same_rows = list(dev_gts) == list(host_gts)
+    at_ends, tied = True, 0
+    for c, (d, h) in enumerate(zip(dev_det, host_det)):
+        same_rows &= d.shape == h.shape and np.array_equal(
+            conf_hit_sorted(d), conf_hit_sorted(h))
+        conf = np.sort(d[:, 0].astype(np.float32))[::-1]
+        ends = np.flatnonzero(np.append(conf[1:] != conf[:-1], True))
+        ends = np.append(ends, len(conf))           # the terminal point
+        tied += len(conf) - len(np.unique(conf))
+        for a, b in ((dev_pr.precisions[c], host_pr.precisions[c]),
+                     (dev_pr.recalls[c], host_pr.recalls[c])):
+            at_ends &= len(a) == len(b) and np.array_equal(a[ends], b[ends])
+    return same_rows, at_ends, tied
+
+
+def frames_equal(a, b):
+    import pandas as pd
+    try:
+        pd.testing.assert_frame_equal(a, b)
+    except AssertionError:
+        return False
+    return True
+
+
+def phase_eval(args, model, card, device="cuda"):
+    """Phase 13: device-side evaluation of 64 images at full width.
+    Phase 4's network predicts them through ``engine.Model.predict``;
+    ``create_score_mat`` (precision modes 0-2) and ``PRfunc`` (``get_map``
+    in all four modes) run on the card (``device=True``: decode, the NMS
+    kernel of the mode, matching) and on the host (``device=False``), for
+    greedy, Soft and DIoU NMS, and must agree: the kept boxes equal but
+    for Soft-NMS boxes in the band; the tables, the swept detections and
+    the curves at the end of each group of equal confidences equal; the
+    curves at every point and the maps equal where no two detections
+    tie (see ``sweep_parity``).
+    ``device="cpu"`` rehearses the phase on the plain versions, with no
+    launch counted and nothing timed on a card."""
+    import pandas  # noqa: F401  (the tables; fail here if it is missing)
+
+    on_card = device == "cuda"
+    wrapped = engine.Model(model, (args.size, args.size, 3), device=device)
+    rng = np.random.RandomState(args.seed + 13)
+    images = rng.randint(0, 256, (EVAL_IMAGES, args.size, args.size, 3)
+                         ).astype(np.uint8)
+    conv_bn_stats.launches = 0
+    t0 = time.perf_counter()
+    preds = wrapped.predict(images, batch_size=EVAL_PREDICT_BATCH)
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    check(conv_bn_stats.launches == on_card * CONVS_PER_FORWARD
+          * EVAL_IMAGES // EVAL_PREDICT_BATCH, "device evaluation: predict "
+          f"did not run the conv kernel ({conv_bn_stats.launches} launches)")
+    # the threshold that leaves each image at most EVAL_CANDIDATES
+    # candidates: no image reaches device_max_boxes
+    joint = np.concatenate([
+        (p.reshape(EVAL_IMAGES, -1, 5 + CLASSES)[..., 4:5]
+         * p.reshape(EVAL_IMAGES, -1, 5 + CLASSES)[..., 5:]).reshape(
+             EVAL_IMAGES, -1) for p in preds], axis=1)
+    kth = np.sort(joint, axis=1)[:, -EVAL_CANDIDATES]
+    threshold = float(np.nextafter(kth.max(), np.float32(1)))
+    candidates = (joint >= np.float32(threshold)).sum(axis=1)
+    check(candidates.max() < EVAL_MAX_BOXES,
+          "device evaluation: an image reaches the candidate cap")
+    y_trues = eval_labels(rng, preds, threshold, args.size)
+    print(f"  predicted {EVAL_IMAGES} images of {args.size}^2 at batch "
+          f"{EVAL_PREDICT_BATCH} in {predict_ms:.1f} ms; conf_threshold "
+          f"{threshold:.6f}: {int(candidates.min())}-"
+          f"{int(candidates.max())} candidates an image (median "
+          f"{int(np.median(candidates))}), {int(y_trues[..., 4].sum())} "
+          "GT boxes")
+
+    # the best-GT argmax on the card at an exact tie: three equal GTs,
+    # the first of them must win, as on the CPU
+    t_rows = torch.rand(EVAL_IMAGES, 8, 7, generator=torch.Generator(
+        ).manual_seed(args.seed))
+    t_rows[..., 5] = 0
+    t_rows[:, 5], t_rows[:, 6] = t_rows[:, 2], t_rows[:, 2]
+    t_valid = torch.ones(EVAL_IMAGES, 8, dtype=torch.bool)
+    p_rows = t_rows[:, [2, 6, 0, 1]].clone()
+    p_valid = torch.ones(EVAL_IMAGES, 4, dtype=torch.bool)
+    got = match_pred_arrays(t_rows.to(device), t_valid.to(device),
+                            p_rows.to(device), p_valid.to(device), 0.5)
+    want = match_pred_arrays(t_rows, t_valid, p_rows, p_valid, 0.5)
+    check(all(torch.equal(got[k].cpu(), want[k]) for k in want)
+          and bool((got["best_gt"][:, :2] == 2).all()),
+          "device evaluation: best GT on the card differs at a tie")
+
+    out = dict(threshold=threshold, predict_ms=predict_ms,
+               conv_launches=conv_bn_stats.launches,
+               candidates=candidates.tolist(), modes={})
+    for nms_mode in (1, 2, 3):
+        kw = dict(class_names=EVAL_NAMES, conf_threshold=threshold,
+                  nms_mode=nms_mode, nms_threshold=0.45, nms_sigma=0.5,
+                  iou_threshold=0.5, version=4,
+                  device_max_boxes=EVAL_MAX_BOXES)
+        runs, times = {}, {}
+        for path in (True, False):
+            on = (True if on_card else device) if path else False
+            nms_keep.launches = soft_nms_keep.launches = 0
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                mats = [create_score_mat(y_trues, *preds, device=on,
+                                         precision_mode=m, **kw)
+                        for m in (0, 1, 2)]
+                sync(device)
+                t1 = time.perf_counter()
+                pr = PRfunc(y_trues, *preds, device=on,
+                            max_per_img=EVAL_MAX_PER_IMG, **kw)
+                sync(device)
+                t2 = time.perf_counter()
+            check(not [w for w in caught if "max_boxes" in str(w.message)],
+                  "device evaluation: the saturation warning fired")
+            launches = (nms_keep.launches, soft_nms_keep.launches)
+            want = (0, 0) if not (on_card and path) else \
+                (0, 4) if nms_mode == 2 else (4, 0)
+            check(launches == want, f"device evaluation, nms_mode "
+                  f"{nms_mode}, device={on}: NMS launches {launches}, "
+                  f"want {want} (one a chunk)")
+            if path:
+                out.setdefault("nms_launches", 0)
+                out.setdefault("soft_nms_launches", 0)
+                out["nms_launches"] += launches[0]
+                out["soft_nms_launches"] += launches[1]
+            runs[path] = (mats, pr, [pr.get_map(m) for m in MAP_MODES])
+            times[path] = dict(score_mat_ms=(t1 - t0) * 1e3 / 3,
+                               prfunc_ms=(t2 - t1) * 1e3)
+        # the kept boxes of each image on both paths
+        _, dev_p = decode_batch_device(
+            y_trues, preds, CLASSES, threshold, nms_mode, 0.45, 0.5, 4,
+            EVAL_MAX_BOXES, device=True if on_card else device)
+        host_p = [_decode_pair(y_trues[i], [p[i] for p in preds], CLASSES,
+                               threshold, nms_mode, 0.45, 0.5, 4)[1]
+                  for i in range(EVAL_IMAGES)]
+        diff = kept_set_differences(dev_p, host_p)
+        # the chunk's NMS alone on the card, on its own decoded rows
+        p_rows, p_valid = decode_multi_level(
+            [torch.as_tensor(p, device=device) for p in preds],
+            class_num=CLASSES, threshold=threshold,
+            max_boxes=EVAL_MAX_BOXES, version=4)
+        rows_s, valid_s = _sorted_by_conf(p_rows, p_valid)
+        boxes = torch.cat([rows_s, valid_s[..., None].float()],
+                          -1).contiguous()
+        plan = nms_mod._plan(*boxes.shape[:2])
+        in_band = outside = 0
+        if nms_mode == 2:
+            def launch():
+                if not on_card:              # the wrapper's plain version
+                    return soft_nms_keep(boxes, 0.45, threshold, 0.5), None
+                return nms_mod._soft_launch(boxes, 0.45, threshold, 0.5,
+                                            plan)
+            band = soft_band(boxes, launch()[0], 0.45, threshold, 0.5)
+            check(band["mismatches_outside"] == 0, "device evaluation: "
+                  "Soft-NMS kernel differs from the plain scan")
+            # host (f64) against device (f32): a box counts as in the band
+            # when its f32 decayed confidence lies within
+            # (4 + 16 decays) eps of the threshold
+            valid, _, conf = soft_nms_scan_plain(boxes, 0.45, threshold,
+                                                 0.5)
+            words = soft_overlap_words_plain(boxes, 0.45)
+            decays = sum(((words >> b) & 1) for b in range(64)).sum(-1)
+            eps = float(np.finfo(np.float32).eps)
+            index = [row_index(boxes[img][valid[img]].cpu().numpy(), list(
+                zip(conf[img][valid[img]].tolist(),
+                    decays[img][valid[img]].tolist())))
+                for img in range(boxes.shape[0])]
+            for img, key, x, y in diff:
+                entry = find_row(index[img], key, x, y)
+                if entry is not None and abs(entry[2][0] - threshold) <= \
+                        (4 + 16 * entry[2][1]) * eps * threshold:
+                    in_band += 1
+                else:
+                    outside += 1
+        else:
+            iou_mode = 1 if nms_mode == 1 else 2
+
+            def launch():
+                if not on_card:
+                    return nms_keep(boxes, 0.45, iou_mode), None
+                return nms_mod._launch(boxes, 0.45, iou_mode, plan)
+            check(torch.equal(launch()[0], nms_keep_plain(boxes, 0.45,
+                                                          iou_mode)),
+                  "device evaluation: greedy kernel differs from plain")
+            outside = len(diff)
+        nms_alone_ms = nms_wrapper_ms = float("nan")     # not on a card
+        if on_card:
+            nms_alone_ms = graph_ms(launch)
+            nms_wrapper_ms = cuda_ms(lambda: apply_nms_device(
+                p_rows, p_valid, nms_mode=nms_mode, nms_threshold=0.45,
+                conf_threshold=threshold, nms_sigma=0.5), 10)
+        (dmats, dpr, dmaps), (hmats, hpr, hmaps) = runs[True], runs[False]
+        # the detections each path's PRfunc sweeps (again, uncounted)
+        collect = (y_trues, preds, CLASSES, threshold, nms_mode, 0.45, 0.5,
+                   0.5, EVAL_MAX_PER_IMG, 4)
+        dev_gts, dev_det = PRfunc._collect_device(
+            *collect, EVAL_MAX_BOXES, torch.device(device))
+        host_gts, host_det = PRfunc._collect_host(*collect)
+        same_rows, at_ends, tied = sweep_parity(
+            dev_det, host_det, dev_gts, host_gts, dpr, hpr)
+        equal = dict(
+            tables=all(frames_equal(a, b) for a, b in zip(dmats, hmats)),
+            detections=same_rows, curves_at_tie_ends=at_ends,
+            curves=curves_equal(dpr, hpr),
+            maps=all(frames_equal(a, b) for a, b in zip(dmaps, hmaps)))
+        map_diff = max(float((a["ap"] - b["ap"]).abs().max())
+                       for a, b in zip(dmaps, hmaps))
+        ties = cap_ties(dev_p, EVAL_MAX_PER_IMG)
+        r = dict(nms_mode=nms_mode, equal=equal, kept_differ=len(diff),
+                 kept_differ_in_band=in_band,
+                 kept_differ_outside_band=outside, cap_ties=ties,
+                 tied_detections=tied, map_max_abs_diff=map_diff,
+                 kept_device=int(sum(len(p) for p in dev_p)),
+                 kept_host=int(sum(len(p) for p in host_p)),
+                 map_area=float(dmaps[2].loc["mAP", "ap"]),
+                 map_area_host=float(hmaps[2].loc["mAP", "ap"]),
+                 device=times[True], host=times[False],
+                 nms_alone_ms=nms_alone_ms, nms_wrapper_ms=nms_wrapper_ms,
+                 chunk=list(boxes.shape[:2]))
+        out["modes"][nms_mode] = r
+        name = {1: "greedy (K4)", 2: "Soft (S)", 3: "DIoU (K4)"}[nms_mode]
+        print(f"  nms_mode {nms_mode}, {name}: kept {r['kept_device']} "
+              f"boxes on the card, {r['kept_host']} on the host; "
+              f"{len(diff)} differ, {in_band} in the band, {outside} "
+              f"outside (bound 0); {ties} ties at the cap; equal: "
+              + ", ".join(f"{k} {v}" for k, v in equal.items())
+              + f"; {tied} detections share their f32 confidence; mAP (area) "
+              f"{r['map_area']:.6f} card, {r['map_area_host']:.6f} host, "
+              f"APs differ by at most {map_diff:.2e}")
+        print(f"    ms for {EVAL_IMAGES} images, device | host: "
+              f"create_score_mat {times[True]['score_mat_ms']:.1f} | "
+              f"{times[False]['score_mat_ms']:.1f}, PRfunc "
+              f"{times[True]['prfunc_ms']:.1f} | "
+              f"{times[False]['prfunc_ms']:.1f}; NMS a chunk "
+              f"(N={boxes.shape[0]}, K={boxes.shape[1]}): alone "
+              f"{nms_alone_ms:.4f} ms, through apply_nms_device "
+              f"{nms_wrapper_ms:.4f} ms")
+        check(outside == 0, f"device evaluation, nms_mode {nms_mode}: "
+              f"{outside} kept boxes differ outside the band")
+        check(ties == 0, "device evaluation: a tie at the max_per_img "
+              "cap, where the paths may keep different rows")
+        # the tables always; the swept detections and the curves at the
+        # end of each group of equal f32 confidences always; the curves at
+        # every point and the maps where no two detections tie; all of it
+        # but where Soft-NMS boxes in the band are kept by one path only
+        must = ["tables", "detections", "curves_at_tie_ends"] + (
+            ["curves", "maps"] if tied == 0 else [])
+        check(in_band > 0 or all(equal[k] for k in must),
+              f"device evaluation, nms_mode {nms_mode}: the device path's "
+              f"results differ from the host path's: {equal}")
+        check(0 < r["map_area"] < 1, "device evaluation: degenerate mAP")
+    out["card"] = card
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2926,12 +3327,19 @@ def main(argv=None):
           "folding, int8 at gates 256 and 0, the serving artifact, "
           "ms/request")
     deploy = phase_deploy(args, model, threshold, images, card)
-    del model, images
+    del images
     torch.cuda.empty_cache()
 
     print("phase 12: the frozen-statistics BatchNorm backward "
           "(scope='backbone')")
     bn_sg = phase_bn_sg(args, card, trained["batch"])
+
+    print(f"phase 13: device evaluation of {EVAL_IMAGES} images at "
+          f"{args.size}^2 on phase 4's network: create_score_mat and PRfunc "
+          "on the card against the host, greedy, Soft and DIoU NMS")
+    evaluation = phase_eval(args, model, card)
+    del model
+    torch.cuda.empty_cache()
 
     def bf16_at(results, shape):
         return [r for r in results
@@ -2941,6 +3349,11 @@ def main(argv=None):
     stem_at = bf16_at(conv_res, CONV_SHAPES[0][0])
     nms_at = [r for r in nms_res if r["k"] == 128 and r["iou_mode"] == 1][0]
     soft_at = [r for r in soft_res if r["k"] == 128 and r["sigma"] == 0.5][0]
+    # the device evaluation's chunk, N=64 and K=256
+    nms_chunk = [r for r in nms_res if r["k"] == EVAL_MAX_BOXES
+                 and r["iou_mode"] == 1][0]
+    soft_chunk = [r for r in soft_res if r["k"] == EVAL_MAX_BOXES
+                  and r["sigma"] == 0.5][0]
     fwd_at = bf16_at(gemm_res, GEMM_SHAPES[1][0])
     bwd_at = bf16_at(gemm_res, GEMM_SHAPES[0][0])
     conv3_at = bf16_at(conv3_res, CONV3_SHAPES[0][0])
@@ -2972,8 +3385,10 @@ def main(argv=None):
              **{**train_launches("conv_bn_stats"),
                 "launches": served["conv_launches"]
                 + train_launches("conv_bn_stats")["launches"]
-                + facade["evaluate_predict_launches"]["conv_bn_stats"]},
+                + facade["evaluate_predict_launches"]["conv_bn_stats"]
+                + evaluation["conv_launches"]},
              launches_serving=served["conv_launches"],
+             launches_device_eval=evaluation["conv_launches"],
              launches_facade_evaluate_predict=facade[
                  "evaluate_predict_launches"]["conv_bn_stats"],
              launches_tc=served["conv_tc_launches"]
@@ -2994,10 +3409,14 @@ def main(argv=None):
              stem_cuda_core_ms=stem_at["cuda_core_ms"]),
         # ``ms`` both launches alone (CUDA graph),
         # ``wrapper_ms`` through the wrapper; launches one a greedy request
+        # and one a chunk of the device evaluation (modes 1 and 3);
+        # ``chunk_*`` at the evaluation's chunk, N=64, K=256
         dict(name="nms_keep", route="cuda",
              source="tf2_yolo_tpu_torch/csrc/nms.cu",
              replaces="tf2_yolo_tpu/ops/pallas/nms_kernel.py:182",
-             launches=served["nms_launches"],
+             launches=served["nms_launches"] + evaluation["nms_launches"],
+             launches_serving=served["nms_launches"],
+             launches_device_eval=evaluation["nms_launches"],
              launches_per_request=served["nms_launches"]
              / served["greedy_requests"],
              max_abs_err=max(r["max_abs_err"] for r in nms_res),
@@ -3005,13 +3424,19 @@ def main(argv=None):
              ms=nms_at["ms"], wrapper_ms=nms_at["wrapper_ms"],
              plain_ms=nms_at["plain_ms"],
              bound_ms=nms_at["bound_ms"], bound_by=nms_at["bound_by"],
-             bound_share=nms_at["bound_share"], library_ms=None),
-        # no Pallas counterpart: the JAX package's Soft-NMS is a lax.scan
+             bound_share=nms_at["bound_share"], library_ms=None,
+             **{f"chunk_{k}": nms_chunk[k]
+                for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms")}),
+        # no Pallas counterpart: the JAX package's Soft-NMS is a lax.scan;
+        # launches one a Soft-NMS request and one a chunk (mode 2)
         dict(name="soft_nms_keep", route="cuda",
              source="tf2_yolo_tpu_torch/csrc/nms.cu",
              replaces="tf2_yolo_tpu/ops/nms.py:108 (lax.scan, no Pallas "
                       "kernel)",
-             launches=served["soft_nms_launches"],
+             launches=served["soft_nms_launches"]
+             + evaluation["soft_nms_launches"],
+             launches_serving=served["soft_nms_launches"],
+             launches_device_eval=evaluation["soft_nms_launches"],
              launches_per_request=served["soft_nms_launches"]
              / served["soft_requests"],
              max_abs_err=max(r["max_abs_err"] for r in soft_res),
@@ -3021,7 +3446,9 @@ def main(argv=None):
              ms=soft_at["ms"], wrapper_ms=soft_at["wrapper_ms"],
              plain_ms=soft_at["plain_ms"], bound_ms=soft_at["bound_ms"],
              bound_by=soft_at["bound_by"],
-             bound_share=soft_at["bound_share"], library_ms=None),
+             bound_share=soft_at["bound_share"], library_ms=None,
+             **{f"chunk_{k}": soft_chunk[k]
+                for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms")}),
         # K2, K2', K3' and P: ``ms`` is the kernel launched alone (the
         # routed, tensor-core kernel), ``wrapper_ms`` the public wrapper
         # around it, ``cuda_core_ms`` the CUDA-core instance on the same
@@ -3151,6 +3578,7 @@ def main(argv=None):
                   train_routes_f32=train_routes,
                   train_timing=train_timing, facade=facade,
                   int8=int8_res, deploy=deploy, bn_sg=bn_sg,
+                  device_eval=evaluation,
                   kernels=kernels,
                   seconds=seconds)
     os.makedirs(args.log_dir, exist_ok=True)

@@ -63,18 +63,30 @@
 //    exp(-(iou^2) / sigma); j is deleted when it was decayed at least
 //    once and its confidence, after some decay, is below
 //    conf_threshold.  Box j's confidence depends only on the boxes
-//    before it, never on which were deleted, so there is no step-to-step
-//    dependence across boxes: box j's thread multiplies its decays for
-//    i = 0 .. j-1 in the scan's order, from conf0 = conf * prob, so it
-//    rounds as the scan does, up to expf against the plain version's
-//    exp.  Bounded by the K^2 / 2 IoUs (about 25 f32 operations each)
-//    and an expf per overlapping pair.  A block takes 32 boxes j of one
-//    image and walks the earlier boxes in chunks of 128: its 256 threads
-//    compute the chunk's 128 x 32 factors at once into shared memory
-//    (16 a thread), then the 32 threads of the tile multiply them in
-//    order, one multiply and compare a factor.  (Each thread computing
-//    its own j factors one after the other took 0.21 ms at N=8, K=1024
-//    on an H100: the chain of one thread's IoUs and expf.)
+//    before it, never on which were deleted, so boxes do not wait on
+//    each other.  And in f32 a multiplication by 1.0 is exact, so only
+//    the overlapping earlier boxes move j's confidence, applied in
+//    ascending i, the scan's order.
+//
+//    What bounds it on an H100: the lattice, an IoU (about 25 f32
+//    operations) for every pair i < j, K^2 / 2 of them, with no order
+//    among them; then a chain per box as long as the number of earlier
+//    boxes that overlap it, each link an IoU, a division, an expf and a
+//    multiply.  The design takes them apart as greedy NMS does.  The
+//    lattice kernel (nms_lattice_kernel<true>) writes K4's lattice
+//    transposed: word w of row j holds bit b for the earlier box
+//    i = 64w + b, set when both are valid, i < j, the classes are equal
+//    and iou(i, j) >= nms_threshold, so that a box's words list its
+//    overlapping predecessors and lie side by side.  The walk kernel
+//    (soft_walk_kernel) gives each box j a thread that visits the set
+//    bits of its words in ascending i, recomputes that pair's IoU, and
+//    multiplies its confidence by the decay, deleting j once it falls
+//    below conf_threshold: its chain is as long as its overlaps, not K,
+//    and no barrier stands between its words.  (The first design had 32
+//    threads of a block multiply a column of 128 factors at a time, 1.0
+//    for every pair that does not overlap, so each chain was K long and
+//    seven eighths of the block waited on it.)  Words past
+//    row j's own word (j / 64) hold no bits and are not read.
 //
 // Exactness: the overlap arithmetic is written in the order of the plain
 // version (tf2_yolo_tpu_torch/ops/geometry.py pair_iou), and this file is
@@ -96,9 +108,8 @@ constexpr int SMEM_LIMIT = 232448;     // what a block may opt into (227 KB)
 constexpr int TILE_ROWS = 16;          // lattice kernel: rows of a block
 constexpr int LATTICE_THREADS = 256;   // 8 warps, 2 rows each
 constexpr int SCAN_THREADS = 512;      // scan kernel: thread 0 walks
-constexpr int SOFT_TJ = 32;            // Soft-NMS: boxes j of a block,
-constexpr int SOFT_TI = 128;           // earlier boxes i of a chunk
-constexpr int SOFT_THREADS = 256;      // 16 factors a thread a chunk
+constexpr int WALK_THREADS = 128;      // Soft-NMS walk: a box a thread,
+constexpr int WALK_WORDS = 8;          // its words loaded 8 at a time
 
 // A box as the overlap reads it: corners, area, class and centre.
 struct Prep {
@@ -143,27 +154,41 @@ __device__ __forceinline__ bool suppresses(const Prep& a, const Prep& b,
   return b.cls == a.cls && overlap(a, b, iou_mode) >= threshold;
 }
 
-// Word (c0 / 64) of row i, for a valid row box bi: the lane tests
-// candidates c0 + lane and c0 + 32 + lane, cols[0] being box c0.  Called
+// Word (c0 / 64) of row r, for a valid row box br: the lane tests the
+// column boxes c0 + lane and c0 + 32 + lane, cols[0] being box c0.
+// Greedy: row box i suppresses column box j > i.  Soft-NMS (the
+// transpose): column box i, valid, overlaps the later row box j.  Called
 // by a whole warp.
-__device__ __forceinline__ u64 lattice_word(const Prep& bi, int i,
-                                            const Prep* cols, int c0, int k,
-                                            float threshold, int iou_mode,
-                                            int lane) {
-  int j0 = c0 + lane, j1 = j0 + 32;
-  bool s0 = j0 > i && j0 < k && suppresses(bi, cols[lane], threshold,
-                                           iou_mode);
-  bool s1 = j1 > i && j1 < k && suppresses(bi, cols[lane + 32], threshold,
-                                           iou_mode);
-  return (u64)__ballot_sync(FULL, s0) |
-         ((u64)__ballot_sync(FULL, s1) << 32);
+template <bool SOFT>
+__device__ __forceinline__ u64 lattice_word(const Prep& br, int r,
+                                            const Prep* cols,
+                                            const bool* col_valid, int c0,
+                                            int k, float threshold,
+                                            int iou_mode, int lane) {
+  u64 word = 0ull;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = c0 + lane + 32 * h;
+    const Prep& bc = cols[lane + 32 * h];
+    bool s;
+    if (SOFT)
+      s = c < r && col_valid[lane + 32 * h] &&
+          suppresses(bc, br, threshold, 1);
+    else
+      s = c > r && c < k && suppresses(br, bc, threshold, iou_mode);
+    word |= (u64)__ballot_sync(FULL, s) << (32 * h);
+  }
+  return word;
 }
 
-// The lattice of every image into global scratch (N, K, words).
+// The lattice of every image into global scratch (N, K, words): greedy,
+// row i over the later boxes j, or (SOFT) row j over the earlier boxes i.
+template <bool SOFT>
 __global__ void __launch_bounds__(LATTICE_THREADS)
 nms_lattice_kernel(const float* __restrict__ boxes, u64* __restrict__ lattice,
                    int k, int words, float threshold, int iou_mode) {
   __shared__ Prep cols[64];
+  __shared__ bool col_valid[64];
   __shared__ Prep rows[TILE_ROWS];
   __shared__ bool row_valid[TILE_ROWS];
   const int wd = blockIdx.x, row0 = blockIdx.y * TILE_ROWS;
@@ -171,13 +196,18 @@ nms_lattice_kernel(const float* __restrict__ boxes, u64* __restrict__ lattice,
   const float* src = boxes + (size_t)blockIdx.z * k * 8;
   u64* dst = lattice + (size_t)blockIdx.z * k * words;
 
-  if (row0 >= c0 + 64) {               // below the diagonal: j < i
+  // no pair of the tile has its column box after (greedy) or before
+  // (Soft-NMS) its row box: the words are zero
+  if (SOFT ? c0 >= row0 + TILE_ROWS : row0 >= c0 + 64) {
     if (tid < TILE_ROWS && row0 + tid < k)
       dst[(size_t)(row0 + tid) * words + wd] = 0ull;
     return;
   }
   if (tid < 64) {
-    if (c0 + tid < k) cols[tid] = prep(src + (size_t)(c0 + tid) * 8);
+    if (c0 + tid < k) {
+      cols[tid] = prep(src + (size_t)(c0 + tid) * 8);
+      col_valid[tid] = src[(size_t)(c0 + tid) * 8 + 7] != 0.0f;
+    }
   } else if (tid < 64 + TILE_ROWS) {
     int i = row0 + tid - 64;
     if (i < k) {
@@ -192,8 +222,8 @@ nms_lattice_kernel(const float* __restrict__ boxes, u64* __restrict__ lattice,
     if (i >= k) break;
     u64 word = 0ull;
     if (row_valid[rr])
-      word = lattice_word(rows[rr], i, cols, c0, k, threshold, iou_mode,
-                          lane);
+      word = lattice_word<SOFT>(rows[rr], i, cols, col_valid, c0, k,
+                                threshold, iou_mode, lane);
     if (lane == 0) dst[(size_t)i * words + wd] = word;
   }
 }
@@ -272,72 +302,51 @@ nms_scan_kernel(const float* __restrict__ boxes,
                  ? src[(size_t)j * 8 + 7] : 0.0f;
 }
 
-// Soft-NMS: a block per (tile of SOFT_TJ boxes j, image).  For each
-// chunk of SOFT_TI earlier boxes i, the block computes the decay factors
-// of every (i, j) pair at once, one IoU and one expf a pair (sign bit
-// set: the pair overlaps, -0.0f where expf underflows; 1: it does not),
-// then thread j multiplies its column in order of i, as the scan does.
-__global__ void __launch_bounds__(SOFT_THREADS)
-soft_nms_keep_kernel(const float* __restrict__ boxes, float* __restrict__ keep,
-                     int k, float nms_threshold, float conf_threshold,
-                     float sigma) {
-  __shared__ Prep ci[SOFT_TI];               // the chunk's boxes i
-  __shared__ float cv[SOFT_TI];
-  __shared__ Prep tj[SOFT_TJ];               // the tile's boxes j
-  __shared__ float tv[SOFT_TJ];
-  __shared__ float factor[SOFT_TJ][SOFT_TI + 1];   // + 1: no bank clash
-  const int tid = threadIdx.x, j0 = blockIdx.x * SOFT_TJ;
+// Soft-NMS: a thread per box j of an image walks the set bits of its
+// row of the transposed lattice in ascending i, as the scan applies
+// them: recompute iou(i, j), decay by exp(-(iou^2) / sigma) in the
+// scan's order (square, negate, divide, exp), multiply, and delete j once
+// its confidence is below conf_threshold (a deleted box keeps decaying;
+// a decay that underflows to 0 deletes).  The row's words are loaded
+// WALK_WORDS at a time, all in flight together, before their bits are
+// walked (loaded one at a time, their latency lengthened the walk at
+// large K on an H100; computing several decays at once before applying
+// them in order gained nothing there).
+__global__ void __launch_bounds__(WALK_THREADS)
+soft_walk_kernel(const float* __restrict__ boxes,
+                 const u64* __restrict__ lattice, float* __restrict__ keep,
+                 int k, int words, float conf_threshold, float sigma) {
+  const int j = blockIdx.x * WALK_THREADS + threadIdx.x;
+  if (j >= k) return;
   const float* src = boxes + (size_t)blockIdx.y * k * 8;
-  if (tid < SOFT_TJ) {
-    int j = j0 + tid;
-    tv[tid] = j < k ? src[(size_t)j * 8 + 7] : 0.0f;
-    if (j < k) tj[tid] = prep(src + (size_t)j * 8);
-  }
-  // thread tid < SOFT_TJ owns box j0 + tid; the others compute factors
-  const int j = j0 + tid;
-  float conf = 0.0f;
-  if (tid < SOFT_TJ && j < k)
-    conf = src[(size_t)j * 8 + 4] * src[(size_t)j * 8 + 6];
-  bool deleted = false;
-  const int ii = tid % SOFT_TI, half = tid / SOFT_TI;
-  constexpr int JJ = SOFT_TJ * SOFT_TI / SOFT_THREADS;   // pairs a thread
-  const int i_end = min(k, j0 + SOFT_TJ) - 1;  // i < j <= last j
-  for (int i0 = 0; i0 < i_end; i0 += SOFT_TI) {
-    __syncthreads();                           // the last chunk is read
-    if (tid < SOFT_TI) {
-      int i = i0 + tid;
-      cv[tid] = i < k ? src[(size_t)i * 8 + 7] : 0.0f;
-      if (i < k) ci[tid] = prep(src + (size_t)i * 8);
-    }
-    __syncthreads();
-    const int i = i0 + ii;
-#pragma unroll 4
-    for (int t = 0; t < JJ; ++t) {
-      const int jj = half * JJ + t;
-      float f = 1.0f;
-      if (i < j0 + jj && cv[ii] != 0.0f && tv[jj] != 0.0f &&
-          ci[ii].cls == tj[jj].cls) {
-        float iou = overlap(ci[ii], tj[jj], 1);
-        // the scan's order: square, negate, divide by sigma, exp
-        if (iou >= nms_threshold) f = -expf(-(iou * iou) / sigma);
-      }
-      factor[jj][ii] = f;
-    }
-    __syncthreads();
-    if (tid < SOFT_TJ) {
-      const int n_i = min(SOFT_TI, k - i0);
-      for (int t = 0; t < n_i; ++t) {
-        float f = factor[tid][t];
-        if (signbit(f)) {                // -0.0f too: exp underflowed
-          conf = conf * -f;
+  const float* rj = src + (size_t)j * 8;
+  float kept = 0.0f;
+  if (rj[7] != 0.0f) {
+    const Prep bj = prep(rj);
+    float conf = rj[4] * rj[6];
+    bool deleted = false;
+    const u64* row = lattice + ((size_t)blockIdx.y * k + j) * words;
+    const int last = j >> 6;
+    for (int w0 = 0; w0 <= last; w0 += WALK_WORDS) {
+      u64 batch[WALK_WORDS];
+#pragma unroll
+      for (int t = 0; t < WALK_WORDS; ++t)
+        batch[t] = w0 + t <= last ? row[w0 + t] : 0ull;
+#pragma unroll
+      for (int t = 0; t < WALK_WORDS; ++t) {
+        u64 word = batch[t];
+        while (word != 0ull) {
+          const int i = (w0 + t) * 64 + __ffsll((long long)word) - 1;
+          word &= word - 1ull;
+          const float iou = overlap(prep(src + (size_t)i * 8), bj, 1);
+          conf = conf * expf(-(iou * iou) / sigma);
           deleted = deleted || conf < conf_threshold;
         }
       }
     }
+    kept = deleted ? 0.0f : 1.0f;
   }
-  if (tid < SOFT_TJ && j < k)
-    keep[(size_t)blockIdx.y * k + j] =
-        tv[tid] != 0.0f && !deleted ? 1.0f : 0.0f;
+  keep[(size_t)blockIdx.y * k + j] = kept;
 }
 
 }  // namespace
@@ -364,7 +373,7 @@ extern "C" int nms_keep_launch(const float* boxes, float* keep,
   cudaStream_t s = (cudaStream_t)stream;
   dim3 grid((unsigned)words, (unsigned)((k + TILE_ROWS - 1) / TILE_ROWS),
             (unsigned)n);
-  nms_lattice_kernel<<<grid, LATTICE_THREADS, 0, s>>>(
+  nms_lattice_kernel<false><<<grid, LATTICE_THREADS, 0, s>>>(
       boxes, lattice, k, words, threshold, iou_mode);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -373,13 +382,22 @@ extern "C" int nms_keep_launch(const float* boxes, float* keep,
   return (int)cudaGetLastError();
 }
 
-// Soft-NMS keep mask.  Returns the cudaError_t of the launch.
-extern "C" int soft_nms_keep_launch(const float* boxes, float* keep, int n,
-                                    int k, float nms_threshold,
+// Soft-NMS keep mask: the transposed lattice into scratch (N, K, words),
+// then the walk.  Returns the cudaError_t of the launches.
+extern "C" int soft_nms_keep_launch(const float* boxes, float* keep,
+                                    unsigned long long* lattice, int n,
+                                    int k, int words, float nms_threshold,
                                     float conf_threshold, float sigma,
                                     void* stream) {
-  dim3 grid((unsigned)((k + SOFT_TJ - 1) / SOFT_TJ), (unsigned)n);
-  soft_nms_keep_kernel<<<grid, SOFT_THREADS, 0, (cudaStream_t)stream>>>(
-      boxes, keep, k, nms_threshold, conf_threshold, sigma);
+  cudaStream_t s = (cudaStream_t)stream;
+  dim3 grid((unsigned)words, (unsigned)((k + TILE_ROWS - 1) / TILE_ROWS),
+            (unsigned)n);
+  nms_lattice_kernel<true><<<grid, LATTICE_THREADS, 0, s>>>(
+      boxes, lattice, k, words, nms_threshold, 1);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dim3 walk((unsigned)((k + WALK_THREADS - 1) / WALK_THREADS), (unsigned)n);
+  soft_walk_kernel<<<walk, WALK_THREADS, 0, s>>>(
+      boxes, lattice, keep, k, words, conf_threshold, sigma);
   return (int)cudaGetLastError();
 }

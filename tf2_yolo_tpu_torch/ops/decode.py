@@ -1,6 +1,7 @@
 """On-device box decode with static shapes.
 
-Port of tf2_yolo_tpu/ops/decode.py (v2-v4 per-anchor layout). Output
+Port of tf2_yolo_tpu/ops/decode.py (v2-v4 per-anchor layout; the v1
+shared-class layout raises, see :func:`_check_version`). Output
 rows are [x, y, w, h, conf, class_idx, class_prob], x/y normalized to
 the image, with a validity mask instead of a ragged result.
 
@@ -17,13 +18,24 @@ def _top_k(values, k):
     return vals[:, :k], idx[:, :k]
 
 
+def _check_version(version):
+    if version == 1:
+        raise NotImplementedError(
+            "version 1: the v1 shared-class decode layout is not ported yet "
+            "(ROADMAP.md, modules to port, item 8, other families)")
+    if version not in (2, 3, 4):
+        raise ValueError(f"Invalid version: {version}")
+
+
 def decode_one_level(label_data, class_num=1, threshold=0.5,
-                     max_boxes=100):
-    """Decode one level's (N, S, S, B*(5+C)) head output.
+                     max_boxes=100, version=2):
+    """Decode one level's (N, S, S, B*(5+C)) head output (``version`` 2-4:
+    the per-anchor layout).
 
     Returns rows (N, max_boxes, 7) f32 sorted by joint confidence
     descending, and valid (N, max_boxes) bool (joint conf >= threshold).
     """
+    _check_version(version)
     n, gh, gw = label_data.shape[:3]
     label_data = label_data.float()
     bbox_num = label_data.shape[-1] // (5 + class_num)
@@ -65,14 +77,14 @@ def decode_one_level(label_data, class_num=1, threshold=0.5,
 
 
 def decode_multi_level(label_datas, class_num=1, threshold=0.5,
-                       max_boxes=100):
+                       max_boxes=100, version=3):
     """Decode each level and merge to one top-``max_boxes`` set per
     image. Invalid rows all tie at -1 and keep level order."""
     rows_all, valid_all = [], []
     for ld in label_datas:
         rows, valid = decode_one_level(ld, class_num=class_num,
                                        threshold=threshold,
-                                       max_boxes=max_boxes)
+                                       max_boxes=max_boxes, version=version)
         rows_all.append(rows)
         valid_all.append(valid)
     rows = torch.cat(rows_all, dim=1)

@@ -20,12 +20,15 @@ lattice as 64-bit words across the card (:func:`suppression_words_plain`
 is its plain mirror) into global scratch, then one block per image scans
 it word by word: one thread walks the word's 64 boxes, kept or not, and
 the block clears the later words by the kept boxes' rows. :func:`_plan`
-sizes the two launches. The Soft-NMS kernel, which has no Pallas
-counterpart (the JAX package scans, ``_soft_nms_single`` in
-tf2_yolo_tpu/ops/nms.py), gives each box a thread that multiplies its
-decays in the scan's order, from factors its block computes for a tile
-of pairs at once. K is limited to ``MAX_K``, not by the TPU kernel's
-K <= 1024 cap or its multiple-of-128 padding. On a CPU tensor they
+sizes the two launches. Soft-NMS, which has no Pallas counterpart (the
+JAX package scans, ``_soft_nms_single`` in tf2_yolo_tpu/ops/nms.py),
+builds the same lattice transposed (:func:`soft_overlap_words_plain` is
+its plain mirror): row j's words hold the earlier boxes i that overlap
+it. Then a thread per box walks its own set bits in ascending i and
+decays its confidence in the scan's order, so each box's chain is as
+long as its overlaps. Both calls are two launches sized by
+:func:`_plan`. K is limited to ``MAX_K``, not by the TPU kernel's K <=
+1024 cap or its multiple-of-128 padding. On a CPU tensor they
 compute :func:`nms_keep_plain` (the semantics of ``nms_scan``) and
 :func:`soft_nms_keep_plain` (``soft_nms``'s scan, step by step).
 
@@ -58,12 +61,13 @@ _MAX_GRID_YZ = 65535
 
 
 class Plan(NamedTuple):
-    """How one greedy call launches: ``words`` 64-bit words per lattice
-    row; ``lattice_grid`` (words, row tiles, N) of the lattice kernel;
-    ``scan_grid`` blocks of the scan kernel (one per image);
+    """How one call launches: ``words`` 64-bit words per lattice row;
+    ``lattice_grid`` (words, row tiles, N) of the lattice kernel;
+    ``scan_grid`` blocks of the greedy scan kernel (one per image);
     ``smem_bytes`` of the scan kernel's dynamic shared memory (the alive
     words and each row's own word); ``scratch_bytes`` of the global
-    lattice."""
+    lattice. Soft-NMS takes ``words``, ``lattice_grid`` and
+    ``scratch_bytes``; its walk has a thread a box."""
     words: int
     lattice_grid: tuple
     scan_grid: int
@@ -72,8 +76,8 @@ class Plan(NamedTuple):
 
 
 def _plan(n, k):
-    """The launch plan of ``nms_keep`` for N images of K boxes (pure
-    Python: the CPU tests reach it)."""
+    """The launch plan of ``nms_keep`` and ``soft_nms_keep`` for N images
+    of K boxes (pure Python: the CPU tests reach it)."""
     if not 1 <= k <= MAX_K:
         raise ValueError(f"K={k}: the NMS kernels take 1 <= K <= {MAX_K}")
     if not 1 <= n <= _MAX_GRID_YZ:
@@ -130,22 +134,50 @@ def nms_keep_plain(boxes, threshold=0.45, iou_mode=1):
     return alive.to(torch.float32) * boxes[..., 7]
 
 
+def _pack_words(bits):
+    """(N, K, K) bool -> (N, K, words) int64: bit b of word w of row r is
+    column 64 w + b; bits past K are zero."""
+    n, k, _ = bits.shape
+    words = -(-k // WORD_BITS)
+    padded = torch.zeros(n, k, words * WORD_BITS, dtype=torch.int64,
+                         device=bits.device)
+    padded[..., :k] = bits.to(torch.int64)
+    weights = torch.from_numpy(np.left_shift(
+        np.uint64(1), np.arange(WORD_BITS, dtype=np.uint64)).view(np.int64))
+    # distinct bits: the int64 sum is their OR, bit 63 as the sign
+    return (padded.view(n, k, words, WORD_BITS)
+            * weights.to(bits.device)).sum(-1)
+
+
 def suppression_words_plain(boxes, threshold=0.45, iou_mode=1):
     """The greedy kernel's lattice as it lies in scratch: (N, K, words)
     int64, bit b of word w of row i set when box i (valid) suppresses box
     j = 64 w + b; bits past K are zero. A plain mirror of the bit layout
     for the tests and the card's check; no serving path calls it."""
     _check(boxes, iou_mode)
-    n, k, _ = boxes.shape
-    words = -(-k // WORD_BITS)
-    bits = torch.zeros(n, k, words * WORD_BITS, dtype=torch.int64,
-                       device=boxes.device)
-    bits[..., :k] = _suppression(boxes, threshold, iou_mode).to(torch.int64)
-    weights = torch.from_numpy(np.left_shift(
-        np.uint64(1), np.arange(WORD_BITS, dtype=np.uint64)).view(np.int64))
-    # distinct bits: the int64 sum is their OR, bit 63 as the sign
-    return (bits.view(n, k, words, WORD_BITS)
-            * weights.to(boxes.device)).sum(-1)
+    return _pack_words(_suppression(boxes, threshold, iou_mode))
+
+
+def _soft_overlap(boxes, nms_threshold):
+    """(N, K(i), K(j)) bool: valid i decays valid j > i of its class."""
+    k = boxes.shape[1]
+    ious = pair_iou(boxes[:, :, None, :4], boxes[:, None, :, :4], mode=1)
+    same_class = boxes[:, :, None, 5] == boxes[:, None, :, 5]
+    later = torch.ones(k, k, dtype=torch.bool,
+                       device=boxes.device).triu(diagonal=1)
+    valid = boxes[..., 7] != 0
+    return ((ious >= nms_threshold) & same_class & later
+            & valid[:, :, None] & valid[:, None, :])
+
+
+def soft_overlap_words_plain(boxes, nms_threshold=0.45):
+    """The Soft-NMS kernel's lattice as it lies in scratch: (N, K, words)
+    int64, bit b of word w of row j set when the earlier box
+    i = 64 w + b decays box j (both valid, the same class, IoU(i, j) >=
+    ``nms_threshold``); bits past K are zero. The transpose of the greedy
+    layout; a plain mirror for the tests and the card's check."""
+    _check(boxes)
+    return _pack_words(_soft_overlap(boxes, nms_threshold).transpose(1, 2))
 
 
 def soft_nms_scan_plain(boxes, nms_threshold=0.45, conf_threshold=0.5,
@@ -197,8 +229,8 @@ def _library():
         + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
                                 ctypes.c_void_p]
     lib.nms_keep_launch.restype = ctypes.c_int
-    lib.soft_nms_keep_launch.argtypes = [ctypes.c_void_p] * 2 \
-        + [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+    lib.soft_nms_keep_launch.argtypes = [ctypes.c_void_p] * 3 \
+        + [ctypes.c_int] * 3 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
     lib.soft_nms_keep_launch.restype = ctypes.c_int
     return lib
 
@@ -272,6 +304,26 @@ def soft_nms_keep(boxes, nms_threshold=0.45, conf_threshold=0.5, sigma=0.5):
                              float(conf_threshold), float(sigma))
 
 
+def _soft_launch(boxes, nms_threshold, conf_threshold, sigma, plan):
+    """Launch the Soft-NMS kernels of ``plan`` on a checked CUDA tensor;
+    return (keep, lattice scratch)."""
+    n, k, _ = boxes.shape
+    lib = _ready(boxes.device.index)
+    keep = torch.empty((n, k), dtype=torch.float32, device=boxes.device)
+    lattice = torch.empty((n, k, plan.words), dtype=torch.int64,
+                          device=boxes.device)
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+    err = lib.soft_nms_keep_launch(
+        boxes.data_ptr(), keep.data_ptr(), lattice.data_ptr(), n, k,
+        plan.words, float(nms_threshold), float(conf_threshold),
+        float(sigma), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"soft_nms_keep kernel launch failed: cudaError {err}")
+    soft_nms_keep.launches += 1
+    return keep, lattice
+
+
 def _soft_nms_keep_impl(boxes, nms_threshold, conf_threshold, sigma):
     _check(boxes)
     _check_wrapper(boxes, "soft_nms_keep")
@@ -279,19 +331,8 @@ def _soft_nms_keep_impl(boxes, nms_threshold, conf_threshold, sigma):
         return soft_nms_keep_plain(boxes, nms_threshold, conf_threshold,
                                    sigma)
     n, k, _ = boxes.shape
-    if n > _MAX_GRID_YZ:
-        raise ValueError(f"N={n}: the NMS kernels take N <= {_MAX_GRID_YZ}")
-    lib = _ready(boxes.device.index)
-    keep = torch.empty((n, k), dtype=torch.float32, device=boxes.device)
-    stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    err = lib.soft_nms_keep_launch(
-        boxes.data_ptr(), keep.data_ptr(), n, k, float(nms_threshold),
-        float(conf_threshold), float(sigma), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"soft_nms_keep kernel launch failed: cudaError {err}")
-    soft_nms_keep.launches += 1
-    return keep
+    return _soft_launch(boxes, nms_threshold, conf_threshold, sigma,
+                        _plan(n, k))[0]
 
 
 soft_nms_keep.launches = 0

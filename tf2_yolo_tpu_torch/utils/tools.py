@@ -446,6 +446,15 @@ def array_to_xml(path, img_size, *label_datas,
         ET.ElementTree(root).write(file)
 
 
+def create_score_mat(*args, **kwargs):
+    """Moved: import it from ``tf2_yolo_tpu_torch.utils.measurement``
+    (the reference keeps this shim in ``utils/tools.py``)."""
+    raise ImportError(
+        "The location of this function has been changed. Import it using "
+        "`from tf2_yolo_tpu_torch.utils.measurement import "
+        "create_score_mat`")
+
+
 # The reference exposes the dataset reader from utils.tools
 # (reference utils/tools.py:71 `class YoloDataSequence`); keep that
 # import path working.
