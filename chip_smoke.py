@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's YOLOv4 serving, deployment and
-training paths on one CUDA card.
+training paths, and of the YOLOv1.5, v2 and v3 families, on one CUDA
+card.
 
     python3 chip_smoke.py [--seed 0] [--batch 8] [--size 416]
                           [--requests 2] [--train-batch 32] [--steps 3]
@@ -14,7 +15,10 @@ Phases (each raises on failure, so the exit code is nonzero):
      versions), printing each shape's launch plan (route: tensor cores
      for bf16, CUDA cores for f32 and the shapes without 16-byte rows;
      tile config, grid, shared memory): conv + statistics (the stem, Ci
-     = 3, and a ragged stem-like shape through the small-Ci kernel), the
+     = 3, and a ragged stem-like shape through the small-Ci kernel; and
+     at the serving batch the flax-SAME geometries of YOLOv1.5 and the
+     v2 UNet: the 7x7 stride-2 stem at 448^2 on the small-Ci kernel, the
+     14^2 1024->1024 3x3 stride 2 and the 26^2 1024->512 2x2), the
      fused GEMM forward and backward, and the fused 3x3 conv forward and
      backward (with two ragged shapes) at the serving and the training
      batch (and again at the halved batch if phase 7 had to fall back),
@@ -154,7 +158,24 @@ Phases (each raises on failure, so the exit code is nonzero):
      both with NumPy's unstable argsort); K4 (modes 1, 3) or S (mode 2)
      launched once a chunk; the best-GT argmax on the card the first of
      tied maxima; ms of each path for the 64 images and of the chunk's
-     NMS alone.
+     NMS alone;
+ 14. the other families, each through its facade (``yolov3.Yolo`` ...
+     ``create_model(dtype=bf16, seed)``) at full width, bf16, BN
+     calibrated as phase 4's: YOLOv3 (Darknet-53) at 416^2 with
+     ``DEFAULT_ANCHORS``, the slice's main path: 1 + 3 served batches of
+     ``--batch`` (timed), the f32 model on the same weights served on the
+     kernel and the plain route (head outputs within phase 5's bounds,
+     kept rows found in the other route's), 1 + 3 Adam steps at batch 32
+     on the facade's v3 loss list (timed; the loss falls), one f32 step
+     at batch 2 on both routes by phase 8's rule (the leaves of the
+     layers before the last activation input within 1e-4 of its kink
+     held to 0.05: the routes' rounding may put it on the other side);
+     then YOLOv3 tiny, YOLOv2 with DarkNet-19 and with the UNet at
+     416^2 and YOLOv1.5 at 448^2: one served batch on both routes the
+     same way and one bf16 step at batch 16 with a finite loss. The conv
+     kernel's launches are the tree's conv count (ConvBN, ConvActBN and
+     head convs, counted from the tree) a request and a step, and the
+     NMS kernel's one a request; ms/request and ms/step of YOLOv3.
 
 Weights are random, from ``--seed``: conv kernels drawn with the port's
 HE_NORMAL from a seeded ``torch.Generator``. With BN at its init
@@ -185,13 +206,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tf2_yolo_tpu_torch import engine, yolov4
+from tf2_yolo_tpu_torch import engine, yolov1_5, yolov2, yolov3, yolov4
 from tf2_yolo_tpu_torch.data import encode_to_grid
 from tf2_yolo_tpu_torch.export import (calibrate_int8, folded_copy,
                                        load_serving, make_serving_fn)
 from tf2_yolo_tpu_torch.models import YoloV4, use_plain_route
 from tf2_yolo_tpu_torch.models import layers as layers_mod
-from tf2_yolo_tpu_torch.models.layers import (Conv, ConvBN, Int8ConvBN,
+from tf2_yolo_tpu_torch.models.layers import (Conv, ConvActBN, ConvBN,
+                                              Int8ConvBN,
                                               he_normal_, set_bn_stats_sg)
 from tf2_yolo_tpu_torch.ops import nms as nms_ops
 from tf2_yolo_tpu_torch.ops.decode import decode_multi_level
@@ -297,6 +319,16 @@ CONV_SHAPES = [
     ("td2.conv2 26^2 256->512 3x3s1", 26, 26, 256, 512, 3, 1),
     ("stage3.down 104^2 128->256 3x3s2", 104, 104, 128, 256, 3, 2),
     ("head3 52^2 256->24 1x1", 52, 52, 256, 24, 1, 1),
+]
+# The flax-SAME geometries of YOLOv1.5 and the v2 UNet (name, H, W, Ci,
+# Co, k, stride, darknet_pad=False), checked at the serving batch: the
+# DarknetV1 stem (pad 2 above, 3 below; the small-Ci kernel), its 14^2
+# -> 7^2 stride 2 (pad 0 above, 1 below) and the UNet decoder's 2x2
+# (pad 0 above, 1 below)
+SAME_CONV_SHAPES = [
+    ("v1 stem 448^2 3->64 7x7s2 SAME", 448, 448, 3, 64, 7, 2, False),
+    ("v1 14^2 1024->1024 3x3s2 SAME", 14, 14, 1024, 1024, 3, 2, False),
+    ("unet 26^2 1024->512 2x2s1 SAME", 26, 26, 1024, 512, 2, 1, False),
 ]
 # Tolerances of kernel against plain, same inputs on the card.
 # y: f32 sums of up to 9*Ci products in another order (4.6e3 terms at
@@ -453,35 +485,39 @@ def phase_build(log_dir):
     return seconds
 
 
-def conv_library_call(x, w, b, stride):
+def conv_library_call(x, w, b, stride, darknet_pad=True):
     """The one PyTorch call that computes the conv kernel's y: F.conv2d
     in the working dtype on a channels_last view of the NHWC tensor (no
-    copy), weights laid out beforehand. A yardstick only."""
+    copy), weights laid out beforehand; where the geometry's pad is not
+    symmetric (the darknet stride-2 pad, SAME's larger pad below) the
+    input is padded beforehand. A yardstick only."""
     xc = x.permute(0, 3, 1, 2)
     wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    if stride == 2:
-        xc = F.pad(xc, (1, 0, 1, 0)).contiguous(
-            memory_format=torch.channels_last)
-    pad = w.shape[0] // 2 if stride == 1 else 0
+    pad = conv_mod._pads(x.shape[1], x.shape[2], w.shape[0], stride,
+                            darknet_pad)
+    if stride == 2 and darknet_pad:
+        pad = (1, 0, 1, 0)
+    if not isinstance(pad, int):
+        xc = F.pad(xc, pad).contiguous(memory_format=torch.channels_last)
+        pad = 0
     return lambda: F.conv2d(xc, wc, b, stride=stride, padding=pad)
 
 
-def cuda_core_conv_call(x, w, b, stride):
+def cuda_core_conv_call(x, w, b, stride, darknet_pad=True):
     """The conv's CUDA-core kernel on the same bf16 inputs, launched with
     the CUDA-core plan (64 x 64 tiles) where the wrapper's plan takes the
     tensor cores: the design before them, timed in the same call. Not
     counted (a comparison launch)."""
     n, h, wd, ci = x.shape
     k, co = w.shape[0], w.shape[-1]
-    m = n * (h // stride) * (wd // stride)
-    grid = (-(-m // 64), -(-co // 64))
-    y = torch.empty(n, h // stride, wd // stride, co, dtype=x.dtype,
-                    device=x.device)
+    g = conv_mod.conv_geometry(h, wd, k, stride, darknet_pad)
+    grid = (-(-n * g.ho * g.wo // 64), -(-co // 64))
+    y = torch.empty(n, g.ho, g.wo, co, dtype=x.dtype, device=x.device)
     launch = conv_mod._launcher()
 
     def run():
         err = launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                     None, None, n, h, wd, ci, co, k, stride,
+                     None, None, n, h, wd, ci, co, *g, k, stride,
                      conv_mod._DTYPE_CODES[x.dtype], 0, -1, *grid, 0,
                      torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"CUDA-core conv launch failed: cudaError {err}")
@@ -712,39 +748,45 @@ def conv_bwd_library_call(g_in, wt, dyt, stride):
         [0, 0], 1, [True, True, False])
 
 
-def phase_conv_checks(gen, n):
-    """Every conv shape at batch ``n``, statistics on, against the plain
-    version; all shapes are printed before a failure raises."""
+def phase_conv_checks(gen, n, shapes=None):
+    """Every conv shape at batch ``n`` (``CONV_SHAPES``, the darknet
+    geometries, unless ``shapes`` says otherwise), statistics on, against
+    the plain version; all shapes are printed before a failure raises."""
     results, failed = [], []
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[dtype]
-        for name, h, w, ci, co, k, stride in CONV_SHAPES:
+        for shape in shapes or CONV_SHAPES:
+            name, h, w, ci, co, k, stride = shape[:7]
+            dp = shape[7] if len(shape) > 7 else True
             x = torch.randn(n, h, w, ci, generator=gen, device="cuda")
             wt = torch.empty(k, k, ci, co, device="cuda")
             he_normal_(wt, gen)
             b = 0.1 * torch.randn(co, generator=gen, device="cuda")
             x, wt, b = x.to(dtype), wt.to(dtype), b.to(dtype)
-            plan = conv_mod._tc_plan(n, h, w, ci, co, k, stride, dtype)
+            plan = conv_mod._tc_plan(n, h, w, ci, co, k, stride, dtype, dp)
             before = conv_bn_stats.launches, conv_bn_stats.tc_launches
-            y, s1, s2 = conv_bn_stats(x, wt, b, stride, want_stats=True)
+            y, s1, s2 = conv_bn_stats(x, wt, b, stride, want_stats=True,
+                                      darknet_pad=dp)
             check((conv_bn_stats.launches, conv_bn_stats.tc_launches)
                   == (before[0] + 1, before[1] + (plan.route == "tc")),
                   f"conv {name}: the wrapper did not launch its kernel")
-            yp, s1p, s2p = conv_bn_stats_plain(x, wt, b, stride, True)
+            yp, s1p, s2p = conv_bn_stats_plain(x, wt, b, stride, True, dp)
             torch.cuda.synchronize()
             fwd = forward_errors((y, s1, s2), (yp, s1p, s2p), tol)
-            ms = cuda_ms(lambda: conv_bn_stats(x, wt, b, stride, False), 5)
+            ms = cuda_ms(lambda: conv_bn_stats(x, wt, b, stride, False,
+                                               darknet_pad=dp), 5)
             plain_ms = cuda_ms(
-                lambda: conv_bn_stats_plain(x, wt, b, stride, False), 5)
-            flop = 2.0 * n * (h // stride) * (w // stride) * co * k * k * ci
+                lambda: conv_bn_stats_plain(x, wt, b, stride, False, dp), 5)
+            flop = 2.0 * y.numel() * k * k * ci
             nbytes = (x.numel() + wt.numel() + b.numel() + y.numel()) \
                 * x.element_size()
             bound, bound_by = bound_ms(nbytes, flop, dtype)
-            library_ms = cuda_ms(conv_library_call(x, wt, b, stride), 5)
+            library_ms = cuda_ms(conv_library_call(x, wt, b, stride, dp), 5)
             cc_ms = None
             if plan.route == "tc":
-                cc_ms = cuda_ms(cuda_core_conv_call(x, wt, b, stride), 5)
-            r = dict(shape=name, batch=n,
+                cc_ms = cuda_ms(cuda_core_conv_call(x, wt, b, stride, dp),
+                                5)
+            r = dict(shape=name, batch=n, darknet_pad=dp,
                      dtype=str(dtype).replace("torch.", ""), **fwd, ms=ms,
                      plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                      library_ms=library_ms,
@@ -1661,17 +1703,22 @@ def phase_probe_checks(gen, n):
 
 
 def calibrate_bn(model, images):
-    """Set every BN's running mean/var to the batch statistics of its
-    conv output on ``images``, layer by layer in one forward."""
-    def hook(bn, out):
-        y = out[0].float()
+    """Set every BN's running mean/var to the batch statistics of what it
+    normalises on ``images`` (a ConvBN's conv output, a ConvActBN's
+    activated conv output), layer by layer in one forward."""
+    def hook(bn, y):
+        y = y.float()
         bn.mean.copy_(y.mean(dim=(0, 1, 2)))
         bn.var.copy_(y.var(dim=(0, 1, 2), unbiased=False))
 
     handles = [m.conv.register_forward_hook(
-        lambda conv, inputs, out, bn=m.bn: hook(bn, out))
+        lambda conv, inputs, out, bn=m.bn: hook(bn, out[0]))
         for m in model.modules()
         if isinstance(m, ConvBN) and m.bn is not None]
+    handles += [m.conv.register_forward_hook(
+        lambda conv, inputs, out, m=m: hook(m.bn,
+                                            layers_mod.ACTS[m.act](out[0])))
+        for m in model.modules() if isinstance(m, ConvActBN)]
     try:
         with torch.inference_mode():
             model(images)
@@ -3234,6 +3281,347 @@ def phase_eval(args, model, card, device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+# The other families, each through its facade at full width: (name,
+# facade module, input size, create_model keyword arguments). YOLOv3 with
+# Darknet-53 is the slice's main path; the tiny body takes 2 x 3 of the
+# default anchors.
+FAMILY_RUNS = [
+    ("yolov3", yolov3, 416, dict(pretrained_body=None)),
+    ("yolov3 tiny", yolov3, 416, dict(
+        backbone="tiny_darknet", anchors=yolov3.DEFAULT_ANCHORS[3:],
+        pretrained_body=None)),
+    ("yolov2 darknet", yolov2, 416, {}),
+    ("yolov2 unet", yolov2, 416, dict(backbone="unet")),
+    ("yolov1.5", yolov1_5, 448, {}),
+]
+FAMILY_NAMES = ["a", "b", "c"]
+FAMILY_REQUESTS = 3              # timed requests of the main path
+FAMILY_STEPS = 3                 # timed steps of the main path
+FAMILY_TRAIN_BATCH = 32          # the main path's training batch
+OTHER_TRAIN_BATCH = 16           # the other families'
+# an activation input nearer its kink (leaky, relu) than this may fall on
+# either side of it on the two routes, whose f32 forwards differ by
+# rounding: the leaves of the layers before it are then held to
+# KINK_BOUND (tests/helpers_families.py measured the effect, 1e-2)
+NEAR_KINK = 1e-4
+KINK_BOUND = 0.05
+
+
+def family_model(mod, size, kw, dtype, seed):
+    """(facade, module) of ``mod.Yolo`` at ``size``^2, built on the card
+    in ``dtype`` from ``seed`` (HE_NORMAL kernels)."""
+    yolo = mod.Yolo(input_shape=(size, size, 3), class_names=FAMILY_NAMES)
+    m = yolo.create_model(dtype=dtype, seed=seed, device="cuda", **kw)
+    return yolo, m.module
+
+
+def family_loss(yolo):
+    losses = yolo.loss(binary_weight=1) if yolo.version == 1 \
+        else yolo.loss()
+    return losses if isinstance(losses, list) else [losses]
+
+
+def family_labels(yolo, batch, rng):
+    """Synthetic labels of the facade's layout, coarse level first: four
+    boxes per image and level."""
+    levels = getattr(yolo, "fpn_layers", 1)
+    ys = []
+    for level in range(levels):
+        g = yolo.grid_shape[0] * 2 ** level
+        y = np.zeros((batch, g, g, 5 + len(FAMILY_NAMES)), np.float32)
+        for b in range(batch):
+            for _ in range(4):
+                gy, gx = rng.randint(0, g, 2)
+                y[b, gy, gx, :5] = [*rng.rand(2), 0.2, 0.3, 1.0]
+                y[b, gy, gx, 5 + rng.randint(len(FAMILY_NAMES))] = 1.0
+        ys.append(torch.from_numpy(y).cuda())
+    return tuple(ys)
+
+
+def as_outputs(outs):
+    return list(outs) if isinstance(outs, (list, tuple)) else [outs]
+
+
+def family_joint(outs, version):
+    c = len(FAMILY_NAMES)
+    joint = []
+    for o in as_outputs(outs):
+        n = o.shape[0]
+        if version == 1:
+            b = (o.shape[-1] - c) // 5
+            conf = o[..., :5 * b].reshape(*o.shape[:3], b, 5)[..., 4:5]
+            joint.append((conf * o[..., None, 5 * b:]).reshape(n, -1))
+        else:
+            r = o.reshape(n, -1, 5 + c)
+            joint.append((r[..., 4:5] * r[..., 5:]).reshape(n, -1))
+    return torch.cat(joint, dim=1)
+
+
+def conv_count(model):
+    """The convs of a tree (ConvBN, ConvActBN and head convs): the
+    conv kernel's launches of one forward."""
+    return sum(isinstance(m, Conv) for m in model.modules())
+
+
+def reset_family_counters():
+    conv_bn_stats.launches = conv_bn_stats.tc_launches = 0
+    conv_bn_stats.by_geometry.clear()
+    nms_keep.launches = soft_nms_keep.launches = 0
+    reset_fused_counters()
+
+
+def family_counters():
+    return dict(conv_bn_stats=conv_bn_stats.launches,
+                conv_bn_stats_tc=conv_bn_stats.tc_launches,
+                nms_keep=nms_keep.launches,
+                by_geometry=dict(conv_bn_stats.by_geometry),
+                fused=fused_counters())
+
+
+def kept_match(rows_a, keep_a, rows_b, keep_b, tol):
+    """Kept rows of route a found in route b's kept rows of the same
+    image (same class, the other fields within ``tol``), and the kept
+    count of each."""
+    found = total = 0
+    for i in range(rows_a.shape[0]):
+        a = rows_a[i][keep_a[i]]
+        b = rows_b[i][keep_b[i]]
+        total += a.shape[0]
+        if not a.shape[0] or not b.shape[0]:
+            continue
+        d = (a[:, None, :] - b[None, :, :]).abs()
+        same = (d[..., 5] == 0) & (d.amax(-1) <= tol)
+        found += int(same.any(dim=1).sum())
+    return found, total, int(keep_b.sum())
+
+
+def family_routes_f32(yolo_mod, size, kw, model16, images, threshold,
+                      version):
+    """The f32 model on the same weights, kernel route against the plain
+    route: head outputs within phase 5's bounds, relative to scale, and
+    the served rows that each route keeps."""
+    _, model = family_model(yolo_mod, size, kw, torch.float32, 0)
+    model.load_state_dict(model16.state_dict())
+    model.eval()
+    plain = use_plain_route(copy.deepcopy(model))
+    with torch.inference_mode():
+        ok, op = as_outputs(model(images)), as_outputs(plain(images))
+    torch.cuda.synchronize()
+    errs = []
+    for i, (a, b) in enumerate(zip(ok, op)):
+        d = (a - b).abs()
+        errs.append(d.max().item())
+        check(bool(torch.isfinite(a).all())
+              and bool((d <= 5e-3 + 2e-2 * b.abs()).all()),
+              f"level {i}: kernel and plain outputs differ")
+    rows, keep = make_serving_fn(model, len(FAMILY_NAMES), version,
+                                 threshold=threshold)(images)
+    rows_p, keep_p = make_serving_fn(plain, len(FAMILY_NAMES), version,
+                                     threshold=threshold)(images)
+    found, kept, kept_p = kept_match(rows, keep, rows_p, keep_p, 5e-3)
+    return dict(out_max_abs_err=errs, kept=kept, kept_plain=kept_p,
+                kept_found=found)
+
+
+def family_train_routes_f32(yolo, model16, x, ys):
+    """One f32 step at batch 2 on both routes from the same state, and a
+    probe of the plain route on x + 1e-6: phase 8's rule per leaf,
+    min(0.3, max(5 x probe, 1e-3)), with the leaves before the last
+    layer whose activation input lies within NEAR_KINK of its kink held
+    to max(5 x probe, KINK_BOUND) instead."""
+    model = copy.deepcopy(model16).float()
+    for m in model.modules():
+        if hasattr(m, "dtype"):
+            m.dtype = torch.float32
+    model.train()
+    kinks = {}
+
+    def leaky_in(name, out):
+        o = out.detach()
+        kinks[name] = float(torch.where(o >= 0, o, -10 * o).min())
+
+    def relu_in(name, out):
+        kinks[name] = float(out[0].detach().abs().min())
+
+    handles = []
+    for name, m in model.named_modules():
+        if isinstance(m, ConvBN) and m.act == "leaky":
+            handles.append(m.register_forward_hook(
+                lambda mod, i, out, name=name: leaky_in(name, out)))
+        elif isinstance(m, ConvActBN):
+            handles.append(m.conv.register_forward_hook(
+                lambda mod, i, out, name=name: relu_in(name, out)))
+    states = {}
+    for route in ("kernel", "plain", "probe"):
+        mm = model if route == "kernel" else use_plain_route(
+            copy.deepcopy(model))
+        states[route] = create_train_state(mm, make_optimizer("adam", 1e-3))
+    step = make_train_step(family_loss(yolo))
+    _, logs = step(states["kernel"], x, ys)
+    for h in handles:
+        h.remove()
+    _, logs_p = step(states["plain"], x, ys)
+    _, logs_e = step(states["probe"], x + 1e-6, ys)
+    torch.cuda.synchronize()
+    loss, loss_p = float(logs["loss"]), float(logs_p["loss"])
+    loss_rel = abs(loss - loss_p) / abs(loss_p)
+    loss_noise = abs(float(logs_e["loss"]) - loss_p) / abs(loss_p)
+    order = list(kinks)
+    near = [i for i, n in enumerate(order) if kinks[n] < NEAR_KINK]
+    upstream = set(order[:near[-1] + 1]) if near else set()
+    plain_p = dict(states["plain"].model.named_parameters())
+    probe_p = dict(states["probe"].model.named_parameters())
+    worst, failed, n_kink = 0.0, [], 0
+    for name, p in states["kernel"].model.named_parameters():
+        q, e = plain_p[name], probe_p[name]
+        if p.grad is None and q.grad is None:
+            continue
+        rel, noise = rel_l2(p.grad, q.grad), rel_l2(e.grad, q.grad)
+        if name.rsplit(".", 2)[0] in upstream:
+            n_kink += 1
+            bound = max(5 * noise, KINK_BOUND)
+        else:
+            bound = min(0.3, max(5 * noise, 1e-3))
+        worst = max(worst, rel)
+        if rel > bound:
+            failed.append((name, rel, noise))
+    check(np.isfinite(loss) and loss_rel <= 1e-5 + 4 * loss_noise,
+          f"route losses differ: {loss} against {loss_p}")
+    check(not failed, f"route gradients differ at {failed[:5]}")
+    return dict(loss=loss, loss_plain=loss_p, loss_rel=loss_rel,
+                loss_rel_probe=loss_noise, grad_rel_l2_max=worst,
+                near_kink_layers=len(near), leaves_near_kink=n_kink)
+
+
+def family_run(args, name, mod, size, kw, main, card):
+    """Serve and train one family on the card (see phase 14)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    yolo, model = family_model(mod, size, kw, torch.bfloat16, args.seed)
+    model.eval()
+    version, convs = yolo.version, conv_count(model)
+    calib = torch.rand(args.batch, size, size, 3, generator=gen,
+                       device="cuda")
+    calibrate_bn(model, calib)
+    with torch.inference_mode():
+        joint = family_joint(model(calib), version).float()
+    threshold = float(torch.quantile(
+        joint[0], max(0.0, 1 - 64 / joint.shape[1])))
+    images = [torch.rand(args.batch, size, size, 3, generator=gen,
+                         device="cuda")
+              for _ in range(1 + (FAMILY_REQUESTS if main else 0))]
+    serve = make_serving_fn(model, len(FAMILY_NAMES), version,
+                            threshold=threshold)
+    reset_family_counters()
+    times = []
+    for req, x in enumerate(images):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rows, keep = serve(x)
+        torch.cuda.synchronize()
+        if req:
+            times.append((time.perf_counter() - t1) * 1e3)
+        check(bool(torch.isfinite(rows).all()) and int(keep.sum()) > 0,
+              f"{name}: degenerate served rows")
+    served = family_counters()
+    n_req = len(images)
+    check(served["conv_bn_stats"] == convs * n_req,
+          f"{name}: {served['conv_bn_stats']} conv launches in {n_req} "
+          f"requests, want {convs} a request")
+    check(served["nms_keep"] == n_req,
+          f"{name}: the NMS kernel did not run once a request")
+    check(not any(served["fused"].values()),
+          f"{name}: a served request ran a fused kernel")
+    routes = family_routes_f32(mod, size, kw, model, images[0], threshold,
+                               version)
+    check(routes["kept_found"] >= 0.95 * routes["kept"]
+          and routes["kept_plain"] <= 1.05 * routes["kept"],
+          f"{name}: the routes keep other rows: {routes}")
+    del serve
+
+    batch = FAMILY_TRAIN_BATCH if main else OTHER_TRAIN_BATCH
+    rng = np.random.RandomState(args.seed)
+    _, tmodel = family_model(mod, size, kw, torch.bfloat16, args.seed)
+    state = create_train_state(tmodel, make_optimizer("adam", 1e-3))
+    step = make_train_step(family_loss(yolo))
+    x = torch.rand(batch, size, size, 3, generator=gen, device="cuda")
+    ys = family_labels(yolo, batch, rng)
+    reset_family_counters()
+    step_ms, losses = timed_steps(state, step, x, ys,
+                                  1 + (FAMILY_STEPS if main else 0))
+    trained = family_counters()
+    n_steps = len(losses)
+    check(all(np.isfinite(losses)), f"{name}: non-finite training loss")
+    check(trained["conv_bn_stats"] == convs * n_steps,
+          f"{name}: {trained['conv_bn_stats']} conv launches in {n_steps} "
+          f"steps, want {convs} a step")
+    if main:
+        check(losses[-1] < losses[0], f"{name}: the loss did not fall")
+    train_routes = None
+    if main:
+        train_routes = family_train_routes_f32(
+            yolo, tmodel, x[:2].float().contiguous(),
+            tuple(y[:2] for y in ys))
+    del state, step, tmodel, model
+    torch.cuda.empty_cache()
+    res = dict(version=version, size=size, convs=convs,
+               threshold=threshold, serve_launches=served,
+               train_launches=trained, requests=n_req, steps=n_steps,
+               train_batch=batch, losses=losses, routes_f32=routes,
+               train_routes_f32=train_routes,
+               ms_per_request=times, ms_per_step=step_ms[1:] if main
+               else step_ms, seconds=time.perf_counter() - t0)
+    print(f"  {name} {size}^2: {convs} convs; served {n_req} x b"
+          f"{args.batch}: conv launches {served['conv_bn_stats']} (tensor "
+          f"cores {served['conv_bn_stats_tc']}), nms_keep "
+          f"{served['nms_keep']}, by geometry {served['by_geometry']}; "
+          f"f32 routes: outputs max|d| "
+          f"{', '.join(f'{e:.2e}' for e in routes['out_max_abs_err'])} "
+          f"(bound 5e-3 + 2e-2|out|), kept {routes['kept']} (plain "
+          f"{routes['kept_plain']}), found in plain {routes['kept_found']}; "
+          f"train b{batch} bf16 {n_steps} step(s): losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}, conv launches "
+          f"{trained['conv_bn_stats']} (tensor cores "
+          f"{trained['conv_bn_stats_tc']}) [{res['seconds']:.1f} s]")
+    if main:
+        tr = train_routes
+        print(f"  {name}: {float(np.median(times)):.2f} ms/request (b"
+              f"{args.batch}, median of {len(times)}), "
+              f"{float(np.median(res['ms_per_step'])):.2f} ms/step (b"
+              f"{batch}, median of {len(res['ms_per_step'])}) [{card}]; "
+              f"f32 b2 step, kernel vs plain: loss rel {tr['loss_rel']:.2e}"
+              f" (probe {tr['loss_rel_probe']:.2e}), gradient rel L2 max "
+              f"{tr['grad_rel_l2_max']:.2e}, {tr['near_kink_layers']} "
+              f"layers near a kink, {tr['leaves_near_kink']} leaves before "
+              "them")
+    return res
+
+
+def phase_families(args, card):
+    """Phase 14: each family of FAMILY_RUNS at full width in bf16."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, mod, size, kw in FAMILY_RUNS:
+        out[name] = family_run(args, name, mod, size, kw,
+                               name == FAMILY_RUNS[0][0], card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
+def geometry_launches(families, key):
+    """Launches of one conv geometry (``conv_bn.geometry_key`` without
+    its route) in phase 14's served requests and training steps."""
+    total = 0
+    for name, _, _, _ in FAMILY_RUNS:
+        for run in ("serve_launches", "train_launches"):
+            total += sum(v for k, v in
+                         families[name][run]["by_geometry"].items()
+                         if k.rsplit(" ", 1)[0] == key)
+    return total
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3262,6 +3650,11 @@ def main(argv=None):
     print("phase 3: kernels against their plain versions")
     conv_res = phase_conv_checks(gen, args.batch)
     conv_res += phase_conv_checks(gen, args.train_batch)
+    # their own generator: the draws of the phases after them stay those
+    # the script made before these shapes were added
+    same_res = phase_conv_checks(
+        torch.Generator(device="cuda").manual_seed(args.seed + 3),
+        args.batch, SAME_CONV_SHAPES)
     nms_res = phase_nms_checks(gen)
     soft_res = phase_soft_checks(gen)
     gemm_res = phase_gemm_checks(gen, args.batch)
@@ -3341,6 +3734,12 @@ def main(argv=None):
     del model
     torch.cuda.empty_cache()
 
+    print("phase 14: the other families through their facades, bf16, "
+          "random weights from the seed: YOLOv3 at 416^2 (serve, train, "
+          "f32 routes), then YOLOv3 tiny, YOLOv2 darknet and UNet at "
+          "416^2, YOLOv1.5 at 448^2")
+    families = phase_families(args, card)
+
     def bf16_at(results, shape):
         return [r for r in results
                 if r["dtype"] == "bfloat16" and r["shape"] == shape][-1]
@@ -3374,6 +3773,12 @@ def main(argv=None):
         return dict(launches=sum(runs), launches_training_packed3=runs[0],
                     launches_training_packed1=runs[1],
                     launches_facade_fit=runs[2])
+    def family_launches(counter):
+        """Launches of ``counter`` in phase 14's requests and steps."""
+        return sum(families[name][run][counter]
+                   for name, _, _, _ in FAMILY_RUNS
+                   for run in ("serve_launches", "train_launches"))
+
     # times, bounds and library times at one shape each (``at``); errors
     # are the largest over every shape and dtype checked; launches are
     # the counts of the serving and the training runs above
@@ -3386,7 +3791,9 @@ def main(argv=None):
                 "launches": served["conv_launches"]
                 + train_launches("conv_bn_stats")["launches"]
                 + facade["evaluate_predict_launches"]["conv_bn_stats"]
-                + evaluation["conv_launches"]},
+                + evaluation["conv_launches"]
+                + family_launches("conv_bn_stats")},
+             launches_families=family_launches("conv_bn_stats"),
              launches_serving=served["conv_launches"],
              launches_device_eval=evaluation["conv_launches"],
              launches_facade_evaluate_predict=facade[
@@ -3414,8 +3821,10 @@ def main(argv=None):
         dict(name="nms_keep", route="cuda",
              source="tf2_yolo_tpu_torch/csrc/nms.cu",
              replaces="tf2_yolo_tpu/ops/pallas/nms_kernel.py:182",
-             launches=served["nms_launches"] + evaluation["nms_launches"],
+             launches=served["nms_launches"] + evaluation["nms_launches"]
+             + family_launches("nms_keep"),
              launches_serving=served["nms_launches"],
+             launches_families=family_launches("nms_keep"),
              launches_device_eval=evaluation["nms_launches"],
              launches_per_request=served["nms_launches"]
              / served["greedy_requests"],
@@ -3564,6 +3973,27 @@ def main(argv=None):
              cuda_core_ms=probe_res[0]["cuda_core_ms"],
              eager_chain_ms_per_layer=probe_chain["eager_ms_per_layer"]),
     ]
+    # the flax-SAME geometries (phase 3 at the serving batch, bf16), with
+    # their launches on phase 14's paths (YOLOv1.5: the 7x7 stem and the
+    # 3x3 stride 2; the UNet: its two 2x2 convs)
+    for shape, key in zip(SAME_CONV_SHAPES,
+                          ("7x7s2 same", "3x3s2 same", "2x2s1 same")):
+        r = bf16_at(same_res, shape[0])
+        kernels.append(dict(
+            name=f"conv_bn_stats {key}", route="cuda",
+            source="tf2_yolo_tpu_torch/csrc/conv_bn.cu",
+            replaces="tf2_yolo_tpu/models/layers.py:419 (ConvBN nn.Conv "
+                     "padding SAME, XLA; beside the Pallas conv3x3_stats, "
+                     "ops/pallas/conv_bn_kernel.py:346)",
+            launches=geometry_launches(families, key),
+            max_abs_err=max(q["max_abs_err"] for q in same_res
+                            if q["shape"] == shape[0]),
+            at=f"{shape[0]}, batch {r['batch']}, bf16",
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            tflops=r["kernel_tflops"], bound_share=r["bound_share"],
+            plan_route=r["route"], plan_config=r["config"],
+            cuda_core_ms=r["cuda_core_ms"]))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched")
     seconds = time.perf_counter() - t_start
@@ -3578,8 +4008,8 @@ def main(argv=None):
                   train_routes_f32=train_routes,
                   train_timing=train_timing, facade=facade,
                   int8=int8_res, deploy=deploy, bn_sg=bn_sg,
-                  device_eval=evaluation,
-                  kernels=kernels,
+                  device_eval=evaluation, conv_same=same_res,
+                  families=families, kernels=kernels,
                   seconds=seconds)
     os.makedirs(args.log_dir, exist_ok=True)
     with open(os.path.join(args.log_dir, "chip_smoke.json"), "w") as f:

@@ -200,12 +200,10 @@ def _export_model_to_a_tpu(y):
     (lambda y: y.export_reference_h5("x"), NotImplementedError, "ROADMAP"),
     (lambda y: facade_base.graft_backbone_file(None, "x"),
      NotImplementedError, "ROADMAP"),
-    (lambda y: facade_base.make_version_aliases(3), NotImplementedError,
-     "ROADMAP"),
     (lambda y: y.read_file_to_sequence("a", "b", reader="native"),
      NotImplementedError, "ROADMAP"),
 ], ids=["backbone", "export_model", "export_reference_h5",
-        "graft_backbone_file", "version_3", "native_reader"])
+        "graft_backbone_file", "native_reader"])
 def test_unported_options_raise(call, exc, match):
     with pytest.raises(exc, match=match):
         call(yolov4.Yolo(input_shape=(SIZE, SIZE, 3), class_names=NAMES))

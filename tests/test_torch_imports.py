@@ -47,8 +47,20 @@ def test_the_walk_finds_the_port():
                  "tf2_yolo_tpu_torch.export",
                  "tf2_yolo_tpu_torch.ops.kernels.conv_int8",
                  "tf2_yolo_tpu_torch.ops.evalmatch",
-                 "tf2_yolo_tpu_torch.utils.measurement"):
+                 "tf2_yolo_tpu_torch.utils.measurement",
+                 "tf2_yolo_tpu_torch.yolov1_5",
+                 "tf2_yolo_tpu_torch.yolov2",
+                 "tf2_yolo_tpu_torch.yolov3",
+                 "tf2_yolo_tpu_torch.models.backbones",
+                 "tf2_yolo_tpu_torch.models.heads"):
         assert name in MODULES
+
+
+def test_the_facades_import_without_jax():
+    proc = _imports_cleanly(
+        "from tf2_yolo_tpu_torch import yolov1_5, yolov2, yolov3, yolov4; "
+        "from tf2_yolo_tpu_torch.models import YoloV1, YoloV2, YoloV3")
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_every_module_of_the_port_imports_without_jax():

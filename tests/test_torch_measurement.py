@@ -125,8 +125,7 @@ def test_decode_multi_level_versions(version):
     assert 0 < valid.sum() < valid.numel()
 
 
-@pytest.mark.parametrize("version,exc", [(1, NotImplementedError),
-                                         (0, ValueError), (5, ValueError)])
+@pytest.mark.parametrize("version,exc", [(0, ValueError), (5, ValueError)])
 def test_decode_unported_versions_raise(version, exc):
     with pytest.raises(exc):
         decode_multi_level([torch.zeros(1, 2, 2, 8)], class_num=3,

@@ -78,6 +78,10 @@ def flax_leaves(model, grad=False):
     for name, p in model.named_parameters():
         out["params/" + name.replace(".", "/")] = p.grad if grad else p
     if not grad:
+        # the buffers of the state_dict: a non-persistent one (the v2/v3
+        # heads' constant anchors) has no flax leaf
+        persistent = model.state_dict(keep_vars=True)
         for name, b in model.named_buffers():
-            out["batch_stats/" + name.replace(".", "/")] = b
+            if name in persistent:
+                out["batch_stats/" + name.replace(".", "/")] = b
     return out

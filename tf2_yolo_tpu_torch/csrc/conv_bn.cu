@@ -7,12 +7,16 @@
 // and conv3x3_stats (_conv3x3_stats_fwd_impl) of
 // tf2_yolo_tpu/ops/pallas/conv_bn_kernel.py, forward only.
 //
-// Geometry: 1x1 stride 1; 3x3 stride 1 with SAME padding (1 on every
-// side); 3x3 stride 2 with the darknet top/left pad and VALID (H, W
-// even).  Both 3x3 cases read input row ho*stride - 1 + ky and column
-// wo*stride - 1 + kx, zero outside the image; at stride 2 with even H
-// the bottom/right pad is never touched, which is exactly the darknet
-// (1,0),(1,0) pad.
+// Geometry: KS x KS stride STRIDE for (KS, STRIDE) = (1, 1), (3, 1),
+// (3, 2), (7, 2) and (2, 1), with the top and left pad and the output
+// size Ho x Wo given at run time (ops/kernels/conv_bn.py, conv_geometry):
+// output pixel (ho, wo) reads input row ho*STRIDE - pad_top + ky and
+// column wo*STRIDE - pad_left + kx, zero outside the image.  That is
+// the darknet stride-2 pad (pad 1, Ho = H/2 on even H: the bottom/right
+// pad is never touched) and flax's SAME (the smaller half of the pad on
+// top and left, Ho = ceil(H/STRIDE): the YOLOv1 stem's 7x7 stride 2 pads
+// 2 above and 3 below at 448^2, its 3x3 stride 2 0 and 1 at 14^2, the
+// UNet's 2x2 0 and 1); the rows below the image are the bounds check.
 //
 // GEMM view: M = N*Ho*Wo output pixels, Co columns, K = ks*ks*Ci.  The
 // HWIO weight tensor is already the row-major (K, Co) B matrix.  Three
@@ -31,16 +35,18 @@
 //   shared memory, f32 accumulators), with one __syncthreads per slice.
 //   Epilogue in conv_mma.cuh: bias in f32, one rounding to bf16, 16-byte
 //   stores through shared memory, statistics of the rounded values.
-// * conv_bn_stats_ic_kernel, bf16 3x3 stride 1 with Ci < 32 and Co % 8
-//   == 0 (the stem, Ci = 3: a pixel is 6 bytes, no 16-byte rows):
-//   tensor cores through an im2col in shared memory.  A block takes an
-//   8 x 16 tile of output pixels of one image and BN (128, 64 or 32)
-//   channels: it copies the tile's input halo, 10 x 18 pixels, once
-//   (2-byte loads of each halo row's contiguous span, zero outside the
-//   image), builds the A tile [128 pixels][K] with K = 9 Ci rounded up
-//   to 32 (zero columns past 9 Ci) from it through a table of tap
-//   offsets, copies the weights [K][BN] (zero rows past 9 Ci) with
-//   16-byte cp.async, runs K / 16 mma.sync steps and the same epilogue.
+// * conv_bn_stats_ic_kernel, bf16 3x3 stride 1 or 7x7 stride 2 with Ci <
+//   32 and Co % 8 == 0 (the stems, Ci = 3: a pixel is 6 bytes, no
+//   16-byte rows): tensor cores through an im2col in shared memory.  A
+//   block takes an 8 x 16 tile of output pixels of one image and BN
+//   (128, 64 or 32) channels: it copies the tile's input halo, (8 - 1)
+//   STRIDE + KS x (16 - 1) STRIDE + KS pixels (10 x 18 at 3x3 s1, 21 x 37
+//   at 7x7 s2), once (2-byte loads of each halo row's contiguous span,
+//   zero outside the image), builds the A tile [128 pixels][K] with K =
+//   KS^2 Ci rounded up to 32 (zero columns past KS^2 Ci; 27 -> 32, 147 ->
+//   160) from it through a table of tap offsets, copies the weights
+//   [K][BN] (zero rows past KS^2 Ci) with 16-byte cp.async, runs K / 16
+//   mma.sync steps and the same epilogue.
 // * conv_bn_stats_kernel, f32 (the tensor cores' f32 route would be TF32)
 //   and bf16 shapes no tensor-core kernel takes: 64 x 64 tiles on the
 //   CUDA cores, a BK = 16 slice gathered element by element (zero-filled
@@ -97,8 +103,8 @@ __global__ void __launch_bounds__(THREADS)
 conv_bn_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
                      const T* __restrict__ b, T* __restrict__ y,
                      double* __restrict__ s1, double* __restrict__ s2,
-                     int n, int h, int wd, int ci, int co, int ho, int wo) {
-  constexpr int PAD = KS == 3 ? 1 : 0;
+                     int n, int h, int wd, int ci, int co, int ho, int wo,
+                     int pad_top, int pad_left) {
   // +4 floats per row: the gather writes column-wise, and the pad
   // spreads its 16 k-rows over the banks; rows stay 16-byte aligned
   __shared__ __align__(16) float As[BK][BM + 4];
@@ -125,8 +131,8 @@ conv_bn_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
     int64_t t = mm / wo;
     int ho_i = (int)(t % ho);
     a_n[r] = (int)(t / ho);
-    a_hi[r] = ho_i * STRIDE - PAD;
-    a_wi[r] = wo_i * STRIDE - PAD;
+    a_hi[r] = ho_i * STRIDE - pad_top;
+    a_wi[r] = wo_i * STRIDE - pad_left;
   }
   // B loads: thread owns column (tid % BN) and 4 k-rows (tid / BN) * 4 + r.
   const int b_c = tid % BN;
@@ -234,19 +240,23 @@ conv_bn_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// The output size and the top/left pad of one launch (conv_geometry).
+struct Geom {
+  int ho, wo, pad_top, pad_left;
+};
+
 template <typename T, int KS, int STRIDE>
 void launch(const void* x, const void* w, const void* b, void* y, double* s1,
-            double* s2, int n, int h, int wd, int ci, int co, int want_stats,
-            dim3 grid, cudaStream_t stream) {
-  int ho = h / STRIDE, wo = wd / STRIDE;
+            double* s2, int n, int h, int wd, int ci, int co, Geom g,
+            int want_stats, dim3 grid, cudaStream_t stream) {
   if (want_stats) {
     conv_bn_stats_kernel<T, KS, STRIDE, true><<<grid, THREADS, 0, stream>>>(
         (const T*)x, (const T*)w, (const T*)b, (T*)y, s1, s2, n, h, wd, ci,
-        co, ho, wo);
+        co, g.ho, g.wo, g.pad_top, g.pad_left);
   } else {
     conv_bn_stats_kernel<T, KS, STRIDE, false><<<grid, THREADS, 0, stream>>>(
         (const T*)x, (const T*)w, (const T*)b, (T*)y, s1, s2, n, h, wd, ci,
-        co, ho, wo);
+        co, g.ho, g.wo, g.pad_top, g.pad_left);
   }
 }
 
@@ -268,9 +278,8 @@ conv_bn_stats_tc_kernel(const __nv_bfloat16* __restrict__ x,
                         __nv_bfloat16* __restrict__ y,
                         double* __restrict__ s1, double* __restrict__ s2,
                         int n, int h, int wd, int ci, int co, int ho,
-                        int wo) {
+                        int wo, int pad_top, int pad_left) {
   using SM = tc::Ring<TL>;
-  constexpr int PAD = KS == 3 ? 1 : 0;
   constexpr int BN = TL::BN;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -297,8 +306,8 @@ conv_bn_stats_tc_kernel(const __nv_bfloat16* __restrict__ x,
     int64_t t = mm / wo;
     int ho_i = (int)(t % ho);
     int64_t nn = t / ho;
-    a_hi[r] = ho_i * STRIDE - PAD;
-    a_wi[r] = wo_i * STRIDE - PAD;
+    a_hi[r] = ho_i * STRIDE - pad_top;
+    a_wi[r] = wo_i * STRIDE - pad_left;
     a_pix[r] = (nn * h + a_hi[r]) * wd + a_wi[r];
   }
   // position of the next slice to copy: channel base and tap
@@ -381,7 +390,7 @@ conv_bn_stats_tc_kernel(const __nv_bfloat16* __restrict__ x,
 template <int KS, int STRIDE, bool STATS, class TL>
 int launch_tc(const void* x, const void* w, const void* b, void* y,
               double* s1, double* s2, int n, int h, int wd, int ci, int co,
-              dim3 grid, int smem_bytes, cudaStream_t stream) {
+              Geom g, dim3 grid, int smem_bytes, cudaStream_t stream) {
   // the plan's shared memory must be this config's
   if (smem_bytes != tc::Ring<TL>::BYTES || ci % TC_BK || co % 8)
     return (int)cudaErrorInvalidValue;
@@ -392,59 +401,65 @@ int launch_tc(const void* x, const void* w, const void* b, void* y,
   kernel<<<grid, tc::THREADS, smem_bytes, stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
       (const __nv_bfloat16*)b, (__nv_bfloat16*)y, s1, s2, n, h, wd, ci, co,
-      h / STRIDE, wd / STRIDE);
+      g.ho, g.wo, g.pad_top, g.pad_left);
   return 0;
 }
 
 template <int KS, int STRIDE, bool STATS>
 int dispatch_tc(const void* x, const void* w, const void* b, void* y,
                 double* s1, double* s2, int n, int h, int wd, int ci, int co,
-                int config, dim3 grid, int smem_bytes, cudaStream_t stream) {
+                Geom g, int config, dim3 grid, int smem_bytes,
+                cudaStream_t stream) {
   switch (config) {
     case 0:
       return launch_tc<KS, STRIDE, STATS, tc::Tile128>(
-          x, w, b, y, s1, s2, n, h, wd, ci, co, grid, smem_bytes, stream);
+          x, w, b, y, s1, s2, n, h, wd, ci, co, g, grid, smem_bytes, stream);
     case 1:
       return launch_tc<KS, STRIDE, STATS, tc::Tile64>(
-          x, w, b, y, s1, s2, n, h, wd, ci, co, grid, smem_bytes, stream);
+          x, w, b, y, s1, s2, n, h, wd, ci, co, g, grid, smem_bytes, stream);
     case 2:
       return launch_tc<KS, STRIDE, STATS, tc::Tile32>(
-          x, w, b, y, s1, s2, n, h, wd, ci, co, grid, smem_bytes, stream);
+          x, w, b, y, s1, s2, n, h, wd, ci, co, g, grid, smem_bytes, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // ------------------------------------- tensor cores, small Ci (bf16)
 
-// The small-Ci kernel's output tile (8 x 16 = tc::BM pixels) and halo.
+// The small-Ci kernel's output tile (8 x 16 = tc::BM pixels); its input
+// halo is (IC_TH - 1) STRIDE + KS rows of (IC_TW - 1) STRIDE + KS pixels.
 constexpr int IC_TH = 8;
 constexpr int IC_TW = 16;
-constexpr int IC_HH = IC_TH + 2;
-constexpr int IC_HW = IC_TW + 2;
 
-// K = 9 Ci rounded up to whole 32-deep slices
-__host__ __device__ constexpr int ic_kp(int ci) {
-  return (9 * ci + TC_BK - 1) / TC_BK * TC_BK;
-}
+template <int KS, int STRIDE>
+struct IcGeom {
+  static constexpr int HH = (IC_TH - 1) * STRIDE + KS;
+  static constexpr int HW = (IC_TW - 1) * STRIDE + KS;
+  // K = KS^2 Ci rounded up to whole 32-deep slices
+  __host__ __device__ static int kp(int ci) {
+    return (KS * KS * ci + TC_BK - 1) / TC_BK * TC_BK;
+  }
+};
 
 // Shared memory: the A tile [128][K + 8] (80-byte rows at K = 32, so the
 // 8 rows of an ldmatrix hit 8 banks), the B tile [K][BN + 8], the halo
-// [10][18 Ci] (to 16 bytes) and the tap table [K] ints; or the
+// [HH][HW Ci] (to 16 bytes) and the tap table [K] ints; or the
 // epilogue's, whichever is larger (_ic_smem in ops/kernels/conv_bn.py).
-template <class TL>
+template <int KS, int STRIDE, class TL>
 struct IcSmem {
+  using G = IcGeom<KS, STRIDE>;
   __host__ __device__ static int a_elems(int ci) {
-    return tc::BM * (ic_kp(ci) + 8);
+    return tc::BM * (G::kp(ci) + 8);
   }
   __host__ __device__ static int b_elems(int ci) {
-    return ic_kp(ci) * (TL::BN + 8);
+    return G::kp(ci) * (TL::BN + 8);
   }
   __host__ __device__ static int halo_bytes(int ci) {
-    return (IC_HH * IC_HW * ci * 2 + 15) / 16 * 16;
+    return (G::HH * G::HW * ci * 2 + 15) / 16 * 16;
   }
   __host__ __device__ static int main_bytes(int ci) {
     return (a_elems(ci) + b_elems(ci)) * 2 + halo_bytes(ci)
-           + ic_kp(ci) * 4;
+           + G::kp(ci) * 4;
   }
   static int bytes(int ci) {
     const int m = main_bytes(ci);
@@ -453,24 +468,28 @@ struct IcSmem {
 };
 
 // One block: output pixels (i0 .. i0 + 8) x (j0 .. j0 + 16) of image
-// blockIdx.x / tiles, channels blockIdx.y * BN .. + BN; 3x3 stride 1
-// SAME.  A[r][k] for tile pixel r = (ty, tx) and k = (ky * 3 + kx) * Ci +
-// c (the HWIO row order) is halo[ty + ky][(tx + kx) * Ci + c]: for one ky
-// the 3 Ci values of a row are contiguous in the halo row, so the table
-// holds ky * (halo pitch) + (k - 3 Ci ky) per k, -1 past 9 Ci.
-template <bool STATS, class TL>
+// blockIdx.x / tiles, channels blockIdx.y * BN .. + BN.  The halo's row
+// hy is input row i0 STRIDE - pad_top + hy, its column hx input column
+// j0 STRIDE - pad_left + hx.  A[r][k] for tile pixel r = (ty, tx) and k =
+// (ky KS + kx) Ci + c (the HWIO row order) is halo[ty STRIDE + ky][(tx
+// STRIDE + kx) Ci + c]: for one ky the KS Ci values of a row are
+// contiguous in the halo row, so the table holds ky * (halo pitch) + (k -
+// KS Ci ky) per k, -1 past KS^2 Ci.
+template <int KS, int STRIDE, bool STATS, class TL>
 __global__ void __launch_bounds__(tc::THREADS)
 conv_bn_stats_ic_kernel(const __nv_bfloat16* __restrict__ x,
                         const __nv_bfloat16* __restrict__ w,
                         const __nv_bfloat16* __restrict__ b,
                         __nv_bfloat16* __restrict__ y,
                         double* __restrict__ s1, double* __restrict__ s2,
-                        int n, int h, int wd, int ci, int co) {
-  using SM = IcSmem<TL>;
+                        int n, int h, int wd, int ci, int co, int ho, int wo,
+                        int pad_top, int pad_left) {
+  using SM = IcSmem<KS, STRIDE, TL>;
+  using G = IcGeom<KS, STRIDE>;
   constexpr int BN = TL::BN;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int kp = ic_kp(ci), k_real = 9 * ci;
-  const int apitch = kp + 8, bpitch = BN + 8, hp = IC_HW * ci;
+  const int kp = G::kp(ci), k_real = KS * KS * ci;
+  const int apitch = kp + 8, bpitch = BN + 8, hp = G::HW * ci;
   __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* bs = as + SM::a_elems(ci);
   __nv_bfloat16* halo = bs + SM::b_elems(ci);
@@ -479,13 +498,13 @@ conv_bn_stats_ic_kernel(const __nv_bfloat16* __restrict__ x,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / TL::WARPS_N, wn = warp % TL::WARPS_N;
-  const int tiles_x = (wd + IC_TW - 1) / IC_TW;
-  const int per_img = tiles_x * ((h + IC_TH - 1) / IC_TH);
+  const int tiles_x = (wo + IC_TW - 1) / IC_TW;
+  const int per_img = tiles_x * ((ho + IC_TH - 1) / IC_TH);
   const int img = blockIdx.x / per_img, rem = blockIdx.x % per_img;
   const int i0 = (rem / tiles_x) * IC_TH, j0 = (rem % tiles_x) * IC_TW;
   const int c0 = blockIdx.y * BN;
 
-  // B: rows k < 9 Ci of w at columns c0 .., zero elsewhere
+  // B: rows k < KS^2 Ci of w at columns c0 .., zero elsewhere
   for (int i = tid; i < kp * (BN / 8); i += tc::THREADS) {
     const int kr = i / (BN / 8), col = (i % (BN / 8)) * 8;
     const bool ok = kr < k_real && c0 + col < co;
@@ -496,23 +515,24 @@ conv_bn_stats_ic_kernel(const __nv_bfloat16* __restrict__ x,
   for (int k = tid; k < kp; k += tc::THREADS) {
     int off = -1;
     if (k < k_real) {
-      const int ky = k / (3 * ci);
-      off = ky * hp + (k - ky * 3 * ci);
+      const int ky = k / (KS * ci);
+      off = ky * hp + (k - ky * KS * ci);
     }
     koff[k] = off;
   }
-  // halo row hy is input row i0 - 1 + hy, columns j0 - 1 .. j0 + 16: one
-  // contiguous span of 18 Ci elements, of which [lo, hi) lie inside the
-  // image
-  const int lo = j0 == 0 ? ci : 0;
-  const int hi = (wd - j0 + 1) * ci;
+  // halo row hy is input row iy0 + hy; its HW Ci elements are one
+  // contiguous span of the input row from column jx0, of which [lo, hi)
+  // lie inside the image
+  const int iy0 = i0 * STRIDE - pad_top, jx0 = j0 * STRIDE - pad_left;
+  const int lo = jx0 < 0 ? -jx0 * ci : 0;
+  const int hi = (wd - jx0) * ci;
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  for (int i = tid; i < IC_HH * hp; i += tc::THREADS) {
+  for (int i = tid; i < G::HH * hp; i += tc::THREADS) {
     const int hy = i / hp, e = i - hy * hp;
-    const int iy = i0 - 1 + hy;
+    const int iy = iy0 + hy;
     __nv_bfloat16 v = zero;
     if (iy >= 0 && iy < h && e >= lo && e < hi)
-      v = x[(((int64_t)img * h + iy) * wd + j0 - 1) * ci + e];
+      v = x[(((int64_t)img * h + iy) * wd + jx0) * ci + e];
     halo[i] = v;
   }
   tc::cp_async_wait<0>();
@@ -521,7 +541,7 @@ conv_bn_stats_ic_kernel(const __nv_bfloat16* __restrict__ x,
   const int pairs = kp / 2;
   for (int p = tid; p < tc::BM * pairs; p += tc::THREADS) {
     const int r = p / pairs, k = 2 * (p - r * pairs);
-    const int base = (r / IC_TW) * hp + (r % IC_TW) * ci;
+    const int base = (r / IC_TW) * STRIDE * hp + (r % IC_TW) * STRIDE * ci;
     const int o0 = koff[k], o1 = koff[k + 1];
     __nv_bfloat162 v;
     v.x = o0 >= 0 ? halo[base + o0] : zero;
@@ -552,79 +572,88 @@ conv_bn_stats_ic_kernel(const __nv_bfloat16* __restrict__ x,
       acc, smem, b, c0, co,
       [&](int r) -> int64_t {
         const int i = i0 + r / IC_TW, j = j0 + r % IC_TW;
-        return i < h && j < wd ? (((int64_t)img * h + i) * wd + j) * co
-                               : -1;
+        return i < ho && j < wo ? (((int64_t)img * ho + i) * wo + j) * co
+                                : -1;
       },
       y, s1, s2);
 }
 
-template <bool STATS, class TL>
+template <int KS, int STRIDE, bool STATS, class TL>
 int launch_ic(const void* x, const void* w, const void* b, void* y,
               double* s1, double* s2, int n, int h, int wd, int ci, int co,
-              dim3 grid, int smem_bytes, cudaStream_t stream) {
+              Geom g, dim3 grid, int smem_bytes, cudaStream_t stream) {
   // the plan's shared memory must be this config's
-  if (ci < 1 || ci >= TC_BK || co % 8 || smem_bytes != IcSmem<TL>::bytes(ci))
+  if (ci < 1 || ci >= TC_BK || co % 8
+      || smem_bytes != IcSmem<KS, STRIDE, TL>::bytes(ci))
     return (int)cudaErrorInvalidValue;
-  auto kernel = conv_bn_stats_ic_kernel<STATS, TL>;
+  auto kernel = conv_bn_stats_ic_kernel<KS, STRIDE, STATS, TL>;
   static int allowed[tc::MAX_DEVICES] = {0};   // per instance and device
   int err = tc::allow_smem((const void*)kernel, smem_bytes, allowed);
   if (err != 0) return err;
   kernel<<<grid, tc::THREADS, smem_bytes, stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
-      (const __nv_bfloat16*)b, (__nv_bfloat16*)y, s1, s2, n, h, wd, ci, co);
+      (const __nv_bfloat16*)b, (__nv_bfloat16*)y, s1, s2, n, h, wd, ci, co,
+      g.ho, g.wo, g.pad_top, g.pad_left);
   return 0;
 }
 
-template <bool STATS>
+template <int KS, int STRIDE, bool STATS>
 int dispatch_ic(const void* x, const void* w, const void* b, void* y,
                 double* s1, double* s2, int n, int h, int wd, int ci, int co,
-                int tile, dim3 grid, int smem_bytes, cudaStream_t stream) {
+                Geom g, int tile, dim3 grid, int smem_bytes,
+                cudaStream_t stream) {
   switch (tile) {
     case 0:
-      return launch_ic<STATS, tc::Tile128>(x, w, b, y, s1, s2, n, h, wd, ci,
-                                           co, grid, smem_bytes, stream);
+      return launch_ic<KS, STRIDE, STATS, tc::Tile128>(
+          x, w, b, y, s1, s2, n, h, wd, ci, co, g, grid, smem_bytes, stream);
     case 1:
-      return launch_ic<STATS, tc::Tile64>(x, w, b, y, s1, s2, n, h, wd, ci,
-                                          co, grid, smem_bytes, stream);
+      return launch_ic<KS, STRIDE, STATS, tc::Tile64>(
+          x, w, b, y, s1, s2, n, h, wd, ci, co, g, grid, smem_bytes, stream);
     case 2:
-      return launch_ic<STATS, tc::Tile32>(x, w, b, y, s1, s2, n, h, wd, ci,
-                                          co, grid, smem_bytes, stream);
+      return launch_ic<KS, STRIDE, STATS, tc::Tile32>(
+          x, w, b, y, s1, s2, n, h, wd, ci, co, g, grid, smem_bytes, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
+// the small-Ci kernel is built for the stems' geometries only
+template <int KS, int STRIDE>
+constexpr bool has_ic = (KS == 3 && STRIDE == 1) || (KS == 7 && STRIDE == 2);
+
 template <int KS, int STRIDE>
 int launch_geom(const void* x, const void* w, const void* b, void* y,
                 double* s1, double* s2, int n, int h, int wd, int ci, int co,
-                int dtype, int want_stats, int config, dim3 grid,
+                Geom g, int dtype, int want_stats, int config, dim3 grid,
                 int smem_bytes, cudaStream_t stream) {
   if (config >= IC_CONFIG) {
-    if (dtype != 1 || KS != 3 || STRIDE != 1)
-      return (int)cudaErrorInvalidValue;
-    return want_stats
-               ? dispatch_ic<true>(x, w, b, y, s1, s2, n, h, wd, ci, co,
-                                   config - IC_CONFIG, grid, smem_bytes,
-                                   stream)
-               : dispatch_ic<false>(x, w, b, y, s1, s2, n, h, wd, ci, co,
-                                    config - IC_CONFIG, grid, smem_bytes,
-                                    stream);
+    if constexpr (has_ic<KS, STRIDE>) {
+      if (dtype != 1) return (int)cudaErrorInvalidValue;
+      return want_stats
+                 ? dispatch_ic<KS, STRIDE, true>(
+                       x, w, b, y, s1, s2, n, h, wd, ci, co, g,
+                       config - IC_CONFIG, grid, smem_bytes, stream)
+                 : dispatch_ic<KS, STRIDE, false>(
+                       x, w, b, y, s1, s2, n, h, wd, ci, co, g,
+                       config - IC_CONFIG, grid, smem_bytes, stream);
+    }
+    return (int)cudaErrorInvalidValue;
   }
   if (config >= 0) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
     return want_stats
                ? dispatch_tc<KS, STRIDE, true>(x, w, b, y, s1, s2, n, h, wd,
-                                               ci, co, config, grid,
+                                               ci, co, g, config, grid,
                                                smem_bytes, stream)
                : dispatch_tc<KS, STRIDE, false>(x, w, b, y, s1, s2, n, h, wd,
-                                                ci, co, config, grid,
+                                                ci, co, g, config, grid,
                                                 smem_bytes, stream);
   }
   if (dtype == 0)
-    launch<float, KS, STRIDE>(x, w, b, y, s1, s2, n, h, wd, ci, co,
+    launch<float, KS, STRIDE>(x, w, b, y, s1, s2, n, h, wd, ci, co, g,
                               want_stats, grid, stream);
   else if (dtype == 1)
     launch<__nv_bfloat16, KS, STRIDE>(x, w, b, y, s1, s2, n, h, wd, ci, co,
-                                      want_stats, grid, stream);
+                                      g, want_stats, grid, stream);
   else
     return (int)cudaErrorInvalidValue;
   return 0;
@@ -633,32 +662,44 @@ int launch_geom(const void* x, const void* w, const void* b, void* y,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  s1/s2 are zeroed f64 buffers of co
-// entries, and may be null when want_stats == 0.  config, grid and
-// smem_bytes come from the Python plan: config -1 runs the CUDA-core
-// kernel (64 x 64 tiles, static shared memory), 0/1/2 the tensor-core
-// kernel with BN = 128/64/32 (bf16 only) and smem_bytes of dynamic
-// shared memory, 3/4/5 the small-Ci tensor-core kernel with BN =
-// 128/64/32 (bf16 3x3 stride 1, Ci < 32; grid.x walks the 8 x 16 pixel
-// tiles of every image).  Tensor-core routes need w and y 16-byte
-// aligned.  Returns the cudaError_t of the launch.
+// entries, and may be null when want_stats == 0.  ho, wo, pad_top and
+// pad_left are the geometry's (conv_geometry in ops/kernels/conv_bn.py).
+// config, grid and smem_bytes come from the Python plan: config -1 runs
+// the CUDA-core kernel (64 x 64 tiles, static shared memory), 0/1/2 the
+// tensor-core kernel with BN = 128/64/32 (bf16 only) and smem_bytes of
+// dynamic shared memory, 3/4/5 the small-Ci tensor-core kernel with BN =
+// 128/64/32 (bf16 3x3 stride 1 or 7x7 stride 2, Ci < 32; grid.x walks
+// the 8 x 16 output pixel tiles of every image).  Tensor-core routes
+// need w and y 16-byte aligned.  Returns the cudaError_t of the launch.
 extern "C" int conv_bn_stats_launch(const void* x, const void* w,
                                     const void* b, void* y, double* s1,
                                     double* s2, int n, int h, int wd, int ci,
-                                    int co, int ksize, int stride, int dtype,
-                                    int want_stats, int config, int grid_x,
-                                    int grid_y, int smem_bytes,
+                                    int co, int ho, int wo, int pad_top,
+                                    int pad_left, int ksize, int stride,
+                                    int dtype, int want_stats, int config,
+                                    int grid_x, int grid_y, int smem_bytes,
                                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   dim3 grid((unsigned)grid_x, (unsigned)grid_y);
+  const Geom g{ho, wo, pad_top, pad_left};
+  if (ho < 1 || wo < 1 || pad_top < 0 || pad_left < 0 || pad_top >= ksize
+      || pad_left >= ksize)
+    return (int)cudaErrorInvalidValue;
   int err;
   if (ksize == 1 && stride == 1)
-    err = launch_geom<1, 1>(x, w, b, y, s1, s2, n, h, wd, ci, co, dtype,
+    err = launch_geom<1, 1>(x, w, b, y, s1, s2, n, h, wd, ci, co, g, dtype,
                             want_stats, config, grid, smem_bytes, s);
   else if (ksize == 3 && stride == 1)
-    err = launch_geom<3, 1>(x, w, b, y, s1, s2, n, h, wd, ci, co, dtype,
+    err = launch_geom<3, 1>(x, w, b, y, s1, s2, n, h, wd, ci, co, g, dtype,
                             want_stats, config, grid, smem_bytes, s);
   else if (ksize == 3 && stride == 2)
-    err = launch_geom<3, 2>(x, w, b, y, s1, s2, n, h, wd, ci, co, dtype,
+    err = launch_geom<3, 2>(x, w, b, y, s1, s2, n, h, wd, ci, co, g, dtype,
+                            want_stats, config, grid, smem_bytes, s);
+  else if (ksize == 7 && stride == 2)
+    err = launch_geom<7, 2>(x, w, b, y, s1, s2, n, h, wd, ci, co, g, dtype,
+                            want_stats, config, grid, smem_bytes, s);
+  else if (ksize == 2 && stride == 1)
+    err = launch_geom<2, 1>(x, w, b, y, s1, s2, n, h, wd, ci, co, g, dtype,
                             want_stats, config, grid, smem_bytes, s);
   else
     return (int)cudaErrorInvalidValue;

@@ -72,9 +72,11 @@ def fold_batch_norm(state_dict):
     conv keeps s and the affine as its scale and bias. Other entries are
     returned as they are (new tensors only where folded).
 
-    The JAX package's other rules belong to modules the port does not
-    have yet, and come with them: the ResNet scopes' eps of 1.001e-5,
-    and ConvActBN (activation between conv and BN: affine only).
+    A BN named ``bn`` whose conv has a bias is the JAX package's mark of
+    a ConvActBN (activation between conv and BN) and is not folded: its
+    affine stays in the BN. The rule also takes the biased ConvBNs of v1
+    and v2, as in the JAX package. The ResNet scopes' eps of 1.001e-5
+    belongs to a module the port does not have yet.
     """
     out = dict(state_dict)
     for key in state_dict:
@@ -95,7 +97,8 @@ def fold_batch_norm(state_dict):
         conv_name = _conv_name_for(bn_name)
         conv = (f"{scope}.{conv_name}" if scope else conv_name) \
             if conv_name else None
-        if conv is None or conv + ".kernel" not in state_dict:
+        if conv is None or conv + ".kernel" not in state_dict or (
+                bn_name == "bn" and conv + ".bias" in state_dict):
             out[prefix + ".scale"], out[prefix + ".bias"] = scale, bias
             continue
         out[conv + ".kernel"] = state_dict[conv + ".kernel"].float() * scale
@@ -191,10 +194,11 @@ class ServingProgram(torch.nn.Module):
     f32 images and returns ``(rows, keep)``."""
 
     def __init__(self, model, class_num, threshold, nms_mode, nms_threshold,
-                 nms_sigma, max_boxes):
+                 nms_sigma, max_boxes, version=4):
         super().__init__()
         self.model = model
         self.class_num = class_num
+        self.version = version
         self.threshold = threshold
         self.nms_mode = nms_mode
         self.nms_threshold = nms_threshold
@@ -206,7 +210,7 @@ class ServingProgram(torch.nn.Module):
         rows, valid = decode_multi_level(
             outs if isinstance(outs, (list, tuple)) else [outs],
             class_num=self.class_num, threshold=self.threshold,
-            max_boxes=self.max_boxes)
+            max_boxes=self.max_boxes, version=self.version)
         return apply_nms_device(rows, valid, nms_mode=self.nms_mode,
                                 nms_threshold=self.nms_threshold,
                                 conf_threshold=self.threshold,
@@ -235,13 +239,12 @@ def make_serving_fn(model, class_num, version=4, threshold=0.5, nms_mode=1,
     model's tensors; ``model`` is left as it was. ``serve.program`` is
     that :class:`ServingProgram`.
     """
-    if version not in (2, 3, 4):
-        raise NotImplementedError(
-            f"version {version}: the v1 shared-class decode layout is not "
-            "ported yet (ROADMAP.md, modules to port, other families)")
+    if version not in (1, 2, 3, 4):
+        raise ValueError(f"Invalid version: {version}")
     program = ServingProgram(
         _serving_copy(model, quant, int(int8_min_channels)), class_num,
-        threshold, nms_mode, nms_threshold, nms_sigma, max_boxes)
+        threshold, nms_mode, nms_threshold, nms_sigma, max_boxes,
+        int(version))
 
     @torch.inference_mode()
     def serve(images):

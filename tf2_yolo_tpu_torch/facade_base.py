@@ -4,9 +4,9 @@ Port of tf2_yolo_tpu/facade_base.py: dataset/sequence readers, vis_img,
 metric-spec parsing ("obj+iou+recall0.6"), the multi-level label pyramid
 of v3/v4, and pretrained-weight resolution from a local weight cache (no
 downloads). Weight files are the port's own ``torch.save`` files
-(``Model.save_weights``). The YOLOv4 facade is ported, its serving
-artifact (``export_model``) included; the v1.5, v2 and v3 facades and the
-reference h5 files are not yet.
+(``Model.save_weights``). The v1.5, v2, v3 and v4 facades are ported,
+their serving artifact (``export_model``) included; the reference h5
+files are not yet.
 """
 
 import functools
@@ -64,17 +64,34 @@ def graft_backbone_file(model, path):
     _not_ported("graft_backbone_file")
 
 
+def graft_backbone_params(model, src):
+    """Copy a backbone's parameters into ``model`` (an ``engine.Model``),
+    as the JAX v1.5-v3 facades graft ``pretrained_body`` /
+    ``pretrained_backbone``: ``src`` is a Model or a ``{name: tensor}``
+    dict, either of a whole network (its ``backbone.*`` entries are
+    taken) or of a bare backbone. BatchNorm statistics are not copied
+    (the JAX facades graft ``params`` only)."""
+    from .engine import Model
+
+    src = src.params if isinstance(src, Model) else src
+    if any(k.startswith("backbone.") for k in src):
+        body = {k: v for k, v in src.items() if k.startswith("backbone.")}
+    else:
+        body = {"backbone." + k: v for k, v in src.items()}
+    model.params = {k: (v.detach().cpu() if hasattr(v, "detach") else v)
+                    for k, v in body.items()}
+
+
 def make_version_aliases(version):
     """Per-version module aliases mirroring the reference's
-    yolovN.losses / yolovN.metrics import surface (YOLOv4 only)."""
-    if version != 4:
-        raise NotImplementedError(
-            f"version {version}: only the YOLOv4 facade is ported yet "
-            "(ROADMAP.md, queue 1, item 8: other families)")
-    from .ops.losses import wrap_yolo_loss_v4
+    yolovN.losses / yolovN.metrics import surface (versions 1-4)."""
+    from .ops import losses
 
+    loss = {1: losses.wrap_yolo_loss_v1, 2: losses.wrap_yolo_loss_v2,
+            3: losses.wrap_yolo_loss_v3,
+            4: losses.wrap_yolo_loss_v4}[version]
     return {
-        "wrap_yolo_loss": wrap_yolo_loss_v4,
+        "wrap_yolo_loss": loss,
         "wrap_obj_acc": functools.partial(
             _metrics_mod.wrap_obj_acc, version=version),
         "wrap_mean_iou": functools.partial(
@@ -125,7 +142,7 @@ class _LabelPyramidSequence:
 class YoloBase:
     """Common facade: construction params, readers, vis, metric spec."""
 
-    version = None          # 4 (the other families are not ported yet)
+    version = None          # 1 (v1.5), 2, 3 or 4
     stride = 32             # output stride of the coarsest level
     num_levels = 1          # FPN/PAN levels
 

@@ -1,20 +1,33 @@
-"""YOLOv4: CSPDarknet-53 + SPP top-down FPN + bottom-up PAN + heads.
+"""The detector networks: backbone + neck + head(s) of each family.
 
-Port of ``_split_anchors``, ``FPNStage`` and the full-network path of
-``YoloV4`` in tf2_yolo_tpu/models/detectors.py (NHWC; ``train()`` /
-``eval()`` select batch or running BatchNorm statistics). The
-concat orders and the coarse-to-fine output order are the JAX
-package's. 107 ConvBN layers (72 mish in the backbone, 35 leaky in the
-neck, 7 of them stride 2) and 3 biased head convs.
+Port of ``_split_anchors``, ``FPNStage``, ``YoloV1``, ``YoloV2``,
+``YoloV3`` and the full-network path of ``YoloV4`` in
+tf2_yolo_tpu/models/detectors.py (NHWC; ``train()`` / ``eval()`` select
+batch or running BatchNorm statistics). The concat orders, the
+coarse-to-fine output order and the flat channel layouts are the JAX
+package's:
+
+- v1: one (N, S, S, 5 B + C) output;
+- v2: one (N, S, S, B (5 + C)) output;
+- v3/v4: a list [coarse (stride 32), mid (16), fine (8)] of those.
+
+YOLOv4: 107 ConvBN layers (72 mish in the backbone, 35 leaky in the
+neck, 7 of them stride 2) and 3 biased head convs. YOLOv3 (Darknet-53):
+72 ConvBNs and 3 head convs; tiny: 13 in all. YOLOv2: 22 ConvBNs and a
+head (darknet), or 16 ConvActBNs and a head (UNet). YOLOv1: 23 ConvBNs
+and a head. The ResNet and MobileNetV2 backbones, user backbone
+factories and ``pipeline_stage`` are not ported.
 """
 
 import numpy as np
 import torch
 from torch import nn
 
-from .backbones import CSPDarknet53
-from .heads import AnchorHead
-from .layers import ConvBN, darknet_normal_, spp, upsample2x
+from .backbones import (CSPDarknet53, Darknet19, Darknet53, DarknetV1,
+                        TinyDarknet, UNetBody)
+from .heads import AnchorHead, HeadV1
+from .layers import (ConvBN, darknet_normal_, he_normal_, space_to_depth,
+                     spp, upsample2x)
 
 
 def _split_anchors(anchors, num_levels):
@@ -34,21 +47,159 @@ def _neck(ci, co, k, stride=1, **kw):
 
 
 class FPNStage(nn.Module):
-    """The v4 5-conv stack: alternating 1x1 to ``features`` and 3x3 to
-    2 * ``features``, leaky. (The v3 3x3 ``out`` conv comes with YOLOv3.)"""
+    """The 5-conv stack: alternating 1x1 to ``features`` and 3x3 to
+    2 * ``features``, leaky. ``make_out`` (v3) adds the 3x3 ``out`` conv
+    to 2 * ``features``, and ``forward`` returns (x, out); without it
+    (the v4 PAN) it returns x. ``init`` draws the kernels (v4:
+    RandomNormal(0, 0.02), v3: HE_NORMAL)."""
 
-    def __init__(self, ci, features, **kw):
+    def __init__(self, ci, features, make_out=False, init=darknet_normal_,
+                 **kw):
         super().__init__()
         f = features
         for i, (c_in, c_out, k) in enumerate(
                 [(ci, f, 1), (f, 2 * f, 3), (2 * f, f, 1), (f, 2 * f, 3),
                  (2 * f, f, 1)]):
-            self.add_module(f"conv{i + 1}", _neck(c_in, c_out, k, **kw))
+            self.add_module(f"conv{i + 1}",
+                            ConvBN(c_in, c_out, k, act="leaky", init=init,
+                                   **kw))
+        self.out = (ConvBN(f, 2 * f, 3, act="leaky", init=init, **kw)
+                    if make_out else None)
 
     def forward(self, x):
         for i in range(5):
             x = getattr(self, f"conv{i + 1}")(x)
-        return x
+        if self.out is None:
+            return x
+        return x, self.out(x)
+
+
+class YoloV1(nn.Module):
+    """DarkNet-v1 + the v1 head. ``forward(images)`` returns (N, S, S,
+    5 B + C) f32, S = H / 64."""
+
+    def __init__(self, bbox_num=2, class_num=1, dtype=torch.float32,
+                 generator=None, device="cuda"):
+        super().__init__()
+        kw = dict(dtype=dtype, generator=generator, device=device)
+        self.plain = False
+        self.backbone = DarknetV1(**kw)
+        self.head = HeadV1(1024, bbox_num, class_num, **kw)
+
+    def forward(self, x):
+        return self.head(self.backbone(x))
+
+
+class YoloV2(nn.Module):
+    """DarkNet-19 (or the UNet) + the passthrough + the v2 head
+    (softmax classes, constant anchors). With DarkNet-19 the stride-16
+    512-ch tap is reduced to 64 channels (``passthrough``), moved to
+    stride 32 by ``space_to_depth(2)`` and concatenated, [pt, conv], with
+    the backbone output after ``neck1`` and ``neck2``; ``neck3`` fuses.
+    ``forward(images)`` returns (N, S, S, B (5 + C)) f32, S = H / 32.
+    ``backbone="mobilenet"`` is not ported."""
+
+    def __init__(self, anchors, class_num=1, backbone="darknet",
+                 dtype=torch.float32, generator=None, device="cuda"):
+        super().__init__()
+        kw = dict(dtype=dtype, generator=generator, device=device)
+        self.plain = False
+        self.backbone_name = backbone
+        conv = dict(act="leaky", use_bias=True, darknet_pad=False, **kw)
+        if backbone == "darknet":
+            self.backbone = Darknet19(**kw)
+            self.neck1 = ConvBN(1024, 1024, 3, **conv)
+            self.neck2 = ConvBN(1024, 1024, 3, **conv)
+            self.passthrough = ConvBN(512, 64, 3, **conv)
+            self.neck3 = ConvBN(4 * 64 + 1024, 1024, 3, **conv)
+            ci = 1024
+        elif backbone == "unet":
+            self.backbone = UNetBody(**kw)
+            ci = 256
+        elif backbone == "mobilenet":
+            raise NotImplementedError(
+                "backbone 'mobilenet': MobileNetV2 is not ported yet "
+                "(ROADMAP.md, queue 1, item 8: other families)")
+        else:
+            raise ValueError(f"Invalid backbone: {backbone}")
+        self.head = AnchorHead(ci, anchors, class_num, prob_act="softmax",
+                               anchors_as_params=False, init=he_normal_,
+                               **kw)
+
+    def forward(self, x):
+        if self.backbone_name == "darknet":
+            passthrough, feat = self.backbone(x)
+            conv = self.neck2(self.neck1(feat))
+            pt = space_to_depth(self.passthrough(passthrough), 2)
+            feat = self.neck3(torch.cat([pt, conv], dim=-1))
+        else:
+            feat = self.backbone(x)
+        return self.head(feat)
+
+
+class YoloV3(nn.Module):
+    """Darknet-53 + the 3-level top-down FPN + per-level heads (sigmoid
+    classes, constant anchors), or with ``backbone="tiny_darknet"`` the
+    tiny body and its two heads. ``forward(images)`` returns the [coarse
+    (stride 32), mid (16)(, fine (8))] head outputs, each (N, S, S,
+    B (5 + C)) f32. The ResNet backbones and backbone factories are not
+    ported."""
+
+    def __init__(self, anchors, class_num=1, backbone="full_darknet",
+                 dtype=torch.float32, generator=None, device="cuda"):
+        super().__init__()
+        kw = dict(dtype=dtype, generator=generator, device=device)
+        self.plain = False
+        self.tiny = backbone == "tiny_darknet"
+        if callable(backbone) or backbone not in ("full_darknet",
+                                                  "tiny_darknet"):
+            raise NotImplementedError(
+                f"backbone {backbone!r}: only full_darknet and "
+                "tiny_darknet are ported yet (ROADMAP.md, queue 1, item 8: "
+                "other families)")
+        leaky = dict(act="leaky", **kw)
+        if self.tiny:
+            self.backbone = TinyDarknet(**kw)
+            self.tiny_out1 = ConvBN(256, 512, 3, **leaky)
+            self.tiny_up = ConvBN(256, 128, 1, **leaky)
+            self.tiny_out2 = ConvBN(128 + 256, 256, 3, **leaky)
+            feats = (512, 256)
+        else:
+            self.backbone = Darknet53(**kw)
+            self.fpn1 = FPNStage(1024, 512, make_out=True, init=he_normal_,
+                                 **kw)
+            self.up1 = ConvBN(512, 256, 1, **leaky)
+            self.fpn2 = FPNStage(256 + 512, 256, make_out=True,
+                                 init=he_normal_, **kw)
+            self.up2 = ConvBN(256, 128, 1, **leaky)
+            self.fpn3 = FPNStage(128 + 256, 128, make_out=True,
+                                 init=he_normal_, **kw)
+            feats = (1024, 512, 256)
+        per_level = _split_anchors(anchors, len(feats))
+        for i, (ci, anc) in enumerate(zip(feats, per_level)):
+            self.add_module(f"head{i + 1}",
+                            AnchorHead(ci, anc, class_num,
+                                       anchors_as_params=False,
+                                       init=he_normal_, **kw))
+        self.levels = len(feats)
+
+    def forward(self, x):
+        if self.tiny:
+            tap, bottleneck = self.backbone(x)
+            out1 = self.tiny_out1(bottleneck)
+            up = upsample2x(self.tiny_up(bottleneck))
+            out2 = self.tiny_out2(torch.cat([up, tap], dim=-1))
+            feats = [out1, out2]
+        else:
+            c3, c4, c5 = self.backbone(x)
+            t, out1 = self.fpn1(c5)
+            t = torch.cat([upsample2x(self.up1(t)), c4], dim=-1)
+            t, out2 = self.fpn2(t)
+            t = torch.cat([upsample2x(self.up2(t)), c3], dim=-1)
+            _, out3 = self.fpn3(t)
+            feats = [out1, out2, out3]
+        return [getattr(self, f"head{i + 1}")(f)
+                for i, f in enumerate(feats)]
 
 
 class YoloV4(nn.Module):

@@ -98,18 +98,20 @@ def leaky(x):
     return F.leaky_relu(x, negative_slope=0.1)
 
 
-ACTS = {"mish": mish, "leaky": leaky, "linear": lambda x: x}
+ACTS = {"mish": mish, "leaky": leaky, "relu": F.relu,
+        "linear": lambda x: x}
 ACTS_EVAL = dict(ACTS, mish=mish_eval)
 
 
 class Conv(nn.Module):
     """Conv parameters in the flax layout, run through ``conv_bn_stats``
-    (1x1 s1, 3x3 s1 SAME, 3x3 s2 darknet pad). Returns (y, s1, s2); the
-    statistics are ``None`` unless ``want_stats``."""
+    (1x1 s1, 3x3 s1 SAME, 3x3 s2 with the darknet pad, or with flax's SAME
+    where ``darknet_pad`` is False, 7x7 s2 and 2x2 s1 SAME). Returns (y,
+    s1, s2); the statistics are ``None`` unless ``want_stats``."""
 
     def __init__(self, ci, co, kernel, stride=1, use_bias=False,
                  dtype=torch.float32, init=he_normal_, generator=None,
-                 device="cuda"):
+                 device="cuda", darknet_pad=True):
         super().__init__()
         self.kernel = nn.Parameter(
             torch.empty(kernel, kernel, ci, co, device=device))
@@ -119,6 +121,7 @@ class Conv(nn.Module):
         else:
             self.register_parameter("bias", None)
         self.stride = stride
+        self.darknet_pad = darknet_pad
         self.dtype = dtype
         self.plain = False
 
@@ -128,7 +131,7 @@ class Conv(nn.Module):
         b = (self.bias.to(dt) if self.bias is not None
              else torch.zeros(k.shape[-1], dtype=dt, device=k.device))
         return conv_bn_stats(x.to(dt).contiguous(), k, b, self.stride,
-                             want_stats, self.plain)
+                             want_stats, self.plain, self.darknet_pad)
 
 
 class BNState(nn.Module):
@@ -160,7 +163,10 @@ class ConvBN(nn.Module):
     come from the conv kernel's sums over the M = N*H*W pixels (f32), the
     running statistics are updated in place, and mish takes its training
     form; in eval mode the running statistics normalise.
-    ``use_bn=False`` gives a plain biased conv.
+    ``use_bn=False`` gives a plain biased conv. ``use_bias`` (default
+    ``not use_bn``) adds the conv bias before BN, as every v1/v2 ConvBN
+    has; ``darknet_pad=False`` takes flax's SAME at stride 2 (the v1/v2
+    convs) instead of the darknet top/left pad.
 
     ``bn_sg`` (default False; :func:`set_bn_stats_sg`) takes the JAX
     package's frozen-statistics route in train mode (``_sg_batch_norm``):
@@ -171,12 +177,15 @@ class ConvBN(nn.Module):
 
     def __init__(self, ci, features, kernel=3, stride=1, act="leaky",
                  use_bn=True, dtype=torch.float32, init=he_normal_,
-                 generator=None, device="cuda"):
+                 generator=None, device="cuda", use_bias=None,
+                 darknet_pad=True):
         super().__init__()
         if act not in ACTS:
             raise ValueError(f"unknown activation {act!r}")
-        self.conv = Conv(ci, features, kernel, stride, not use_bn, dtype,
-                         init, generator, device)
+        if use_bias is None:
+            use_bias = not use_bn
+        self.conv = Conv(ci, features, kernel, stride, use_bias, dtype,
+                         init, generator, device, darknet_pad)
         self.bn = BNState(features, device) if use_bn else None
         self.act = act
         self.dtype = dtype
@@ -232,16 +241,26 @@ class Int8ConvBN(nn.Module):
     (:func:`~tf2_yolo_tpu_torch.ops.kernels.conv_int8.quantize_weights`)
     into the kernel's layout, and dequantisation, BN (running
     statistics) and bias collapse into one f32 affine, c = (sx * sw) *
-    s_bn and t = bias - mean * s_bn with s_bn = scale * rsqrt(var +
-    1e-3). ``forward`` quantizes its input as it comes (the image at the
-    stem) and runs ``conv_int8``, whose output is rounded once to the
-    ConvBN's dtype; the activation (eval form) runs in that dtype.
-    ``plain`` follows ``use_plain_route``."""
+    s_bn and t = bias - mean * s_bn (+ b * s_bn where the conv has a bias
+    b) with s_bn = scale * rsqrt(var + 1e-3). ``forward`` quantizes its
+    input as it comes (the image at the stem) and runs ``conv_int8``,
+    whose output is rounded once to the ConvBN's dtype; the activation
+    (eval form) runs in that dtype. ``plain`` follows
+    ``use_plain_route``. Q takes 1x1, 3x3 stride 1 and the darknet 3x3
+    stride 2 (:func:`int8_geometry_ok`); another geometry raises
+    NotImplementedError."""
 
     def __init__(self, convbn, sx):
         super().__init__()
         if convbn.bn is None:
             raise ValueError("Int8ConvBN needs a ConvBN with BatchNorm")
+        if not int8_geometry_ok(convbn):
+            k = convbn.conv.kernel.shape[0]
+            raise NotImplementedError(
+                f"int8 conv {k}x{k} stride {convbn.conv.stride} "
+                f"(darknet_pad={convbn.conv.darknet_pad}): kernel Q takes "
+                "1x1, 3x3 stride 1 and the darknet 3x3 stride 2 only "
+                "(ROADMAP.md, queue 1, item 8: Q at the SAME geometries)")
         kernel = convbn.conv.kernel
         wq, sw = quantize_weights(kernel)
         bn = convbn.bn
@@ -251,8 +270,12 @@ class Int8ConvBN(nn.Module):
             s_bn = bn.scale * torch.rsqrt(bn.var + BN_EPS)
             self.register_buffer("wq", weight_layout(wq))
             self.register_buffer("c", ((sx_t * sw) * s_bn).contiguous())
-            self.register_buffer("t", (bn.bias - bn.mean * s_bn)
-                                 .contiguous())
+            t = bn.bias - bn.mean * s_bn
+            if convbn.conv.bias is not None:
+                # the JAX package adds b * s_bn to the f32 sum after the
+                # affine; here it rides in t
+                t = t + convbn.conv.bias * s_bn
+            self.register_buffer("t", t.contiguous())
         self.sx = float(sx_t)
         self.ksize = kernel.shape[0]
         self.stride = convbn.conv.stride
@@ -264,6 +287,15 @@ class Int8ConvBN(nn.Module):
         y = conv_int8(x.contiguous(), self.wq, self.c, self.t, self.sx,
                       self.ksize, self.stride, self.dtype, self.plain)
         return ACTS_EVAL[self.act](y)
+
+
+def int8_geometry_ok(convbn):
+    """Whether kernel Q takes ``convbn``'s geometry: 1x1, 3x3 stride 1,
+    and 3x3 stride 2 with the darknet pad (not the SAME stride-2, 7x7 and
+    2x2 convs of v1 and the UNet)."""
+    k, stride = convbn.conv.kernel.shape[0], convbn.conv.stride
+    return (k, stride) in ((1, 1), (3, 1)) or \
+        ((k, stride) == (3, 2) and convbn.conv.darknet_pad)
 
 
 @contextlib.contextmanager
@@ -297,6 +329,73 @@ def batch_stats(s1, s2, count):
     ``count`` values per channel (f32)."""
     mean = s1 / count
     return mean, s2 / count - mean * mean
+
+
+class ConvActBN(nn.Module):
+    """Conv -> activation -> BatchNorm, the v2 UNet block
+    (``ConvActBN`` of the JAX package): a biased SAME conv (HE_NORMAL)
+    whose output is activated in the compute dtype and then normalised,
+    in f32 with one rounding, by the batch statistics of the activated
+    tensor in train mode (flax's: f32 mean and mean square, the variance
+    clipped at 0; the running statistics updated in place) or the running
+    ones in eval mode. The conv runs without its statistics: they would
+    be those of the tensor before the activation."""
+
+    def __init__(self, ci, features, kernel=3, act="relu",
+                 dtype=torch.float32, generator=None, device="cuda"):
+        super().__init__()
+        if act not in ACTS:
+            raise ValueError(f"unknown activation {act!r}")
+        self.conv = Conv(ci, features, kernel, 1, True, dtype, he_normal_,
+                         generator, device, darknet_pad=False)
+        self.bn = BNState(features, device)
+        self.act = act
+        self.dtype = dtype
+
+    def forward(self, x):
+        y, _, _ = self.conv(x)
+        a = ACTS[self.act](y).float()
+        bn = self.bn
+        if self.training:
+            mean = a.mean(dim=(0, 1, 2))
+            var = torch.clamp((a * a).mean(dim=(0, 1, 2)) - mean * mean,
+                              min=0.0)
+            bn.update_running(mean.detach(), var.detach())
+        else:
+            mean, var = bn.mean, bn.var
+        return ((a - mean) * (torch.rsqrt(var + BN_EPS) * bn.scale)
+                + bn.bias).to(self.dtype)
+
+
+def max_pool(x, window=2, stride=None, padding="VALID"):
+    """flax ``nn.max_pool`` on NHWC with a square ``window`` and
+    ``stride`` (default: the window): ``"VALID"``, or ``"SAME"``, whose
+    pad of max((ceil(H/s) - 1) s + window - H, 0) is -inf, the smaller
+    half on top and left (``F.max_pool2d``'s ``padding`` is symmetric and
+    cannot say that)."""
+    stride = stride or window
+    xc = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        h, wd = x.shape[1:3]
+        pads = []
+        for size in (wd, h):
+            total = max((-(-size // stride) - 1) * stride + window - size, 0)
+            pads += [total // 2, total - total // 2]
+        if any(pads):
+            xc = F.pad(xc, pads, value=float("-inf"))
+    elif padding != "VALID":
+        raise ValueError(f"padding {padding!r}: 'VALID' or 'SAME'")
+    return F.max_pool2d(xc, window, stride).permute(0, 2, 3, 1)
+
+
+def space_to_depth(x, block=2):
+    """NHWC space-to-depth in ``tf.nn.space_to_depth``'s channel order
+    (the v2 passthrough): (N, H, W, C) -> (N, H/b, W/b, b*b*C), channel
+    (dy * b + dx) * C + c."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // block, block, w // block, block, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(
+        n, h // block, w // block, block * block * c)
 
 
 def upsample2x(x):

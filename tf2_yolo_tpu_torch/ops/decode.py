@@ -1,8 +1,8 @@
 """On-device box decode with static shapes.
 
-Port of tf2_yolo_tpu/ops/decode.py (v2-v4 per-anchor layout; the v1
-shared-class layout raises, see :func:`_check_version`). Output
-rows are [x, y, w, h, conf, class_idx, class_prob], x/y normalized to
+Port of tf2_yolo_tpu/ops/decode.py: the v2-v4 per-anchor layout and
+the v1 layout, whose B boxes of a cell share one class distribution.
+Output rows are [x, y, w, h, conf, class_idx, class_prob], x/y normalized to
 the image, with a validity mask instead of a ragged result.
 
 Top-k order: ``lax.top_k`` puts the lower index first among equal
@@ -19,18 +19,15 @@ def _top_k(values, k):
 
 
 def _check_version(version):
-    if version == 1:
-        raise NotImplementedError(
-            "version 1: the v1 shared-class decode layout is not ported yet "
-            "(ROADMAP.md, modules to port, item 8, other families)")
-    if version not in (2, 3, 4):
+    if version not in (1, 2, 3, 4):
         raise ValueError(f"Invalid version: {version}")
 
 
 def decode_one_level(label_data, class_num=1, threshold=0.5,
                      max_boxes=100, version=2):
-    """Decode one level's (N, S, S, B*(5+C)) head output (``version`` 2-4:
-    the per-anchor layout).
+    """Decode one level's head output: (N, S, S, B*(5+C)) for
+    ``version`` 2-4 (the per-anchor layout), (N, S, S, 5 B + C) for 1 (B
+    boxes sharing the last C class channels).
 
     Returns rows (N, max_boxes, 7) f32 sorted by joint confidence
     descending, and valid (N, max_boxes) bool (joint conf >= threshold).
@@ -38,10 +35,16 @@ def decode_one_level(label_data, class_num=1, threshold=0.5,
     _check_version(version)
     n, gh, gw = label_data.shape[:3]
     label_data = label_data.float()
-    bbox_num = label_data.shape[-1] // (5 + class_num)
-    shaped = label_data.reshape(n, gh, gw, bbox_num, 5 + class_num)
-    xywhc = shaped[..., :5]
-    prob = shaped[..., 5:]
+    if version == 1:
+        bbox_num = (label_data.shape[-1] - class_num) // 5
+        xywhc = label_data[..., :-class_num].reshape(n, gh, gw, bbox_num, 5)
+        prob = label_data[..., None, -class_num:].expand(
+            n, gh, gw, bbox_num, class_num)
+    else:
+        bbox_num = label_data.shape[-1] // (5 + class_num)
+        shaped = label_data.reshape(n, gh, gw, bbox_num, 5 + class_num)
+        xywhc = shaped[..., :5]
+        prob = shaped[..., 5:]
 
     joint = xywhc[..., 4:5] * prob                  # N,gh,gw,B,C
 

@@ -21,11 +21,12 @@ implicit-GEMM conv with three kernels, chosen by shape in
 YOLOv4 but the stem) runs on the tensor cores (``mma.sync`` bf16 -> f32
 fed by a 4-stage ``cp.async`` ring; 128-pixel tiles of 128, 64 or 32
 channels), bound by operations on the 3x3 layers at 52^2 and below with
-Ci >= 128 and by bytes elsewhere; bf16 3x3 stride 1 with Ci < 32 and Co
-% 8 == 0 (the stem, Ci = 3) runs on the tensor cores as well, through an
-im2col in shared memory (an 8 x 16 pixel tile stages its input halo
-once, builds its [128 pixels x 9 Ci] A tile padded to a multiple of 32,
-and runs K / 16 ``mma.sync`` steps), bound by the bytes of y; f32 (whose
+Ci >= 128 and by bytes elsewhere; bf16 3x3 stride 1 or 7x7 stride 2
+with Ci < 32 and Co % 8 == 0 (the stems, Ci = 3) runs on the tensor
+cores as well, through an im2col in shared memory (an 8 x 16 pixel tile
+stages its input halo once, builds its [128 pixels x k^2 Ci] A tile
+padded to a multiple of 32, and runs K / 16 ``mma.sync`` steps), bound
+by the bytes of y; f32 (whose
 tensor-core route would be TF32) and the other shapes run on the CUDA
 cores, bound by their FMA rate. ``conv_bn_stats.launches`` counts every
 launch, ``conv_bn_stats.tc_launches`` those of the tensor-core kernels.
@@ -36,9 +37,15 @@ rounded to f32 here, so block order does not show in them even where a
 training batch sums millions of rows. On a CPU tensor it computes
 :func:`conv_bn_stats_plain`, the counterpart of ``conv_stats_ref``.
 
-Geometries: 1x1 stride 1; 3x3 stride 1 SAME; 3x3 stride 2 with the
-darknet top/left pad then VALID (H and W even). Weights are HWIO, the
-flax layout, which is the kernel's row-major (K, Co) matrix.
+Geometries (:func:`conv_geometry`): 1x1 stride 1; 3x3 stride 1; 3x3
+stride 2 with the darknet top/left pad then VALID (H and W even), or
+with ``darknet_pad=False`` flax's ``"SAME"``; and, SAME only, 7x7 stride
+2 (the YOLOv1 stem) and 2x2 stride 1 (the UNet decoder). SAME pads
+max((ceil(H/s) - 1) s + k - H, 0) rows in all, the smaller half on top
+(left), and gives ceil(H/s) rows; the kernels take the top and left pad
+and the output size from the wrapper and read zeros past the bottom and
+right edges. Weights are HWIO, the flax layout, which is the kernel's
+row-major (K, Co) matrix.
 
 Under ``torch.export`` the forward without statistics (the served conv)
 is the custom op ``tf2_yolo_tpu_torch::conv_bn_forward`` (its fake
@@ -46,6 +53,7 @@ implementation gives the shape), so an exported program calls the kernel,
 or on the CPU the plain version.
 """
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -57,7 +65,9 @@ from ._build import load_library
 
 SOURCE = ("conv_bn.cu", ())          # source and extra nvcc flags
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_GEOMETRIES = {(1, 1), (3, 1), (3, 2)}
+_GEOMETRIES = {(1, 1), (3, 1), (3, 2), (7, 2), (2, 1)}
+# the small-Ci (im2col) kernel's geometries: the stems of v2-v4 and v1
+_IC_GEOMETRIES = {(3, 1), (7, 2)}
 _INT32_MAX = 2 ** 31 - 1
 # H100: SMs, and the shared memory one block may use
 _SMS = 132
@@ -68,9 +78,58 @@ _TC_BM, _TC_BK, _TC_STAGES = 128, 32, 4
 _TC_TILES = {0: (128, 2), 1: (64, 4), 2: (32, 4)}
 _CC_TILE = 64                          # the CUDA-core kernel's BM = BN
 # the small-Ci (im2col) kernel: config _IM2COL + tile id; an output tile
-# of 8 x 16 pixels and its halo of 10 x 18
+# of 8 x 16 pixels and its halo of (8 - 1) s + k x (16 - 1) s + k
 _IM2COL = 3
 _IC_TH, _IC_TW = 8, 16
+
+
+class Geometry(NamedTuple):
+    """Output size and top/left pad of one conv (:func:`conv_geometry`)."""
+    ho: int
+    wo: int
+    pad_top: int
+    pad_left: int
+
+
+def _same_pad(size, ksize, stride):
+    out = -(-size // stride)
+    return out, max((out - 1) * stride + ksize - size, 0) // 2
+
+
+def conv_geometry(h, wd, ksize, stride, darknet_pad=True):
+    """The output size and the top and left pad of a ``ksize`` x
+    ``ksize`` conv of stride ``stride`` on an H x W input: at stride 2
+    with ``darknet_pad`` (the JAX ConvBN's default) one row and column on
+    top and left, then VALID; otherwise flax's ``"SAME"`` (see the module
+    docstring). Raises ValueError on a geometry the kernels do not
+    take."""
+    if (ksize, stride) not in _GEOMETRIES:
+        raise ValueError(f"unsupported conv {ksize}x{ksize} stride {stride}")
+    if stride == 2 and darknet_pad:
+        if ksize != 3:
+            raise ValueError(f"the darknet pad is a 3x3 stride-2 pad, got "
+                             f"{ksize}x{ksize}")
+        if h % 2 or wd % 2:
+            raise ValueError(f"stride 2 needs even H and W, got {h}x{wd}")
+        return Geometry(h // 2, wd // 2, 1, 1)
+    ho, top = _same_pad(h, ksize, stride)
+    wo, left = _same_pad(wd, ksize, stride)
+    return Geometry(ho, wo, top, left)
+
+
+def _pads(h, wd, ksize, stride, darknet_pad):
+    """An int p where a symmetric pad of p reads the same pixels as the
+    geometry's (its bottom/right pad is then p or never read), so that
+    the library conv pads without a copy; otherwise the (left, right,
+    top, bottom) zero padding after which the conv is VALID."""
+    g = conv_geometry(h, wd, ksize, stride, darknet_pad)
+    if g.pad_top == g.pad_left and \
+            (h + 2 * g.pad_top - ksize) // stride + 1 == g.ho and \
+            (wd + 2 * g.pad_left - ksize) // stride + 1 == g.wo:
+        return g.pad_top
+    bottom = (g.ho - 1) * stride + ksize - h - g.pad_top
+    right = (g.wo - 1) * stride + ksize - wd - g.pad_left
+    return (g.pad_left, max(right, 0), g.pad_top, max(bottom, 0))
 
 
 class Plan(NamedTuple):
@@ -95,47 +154,46 @@ def _tc_smem(config):
     return max(ring, epilogue)
 
 
-def _ic_smem(config, ci):
+def _ic_smem(config, ci, ksize=3, stride=1):
     """Bytes of dynamic shared memory of the small-Ci kernel with tile
     ``config`` (0, 1, 2) at ``ci`` input channels: the A tile (128 rows
-    of K + 8 bf16, K = 9 Ci rounded up to 32), the B tile (K rows of BN +
-    8), the input halo (10 x 18 x Ci bf16, to 16 bytes) and the tap
-    table (K ints), or the epilogue's, whichever is larger
-    (``IcSmem`` in conv_bn.cu)."""
+    of K + 8 bf16, K = k^2 Ci rounded up to 32), the B tile (K rows of
+    BN + 8), the input halo ((8 - 1) s + k x (16 - 1) s + k x Ci bf16, to
+    16 bytes) and the tap table (K ints), or the epilogue's, whichever
+    is larger (``IcSmem`` in conv_bn.cu)."""
     bn, warps_m = _TC_TILES[config]
-    kp = -(-9 * ci // _TC_BK) * _TC_BK
-    halo = -(-(_IC_TH + 2) * (_IC_TW + 2) * ci * 2 // 16) * 16
+    kp = -(-ksize * ksize * ci // _TC_BK) * _TC_BK
+    halo_h = (_IC_TH - 1) * stride + ksize
+    halo_w = (_IC_TW - 1) * stride + ksize
+    halo = -(-halo_h * halo_w * ci * 2 // 16) * 16
     main = (_TC_BM * (kp + 8) + kp * (bn + 8)) * 2 + halo + kp * 4
     epilogue = _TC_BM * (bn + 8) * 2 + 2 * warps_m * bn * 4
     return max(main, epilogue)
 
 
-def _tc_plan(n, h, wd, ci, co, ksize, stride, dtype):
+def _tc_plan(n, h, wd, ci, co, ksize, stride, dtype, darknet_pad=True):
     """The launch plan of one conv (pure Python: the CPU tests reach it).
     bf16 with Ci % 32 == 0 (a 32-deep slice lies in one tap) and Co % 8
     == 0 (16-byte rows) takes the tensor cores, with the widest tile of
     128, 64 or 32 channels that Co fills, halved while the grid would not
     cover the 132 SMs once: grid (128-row blocks, column blocks). bf16
-    3x3 stride 1 with Ci < 32 and Co % 8 == 0 (the stem) takes the
-    small-Ci tensor-core kernel, config ``_IM2COL`` + tile, tiles chosen
-    the same way: grid (8 x 16 pixel tiles of all images, column
-    blocks). Anything else of a supported dtype (f32) takes the
-    CUDA-core kernel. Raises ValueError on a shape the kernels do not
-    take."""
-    if (ksize, stride) not in _GEOMETRIES:
-        raise ValueError(f"unsupported conv {ksize}x{ksize} stride {stride}")
-    if stride == 2 and (h % 2 or wd % 2):
-        raise ValueError(f"stride 2 needs even H and W, got {h}x{wd}")
+    3x3 stride 1 or 7x7 stride 2 with Ci < 32 and Co % 8 == 0 (the
+    stems) takes the small-Ci tensor-core kernel, config ``_IM2COL`` +
+    tile, tiles chosen the same way: grid (8 x 16 output pixel tiles of
+    all images, column blocks). Anything else of a supported dtype (f32)
+    takes the CUDA-core kernel. Raises ValueError on a shape the kernels
+    do not take."""
+    g = conv_geometry(h, wd, ksize, stride, darknet_pad)
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"unsupported dtype {dtype}")
     if min(n, h, wd, ci, co) < 1:
         raise ValueError(f"empty conv {(n, h, wd, ci)} -> {co}")
-    m = n * (h // stride) * (wd // stride)
+    m = n * g.ho * g.wo
     ring = ci % _TC_BK == 0
-    small_ci = ci < _TC_BK and ksize == 3 and stride == 1
+    small_ci = ci < _TC_BK and (ksize, stride) in _IC_GEOMETRIES
     if dtype == torch.bfloat16 and co % 8 == 0 and (ring or small_ci):
         rows = -(-m // _TC_BM) if ring else \
-            n * -(-h // _IC_TH) * -(-wd // _IC_TW)
+            n * -(-g.ho // _IC_TH) * -(-g.wo // _IC_TW)
         config = next(c for c, (bn, _) in _TC_TILES.items()
                       if bn <= co or c == 2)
         grid = lambda c: (rows, -(-co // _TC_TILES[c][0]))
@@ -145,7 +203,7 @@ def _tc_plan(n, h, wd, ci, co, ksize, stride, dtype):
             plan = Plan("tc", config, grid(config), _tc_smem(config))
         else:
             plan = Plan("tc", _IM2COL + config, grid(config),
-                        _ic_smem(config, ci))
+                        _ic_smem(config, ci, ksize, stride))
     else:
         plan = Plan("cuda_core", -1,
                     (-(-m // _CC_TILE), -(-co // _CC_TILE)), 0)
@@ -164,22 +222,21 @@ def _check_aligned(tensors, what):
                          "aligned tensors")
 
 
-def _check(x, w, b, stride):
+def _check(x, w, b, stride, darknet_pad=True):
     if x.dim() != 4 or w.dim() != 4 or b.dim() != 1:
         raise ValueError(
             f"want x (N,H,W,Ci), w (k,k,Ci,Co), b (Co,); got "
             f"{tuple(x.shape)}, {tuple(w.shape)}, {tuple(b.shape)}")
     n, h, wd, ci = x.shape
     kh, kw, wci, co = w.shape
-    if kh != kw or (kh, stride) not in _GEOMETRIES:
+    if kh != kw:
         raise ValueError(f"unsupported conv {kh}x{kw} stride {stride}")
+    g = conv_geometry(h, wd, kh, stride, darknet_pad)
     if wci != ci or b.shape[0] != co:
         raise ValueError(f"channel mismatch: x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, b {tuple(b.shape)}")
-    if stride == 2 and (h % 2 or wd % 2):
-        raise ValueError(f"stride 2 needs even H and W, got {h}x{wd}")
     if x.numel() == 0 or x.numel() > _INT32_MAX \
-            or n * (h // stride) * (wd // stride) * co > _INT32_MAX:
+            or n * g.ho * g.wo * co > _INT32_MAX:
         raise ValueError(f"unsupported size {tuple(x.shape)} -> {co}")
     if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype \
             or b.dtype != x.dtype:
@@ -192,15 +249,16 @@ def _check(x, w, b, stride):
     return n, h, wd, ci, co, kh
 
 
-def conv_bn_stats_plain(x, w, b, stride=1, want_stats=True):
+def conv_bn_stats_plain(x, w, b, stride=1, want_stats=True,
+                        darknet_pad=True):
     """Plain PyTorch version: f32 conv on NCHW views, bias, rounding to
     ``x.dtype``, then the statistics of the rounded y."""
-    _check(x, w, b, stride)
+    _check(x, w, b, stride, darknet_pad)
     xf = x.float().permute(0, 3, 1, 2)
     wf = w.float().permute(3, 2, 0, 1)            # HWIO -> OIHW
-    pad = w.shape[0] // 2
-    if stride == 2:
-        xf = F.pad(xf, (1, 0, 1, 0))              # darknet top/left pad
+    pad = _pads(x.shape[1], x.shape[2], w.shape[0], stride, darknet_pad)
+    if not isinstance(pad, int):
+        xf = F.pad(xf, pad)
         pad = 0
     yf = F.conv2d(xf, wf, stride=stride, padding=pad)
     yf = yf + b.float().view(1, -1, 1, 1)
@@ -214,17 +272,17 @@ def conv_bn_stats_plain(x, w, b, stride=1, want_stats=True):
 @functools.cache
 def _launcher():
     fn = load_library(*SOURCE).conv_bn_stats_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 17 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _forward_cuda(x, w, b, stride, want_stats, dims):
+def _forward_cuda(x, w, b, stride, want_stats, dims, darknet_pad=True):
     n, h, wd, ci, co, ks = dims
-    plan = _tc_plan(n, h, wd, ci, co, ks, stride, x.dtype)
-    y = torch.empty((n, h // stride, wd // stride, co), dtype=x.dtype,
-                    device=x.device)
+    g = conv_geometry(h, wd, ks, stride, darknet_pad)
+    plan = _tc_plan(n, h, wd, ci, co, ks, stride, x.dtype, darknet_pad)
+    y = torch.empty((n, g.ho, g.wo, co), dtype=x.dtype, device=x.device)
     if plan.route == "tc":
         _check_aligned([x, w, y], "conv_bn_stats")
     launch = _launcher()
@@ -235,7 +293,7 @@ def _forward_cuda(x, w, b, stride, want_stats, dims):
     err = launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                  s[0].data_ptr() if want_stats else None,
                  s[1].data_ptr() if want_stats else None,
-                 n, h, wd, ci, co, ks, stride, _DTYPE_CODES[x.dtype],
+                 n, h, wd, ci, co, *g, ks, stride, _DTYPE_CODES[x.dtype],
                  int(want_stats), plan.config, *plan.grid, plan.smem_bytes,
                  stream)
     if err != 0:
@@ -243,43 +301,60 @@ def _forward_cuda(x, w, b, stride, want_stats, dims):
                            f"cudaError {err} ({plan})")
     conv_bn_stats.launches += 1
     conv_bn_stats.tc_launches += plan.route == "tc"
+    conv_bn_stats.by_geometry[
+        geometry_key(ks, stride, darknet_pad, plan.route)] += 1
     if not want_stats:
         return y, None, None
     s1, s2 = s.float()
     return y, s1, s2
 
 
-def _conv_vjp(x, w, g, stride, want_dx):
+def _conv_vjp(x, w, g, stride, want_dx, darknet_pad=True):
     """(dx, dw) of the NHWC/HWIO conv for the output cotangent g, in the
-    compute dtype (dx ``None`` unless ``want_dx``). The darknet stride-2
-    pad (top/left, then VALID) on even H and W reads the same pixels as
-    a symmetric pad of 1 whose bottom/right edge is never touched, so
-    one padding rule serves."""
-    pad = w.shape[0] // 2
+    compute dtype (dx ``None`` unless ``want_dx``). Where a symmetric pad
+    reads the same pixels as the geometry's (1x1, 3x3 stride 1, the
+    darknet stride-2 pad on even H and W, whose bottom/right pad is never
+    touched) the library conv pads; where SAME pads more below than
+    above (7x7 and 3x3 at stride 2 on even H, 2x2) x is padded
+    explicitly, the VJP taken at padding 0, and dx cropped."""
+    h, wd = x.shape[1:3]
+    pad = _pads(h, wd, w.shape[0], stride, darknet_pad)
+    xc, crop = x.permute(0, 3, 1, 2), None
+    if not isinstance(pad, int):
+        left, _, top, _ = pad
+        xc, crop = F.pad(xc, pad), (top, left)
+        pad = 0
     dx, dw, _ = torch.ops.aten.convolution_backward(
-        g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
+        g.permute(0, 3, 1, 2), xc,
         w.permute(3, 2, 0, 1), None, [stride, stride], [pad, pad], [1, 1],
         False, [0, 0], 1, [want_dx, True, False])
+    if want_dx and crop is not None:
+        top, left = crop
+        dx = dx[:, :, top:top + h, left:left + wd]
     return (dx.permute(0, 2, 3, 1) if want_dx else None,
             dw.permute(2, 3, 1, 0))
 
 
 class _ConvBNStats(torch.autograd.Function):
-    """apply(x, w, b, stride, want_stats, plain) -> (y, s1, s2)."""
+    """apply(x, w, b, stride, want_stats, plain, darknet_pad) -> (y, s1,
+    s2)."""
 
     @staticmethod
-    def forward(ctx, x, w, b, stride, want_stats, plain):
+    def forward(ctx, x, w, b, stride, want_stats, plain, darknet_pad):
         # a cotangent of s1 / s2 that no consumer produced (statistics
         # detached, as the frozen-statistics BatchNorm does) stays None
         ctx.set_materialize_grads(False)
-        dims = _check(x, w, b, stride)
+        dims = _check(x, w, b, stride, darknet_pad)
         if plain or x.device.type == "cpu":
-            y, s1, s2 = conv_bn_stats_plain(x, w, b, stride, want_stats)
+            y, s1, s2 = conv_bn_stats_plain(x, w, b, stride, want_stats,
+                                            darknet_pad)
         elif x.device.type == "cuda":
-            y, s1, s2 = _forward_cuda(x, w, b, stride, want_stats, dims)
+            y, s1, s2 = _forward_cuda(x, w, b, stride, want_stats, dims,
+                                      darknet_pad)
         else:
             raise ValueError(f"no conv_bn_stats kernel for {x.device}")
         ctx.stride = stride
+        ctx.darknet_pad = darknet_pad
         if not want_stats:
             ctx.save_for_backward(x, w, None)
             return y
@@ -302,41 +377,56 @@ class _ConvBNStats(torch.autograd.Function):
         db = None
         if ctx.needs_input_grad[2]:
             db = g.float().sum(dim=(0, 1, 2)).to(x.dtype)
-        dx, dw = _conv_vjp(x, w, g, ctx.stride, ctx.needs_input_grad[0])
-        return dx, dw, db, None, None, None
+        dx, dw = _conv_vjp(x, w, g, ctx.stride, ctx.needs_input_grad[0],
+                           ctx.darknet_pad)
+        return dx, dw, db, None, None, None, None
 
 
-def _forward_impl(x, w, b, stride):
-    dims = _check(x, w, b, stride)
+def _forward_impl(x, w, b, stride, darknet_pad):
+    dims = _check(x, w, b, stride, darknet_pad)
     if x.device.type == "cpu":
-        return conv_bn_stats_plain(x, w, b, stride, False)[0]
+        return conv_bn_stats_plain(x, w, b, stride, False, darknet_pad)[0]
     if x.device.type == "cuda":
-        return _forward_cuda(x, w, b, stride, False, dims)[0]
+        return _forward_cuda(x, w, b, stride, False, dims, darknet_pad)[0]
     raise ValueError(f"no conv_bn_stats kernel for {x.device}")
 
 
 @torch.library.custom_op("tf2_yolo_tpu_torch::conv_bn_forward",
                          mutates_args=())
 def _forward_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                stride: int) -> torch.Tensor:
-    return _forward_impl(x, w, b, stride)
+                stride: int, darknet_pad: bool = True) -> torch.Tensor:
+    return _forward_impl(x, w, b, stride, darknet_pad)
 
 
 @_forward_op.register_fake
-def _(x, w, b, stride):
+def _(x, w, b, stride, darknet_pad=True):
     n, h, wd, _ = x.shape
-    return x.new_empty((n, h // stride, wd // stride, w.shape[-1]))
+    g = conv_geometry(h, wd, w.shape[0], stride, darknet_pad)
+    return x.new_empty((n, g.ho, g.wo, w.shape[-1]))
 
 
-def conv_bn_stats(x, w, b, stride=1, want_stats=True, plain=False):
+def geometry_key(ksize, stride, darknet_pad=True, route="tc"):
+    """The key of ``conv_bn_stats.by_geometry``: e.g. ``"3x3s2 same
+    tc"``; the darknet pad is ``"darknet"`` at stride 2 and the only pad
+    of a stride-1 conv (``"same"``)."""
+    pad = "darknet" if stride == 2 and darknet_pad else "same"
+    return f"{ksize}x{ksize}s{stride} {pad} {route}"
+
+
+def conv_bn_stats(x, w, b, stride=1, want_stats=True, plain=False,
+                  darknet_pad=True):
     """See the module docstring. CPU tensors take the plain version;
     CUDA tensors launch the kernel, or raise. ``plain=True`` forces the
-    plain version on any device (the reference route)."""
+    plain version on any device (the reference route).
+    ``darknet_pad=False`` takes flax's SAME padding at stride 2."""
     if not (want_stats or plain) and torch.compiler.is_compiling():
-        return _forward_op(x, w, b, stride), None, None
-    out = _ConvBNStats.apply(x, w, b, stride, want_stats, plain)
+        return _forward_op(x, w, b, stride, darknet_pad), None, None
+    out = _ConvBNStats.apply(x, w, b, stride, want_stats, plain,
+                             darknet_pad)
     return out if want_stats else (out, None, None)
 
 
 conv_bn_stats.launches = 0
 conv_bn_stats.tc_launches = 0
+# launches by geometry_key(ksize, stride, darknet_pad, route)
+conv_bn_stats.by_geometry = collections.Counter()
