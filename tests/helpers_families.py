@@ -1,11 +1,15 @@
-"""The YOLOv1.5, v2 and v3 networks of the port against the JAX
+"""The YOLOv1.5, v2, v3 and v4 networks of the port against the JAX
 package's, shared by ``tests/test_torch_families.py`` (v3, full and
-tiny) and ``tests/test_torch_families_v12.py`` (v1, v2 darknet and
-UNet): the networks, their test batches, and one check per property.
+tiny), ``tests/test_torch_families_v12.py`` (v1, v2 darknet and UNet)
+and ``tests/test_torch_families_backbones*.py`` (the ResNet, MobileNetV2
+and factory backbones): the networks, their test batches, and one check
+per property.
 
-Five networks at small size, batch 2, 3 classes: YOLOv1 at 128^2, YOLOv2
+Nine networks at small size, batch 2, 3 classes: YOLOv1 at 128^2, YOLOv2
 with DarkNet-19 and with the UNet at 64^2, YOLOv3 with Darknet-53 and
-tiny at 96^2, in f32 on the CPU. The weights are one jitted JAX ``init``
+tiny at 96^2; YOLOv4 with ResNet-50 at 128^2, YOLOv3 with ResNet-50 v2
+and with a backbone factory (a ResNet-50), YOLOv2 with MobileNetV2, at
+64^2; in f32 on the CPU. The weights are one jitted JAX ``init``
 (``PRNGKey(0)``), bridged to the port. HE_NORMAL kernels with BN at its
 init statistics let the activations grow layer by layer, so each BN's
 running statistics are first set to the batch statistics of what it
@@ -21,6 +25,7 @@ it); kept serving rows at the head outputs' bound.
 
 
 import functools
+import re
 
 import numpy as np
 import torch
@@ -29,13 +34,15 @@ import jax
 import jax.numpy as jnp
 
 from tf2_yolo_tpu import models as jmodels
+from tf2_yolo_tpu.models import resnet as jresnet
 from tf2_yolo_tpu.export import make_serving_fn as jax_make_serving_fn
 from tests.helpers_torch import flat, numpy_tree, rel_l2
 from tf2_yolo_tpu.ops import losses as jlosses
 from tf2_yolo_tpu_torch import bridge
 from tf2_yolo_tpu_torch.export import make_serving_fn
-from tf2_yolo_tpu_torch.models import YoloV1, YoloV2, YoloV3
-from tf2_yolo_tpu_torch.models.layers import Conv, ConvActBN, ConvBN
+from tf2_yolo_tpu_torch.models import ResNet, YoloV1, YoloV2, YoloV3, YoloV4
+from tf2_yolo_tpu_torch.models.layers import (BNState, Conv, ConvActBN,
+                                              ConvBN)
 from tf2_yolo_tpu_torch.ops import losses
 
 CLASSES = 3
@@ -50,7 +57,14 @@ ANCHORS9 = np.stack([np.linspace(0.05, 0.75, 9),
 ANCHORS6 = ANCHORS9[3:]
 ANCHORS5 = ANCHORS9[4:]
 FAMILY_ANCHORS = {"v1": None, "v2_darknet": ANCHORS5, "v2_unet": ANCHORS5,
-                  "v3_full": ANCHORS9, "v3_tiny": ANCHORS6}
+                  "v3_full": ANCHORS9, "v3_tiny": ANCHORS6,
+                  "v4_resnet50": ANCHORS9, "v3_resnet50v2": ANCHORS9,
+                  "v3_callable": ANCHORS9, "v2_mobilenet": ANCHORS5}
+# ResNet-50 v1 or v2: the stem, 16 blocks of 3 convs, 4 projections
+RESNET50_CONVS = 1 + 16 * 3 + 4
+# MobileNetV2's dense convs: the stem, 16 expansions, 17 projections and
+# the head (its 17 depthwise convs are not Conv modules)
+MOBILENET_CONVS = 1 + 16 + 17 + 1
 
 # name: (version, size, JAX module, port module, the convs of the tree:
 # ConvBN + ConvActBN + head convs)
@@ -71,7 +85,38 @@ FAMILIES = {
         anchors=ANCHORS6, class_num=CLASSES, backbone="tiny_darknet"),
         lambda: YoloV3(ANCHORS6, CLASSES, "tiny_darknet", device="cpu"),
         11 + 2),
+    # the v4 neck's 35 ConvBNs, the v3 FPN's 20
+    "v4_resnet50": (4, 128, lambda: jmodels.YoloV4(
+        anchors=ANCHORS9, class_num=CLASSES, backbone="resnet50"),
+        lambda: YoloV4(ANCHORS9, CLASSES, device="cpu",
+                       backbone="resnet50"), RESNET50_CONVS + 35 + 3),
+    "v3_resnet50v2": (3, 64, lambda: jmodels.YoloV3(
+        anchors=ANCHORS9, class_num=CLASSES, backbone="resnet50v2"),
+        lambda: YoloV3(ANCHORS9, CLASSES, "resnet50v2", device="cpu"),
+        RESNET50_CONVS + 20 + 3),
+    "v3_callable": (3, 64, lambda: jmodels.YoloV3(
+        anchors=ANCHORS9, class_num=CLASSES,
+        backbone=lambda **kw: jresnet.ResNet(depth=50, **kw)),
+        lambda: YoloV3(ANCHORS9, CLASSES,
+                       lambda **kw: ResNet(depth=50, **kw), device="cpu"),
+        RESNET50_CONVS + 20 + 3),
+    "v2_mobilenet": (2, 64, lambda: jmodels.YoloV2(
+        anchors=ANCHORS5, class_num=CLASSES, backbone="mobilenet"),
+        lambda: YoloV2(ANCHORS5, CLASSES, "mobilenet", device="cpu"),
+        MOBILENET_CONVS + 1),
 }
+
+# eval heads: the largest difference relative to the largest output. The
+# YOLOv4 neck and the ResNet-50 v1 body amplify rounding more than the
+# others (keras BN eps 1.001e-5 lets a channel of small variance gain up
+# to 316x; the v4 neck ~1e4-fold as tests/test_torch_serving.py found):
+# measured against JAX / the port's own floor, v4 ResNet-50 at 128^2
+# 3.7e-3 / 5.5e-3, 6.0e-3 / 4.2e-3, 2.0e-3 / 2.3e-3 with outputs up to
+# 0.77-1.37 (4.9e-3 relative at most), v3 with the ResNet-50 factory at
+# 64^2 3.4e-3 / 7.2e-3 of 0.93 (3.7e-3 relative), 2.1e-2 / 2.1e-2 of
+# 4.2, 2.7e-2 / 3.1e-2 of 17.1: bound 2e-2, 4x the largest
+EVAL_REL = {"v4_resnet50": 2e-2, "v3_callable": 2e-2}
+
 
 def as_list(outs):
     return list(outs) if isinstance(outs, (list, tuple)) else [outs]
@@ -79,21 +124,15 @@ def as_list(outs):
 
 def _calibrate_bn(model, x):
     """Set each BN's running mean/var to the batch statistics of what it
-    normalises: a ConvBN's conv output, a ConvActBN's activated conv
-    output."""
-    def hook(bn, y):
-        y = y.float()
+    normalises (its input: a ConvBN's conv output, a ConvActBN's
+    activated conv output, a keras backbone BN's input)."""
+    def hook(bn, args):
+        y = args[0].float()
         bn.mean.copy_(y.mean(dim=(0, 1, 2)))
         bn.var.copy_(y.var(dim=(0, 1, 2), unbiased=False))
 
-    handles = []
-    for m in model.modules():
-        if isinstance(m, ConvBN) and m.bn is not None:
-            handles.append(m.conv.register_forward_hook(
-                lambda c, i, out, bn=m.bn: hook(bn, out[0])))
-        elif isinstance(m, ConvActBN):
-            handles.append(m.conv.register_forward_hook(
-                lambda c, i, out, bn=m.bn: hook(bn, torch.relu(out[0]))))
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, BNState)]
     try:
         with torch.no_grad():
             model.eval()(x)
@@ -130,7 +169,9 @@ def loss_pair(version, grids, anchors, **kw):
                                               anchors, **kw)])
         else:
             per = len(anchors) // len(grids)
-            fns.append([pkg.wrap_yolo_loss_v3(
+            wrap = pkg.wrap_yolo_loss_v4 if version == 4 \
+                else pkg.wrap_yolo_loss_v3
+            fns.append([wrap(
                 (g,) * 2, per, CLASSES, anchors[i * per:(i + 1) * per],
                 **kw) for i, g in enumerate(grids)])
     return fns
@@ -186,7 +227,9 @@ def _train_grads(f, x, ys, tfns):
     running statistics on a fresh model of the calibrated weights, and
     for each ConvBN / ConvActBN (by qualified name, in the order they
     ran) the least distance of its activation's input from the kink at
-    0 (leaky, relu)."""
+    0 (leaky, relu); for a keras backbone's block (the module holding
+    BNs called on their own) the least distance of its BN outputs from
+    relu's and relu6's kinks at 0 and 6."""
     model = FAMILIES[f["name"]][3]()
     model.load_state_dict(bridge.from_flax(f["variables"]), strict=True)
     kinks = {}
@@ -199,7 +242,14 @@ def _train_grads(f, x, ys, tfns):
     def relu_in(name, out):
         kinks[name] = float(out[0].detach().abs().min())
 
+    def bn_out(name, out):
+        o = out.detach()
+        near = float(torch.minimum(o.abs(), (o - 6).abs()).min())
+        kinks[name] = min(kinks.get(name, near), near)
+
     handles = []
+    paired = {n for n, m in model.named_modules()
+              if isinstance(m, (ConvBN, ConvActBN))}
     for name, m in model.named_modules():
         if isinstance(m, ConvBN) and m.act == "leaky":
             handles.append(m.register_forward_hook(
@@ -207,6 +257,11 @@ def _train_grads(f, x, ys, tfns):
         elif isinstance(m, ConvActBN):
             handles.append(m.conv.register_forward_hook(
                 lambda mod, i, out, name=name: relu_in(name, out)))
+        elif isinstance(m, BNState) and \
+                name.rpartition(".")[0] not in paired:
+            handles.append(m.register_forward_hook(
+                lambda mod, i, out, name=name.rpartition(".")[0]:
+                bn_out(name, out)))
     outs = as_list(model.train()(torch.from_numpy(x)))
     for h in handles:
         h.remove()
@@ -215,7 +270,8 @@ def _train_grads(f, x, ys, tfns):
     loss.backward()
     return loss.item(), bridge.flax_leaves(model, grad=True), \
         {k: v.numpy() for k, v in bridge.flax_leaves(model).items()
-         if k.startswith("batch_stats/")}, kinks
+         if k.startswith("batch_stats/")}, kinks, \
+        [o.detach().numpy() for o in outs]
 
 
 
@@ -235,10 +291,14 @@ def _kept(rows, keep):
 
 
 def _bias_before_bn(path, leaves):
-    """Whether ``path`` is the conv bias of a ConvBN with BN (in a
-    ConvActBN the activation sits between them)."""
-    return path.endswith("/conv/bias") and "ConvActBN" not in path \
-        and path[:-len("conv/bias")] + "bn/scale" in leaves
+    """Whether ``path`` is the bias of a conv that a BN follows: a ConvBN
+    with BN (in a ConvActBN the activation sits between them), or a
+    keras block's ``convN`` / ``X_conv`` beside its ``bnN`` / ``X_bn``."""
+    m = re.fullmatch(r"(.*)/(conv|conv\d+|\w+_conv)/bias", path)
+    if m is None or "ConvActBN" in path:
+        return False
+    bn = re.sub(r"conv(\d*)$", r"bn\1", m.group(2))
+    return f"{m.group(1)}/{bn}/scale" in leaves
 
 
 
@@ -273,7 +333,43 @@ def check_eval_heads(f):
         assert np.isfinite(got).all()
         err = np.abs(got - want).max()
         assert err <= 4 * floor + 1e-6, (f["name"], i, err, floor)
-        assert err <= 1e-3 * np.abs(want).max(), (f["name"], i, err)
+        assert err <= EVAL_REL.get(f["name"], 1e-3) * np.abs(want).max(), \
+            (f["name"], i, err)
+
+
+# The keras-backbone families: their train-mode forward is chaotic (BN
+# eps 1.001e-5 in the ResNets; batch statistics of 8 values a channel at
+# 2^2 in the last stages at 64^2), so the loss is held through the head
+# outputs, which move with the input continuously, where a rounding-sized
+# change may move a box across the ignore threshold and the loss by a
+# step (measured, v2 MobileNetV2: outputs 3.8e-4 from JAX's, 2.6e-4 on
+# the JAX probe, and the loss 8.6e-5 relative from JAX's, 3.9e-6 on the
+# probe).
+TRAIN_PROBED = {"v4_resnet50", "v3_resnet50v2", "v3_callable",
+                "v2_mobilenet"}
+
+
+def _check_train_forward_probed(f, outs, jouts, pouts, loss, jfns, ys,
+                                stats, want_stats, probe_stats):
+    """The train-mode forward of a TRAIN_PROBED family: each level's head
+    outputs and each updated running statistic within 8 times the JAX
+    probe's distance (the same step on x + 1e-6) from JAX's, or within
+    1e-5 of the scale; the port's loss equal to the JAX loss of the
+    port's own outputs (1e-6 relative)."""
+    for i, (o, j, p) in enumerate(zip(outs, jouts, pouts)):
+        j, p = np.asarray(j), np.asarray(p)
+        err, noise = np.abs(o - j).max(), np.abs(p - j).max()
+        assert err <= max(8 * noise, 1e-5 * np.abs(j).max()), \
+            (f["name"], i, err, noise)
+    jl = sum(float(fn(jnp.asarray(y), jnp.asarray(o)))
+             for fn, y, o in zip(jfns, ys, outs))
+    np.testing.assert_allclose(loss, jl, rtol=1e-6)
+    for k, v in want_stats.items():
+        v = np.asarray(v)
+        err = np.abs(stats[k] - v).max()
+        noise = np.abs(np.asarray(probe_stats[k]) - v).max()
+        assert err <= max(8 * noise, 1e-5 * np.abs(v).max()), \
+            (f["name"], k, err, noise)
 
 
 def check_train_step(f):
@@ -291,15 +387,18 @@ def check_train_step(f):
                               "batch_stats": variables["batch_stats"]},
                              xx, train=True, mutable=["batch_stats"])
         return sum(fn(jnp.asarray(y), o) for fn, y, o in
-                   zip(jfns, ys, as_list(outs))), new
+                   zip(jfns, ys, as_list(outs))), (new, as_list(outs))
 
     jgrad = jax.jit(jax.value_and_grad(jloss, has_aux=True))
-    (want_loss, new), want = jgrad(variables["params"], jnp.asarray(x))
-    _, probe = jgrad(variables["params"], jnp.asarray(x + EPS_PROBE))
+    (want_loss, (new, jouts)), want = jgrad(variables["params"],
+                                            jnp.asarray(x))
+    (_, (new_p, pouts)), probe = jgrad(variables["params"],
+                                       jnp.asarray(x + EPS_PROBE))
     want, probe = flat(want, "params/"), flat(probe, "params/")
     want_stats = flat(new["batch_stats"], "batch_stats/")
+    probe_stats = flat(new_p["batch_stats"], "batch_stats/")
 
-    loss, got, stats, kinks = _train_grads(f, x, ys, tfns)
+    loss, got, stats, kinks, outs = _train_grads(f, x, ys, tfns)
     # The modules that ran up to the last one whose activation input lies
     # within rounding (NEAR_KINK) of its kink. There the two sides' f32
     # forwards, which differ by rounding, may put that input on either
@@ -315,14 +414,19 @@ def check_train_step(f):
     order = list(kinks)
     near = [i for i, n in enumerate(order) if kinks[n] < NEAR_KINK]
     upstream = set(order[:near[-1] + 1]) if near else set()
-    # a loss of a few hundred terms over a net of 13 to 75 convs:
-    # measured 1.1e-7 .. 2.2e-6 relative
-    np.testing.assert_allclose(loss, float(want_loss), rtol=2e-5)
     assert stats.keys() == want_stats.keys()
-    for k, v in want_stats.items():
-        # 0.99 running + 0.01 batch: the batch statistics' rounding
-        np.testing.assert_allclose(stats[k], v, rtol=1e-5,
-                                   atol=1e-5 * np.abs(v).max(), err_msg=k)
+    if name in TRAIN_PROBED:
+        _check_train_forward_probed(f, outs, jouts, pouts, loss, jfns, ys,
+                                    stats, want_stats, probe_stats)
+    else:
+        # a loss of a few hundred terms over a net of 13 to 75 convs:
+        # measured 1.1e-7 .. 2.2e-6 relative
+        np.testing.assert_allclose(loss, float(want_loss), rtol=2e-5)
+        for k, v in want_stats.items():
+            # 0.99 running + 0.01 batch: the batch statistics' rounding
+            np.testing.assert_allclose(stats[k], v, rtol=1e-5,
+                                       atol=1e-5 * np.abs(v).max(),
+                                       err_msg=k)
     assert got.keys() == want.keys()
     for path, leaf in want.items():
         g = got[path].numpy()
@@ -336,7 +440,12 @@ def check_train_step(f):
             continue
         err = rel_l2(g, leaf)
         noise = rel_l2(probe[path], leaf)
-        if ".".join(path.split("/")[1:-2]) in upstream:
+        if ".".join(path.split("/")[1:-2]) in upstream or (
+                name in TRAIN_PROBED and path.endswith("/anchors")):
+            # the v4 anchors' six numbers take their gradient from the
+            # loss alone, in which a box that crosses the ignore threshold
+            # moves them by a step (measured, v4 ResNet-50: head3 3.1e-3
+            # from JAX's, 2.1e-4 on the probe)
             assert err <= max(8 * noise, KINK_BOUND), (name, path, err)
             continue
         # as tests/test_torch_train.py: a wrong term or a missing factor

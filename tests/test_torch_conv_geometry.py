@@ -6,7 +6,10 @@ port against the JAX package, on the CPU.
   that v1 and the UNet add: 7x7 stride 2, 3x3 stride 2 and 2x2 stride 1,
   on odd and even H and W, against ``flax.linen.Conv(padding="SAME")``:
   y, the statistic sums, and dx, dw, db through ``_conv_vjp`` against
-  ``jax.vjp``; the launch plans of those geometries;
+  ``jax.vjp``; the launch plans of those geometries; and the same at the
+  geometries the ResNets and MobileNetV2 add (1x1 stride 2, the 7x7
+  stride 2 after an explicit pad of 3, the 3x3 stride-2 SAME stem at Ci
+  = 3);
 - ``max_pool`` (VALID and SAME), ``space_to_depth``, ``ConvActBN`` in
   train and eval mode, ``HeadV1`` and the softmax / constant-anchor
   ``AnchorHead``;
@@ -73,8 +76,8 @@ def test_conv_same_forward_and_vjp_match_flax(k, s, h, w):
     (y, s1, s2), vjp = jax.vjp(jfun, x, kernel, bias)
     xt, kt, bt = (torch.from_numpy(a).requires_grad_()
                   for a in (x, kernel, bias))
-    got = conv_bn_stats(xt, kt, bt, s, True, darknet_pad=False)
-    g = conv_bn.conv_geometry(h, w, k, s, darknet_pad=False)
+    got = conv_bn_stats(xt, kt, bt, s, True, padding="same")
+    g = conv_bn.conv_geometry(h, w, k, s, padding="same")
     assert got[0].shape == y.shape == (2, g.ho, g.wo, 8)
     assert (g.ho, g.wo) == (-(-h // s), -(-w // s))
     for a, b in zip(got, (y, s1, s2)):
@@ -92,6 +95,117 @@ def test_conv_same_forward_and_vjp_match_flax(k, s, h, w):
                                    err_msg=name)
 
 
+# (kernel, stride, padding, H, W, Ci): the geometries the ResNets and
+# MobileNetV2 add: 1x1 stride 2 (flax SAME, which pads nothing) on even
+# and odd sizes, the ResNet stem's jnp.pad of 3 before its 7x7 stride-2
+# VALID conv, and MobileNetV2's 3x3 stride-2 SAME stem at Ci = 3
+BACKBONE_CASES = [(1, 2, "same", 16, 16, 8), (1, 2, "same", 13, 15, 8),
+                  (7, 2, 3, 20, 20, 3), (7, 2, 3, 21, 18, 3),
+                  (3, 2, "same", 20, 20, 3), (3, 2, "same", 21, 19, 3)]
+
+
+@pytest.mark.parametrize("k,s,pad,h,w,ci", BACKBONE_CASES, ids=[
+    f"{k}x{k}s{s}_{p if p == 'same' else f'pad{p}'}_{h}x{w}_ci{ci}"
+    for k, s, p, h, w, ci in BACKBONE_CASES])
+def test_backbone_geometries_forward_and_vjp_match_jax(k, s, pad, h, w, ci):
+    """The plain version and ``_conv_vjp`` (the CPU route of K1) against
+    flax's conv as the JAX ResNet and MobileNetV2 call it, and its VJP."""
+    rng, x, kernel, bias = _conv_case(k, s, h, w, k * 100 + h + ci, ci=ci)
+    conv = jnn.Conv(8, (k, k), strides=(s, s),
+                    padding="SAME" if pad == "same" else "VALID")
+
+    def jfun(x, kernel, bias):
+        if pad != "same":                    # resnet.py's stem
+            x = jnp.pad(x, ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+        y = conv.apply({"params": {"kernel": kernel, "bias": bias}}, x)
+        return y, jnp.sum(y, axis=(0, 1, 2)), jnp.sum(y * y, axis=(0, 1, 2))
+
+    (y, s1, s2), vjp = jax.vjp(jfun, x, kernel, bias)
+    xt, kt, bt = (torch.from_numpy(a).requires_grad_()
+                  for a in (x, kernel, bias))
+    got = conv_bn_stats(xt, kt, bt, s, True, padding=pad)
+    g = conv_bn.conv_geometry(h, w, k, s, pad)
+    assert got[0].shape == y.shape == (2, g.ho, g.wo, 8)
+    for a, b in zip(got, (y, s1, s2)):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   rtol=1e-5, atol=1e-5 * np.abs(b).max())
+    cts = (rng.randn(*y.shape).astype(np.float32),
+           (0.1 * rng.randn(8)).astype(np.float32),
+           (0.01 * rng.randn(8)).astype(np.float32))
+    torch.autograd.backward(got, [torch.from_numpy(c) for c in cts])
+    for name, a, b in zip(("dx", "dw", "db"), (xt, kt, bt), vjp(cts)):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.grad.numpy(), b, rtol=1e-5,
+                                   atol=1e-5 * np.abs(b).max(),
+                                   err_msg=name)
+
+
+def test_explicit_pad_is_not_same():
+    """The ResNet stem's pad of 3 reads other pixels than SAME (pad 2 on
+    top at even H), and its output differs; a pad outside 0 <= p < k
+    raises, as an unsupported geometry does."""
+    assert conv_bn.conv_geometry(416, 416, 7, 2, 3) == (208, 208, 3, 3)
+    assert conv_bn.conv_geometry(416, 416, 7, 2, "same") == (208, 208, 2, 2)
+    assert conv_bn.conv_geometry(17, 16, 1, 2, "same") == (9, 8, 0, 0)
+    _, x, kernel, bias = _conv_case(7, 2, 20, 20, 0, ci=3)
+    x, kernel, bias = (torch.from_numpy(a) for a in (x, kernel, bias))
+    padded = conv_bn_stats(x, kernel, bias, 2, False, padding=3)[0]
+    same = conv_bn_stats(x, kernel, bias, 2, False, padding="same")[0]
+    assert padded.shape == same.shape
+    assert (padded - same).abs().max() > 0.1 * same.abs().max()
+    for bad in (-1, 7):
+        with pytest.raises(ValueError, match="explicit pad"):
+            conv_bn.conv_geometry(20, 20, 7, 2, bad)
+    with pytest.raises(ValueError, match="smaller"):
+        conv_bn.conv_geometry(2, 2, 7, 2, 0)
+    # a padding that is neither 'darknet', 'same' nor an int (a bool too)
+    for bad in ("valid", True, None):
+        with pytest.raises(ValueError, match="padding"):
+            conv_bn.conv_geometry(20, 20, 7, 2, bad)
+
+
+# (name, N, H, W, Ci, Co, k, s, padding): the backbones' geometries at
+# 416^2 and batch 8: the ResNet stem and MobileNetV2's stem on the
+# small-Ci kernel, the 1x1 stride-2 projections on the ring
+BACKBONE_PLANS = [
+    ("resnet stem 7x7s2 pad3", 8, 416, 416, 3, 64, 7, 2, 3),
+    ("mobilenet stem 3x3s2 same", 8, 416, 416, 3, 32, 3, 2, "same"),
+    ("resnet proj 104^2 256->512 1x1s2", 8, 104, 104, 256, 512, 1, 2,
+     "same"),
+    ("resnet conv1 26^2 1024->512 1x1s2", 8, 26, 26, 1024, 512, 1, 2,
+     "same"),
+]
+
+
+@pytest.mark.parametrize("case", BACKBONE_PLANS,
+                         ids=[c[0] for c in BACKBONE_PLANS])
+def test_backbone_geometry_plans(case):
+    _, n, h, w, ci, co, k, s, pad = case
+    g = conv_bn.conv_geometry(h, w, k, s, pad)
+    plan = conv_bn._tc_plan(n, h, w, ci, co, k, s, torch.bfloat16, pad)
+    assert plan.route == "tc" and plan.smem_bytes <= conv_bn.SMEM_MAX
+    if ci < 32:
+        # 8 x 16 output tiles of every image; the halo (8 - 1) s + k
+        # rows of (16 - 1) s + k pixels; K = k^2 Ci rounded up to 32
+        assert plan.config >= conv_bn._IM2COL
+        assert plan.grid[0] == n * -(-g.ho // 8) * -(-g.wo // 16)
+        tile = plan.config - conv_bn._IM2COL
+        bn, warps_m = conv_bn._TC_TILES[tile]
+        kp = -(-k * k * ci // 32) * 32
+        halo = -(-(7 * s + k) * (15 * s + k) * ci * 2 // 16) * 16
+        main = (128 * (kp + 8) + kp * (bn + 8)) * 2 + halo + 4 * kp
+        epilogue = 128 * (bn + 8) * 2 + 2 * warps_m * bn * 4
+        assert plan.smem_bytes == max(main, epilogue)
+    else:
+        assert plan.config in conv_bn._TC_TILES
+        assert plan.grid[0] == -(-n * g.ho * g.wo // 128)
+    # MobileNetV2's 1x1 convs of Ci 16, 24 and 144 fail the ring's Ci % 32
+    # test and take the CUDA cores
+    for ci_odd in (16, 24, 144):
+        assert conv_bn._tc_plan(n, 104, 104, ci_odd, 96, 1, 1,
+                                torch.bfloat16).route == "cuda_core"
+
+
 @pytest.mark.parametrize("h,w,k,s,want", [
     # (H, W, k, s) -> (Ho, Wo, pad top, pad left) and the pad below
     (448, 448, 7, 2, (224, 224, 2, 2, 3)),      # DarknetV1's stem
@@ -101,7 +215,7 @@ def test_conv_same_forward_and_vjp_match_flax(k, s, h, w):
     (447, 445, 7, 2, (224, 223, 3, 3, 3)),
 ])
 def test_same_geometry(h, w, k, s, want):
-    g = conv_bn.conv_geometry(h, w, k, s, darknet_pad=False)
+    g = conv_bn.conv_geometry(h, w, k, s, padding="same")
     assert (*g, (g.ho - 1) * s + k - h - g.pad_top) == want
     # total pad max((ceil(H/s) - 1) s + k - H, 0), the smaller half above
     total = max((-(-h // s) - 1) * s + k - h, 0)
@@ -112,19 +226,19 @@ def test_darknet_pad_unchanged_and_refusals():
     # the darknet stride-2 pad is the default: one row and column on top
     # and left, H / 2 out, even H only; a 7x7 stride 2 has no darknet pad
     assert conv_bn.conv_geometry(416, 416, 3, 2) == (208, 208, 1, 1)
-    assert conv_bn.conv_geometry(416, 416, 3, 2, False) == (208, 208, 0, 0)
+    assert conv_bn.conv_geometry(416, 416, 3, 2, "same") == (208, 208, 0, 0)
     with pytest.raises(ValueError, match="even"):
         conv_bn.conv_geometry(13, 14, 3, 2)
     with pytest.raises(ValueError, match="darknet"):
         conv_bn.conv_geometry(448, 448, 7, 2)
-    for k, s in ((5, 1), (1, 2), (2, 2), (7, 1)):
+    for k, s in ((5, 1), (5, 2), (2, 2), (7, 1)):
         with pytest.raises(ValueError, match="unsupported"):
-            conv_bn.conv_geometry(16, 16, k, s, False)
+            conv_bn.conv_geometry(16, 16, k, s, "same")
     x, w, b = torch.zeros(1, 8, 8, 3), torch.zeros(7, 7, 3, 8), \
         torch.zeros(8)
     with pytest.raises(ValueError):
         conv_bn_stats(x, w, b, 2)                 # darknet pad, 7x7
-    assert conv_bn_stats(x, w, b, 2, darknet_pad=False)[0].shape \
+    assert conv_bn_stats(x, w, b, 2, padding="same")[0].shape \
         == (1, 4, 4, 8)
 
 
@@ -141,8 +255,8 @@ PLAN_CASES = [
 @pytest.mark.parametrize("case", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
 def test_same_geometry_plans(case):
     _, n, h, w, ci, co, k, s = case
-    g = conv_bn.conv_geometry(h, w, k, s, False)
-    plan = conv_bn._tc_plan(n, h, w, ci, co, k, s, torch.bfloat16, False)
+    g = conv_bn.conv_geometry(h, w, k, s, "same")
+    plan = conv_bn._tc_plan(n, h, w, ci, co, k, s, torch.bfloat16, "same")
     assert plan.route == "tc" and plan.smem_bytes <= conv_bn.SMEM_MAX
     if ci < 32:
         # the small-Ci kernel: 8 x 16 output tiles of every image, the
@@ -160,30 +274,35 @@ def test_same_geometry_plans(case):
     else:
         assert plan.config in conv_bn._TC_TILES
         assert plan.grid[0] == -(-n * g.ho * g.wo // 128)
-    f32 = conv_bn._tc_plan(n, h, w, ci, co, k, s, torch.float32, False)
+    f32 = conv_bn._tc_plan(n, h, w, ci, co, k, s, torch.float32, "same")
     assert f32.route == "cuda_core"
     assert f32.grid == (-(-n * g.ho * g.wo // 64), -(-co // 64))
 
 
 def test_small_ci_kernel_keeps_to_the_stems():
-    # the small-Ci kernel takes 3x3 s1 and 7x7 s2; a small-Ci 3x3 s2 or
-    # 2x2 stays on the CUDA cores
-    for k, s, dp in ((3, 2, True), (3, 2, False), (2, 1, False)):
+    # the small-Ci kernel takes 3x3 s1, 7x7 s2 and the SAME 3x3 s2 (the
+    # MobileNetV2 stem); a small-Ci darknet 3x3 s2, 2x2 or 1x1 s2 stays
+    # on the CUDA cores
+    for k, s, pad in ((3, 2, "darknet"), (2, 1, "same"), (1, 2, "same")):
         assert conv_bn._tc_plan(8, 64, 64, 3, 32, k, s, torch.bfloat16,
-                                dp).route == "cuda_core"
+                                pad).route == "cuda_core"
+    assert conv_bn._tc_plan(8, 64, 64, 3, 32, 3, 2, torch.bfloat16,
+                            "same").config >= conv_bn._IM2COL
 
 
 def test_geometry_counter_key():
-    assert conv_bn.geometry_key(7, 2, False) == "7x7s2 same tc"
+    assert conv_bn.geometry_key(7, 2, "same") == "7x7s2 same tc"
+    assert conv_bn.geometry_key(7, 2, 3, "tc") == "7x7s2 pad3 tc"
+    assert conv_bn.geometry_key(1, 2, "same") == "1x1s2 same tc"
     assert conv_bn.geometry_key(3, 2) == "3x3s2 darknet tc"
-    assert conv_bn.geometry_key(3, 1, True, "cuda_core") \
+    assert conv_bn.geometry_key(3, 1, "darknet", "cuda_core") \
         == "3x3s1 same cuda_core"
     # the CPU route counts nothing
     before = dict(conv_bn_stats.by_geometry)
     conv_bn_stats_plain(torch.zeros(1, 8, 8, 3), torch.zeros(7, 7, 3, 8),
-                        torch.zeros(8), 2, True, False)
+                        torch.zeros(8), 2, True, "same")
     conv_bn_stats(torch.zeros(1, 8, 8, 3), torch.zeros(7, 7, 3, 8),
-                  torch.zeros(8), 2, True, darknet_pad=False)
+                  torch.zeros(8), 2, True, padding="same")
     assert dict(conv_bn_stats.by_geometry) == before
 
 

@@ -193,9 +193,10 @@ def _export_model_to_a_tpu(y):
 
 
 @pytest.mark.parametrize("call, exc, match", [
+    # ported since: builds (exc None), the ResNet-50 under the v4 neck
     (lambda y: y.create_model(anchors=ANCHORS, backbone="resnet50",
                               pretrained_body=None, device="cpu"),
-     NotImplementedError, "ROADMAP"),
+     None, "ResNet"),
     (_export_model_to_a_tpu, ValueError, "platforms"),
     (lambda y: y.export_reference_h5("x"), NotImplementedError, "ROADMAP"),
     (lambda y: facade_base.graft_backbone_file(None, "x"),
@@ -205,8 +206,13 @@ def _export_model_to_a_tpu(y):
 ], ids=["backbone", "export_model", "export_reference_h5",
         "graft_backbone_file", "native_reader"])
 def test_unported_options_raise(call, exc, match):
+    yolo = yolov4.Yolo(input_shape=(SIZE, SIZE, 3), class_names=NAMES)
+    if exc is None:
+        assert type(call(yolo).module.backbone).__name__ == match
+        assert yolo.grid_shape == (SIZE // 32, SIZE // 32)
+        return
     with pytest.raises(exc, match=match):
-        call(yolov4.Yolo(input_shape=(SIZE, SIZE, 3), class_names=NAMES))
+        call(yolo)
 
 
 def test_pretrained_and_defaults(jax_run, tmp_path, monkeypatch):

@@ -32,6 +32,7 @@ from tf2_yolo_tpu import yolov1_5 as jyolov1_5
 from tf2_yolo_tpu import yolov2 as jyolov2
 from tf2_yolo_tpu import yolov3 as jyolov3
 from tf2_yolo_tpu_torch import bridge, facade_base, yolov1_5, yolov2, yolov3
+from tf2_yolo_tpu_torch.models import ResNet
 
 torch.set_num_threads(1)
 
@@ -214,17 +215,24 @@ def test_version_aliases_match_jax(version):
     assert mod.wrap_obj_acc.keywords == {"version": version}
 
 
-@pytest.mark.parametrize("call", [
-    lambda: yolov3.Yolo((96, 96, 3), NAMES).create_model(
+@pytest.mark.parametrize("call,body,levels", [
+    (lambda: yolov3.Yolo((64, 64, 3), NAMES).create_model(
         backbone="resnet50", pretrained_body=None, device="cpu"),
-    lambda: yolov3.Yolo((96, 96, 3), NAMES).create_model(
-        backbone=lambda **kw: None, pretrained_body=None, device="cpu"),
-    lambda: yolov2.Yolo((64, 64, 3), NAMES).create_model(
-        backbone="mobilenet", device="cpu"),
+     "ResNet", 3),
+    (lambda: yolov3.Yolo((64, 64, 3), NAMES).create_model(
+        backbone=lambda **kw: ResNet(depth=50, **kw), pretrained_body=None,
+        device="cpu"), "ResNet", 3),
+    (lambda: yolov2.Yolo((64, 64, 3), NAMES).create_model(
+        backbone="mobilenet", device="cpu"), "MobileNetV2", 1),
 ], ids=["v3_resnet", "v3_callable", "v2_mobilenet"])
-def test_unported_backbones_raise(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call()
+def test_unported_backbones_raise(call, body, levels):
+    """These backbones raised NotImplementedError until the ResNets,
+    MobileNetV2 and backbone factories were ported: now each builds, and
+    its outputs have the facade's grids (input / 32, then / 16, / 8)."""
+    model = call()
+    assert type(model.module.backbone).__name__ == body
+    shapes = model.output_shapes if levels > 1 else [model.output_shapes]
+    assert [s[1] for s in shapes] == [2, 4, 8][:levels]
 
 
 def test_invalid_backbones_raise():

@@ -52,14 +52,22 @@ def test_the_walk_finds_the_port():
                  "tf2_yolo_tpu_torch.yolov2",
                  "tf2_yolo_tpu_torch.yolov3",
                  "tf2_yolo_tpu_torch.models.backbones",
-                 "tf2_yolo_tpu_torch.models.heads"):
+                 "tf2_yolo_tpu_torch.models.heads",
+                 "tf2_yolo_tpu_torch.models.resnet",
+                 "tf2_yolo_tpu_torch.models.mobilenet",
+                 "tf2_yolo_tpu_torch.models.classifiers",
+                 "tf2_yolo_tpu_torch.config",
+                 "tf2_yolo_tpu_torch.assets"):
         assert name in MODULES
 
 
 def test_the_facades_import_without_jax():
     proc = _imports_cleanly(
         "from tf2_yolo_tpu_torch import yolov1_5, yolov2, yolov3, yolov4; "
-        "from tf2_yolo_tpu_torch.models import YoloV1, YoloV2, YoloV3")
+        "from tf2_yolo_tpu_torch.models import YoloV1, YoloV2, YoloV3, "
+        "ResNet, MobileNetV2, Classifier, darknet19; "
+        "from tf2_yolo_tpu_torch.config import YoloConfig; "
+        "from tf2_yolo_tpu_torch.assets import load_class_names")
     assert proc.returncode == 0, proc.stderr
 
 

@@ -1,4 +1,4 @@
-"""PyTorch port of tf2_yolo_tpu for NVIDIA Hopper: the YOLOv4 serving
-path (eval-mode forward, device decode, greedy NMS) with hand-written
-CUDA kernels for the conv and the NMS, and plain PyTorch versions of
-both on the CPU."""
+"""PyTorch port of tf2_yolo_tpu for NVIDIA Hopper: the YOLOv1.5-v4
+families with every backbone of their facades, their training, serving,
+deployment and evaluation, with hand-written CUDA kernels for the convs
+and the NMS and plain PyTorch versions of them on the CPU."""

@@ -7,16 +7,20 @@
 // and conv3x3_stats (_conv3x3_stats_fwd_impl) of
 // tf2_yolo_tpu/ops/pallas/conv_bn_kernel.py, forward only.
 //
-// Geometry: KS x KS stride STRIDE for (KS, STRIDE) = (1, 1), (3, 1),
-// (3, 2), (7, 2) and (2, 1), with the top and left pad and the output
-// size Ho x Wo given at run time (ops/kernels/conv_bn.py, conv_geometry):
+// Geometry: KS x KS stride STRIDE for (KS, STRIDE) = (1, 1), (1, 2),
+// (3, 1), (3, 2), (7, 2) and (2, 1), with the top and left pad and the
+// output size Ho x Wo given at run time (ops/kernels/conv_bn.py,
+// conv_geometry):
 // output pixel (ho, wo) reads input row ho*STRIDE - pad_top + ky and
 // column wo*STRIDE - pad_left + kx, zero outside the image.  That is
 // the darknet stride-2 pad (pad 1, Ho = H/2 on even H: the bottom/right
 // pad is never touched) and flax's SAME (the smaller half of the pad on
 // top and left, Ho = ceil(H/STRIDE): the YOLOv1 stem's 7x7 stride 2 pads
 // 2 above and 3 below at 448^2, its 3x3 stride 2 0 and 1 at 14^2, the
-// UNet's 2x2 0 and 1); the rows below the image are the bounds check.
+// UNet's 2x2 0 and 1), 1x1 stride 2 (pad 0: the ring's rows are the
+// input pixels (n, 2 ho, 2 wo), read where they stand) and an explicit
+// pad on every side (the ResNet stem: 3, then its 7x7 stride-2 window);
+// the rows below the image are the bounds check.
 //
 // GEMM view: M = N*Ho*Wo output pixels, Co columns, K = ks*ks*Ci.  The
 // HWIO weight tensor is already the row-major (K, Co) B matrix.  Three
@@ -35,18 +39,18 @@
 //   shared memory, f32 accumulators), with one __syncthreads per slice.
 //   Epilogue in conv_mma.cuh: bias in f32, one rounding to bf16, 16-byte
 //   stores through shared memory, statistics of the rounded values.
-// * conv_bn_stats_ic_kernel, bf16 3x3 stride 1 or 7x7 stride 2 with Ci <
-//   32 and Co % 8 == 0 (the stems, Ci = 3: a pixel is 6 bytes, no
+// * conv_bn_stats_ic_kernel, bf16 3x3 stride 1 or 2 or 7x7 stride 2 with
+//   Ci < 32 and Co % 8 == 0 (the stems, Ci = 3: a pixel is 6 bytes, no
 //   16-byte rows): tensor cores through an im2col in shared memory.  A
 //   block takes an 8 x 16 tile of output pixels of one image and BN
 //   (128, 64 or 32) channels: it copies the tile's input halo, (8 - 1)
-//   STRIDE + KS x (16 - 1) STRIDE + KS pixels (10 x 18 at 3x3 s1, 21 x 37
-//   at 7x7 s2), once (2-byte loads of each halo row's contiguous span,
-//   zero outside the image), builds the A tile [128 pixels][K] with K =
-//   KS^2 Ci rounded up to 32 (zero columns past KS^2 Ci; 27 -> 32, 147 ->
-//   160) from it through a table of tap offsets, copies the weights
-//   [K][BN] (zero rows past KS^2 Ci) with 16-byte cp.async, runs K / 16
-//   mma.sync steps and the same epilogue.
+//   STRIDE + KS x (16 - 1) STRIDE + KS pixels (10 x 18 at 3x3 s1, 17 x 33
+//   at 3x3 s2, 21 x 37 at 7x7 s2), once (2-byte loads of each halo row's
+//   contiguous span, zero outside the image), builds the A tile [128
+//   pixels][K] with K = KS^2 Ci rounded up to 32 (zero columns past KS^2
+//   Ci; 27 -> 32, 147 -> 160) from it through a table of tap offsets,
+//   copies the weights [K][BN] (zero rows past KS^2 Ci) with 16-byte
+//   cp.async, runs K / 16 mma.sync steps and the same epilogue.
 // * conv_bn_stats_kernel, f32 (the tensor cores' f32 route would be TF32)
 //   and bf16 shapes no tensor-core kernel takes: 64 x 64 tiles on the
 //   CUDA cores, a BK = 16 slice gathered element by element (zero-filled
@@ -618,7 +622,7 @@ int dispatch_ic(const void* x, const void* w, const void* b, void* y,
 
 // the small-Ci kernel is built for the stems' geometries only
 template <int KS, int STRIDE>
-constexpr bool has_ic = (KS == 3 && STRIDE == 1) || (KS == 7 && STRIDE == 2);
+constexpr bool has_ic = KS == 3 || (KS == 7 && STRIDE == 2);
 
 template <int KS, int STRIDE>
 int launch_geom(const void* x, const void* w, const void* b, void* y,
@@ -668,7 +672,7 @@ int launch_geom(const void* x, const void* w, const void* b, void* y,
 // the CUDA-core kernel (64 x 64 tiles, static shared memory), 0/1/2 the
 // tensor-core kernel with BN = 128/64/32 (bf16 only) and smem_bytes of
 // dynamic shared memory, 3/4/5 the small-Ci tensor-core kernel with BN =
-// 128/64/32 (bf16 3x3 stride 1 or 7x7 stride 2, Ci < 32; grid.x walks
+// 128/64/32 (bf16 3x3 stride 1 or 2, 7x7 stride 2, Ci < 32; grid.x walks
 // the 8 x 16 output pixel tiles of every image).  Tensor-core routes
 // need w and y 16-byte aligned.  Returns the cudaError_t of the launch.
 extern "C" int conv_bn_stats_launch(const void* x, const void* w,
@@ -688,6 +692,9 @@ extern "C" int conv_bn_stats_launch(const void* x, const void* w,
   int err;
   if (ksize == 1 && stride == 1)
     err = launch_geom<1, 1>(x, w, b, y, s1, s2, n, h, wd, ci, co, g, dtype,
+                            want_stats, config, grid, smem_bytes, s);
+  else if (ksize == 1 && stride == 2)
+    err = launch_geom<1, 2>(x, w, b, y, s1, s2, n, h, wd, ci, co, g, dtype,
                             want_stats, config, grid, smem_bytes, s);
   else if (ksize == 3 && stride == 1)
     err = launch_geom<3, 1>(x, w, b, y, s1, s2, n, h, wd, ci, co, g, dtype,

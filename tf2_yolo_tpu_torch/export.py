@@ -31,7 +31,8 @@ import re
 
 import torch
 
-from .models.layers import ConvBN, Int8ConvBN, capture_input_absmax
+from .models.layers import (BNState, ConvBN, Int8ConvBN,
+                            capture_input_absmax)
 from .ops.decode import decode_multi_level
 from .ops.nms import apply_nms_device
 
@@ -55,7 +56,14 @@ def _conv_name_for(bn_name):
     return None
 
 
-def fold_batch_norm(state_dict):
+def bn_eps(model):
+    """``{qualified name: eps}`` of every BatchNorm (``BNState``) of
+    ``model``: the epsilons :func:`fold_batch_norm` folds with."""
+    return {name: m.eps for name, m in model.named_modules()
+            if isinstance(m, BNState)}
+
+
+def fold_batch_norm(state_dict, eps=None):
     """Fold BN inference statistics into conv kernels and biases.
 
     Takes and returns a flax-named ``state_dict`` (``bridge.from_flax``
@@ -63,22 +71,30 @@ def fold_batch_norm(state_dict):
     ``<scope>.conv.kernel``) with the same keys. Each BN (an entry pair
     ``<p>.mean``, ``<p>.var``) is paired with its scope's conv by the JAX
     package's name rule (``bn`` -> ``conv``, ``bnN`` -> ``convN``,
-    ``X_bn`` -> ``X_conv``); with s = scale * rsqrt(var + 1e-3) (XLA
+    ``X_bn`` -> ``X_conv``: ``short_bn``, ``stem_bn``, MobileNetV2's
+    ``expand_bn``, ``dw_bn`` ...); with s = scale * rsqrt(var + eps) (XLA
     rewrites the JAX package's scale / sqrt(var + eps) so) the conv
-    kernel becomes kernel * s (output channels last) and the affine
-    bias - mean * s rides in the conv's bias where it has one, else in
-    the BN's bias; the BN keeps scale 1 and statistics mean 0, var
-    1 - 1e-3, so its eval-mode normaliser is exactly 1. A BN without a
-    conv keeps s and the affine as its scale and bias. Other entries are
-    returned as they are (new tensors only where folded).
+    kernel becomes kernel * s (output channels last; a depthwise kernel's
+    last axis too) and the affine bias - mean * s rides in the conv's
+    bias where it has one, else in the BN's bias; the BN keeps scale 1
+    and statistics mean 0, var 1 - eps, so its eval-mode normaliser is
+    exactly 1. A BN without a conv (ResNet v2's ``pre_bn`` and
+    ``post_bn``) keeps s and the affine as its scale and bias. Other
+    entries are returned as they are (new tensors only where folded).
 
     A BN named ``bn`` whose conv has a bias is the JAX package's mark of
     a ConvActBN (activation between conv and BN) and is not folded: its
     affine stays in the BN. The rule also takes the biased ConvBNs of v1
-    and v2, as in the JAX package. The ResNet scopes' eps of 1.001e-5
-    belongs to a module the port does not have yet.
+    and v2, as in the JAX package. ``eps`` maps a BN's prefix to the
+    epsilon it normalises with (:func:`bn_eps` of the model: the ResNets'
+    1.001e-5, MobileNetV2's 1e-3); a BN it does not name takes 1e-3, the
+    Darknets'. The JAX package guesses the epsilon from the scope's
+    children instead (1.001e-5 beside ``stage{i}_block{j}`` blocks),
+    which also takes Darknet-53's BNs, which normalise with 1e-3;
+    :func:`folded_copy` folds each BN with its own.
     """
     out = dict(state_dict)
+    eps_of = eps or {}
     for key in state_dict:
         if not key.endswith(".mean"):
             continue
@@ -86,14 +102,15 @@ def fold_batch_norm(state_dict):
         if prefix + ".var" not in state_dict:
             continue
         scope, _, bn_name = prefix.rpartition(".")
+        eps = eps_of.get(prefix, BN_EPS)
         mean = state_dict[prefix + ".mean"].float()
         var = state_dict[prefix + ".var"].float()
         gamma = state_dict[prefix + ".scale"].float()
         beta = state_dict[prefix + ".bias"].float()
-        scale = gamma * torch.rsqrt(var + BN_EPS)
+        scale = gamma * torch.rsqrt(var + eps)
         bias = beta - mean * scale
         out[prefix + ".mean"] = torch.zeros_like(mean)
-        out[prefix + ".var"] = torch.full_like(var, 1.0 - BN_EPS)
+        out[prefix + ".var"] = torch.full_like(var, 1.0 - eps)
         conv_name = _conv_name_for(bn_name)
         conv = (f"{scope}.{conv_name}" if scope else conv_name) \
             if conv_name else None
@@ -114,9 +131,10 @@ def fold_batch_norm(state_dict):
 
 def folded_copy(model):
     """A deep copy of ``model`` carrying :func:`fold_batch_norm` of its
-    weights."""
+    weights, each BN folded with its own epsilon."""
     folded = copy.deepcopy(model)
-    folded.load_state_dict(fold_batch_norm(model.state_dict()))
+    folded.load_state_dict(fold_batch_norm(model.state_dict(),
+                                           bn_eps(model)))
     return folded
 
 

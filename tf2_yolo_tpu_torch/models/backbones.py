@@ -4,8 +4,9 @@ Port of tf2_yolo_tpu/models/backbones.py: ``DarknetV1`` (v1),
 ``Darknet19`` and ``UNetBody`` (v2), ``ResBlock``, ``Darknet53`` and
 ``TinyDarknet`` (v3), and ``CSPResBlock``, ``CSPStage`` and
 ``CSPDarknet53`` (v4: the plain path, the fused-GEMM path of stages 3-5
-and the all-fused path of stages 1-2). Submodule names follow the flax
-names: the named ones (``stem``, ``stage3_block2.expand``,
+and the all-fused path of stages 1-2), and ``Classifier``, the GAP +
+softmax top of the classifier functions (:mod:`.classifiers`). Submodule
+names follow the flax names: the named ones (``stem``, ``stage3_block2.expand``,
 ``stage3.block2.expand``, ...) and, where the JAX module builds its convs
 unnamed inside ``@nn.compact``, flax's automatic ``ConvBN_0``,
 ``ConvBN_1``, ... (``ConvActBN_0``, ... in the UNet) in call order. The
@@ -16,8 +17,8 @@ HE_NORMAL.
 import torch
 from torch import nn
 
-from .layers import (ConvActBN, ConvBN, darknet_normal_, max_pool,
-                     upsample2x)
+from .layers import (ConvActBN, ConvBN, Dense, darknet_normal_, he_normal_,
+                     max_pool, upsample2x)
 from .packed_region import (activate, p3_stage, packed_conv3x3,
                             packed_stage, rows_to)
 
@@ -153,6 +154,8 @@ class Darknet53(nn.Module):
     (1, 2, 8, 8, 4). Returns (c3, c4, c5): the stride-8 256-ch, stride-16
     512-ch and stride-32 1024-ch stage outputs. 52 ConvBNs."""
 
+    out_channels = (256, 512, 1024)
+
     SPECS = ((64, 1), (128, 2), (256, 8), (512, 8), (1024, 4))
 
     def __init__(self, **kw):
@@ -268,6 +271,8 @@ class CSPDarknet53(nn.Module):
     throughout. Same parameters and the same math up to summation
     order."""
 
+    out_channels = (256, 512, 1024)
+
     SPECS = ((64, 1, False), (128, 2, True), (256, 8, True),
              (512, 8, True), (1024, 4, True))
 
@@ -308,3 +313,36 @@ class CSPDarknet53(nn.Module):
                 x = stage(x)
             taps[i] = x
         return taps[2], taps[3], taps[4]
+
+
+class Classifier(nn.Module):
+    """GAP + softmax classifier top of the darknet, darknet19, darknet53
+    and csp_darknet53 functions (``Classifier`` of the JAX package): the
+    ``backbone`` module's last output (of ``features`` channels, 1024 for
+    every darknet body) goes through the 1x1 conv head ``ConvBN_0``
+    (biased, BN, leaky, HE_NORMAL; ``conv_head``, darknet19) and a
+    global average pool, or a global average pool and the Dense layer
+    ``Dense_0``, then a softmax over ``class_num`` classes, in the
+    compute dtype."""
+
+    def __init__(self, backbone, class_num=1000, conv_head=False,
+                 features=1024, dtype=torch.float32, generator=None,
+                 device="cuda"):
+        super().__init__()
+        kw = dict(dtype=dtype, generator=generator, device=device)
+        self.backbone = backbone
+        self.conv_head = conv_head
+        if conv_head:
+            self.ConvBN_0 = ConvBN(features, class_num, 1, act="leaky",
+                                   use_bias=True, darknet_pad=False,
+                                   init=he_normal_, **kw)
+        else:
+            self.Dense_0 = Dense(features, class_num, **kw)
+
+    def forward(self, x):
+        feats = self.backbone(x)
+        if isinstance(feats, tuple):
+            feats = feats[-1]
+        if self.conv_head:
+            return torch.softmax(self.ConvBN_0(feats).mean(dim=(1, 2)), -1)
+        return torch.softmax(self.Dense_0(feats.mean(dim=(1, 2))), -1)

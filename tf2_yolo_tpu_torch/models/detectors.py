@@ -14,9 +14,10 @@ package's:
 YOLOv4: 107 ConvBN layers (72 mish in the backbone, 35 leaky in the
 neck, 7 of them stride 2) and 3 biased head convs. YOLOv3 (Darknet-53):
 72 ConvBNs and 3 head convs; tiny: 13 in all. YOLOv2: 22 ConvBNs and a
-head (darknet), or 16 ConvActBNs and a head (UNet). YOLOv1: 23 ConvBNs
-and a head. The ResNet and MobileNetV2 backbones, user backbone
-factories and ``pipeline_stage`` are not ported.
+head (darknet), or 16 ConvActBNs and a head (UNet), or MobileNetV2 and a
+head. YOLOv3 and v4 also take the ResNets by name (``"resnet50"`` ...
+``"resnet152v2"``) and a user backbone factory in place of their body.
+``pipeline_stage`` is not ported.
 """
 
 import numpy as np
@@ -28,6 +29,42 @@ from .backbones import (CSPDarknet53, Darknet19, Darknet53, DarknetV1,
 from .heads import AnchorHead, HeadV1
 from .layers import (ConvBN, darknet_normal_, he_normal_, space_to_depth,
                      spp, upsample2x)
+from .mobilenet import MobileNetV2
+from .resnet import ResNet
+
+
+def _resnet_from_name(name, **kw):
+    """'resnet50', 'resnet101v2', ... -> a ResNet module."""
+    preact = name.endswith("v2")
+    depth = int(name[len("resnet"):-2] if preact else name[len("resnet"):])
+    return ResNet(depth=depth, preact=preact, **kw)
+
+
+def _custom_backbone(factory, kw):
+    """A user backbone: ``factory(dtype=, generator=, device=)`` returns
+    an ``nn.Module`` that maps NHWC images to the (c3, c4, c5) taps at
+    strides 8, 16 and 32 and states their channels in ``out_channels``
+    (the torch form of the JAX package's ``factory(bn_axis_name=, dtype=,
+    name=)``, whose flax module is built lazily)."""
+    module = factory(**kw)
+    channels = getattr(module, "out_channels", None)
+    if not isinstance(module, nn.Module) or \
+            not isinstance(channels, (tuple, list)) or len(channels) != 3:
+        raise ValueError(
+            "a backbone factory must return an nn.Module with "
+            "out_channels = (c3, c4, c5) channels of its three taps")
+    return module
+
+
+def _body(backbone, default, kw):
+    """The v3/v4 body: (module, (c3, c4, c5) channels)."""
+    if callable(backbone):
+        module = _custom_backbone(backbone, kw)
+    elif backbone.startswith("resnet"):
+        module = _resnet_from_name(backbone, **kw)
+    else:
+        module = default(**kw)
+    return module, tuple(module.out_channels)
 
 
 def _split_anchors(anchors, num_levels):
@@ -97,7 +134,8 @@ class YoloV2(nn.Module):
     stride 32 by ``space_to_depth(2)`` and concatenated, [pt, conv], with
     the backbone output after ``neck1`` and ``neck2``; ``neck3`` fuses.
     ``forward(images)`` returns (N, S, S, B (5 + C)) f32, S = H / 32.
-    ``backbone="mobilenet"`` is not ported."""
+    ``backbone="unet"`` and ``"mobilenet"`` feed their output to the head
+    directly."""
 
     def __init__(self, anchors, class_num=1, backbone="darknet",
                  dtype=torch.float32, generator=None, device="cuda"):
@@ -117,9 +155,8 @@ class YoloV2(nn.Module):
             self.backbone = UNetBody(**kw)
             ci = 256
         elif backbone == "mobilenet":
-            raise NotImplementedError(
-                "backbone 'mobilenet': MobileNetV2 is not ported yet "
-                "(ROADMAP.md, queue 1, item 8: other families)")
+            self.backbone = MobileNetV2(**kw)
+            ci = self.backbone.out_channels
         else:
             raise ValueError(f"Invalid backbone: {backbone}")
         self.head = AnchorHead(ci, anchors, class_num, prob_act="softmax",
@@ -140,10 +177,10 @@ class YoloV2(nn.Module):
 class YoloV3(nn.Module):
     """Darknet-53 + the 3-level top-down FPN + per-level heads (sigmoid
     classes, constant anchors), or with ``backbone="tiny_darknet"`` the
-    tiny body and its two heads. ``forward(images)`` returns the [coarse
-    (stride 32), mid (16)(, fine (8))] head outputs, each (N, S, S,
-    B (5 + C)) f32. The ResNet backbones and backbone factories are not
-    ported."""
+    tiny body and its two heads; a ResNet name or a backbone factory
+    (:func:`_custom_backbone`) replaces Darknet-53 under the same FPN.
+    ``forward(images)`` returns the [coarse (stride 32), mid (16)(, fine
+    (8))] head outputs, each (N, S, S, B (5 + C)) f32."""
 
     def __init__(self, anchors, class_num=1, backbone="full_darknet",
                  dtype=torch.float32, generator=None, device="cuda"):
@@ -151,12 +188,6 @@ class YoloV3(nn.Module):
         kw = dict(dtype=dtype, generator=generator, device=device)
         self.plain = False
         self.tiny = backbone == "tiny_darknet"
-        if callable(backbone) or backbone not in ("full_darknet",
-                                                  "tiny_darknet"):
-            raise NotImplementedError(
-                f"backbone {backbone!r}: only full_darknet and "
-                "tiny_darknet are ported yet (ROADMAP.md, queue 1, item 8: "
-                "other families)")
         leaky = dict(act="leaky", **kw)
         if self.tiny:
             self.backbone = TinyDarknet(**kw)
@@ -165,14 +196,14 @@ class YoloV3(nn.Module):
             self.tiny_out2 = ConvBN(128 + 256, 256, 3, **leaky)
             feats = (512, 256)
         else:
-            self.backbone = Darknet53(**kw)
-            self.fpn1 = FPNStage(1024, 512, make_out=True, init=he_normal_,
+            self.backbone, (c3, c4, c5) = _body(backbone, Darknet53, kw)
+            self.fpn1 = FPNStage(c5, 512, make_out=True, init=he_normal_,
                                  **kw)
             self.up1 = ConvBN(512, 256, 1, **leaky)
-            self.fpn2 = FPNStage(256 + 512, 256, make_out=True,
+            self.fpn2 = FPNStage(256 + c4, 256, make_out=True,
                                  init=he_normal_, **kw)
             self.up2 = ConvBN(256, 128, 1, **leaky)
-            self.fpn3 = FPNStage(128 + 256, 128, make_out=True,
+            self.fpn3 = FPNStage(128 + c3, 128, make_out=True,
                                  init=he_normal_, **kw)
             feats = (1024, 512, 256)
         per_level = _split_anchors(anchors, len(feats))
@@ -208,22 +239,31 @@ class YoloV4(nn.Module):
     each (N, S, S, B*(5+C)) f32.
 
     ``dtype`` is the compute dtype of the convs; parameters are f32.
-    ``generator`` draws the v4 init (RandomNormal(0, 0.02) everywhere).
+    ``generator`` draws the v4 init (RandomNormal(0, 0.02) everywhere in
+    CSPDarknet-53 and the neck; a ResNet keeps its glorot-uniform).
     ``packed=True`` runs the backbone's stages 3-5 through the fused
     GEMMs in train mode, ``packed=3`` also stages 1-2 through the fused
-    3x3 convs and sum-GEMMs (see ``CSPDarknet53``). The model is built on
-    the card unless ``device`` says otherwise. ``plain`` is set by
-    ``layers.use_plain_route``.
+    3x3 convs and sum-GEMMs (see ``CSPDarknet53``); only CSPDarknet-53
+    has those stages, so with another ``backbone`` (a ResNet name or a
+    factory, as YoloV3's) any ``packed`` but False raises ValueError.
+    The model is built on the card unless ``device`` says otherwise.
+    ``plain`` is set by ``layers.use_plain_route``.
     """
 
     def __init__(self, anchors, class_num=1, dtype=torch.float32,
-                 generator=None, device="cuda", packed=False):
+                 generator=None, device="cuda", packed=False,
+                 backbone="csp_darknet"):
         super().__init__()
         kw = dict(dtype=dtype, generator=generator, device=device)
         self.plain = False
-        self.backbone = CSPDarknet53(packed=packed, **kw)
+        if (callable(backbone) or backbone != "csp_darknet") \
+                and packed is not False:
+            raise ValueError(f"packed={packed!r} fuses CSPDarknet-53 "
+                             f"stages; backbone {backbone!r} has none")
+        self.backbone, (c3, c4, c5) = _body(
+            backbone, lambda **k: CSPDarknet53(packed=packed, **k), kw)
 
-        self.td1_pre1 = _neck(1024, 512, 1, **kw)
+        self.td1_pre1 = _neck(c5, 512, 1, **kw)
         self.td1_pre2 = _neck(512, 1024, 3, **kw)
         self.td1_spp_pre = _neck(1024, 512, 1, **kw)
         self.td1_post1 = _neck(2048, 512, 1, **kw)
@@ -231,11 +271,11 @@ class YoloV4(nn.Module):
         self.td1_post3 = _neck(1024, 512, 1, **kw)
 
         self.td1_up = _neck(512, 256, 1, **kw)
-        self.td2_pre = _neck(512, 256, 1, **kw)
+        self.td2_pre = _neck(c4, 256, 1, **kw)
         self.td2 = FPNStage(512, 256, **kw)
 
         self.td2_up = _neck(256, 128, 1, **kw)
-        self.td3_pre = _neck(256, 128, 1, **kw)
+        self.td3_pre = _neck(c3, 128, 1, **kw)
         self.td3 = FPNStage(256, 128, **kw)
 
         self.out_l = _neck(128, 256, 3, **kw)

@@ -7,11 +7,20 @@ variables tree onto a ``state_dict`` without per-layer rules:
 - ``Conv``: ``kernel`` (k, k, Ci, Co) in HWIO, the flax layout (no
   transpose), and ``bias`` (Co,) where the conv has one;
 - ``BNState``: parameters ``scale``, ``bias`` and buffers ``mean``,
-  ``var`` (flax's ``params`` and ``batch_stats``).
+  ``var`` (flax's ``params`` and ``batch_stats``), with the epsilon and
+  momentum of its own layer;
+- ``DepthwiseConv``: ``kernel`` (k, k, 1, C), flax's
+  ``feature_group_count=C`` layout;
+- ``Dense``: ``kernel`` (Ci, Co) and ``bias`` (Co,).
 
-Every conv runs through ``conv_bn_stats``: the CUDA kernel on a GPU
-tensor, its plain version on a CPU tensor. :func:`use_plain_route` sets
-one model to the plain version on any device (the reference route).
+Every dense conv runs through ``conv_bn_stats``: the CUDA kernel on a
+GPU tensor, its plain version on a CPU tensor. The keras-style backbones
+(ResNet, MobileNetV2) pair a ``Conv`` with a ``BNState`` called on its
+output (:func:`conv_then_bn`, flax's ``nn.Conv`` then ``nn.BatchNorm``);
+MobileNetV2's depthwise convs are the library's grouped conv
+(:func:`depthwise_conv`), as XLA computes them in the JAX package.
+:func:`use_plain_route` sets one model to the plain version on any
+device (the reference route).
 Parameters stay f32; a module casts them to its compute ``dtype`` at
 each call, as flax does. ``nn.Module.train()`` / ``.eval()`` select
 batch or running statistics and the training or eval form of mish.
@@ -40,6 +49,8 @@ from ..ops.kernels.fused_gemm import act_and_grad
 
 BN_EPS = 1e-3                  # tf.keras default, as the JAX package
 BN_MOMENTUM = 0.99             # running = 0.99 running + 0.01 batch
+RESNET_BN = dict(eps=1.001e-5, momentum=0.99)      # keras ResNet
+MOBILENET_BN = dict(eps=1e-3, momentum=0.999)      # keras MobileNetV2
 # std of a unit normal truncated to [-2, 2] (flax/keras variance_scaling)
 _TRUNC_STD = 0.87962566103423978
 
@@ -57,6 +68,17 @@ def he_normal_(kernel, generator=None):
 def darknet_normal_(kernel, generator=None):
     """RandomNormal(0, 0.02), the init of every v4 DarknetConv2D."""
     return nn.init.normal_(kernel, 0.0, 0.02, generator=generator)
+
+
+def glorot_uniform_(kernel, generator=None):
+    """flax ``glorot_uniform`` (tf.keras's default, the init of the
+    keras ResNet, MobileNetV2 and Dense layers): uniform in +-sqrt(6 /
+    (r (fan_in + fan_out))) for a (..., fan_in, fan_out) kernel whose
+    leading axes hold r taps."""
+    *taps, fan_in, fan_out = kernel.shape
+    r = math.prod(taps)
+    limit = math.sqrt(6.0 / (r * (fan_in + fan_out)))
+    return nn.init.uniform_(kernel, -limit, limit, generator=generator)
 
 
 def mish_eval(x):
@@ -98,6 +120,7 @@ def leaky(x):
     return F.leaky_relu(x, negative_slope=0.1)
 
 
+relu6 = F.relu6                # min(relu(x), 6): MobileNetV2's activation
 ACTS = {"mish": mish, "leaky": leaky, "relu": F.relu,
         "linear": lambda x: x}
 ACTS_EVAL = dict(ACTS, mish=mish_eval)
@@ -106,12 +129,13 @@ ACTS_EVAL = dict(ACTS, mish=mish_eval)
 class Conv(nn.Module):
     """Conv parameters in the flax layout, run through ``conv_bn_stats``
     (1x1 s1, 3x3 s1 SAME, 3x3 s2 with the darknet pad, or with flax's SAME
-    where ``darknet_pad`` is False, 7x7 s2 and 2x2 s1 SAME). Returns (y,
-    s1, s2); the statistics are ``None`` unless ``want_stats``."""
+    where ``padding`` is ``"same"``, 1x1 s2, 7x7 s2 and 2x2 s1 SAME; an
+    int ``padding`` pads that much on every side, then VALID). Returns
+    (y, s1, s2); the statistics are ``None`` unless ``want_stats``."""
 
     def __init__(self, ci, co, kernel, stride=1, use_bias=False,
                  dtype=torch.float32, init=he_normal_, generator=None,
-                 device="cuda", darknet_pad=True):
+                 device="cuda", padding="darknet"):
         super().__init__()
         self.kernel = nn.Parameter(
             torch.empty(kernel, kernel, ci, co, device=device))
@@ -121,7 +145,7 @@ class Conv(nn.Module):
         else:
             self.register_parameter("bias", None)
         self.stride = stride
-        self.darknet_pad = darknet_pad
+        self.padding = padding
         self.dtype = dtype
         self.plain = False
 
@@ -131,38 +155,135 @@ class Conv(nn.Module):
         b = (self.bias.to(dt) if self.bias is not None
              else torch.zeros(k.shape[-1], dtype=dt, device=k.device))
         return conv_bn_stats(x.to(dt).contiguous(), k, b, self.stride,
-                             want_stats, self.plain, self.darknet_pad)
+                             want_stats, self.plain, self.padding)
 
 
 class BNState(nn.Module):
     """BatchNorm parameters and running statistics (flax BatchNorm's
-    ``scale``/``bias`` params and ``mean``/``var`` batch_stats)."""
+    ``scale``/``bias`` params and ``mean``/``var`` batch_stats), with the
+    ``eps`` and ``momentum`` of its own layer (tf.keras's 1e-3 and 0.99
+    by default; :data:`RESNET_BN`, :data:`MOBILENET_BN`).
 
-    def __init__(self, features, device="cuda"):
+    Called on y, ``bn(y, s1=None, s2=None)`` is flax's ``nn.BatchNorm``
+    (the keras backbones' BN): in train mode the batch mean and the
+    biased variance mean(y^2) - mean^2, clipped at 0 (``clip=False``:
+    the JAX ConvBN's, unclipped), over N*H*W, from the conv kernel's
+    sums ``s1``, ``s2`` where a K1 conv precedes (:func:`conv_then_bn`,
+    ConvBN), else from an f32 reduction of y; the running statistics are
+    updated in place. In eval mode the running statistics normalise.
+    (y - mean) * (rsqrt(var + eps) * scale) + bias is computed in f32
+    and rounded once to y's dtype."""
+
+    def __init__(self, features, device="cuda", eps=BN_EPS,
+                 momentum=BN_MOMENTUM):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
+        self.eps = eps
+        self.momentum = momentum
 
     @torch.no_grad()
     def update_running(self, mean, var):
-        """running = 0.99 running + 0.01 batch, in place, with the
-        biased batch variance as flax and tf.keras take it."""
-        self.mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
-        self.var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+        """running = momentum running + (1 - momentum) batch, in place,
+        with the biased batch variance as flax and tf.keras take it."""
+        self.mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+        self.var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+
+    def forward(self, y, s1=None, s2=None, clip=True):
+        if self.training:
+            count = y.numel() // y.shape[-1]
+            if s1 is None:
+                a = y.float()
+                s1, s2 = a.mean(dim=(0, 1, 2)), (a * a).mean(dim=(0, 1, 2))
+                count = 1
+            mean, var = batch_stats(s1, s2, count, clip)
+            self.update_running(mean, var)
+        else:
+            mean, var = self.mean, self.var
+        return ((y.float() - mean) * (torch.rsqrt(var + self.eps)
+                                      * self.scale)
+                + self.bias).to(y.dtype)
+
+
+def conv_then_bn(conv, bn, x):
+    """flax ``nn.Conv`` then ``nn.BatchNorm`` (the keras backbones'
+    pair): ``bn(conv(x))``, the train-mode statistics taken from the conv
+    kernel's sums of its rounded output."""
+    y, s1, s2 = conv(x, want_stats=bn.training)
+    return bn(y, s1, s2)
+
+
+def depthwise_conv(x, kernel, stride):
+    """flax ``nn.Conv(C, (k, k), stride, padding="SAME",
+    feature_group_count=C, use_bias=False)`` on NHWC ``x`` with a (k, k,
+    1, C) kernel, both in the compute dtype: the library's grouped conv
+    (``F.conv2d(groups=C)``) on NCHW views, the SAME pad's larger half
+    below and right. The JAX package runs it as an XLA conv outside any
+    Pallas kernel; ``depthwise_conv.calls`` counts the calls."""
+    k, c = kernel.shape[0], kernel.shape[-1]
+    pads = []
+    for size in (x.shape[2], x.shape[1]):
+        total = max((-(-size // stride) - 1) * stride + k - size, 0)
+        pads += [total // 2, total - total // 2]
+    xc = F.pad(x.permute(0, 3, 1, 2), pads)
+    y = F.conv2d(xc, kernel.permute(3, 2, 0, 1), stride=stride, groups=c)
+    depthwise_conv.calls += 1
+    return y.permute(0, 2, 3, 1)
+
+
+depthwise_conv.calls = 0
+
+
+class DepthwiseConv(nn.Module):
+    """A depthwise ``k`` x ``k`` SAME conv of ``channels`` channels
+    without bias, its kernel (k, k, 1, C) in the flax layout
+    (:func:`depthwise_conv`)."""
+
+    def __init__(self, channels, kernel=3, stride=1, dtype=torch.float32,
+                 init=glorot_uniform_, generator=None, device="cuda"):
+        super().__init__()
+        self.kernel = nn.Parameter(
+            torch.empty(kernel, kernel, 1, channels, device=device))
+        init(self.kernel, generator)
+        self.stride = stride
+        self.dtype = dtype
+
+    def forward(self, x):
+        return depthwise_conv(x.to(self.dtype), self.kernel.to(self.dtype),
+                              self.stride)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``kernel`` (Ci, Co) glorot-uniform, ``bias``
+    zeros, x @ kernel + bias in the compute dtype (``F.linear``; the JAX
+    package computes it outside any Pallas kernel)."""
+
+    def __init__(self, ci, co, dtype=torch.float32, generator=None,
+                 device="cuda"):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(ci, co, device=device))
+        glorot_uniform_(self.kernel, generator)
+        self.bias = nn.Parameter(torch.zeros(co, device=device))
+        self.dtype = dtype
+
+    def forward(self, x):
+        dt = self.dtype
+        return F.linear(x.to(dt), self.kernel.to(dt).t(), self.bias.to(dt))
 
 
 class ConvBN(nn.Module):
     """Conv (+ BatchNorm) + activation, the math of the JAX default
     route (``nn.BatchNorm``, which ``bench.py`` and ``make_serving_fn``
-    take): y = conv(x) in the compute dtype, then
-    (y - mean) * (rsqrt(var + 1e-3) * scale) + bias in f32, rounded once
-    to the compute dtype, then the activation in that dtype. In train
-    mode mean = s1 / M and var = s2 / M - mean^2
-    come from the conv kernel's sums over the M = N*H*W pixels (f32), the
-    running statistics are updated in place, and mish takes its training
-    form; in eval mode the running statistics normalise.
+    take): y = conv(x) in the compute dtype, then its ``bn``
+    (:class:`BNState`): (y - mean) * (rsqrt(var + eps) * scale) + bias in
+    f32, rounded once to the compute dtype, then the activation in that
+    dtype. In train mode mean = s1 / M and var = s2 / M - mean^2
+    (unclipped) come from the conv kernel's sums over the M = N*H*W
+    pixels (f32), the running statistics are updated in place, and mish
+    takes its training form; in eval mode the running statistics
+    normalise.
     ``use_bn=False`` gives a plain biased conv. ``use_bias`` (default
     ``not use_bn``) adds the conv bias before BN, as every v1/v2 ConvBN
     has; ``darknet_pad=False`` takes flax's SAME at stride 2 (the v1/v2
@@ -172,7 +293,7 @@ class ConvBN(nn.Module):
     package's frozen-statistics route in train mode (``_sg_batch_norm``):
     the same batch statistics, detached, so the backward drops their
     term, and the normalisation in the compute dtype,
-    (y - mean) * (scale * rsqrt(var + 1e-3)) + bias with each operand
+    (y - mean) * (scale * rsqrt(var + eps)) + bias with each operand
     cast to it first."""
 
     def __init__(self, ci, features, kernel=3, stride=1, act="leaky",
@@ -185,7 +306,8 @@ class ConvBN(nn.Module):
         if use_bias is None:
             use_bias = not use_bn
         self.conv = Conv(ci, features, kernel, stride, use_bias, dtype,
-                         init, generator, device, darknet_pad)
+                         init, generator, device,
+                         "darknet" if darknet_pad else "same")
         self.bn = BNState(features, device) if use_bn else None
         self.act = act
         self.dtype = dtype
@@ -195,21 +317,17 @@ class ConvBN(nn.Module):
         bn = self.bn
         train = self.training and bn is not None
         y, s1, s2 = self.conv(x, want_stats=train)
-        if bn is not None:
+        if train and self.bn_sg:
+            mean, var = batch_stats(s1, s2, y.numel() // y.shape[-1])
+            bn.update_running(mean, var)
+            mean, var = mean.detach(), var.detach()
             dt = self.dtype
-            if train:
-                mean, var = batch_stats(s1, s2, y.numel() // y.shape[-1])
-                bn.update_running(mean, var)
-                if self.bn_sg:
-                    mean, var = mean.detach(), var.detach()
-                    mul = (bn.scale * torch.rsqrt(var + BN_EPS)).to(dt)
-                    y = (y - mean.to(dt)) * mul + bn.bias.to(dt)
-                    return ACTS[self.act](y)
-            else:
-                mean, var = bn.mean, bn.var
-            y = ((y.float() - mean)
-                 * (torch.rsqrt(var + BN_EPS) * bn.scale)
-                 + bn.bias).to(dt)
+            mul = (bn.scale * torch.rsqrt(var + bn.eps)).to(dt)
+            y = (y - mean.to(dt)) * mul + bn.bias.to(dt)
+            return ACTS[self.act](y)
+        if bn is not None:
+            # the JAX ConvBN's variance s2 / M - mean^2 is not clipped
+            y = bn(y, s1, s2, clip=False)
         return (ACTS if self.training else ACTS_EVAL)[self.act](y)
 
 
@@ -242,7 +360,7 @@ class Int8ConvBN(nn.Module):
     into the kernel's layout, and dequantisation, BN (running
     statistics) and bias collapse into one f32 affine, c = (sx * sw) *
     s_bn and t = bias - mean * s_bn (+ b * s_bn where the conv has a bias
-    b) with s_bn = scale * rsqrt(var + 1e-3). ``forward`` quantizes its
+    b) with s_bn = scale * rsqrt(var + eps). ``forward`` quantizes its
     input as it comes (the image at the stem) and runs ``conv_int8``,
     whose output is rounded once to the ConvBN's dtype; the activation
     (eval form) runs in that dtype. ``plain`` follows
@@ -258,7 +376,7 @@ class Int8ConvBN(nn.Module):
             k = convbn.conv.kernel.shape[0]
             raise NotImplementedError(
                 f"int8 conv {k}x{k} stride {convbn.conv.stride} "
-                f"(darknet_pad={convbn.conv.darknet_pad}): kernel Q takes "
+                f"(padding {convbn.conv.padding!r}): kernel Q takes "
                 "1x1, 3x3 stride 1 and the darknet 3x3 stride 2 only "
                 "(ROADMAP.md, queue 1, item 8: Q at the SAME geometries)")
         kernel = convbn.conv.kernel
@@ -267,7 +385,7 @@ class Int8ConvBN(nn.Module):
         with torch.no_grad():
             sx_t = torch.as_tensor(float(sx), dtype=torch.float32,
                                    device=kernel.device)
-            s_bn = bn.scale * torch.rsqrt(bn.var + BN_EPS)
+            s_bn = bn.scale * torch.rsqrt(bn.var + bn.eps)
             self.register_buffer("wq", weight_layout(wq))
             self.register_buffer("c", ((sx_t * sw) * s_bn).contiguous())
             t = bn.bias - bn.mean * s_bn
@@ -295,7 +413,7 @@ def int8_geometry_ok(convbn):
     2x2 convs of v1 and the UNet)."""
     k, stride = convbn.conv.kernel.shape[0], convbn.conv.stride
     return (k, stride) in ((1, 1), (3, 1)) or \
-        ((k, stride) == (3, 2) and convbn.conv.darknet_pad)
+        ((k, stride) == (3, 2) and convbn.conv.padding == "darknet")
 
 
 @contextlib.contextmanager
@@ -324,11 +442,14 @@ def capture_input_absmax(model):
             h.remove()
 
 
-def batch_stats(s1, s2, count):
+def batch_stats(s1, s2, count, clip=False):
     """Batch mean and biased variance from the sums of y and y^2 over
-    ``count`` values per channel (f32)."""
+    ``count`` values per channel (f32): s2 / count - mean^2, clipped at
+    0 where ``clip`` (flax's ``nn.BatchNorm``; the JAX ConvBN does not
+    clip)."""
     mean = s1 / count
-    return mean, s2 / count - mean * mean
+    var = s2 / count - mean * mean
+    return mean, (torch.clamp(var, min=0.0) if clip else var)
 
 
 class ConvActBN(nn.Module):
@@ -347,24 +468,14 @@ class ConvActBN(nn.Module):
         if act not in ACTS:
             raise ValueError(f"unknown activation {act!r}")
         self.conv = Conv(ci, features, kernel, 1, True, dtype, he_normal_,
-                         generator, device, darknet_pad=False)
+                         generator, device, padding="same")
         self.bn = BNState(features, device)
         self.act = act
         self.dtype = dtype
 
     def forward(self, x):
         y, _, _ = self.conv(x)
-        a = ACTS[self.act](y).float()
-        bn = self.bn
-        if self.training:
-            mean = a.mean(dim=(0, 1, 2))
-            var = torch.clamp((a * a).mean(dim=(0, 1, 2)) - mean * mean,
-                              min=0.0)
-            bn.update_running(mean.detach(), var.detach())
-        else:
-            mean, var = bn.mean, bn.var
-        return ((a - mean) * (torch.rsqrt(var + BN_EPS) * bn.scale)
-                + bn.bias).to(self.dtype)
+        return self.bn(ACTS[self.act](y).float()).to(self.dtype)
 
 
 def max_pool(x, window=2, stride=None, padding="VALID"):

@@ -21,12 +21,12 @@ implicit-GEMM conv with three kernels, chosen by shape in
 YOLOv4 but the stem) runs on the tensor cores (``mma.sync`` bf16 -> f32
 fed by a 4-stage ``cp.async`` ring; 128-pixel tiles of 128, 64 or 32
 channels), bound by operations on the 3x3 layers at 52^2 and below with
-Ci >= 128 and by bytes elsewhere; bf16 3x3 stride 1 or 7x7 stride 2
-with Ci < 32 and Co % 8 == 0 (the stems, Ci = 3) runs on the tensor
-cores as well, through an im2col in shared memory (an 8 x 16 pixel tile
-stages its input halo once, builds its [128 pixels x k^2 Ci] A tile
-padded to a multiple of 32, and runs K / 16 ``mma.sync`` steps), bound
-by the bytes of y; f32 (whose
+Ci >= 128 and by bytes elsewhere; bf16 3x3 stride 1, 3x3 stride 2 SAME
+or 7x7 stride 2 with Ci < 32 and Co % 8 == 0 (the stems, Ci = 3) runs on
+the tensor cores as well, through an im2col in shared memory (an 8 x 16
+pixel tile stages its input halo once, builds its [128 pixels x k^2 Ci]
+A tile padded to a multiple of 32, and runs K / 16 ``mma.sync`` steps),
+bound by the bytes of y; f32 (whose
 tensor-core route would be TF32) and the other shapes run on the CUDA
 cores, bound by their FMA rate. ``conv_bn_stats.launches`` counts every
 launch, ``conv_bn_stats.tc_launches`` those of the tensor-core kernels.
@@ -39,13 +39,18 @@ training batch sums millions of rows. On a CPU tensor it computes
 
 Geometries (:func:`conv_geometry`): 1x1 stride 1; 3x3 stride 1; 3x3
 stride 2 with the darknet top/left pad then VALID (H and W even), or
-with ``darknet_pad=False`` flax's ``"SAME"``; and, SAME only, 7x7 stride
-2 (the YOLOv1 stem) and 2x2 stride 1 (the UNet decoder). SAME pads
+with ``padding="same"`` flax's ``"SAME"``; and, SAME only, 1x1 stride
+2 (the ResNet projections and strided 1x1 convs: no pad, the ring reads
+the input rows (n, 2 ho, 2 wo) where they stand), 7x7 stride 2 (the
+YOLOv1 stem) and 2x2 stride 1 (the UNet decoder). SAME pads
 max((ceil(H/s) - 1) s + k - H, 0) rows in all, the smaller half on top
-(left), and gives ceil(H/s) rows; the kernels take the top and left pad
-and the output size from the wrapper and read zeros past the bottom and
-right edges. Weights are HWIO, the flax layout, which is the kernel's
-row-major (K, Co) matrix.
+(left), and gives ceil(H/s) rows. An int ``padding`` p (0 <= p < k)
+instead pads p on every side and is then VALID, (H + 2p - k) // s + 1
+rows: the keras ResNet stem's ``jnp.pad`` 3 before its 7x7 stride-2
+VALID conv, which is not SAME (SAME pads 2 on top at 416^2). The kernels
+take the top and left pad and the output size from the wrapper and read
+zeros past the bottom and right edges. Weights are HWIO, the flax
+layout, which is the kernel's row-major (K, Co) matrix.
 
 Under ``torch.export`` the forward without statistics (the served conv)
 is the custom op ``tf2_yolo_tpu_torch::conv_bn_forward`` (its fake
@@ -65,9 +70,10 @@ from ._build import load_library
 
 SOURCE = ("conv_bn.cu", ())          # source and extra nvcc flags
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_GEOMETRIES = {(1, 1), (3, 1), (3, 2), (7, 2), (2, 1)}
-# the small-Ci (im2col) kernel's geometries: the stems of v2-v4 and v1
-_IC_GEOMETRIES = {(3, 1), (7, 2)}
+_GEOMETRIES = {(1, 1), (1, 2), (3, 1), (3, 2), (7, 2), (2, 1)}
+# the small-Ci (im2col) kernel's geometries: the stems of v2-v4 (3x3
+# s1), v1 and the ResNets (7x7 s2) and MobileNetV2 (3x3 s2 SAME)
+_IC_GEOMETRIES = {(3, 1), (3, 2), (7, 2)}
 _INT32_MAX = 2 ** 31 - 1
 # H100: SMs, and the shared memory one block may use
 _SMS = 132
@@ -96,16 +102,31 @@ def _same_pad(size, ksize, stride):
     return out, max((out - 1) * stride + ksize - size, 0) // 2
 
 
-def conv_geometry(h, wd, ksize, stride, darknet_pad=True):
+def conv_geometry(h, wd, ksize, stride, padding="darknet"):
     """The output size and the top and left pad of a ``ksize`` x
-    ``ksize`` conv of stride ``stride`` on an H x W input: at stride 2
-    with ``darknet_pad`` (the JAX ConvBN's default) one row and column on
-    top and left, then VALID; otherwise flax's ``"SAME"`` (see the module
-    docstring). Raises ValueError on a geometry the kernels do not
-    take."""
+    ``ksize`` conv of stride ``stride`` on an H x W input. ``padding``:
+    ``"darknet"`` (the JAX ConvBN's default) at stride 2 one row and
+    column on top and left, then VALID, and SAME at stride 1;
+    ``"same"`` flax's ``"SAME"`` (see the module docstring); an int p,
+    p on every side, then VALID. Raises ValueError on a geometry the
+    kernels do not take."""
     if (ksize, stride) not in _GEOMETRIES:
         raise ValueError(f"unsupported conv {ksize}x{ksize} stride {stride}")
-    if stride == 2 and darknet_pad:
+    if type(padding) is int:
+        p = padding
+        if not 0 <= p < ksize:
+            raise ValueError(f"explicit pad {p} of a {ksize}x{ksize} "
+                             f"conv: want 0 <= pad < {ksize}")
+        ho = (h + 2 * p - ksize) // stride + 1
+        wo = (wd + 2 * p - ksize) // stride + 1
+        if ho < 1 or wo < 1:
+            raise ValueError(f"explicit pad {p}: a {h}x{wd} input is "
+                             f"smaller than the {ksize}x{ksize} window")
+        return Geometry(ho, wo, p, p)
+    if padding not in ("darknet", "same"):
+        raise ValueError(f"padding {padding!r}: want 'darknet', 'same' or "
+                         "an int")
+    if stride == 2 and padding == "darknet":
         if ksize != 3:
             raise ValueError(f"the darknet pad is a 3x3 stride-2 pad, got "
                              f"{ksize}x{ksize}")
@@ -117,12 +138,12 @@ def conv_geometry(h, wd, ksize, stride, darknet_pad=True):
     return Geometry(ho, wo, top, left)
 
 
-def _pads(h, wd, ksize, stride, darknet_pad):
+def _pads(h, wd, ksize, stride, padding):
     """An int p where a symmetric pad of p reads the same pixels as the
     geometry's (its bottom/right pad is then p or never read), so that
     the library conv pads without a copy; otherwise the (left, right,
     top, bottom) zero padding after which the conv is VALID."""
-    g = conv_geometry(h, wd, ksize, stride, darknet_pad)
+    g = conv_geometry(h, wd, ksize, stride, padding)
     if g.pad_top == g.pad_left and \
             (h + 2 * g.pad_top - ksize) // stride + 1 == g.ho and \
             (wd + 2 * g.pad_left - ksize) // stride + 1 == g.wo:
@@ -171,26 +192,29 @@ def _ic_smem(config, ci, ksize=3, stride=1):
     return max(main, epilogue)
 
 
-def _tc_plan(n, h, wd, ci, co, ksize, stride, dtype, darknet_pad=True):
+def _tc_plan(n, h, wd, ci, co, ksize, stride, dtype, padding="darknet"):
     """The launch plan of one conv (pure Python: the CPU tests reach it).
-    bf16 with Ci % 32 == 0 (a 32-deep slice lies in one tap) and Co % 8
-    == 0 (16-byte rows) takes the tensor cores, with the widest tile of
-    128, 64 or 32 channels that Co fills, halved while the grid would not
-    cover the 132 SMs once: grid (128-row blocks, column blocks). bf16
-    3x3 stride 1 or 7x7 stride 2 with Ci < 32 and Co % 8 == 0 (the
-    stems) takes the small-Ci tensor-core kernel, config ``_IM2COL`` +
-    tile, tiles chosen the same way: grid (8 x 16 output pixel tiles of
-    all images, column blocks). Anything else of a supported dtype (f32)
-    takes the CUDA-core kernel. Raises ValueError on a shape the kernels
-    do not take."""
-    g = conv_geometry(h, wd, ksize, stride, darknet_pad)
+    bf16 with Ci % 32 == 0 (a 32-deep slice lies in one tap) and Co % 8 == 0
+    (16-byte rows) takes the tensor cores, with the widest tile of 128, 64
+    or 32 channels that Co fills, halved while the grid would not cover the
+    132 SMs once: grid (128-row blocks, column blocks). bf16 3x3 stride 1,
+    3x3 stride 2 SAME or 7x7 stride 2 with Ci < 32 and Co % 8 == 0 (the
+    stems) takes the small-Ci tensor-core kernel, config ``_IM2COL`` + tile,
+    tiles chosen the same way: grid (8 x 16 output pixel tiles of all
+    images, column blocks). Anything else of a supported dtype (f32) takes
+    the CUDA-core kernel. Raises ValueError on a shape the kernels do not
+    take."""
+    g = conv_geometry(h, wd, ksize, stride, padding)
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"unsupported dtype {dtype}")
     if min(n, h, wd, ci, co) < 1:
         raise ValueError(f"empty conv {(n, h, wd, ci)} -> {co}")
     m = n * g.ho * g.wo
     ring = ci % _TC_BK == 0
-    small_ci = ci < _TC_BK and (ksize, stride) in _IC_GEOMETRIES
+    # the stems: 3x3 s1, 7x7 s2, and 3x3 s2 with SAME (not the darknet
+    # pad, which no stem has)
+    small_ci = ci < _TC_BK and (ksize, stride) in _IC_GEOMETRIES and not (
+        stride == 2 and padding == "darknet")
     if dtype == torch.bfloat16 and co % 8 == 0 and (ring or small_ci):
         rows = -(-m // _TC_BM) if ring else \
             n * -(-g.ho // _IC_TH) * -(-g.wo // _IC_TW)
@@ -222,7 +246,7 @@ def _check_aligned(tensors, what):
                          "aligned tensors")
 
 
-def _check(x, w, b, stride, darknet_pad=True):
+def _check(x, w, b, stride, padding="darknet"):
     if x.dim() != 4 or w.dim() != 4 or b.dim() != 1:
         raise ValueError(
             f"want x (N,H,W,Ci), w (k,k,Ci,Co), b (Co,); got "
@@ -231,7 +255,7 @@ def _check(x, w, b, stride, darknet_pad=True):
     kh, kw, wci, co = w.shape
     if kh != kw:
         raise ValueError(f"unsupported conv {kh}x{kw} stride {stride}")
-    g = conv_geometry(h, wd, kh, stride, darknet_pad)
+    g = conv_geometry(h, wd, kh, stride, padding)
     if wci != ci or b.shape[0] != co:
         raise ValueError(f"channel mismatch: x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, b {tuple(b.shape)}")
@@ -250,17 +274,17 @@ def _check(x, w, b, stride, darknet_pad=True):
 
 
 def conv_bn_stats_plain(x, w, b, stride=1, want_stats=True,
-                        darknet_pad=True):
+                        padding="darknet"):
     """Plain PyTorch version: f32 conv on NCHW views, bias, rounding to
     ``x.dtype``, then the statistics of the rounded y."""
-    _check(x, w, b, stride, darknet_pad)
+    _check(x, w, b, stride, padding)
     xf = x.float().permute(0, 3, 1, 2)
     wf = w.float().permute(3, 2, 0, 1)            # HWIO -> OIHW
-    pad = _pads(x.shape[1], x.shape[2], w.shape[0], stride, darknet_pad)
-    if not isinstance(pad, int):
-        xf = F.pad(xf, pad)
-        pad = 0
-    yf = F.conv2d(xf, wf, stride=stride, padding=pad)
+    p = _pads(x.shape[1], x.shape[2], w.shape[0], stride, padding)
+    if not isinstance(p, int):
+        xf = F.pad(xf, p)
+        p = 0
+    yf = F.conv2d(xf, wf, stride=stride, padding=p)
     yf = yf + b.float().view(1, -1, 1, 1)
     y = yf.to(x.dtype).permute(0, 2, 3, 1).contiguous()
     if not want_stats:
@@ -278,10 +302,10 @@ def _launcher():
     return fn
 
 
-def _forward_cuda(x, w, b, stride, want_stats, dims, darknet_pad=True):
+def _forward_cuda(x, w, b, stride, want_stats, dims, padding="darknet"):
     n, h, wd, ci, co, ks = dims
-    g = conv_geometry(h, wd, ks, stride, darknet_pad)
-    plan = _tc_plan(n, h, wd, ci, co, ks, stride, x.dtype, darknet_pad)
+    g = conv_geometry(h, wd, ks, stride, padding)
+    plan = _tc_plan(n, h, wd, ci, co, ks, stride, x.dtype, padding)
     y = torch.empty((n, g.ho, g.wo, co), dtype=x.dtype, device=x.device)
     if plan.route == "tc":
         _check_aligned([x, w, y], "conv_bn_stats")
@@ -301,24 +325,26 @@ def _forward_cuda(x, w, b, stride, want_stats, dims, darknet_pad=True):
                            f"cudaError {err} ({plan})")
     conv_bn_stats.launches += 1
     conv_bn_stats.tc_launches += plan.route == "tc"
+    route = "im2col" if plan.config >= _IM2COL else plan.route
     conv_bn_stats.by_geometry[
-        geometry_key(ks, stride, darknet_pad, plan.route)] += 1
+        geometry_key(ks, stride, padding, route)] += 1
     if not want_stats:
         return y, None, None
     s1, s2 = s.float()
     return y, s1, s2
 
 
-def _conv_vjp(x, w, g, stride, want_dx, darknet_pad=True):
+def _conv_vjp(x, w, g, stride, want_dx, padding="darknet"):
     """(dx, dw) of the NHWC/HWIO conv for the output cotangent g, in the
     compute dtype (dx ``None`` unless ``want_dx``). Where a symmetric pad
     reads the same pixels as the geometry's (1x1, 3x3 stride 1, the
     darknet stride-2 pad on even H and W, whose bottom/right pad is never
-    touched) the library conv pads; where SAME pads more below than
-    above (7x7 and 3x3 at stride 2 on even H, 2x2) x is padded
-    explicitly, the VJP taken at padding 0, and dx cropped."""
+    touched, 1x1 stride 2, an explicit pad) the library conv pads; where
+    SAME pads more below than above (7x7 and 3x3 at stride 2 on even H,
+    2x2) x is padded explicitly, the VJP taken at padding 0, and dx
+    cropped."""
     h, wd = x.shape[1:3]
-    pad = _pads(h, wd, w.shape[0], stride, darknet_pad)
+    pad = _pads(h, wd, w.shape[0], stride, padding)
     xc, crop = x.permute(0, 3, 1, 2), None
     if not isinstance(pad, int):
         left, _, top, _ = pad
@@ -336,25 +362,25 @@ def _conv_vjp(x, w, g, stride, want_dx, darknet_pad=True):
 
 
 class _ConvBNStats(torch.autograd.Function):
-    """apply(x, w, b, stride, want_stats, plain, darknet_pad) -> (y, s1,
+    """apply(x, w, b, stride, want_stats, plain, padding) -> (y, s1,
     s2)."""
 
     @staticmethod
-    def forward(ctx, x, w, b, stride, want_stats, plain, darknet_pad):
+    def forward(ctx, x, w, b, stride, want_stats, plain, padding):
         # a cotangent of s1 / s2 that no consumer produced (statistics
         # detached, as the frozen-statistics BatchNorm does) stays None
         ctx.set_materialize_grads(False)
-        dims = _check(x, w, b, stride, darknet_pad)
+        dims = _check(x, w, b, stride, padding)
         if plain or x.device.type == "cpu":
             y, s1, s2 = conv_bn_stats_plain(x, w, b, stride, want_stats,
-                                            darknet_pad)
+                                            padding)
         elif x.device.type == "cuda":
             y, s1, s2 = _forward_cuda(x, w, b, stride, want_stats, dims,
-                                      darknet_pad)
+                                      padding)
         else:
             raise ValueError(f"no conv_bn_stats kernel for {x.device}")
         ctx.stride = stride
-        ctx.darknet_pad = darknet_pad
+        ctx.padding = padding
         if not want_stats:
             ctx.save_for_backward(x, w, None)
             return y
@@ -378,55 +404,64 @@ class _ConvBNStats(torch.autograd.Function):
         if ctx.needs_input_grad[2]:
             db = g.float().sum(dim=(0, 1, 2)).to(x.dtype)
         dx, dw = _conv_vjp(x, w, g, ctx.stride, ctx.needs_input_grad[0],
-                           ctx.darknet_pad)
+                           ctx.padding)
         return dx, dw, db, None, None, None, None
 
 
-def _forward_impl(x, w, b, stride, darknet_pad):
-    dims = _check(x, w, b, stride, darknet_pad)
+def _forward_impl(x, w, b, stride, padding):
+    dims = _check(x, w, b, stride, padding)
     if x.device.type == "cpu":
-        return conv_bn_stats_plain(x, w, b, stride, False, darknet_pad)[0]
+        return conv_bn_stats_plain(x, w, b, stride, False, padding)[0]
     if x.device.type == "cuda":
-        return _forward_cuda(x, w, b, stride, False, dims, darknet_pad)[0]
+        return _forward_cuda(x, w, b, stride, False, dims, padding)[0]
     raise ValueError(f"no conv_bn_stats kernel for {x.device}")
+
+
+def _padding_of(text):
+    """The op's ``padding`` string (``str(padding)``) as the wrappers
+    take it."""
+    return int(text) if text.isdigit() else text
 
 
 @torch.library.custom_op("tf2_yolo_tpu_torch::conv_bn_forward",
                          mutates_args=())
 def _forward_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                stride: int, darknet_pad: bool = True) -> torch.Tensor:
-    return _forward_impl(x, w, b, stride, darknet_pad)
+                stride: int, padding: str = "darknet") -> torch.Tensor:
+    return _forward_impl(x, w, b, stride, _padding_of(padding))
 
 
 @_forward_op.register_fake
-def _(x, w, b, stride, darknet_pad=True):
+def _(x, w, b, stride, padding="darknet"):
     n, h, wd, _ = x.shape
-    g = conv_geometry(h, wd, w.shape[0], stride, darknet_pad)
+    g = conv_geometry(h, wd, w.shape[0], stride, _padding_of(padding))
     return x.new_empty((n, g.ho, g.wo, w.shape[-1]))
 
 
-def geometry_key(ksize, stride, darknet_pad=True, route="tc"):
+def geometry_key(ksize, stride, padding="darknet", route="tc"):
     """The key of ``conv_bn_stats.by_geometry``: e.g. ``"3x3s2 same
     tc"``; the darknet pad is ``"darknet"`` at stride 2 and the only pad
-    of a stride-1 conv (``"same"``)."""
-    pad = "darknet" if stride == 2 and darknet_pad else "same"
-    return f"{ksize}x{ksize}s{stride} {pad} {route}"
+    of a stride-1 conv (``"same"``); an int pad p is ``"padp"``
+    (``"7x7s2 pad3 im2col"``). The route is ``"tc"`` (the ring),
+    ``"im2col"`` (the small-Ci tensor-core kernel) or ``"cuda_core"``."""
+    kind = f"pad{padding}" if type(padding) is int else \
+        "darknet" if stride == 2 and padding == "darknet" else "same"
+    return f"{ksize}x{ksize}s{stride} {kind} {route}"
 
 
 def conv_bn_stats(x, w, b, stride=1, want_stats=True, plain=False,
-                  darknet_pad=True):
+                  padding="darknet"):
     """See the module docstring. CPU tensors take the plain version;
     CUDA tensors launch the kernel, or raise. ``plain=True`` forces the
     plain version on any device (the reference route).
-    ``darknet_pad=False`` takes flax's SAME padding at stride 2."""
+    ``padding`` (:func:`conv_geometry`): ``"darknet"``, ``"same"`` or
+    an int."""
     if not (want_stats or plain) and torch.compiler.is_compiling():
-        return _forward_op(x, w, b, stride, darknet_pad), None, None
-    out = _ConvBNStats.apply(x, w, b, stride, want_stats, plain,
-                             darknet_pad)
+        return _forward_op(x, w, b, stride, str(padding)), None, None
+    out = _ConvBNStats.apply(x, w, b, stride, want_stats, plain, padding)
     return out if want_stats else (out, None, None)
 
 
 conv_bn_stats.launches = 0
 conv_bn_stats.tc_launches = 0
-# launches by geometry_key(ksize, stride, darknet_pad, route)
+# launches by geometry_key(ksize, stride, padding, route)
 conv_bn_stats.by_geometry = collections.Counter()

@@ -1,7 +1,8 @@
 """YOLOv2 facade (reference yolov2/__init__.py parity).
 
 Port of tf2_yolo_tpu/yolov2.py: DarkNet-19 with the passthrough
-(``"darknet"``) or the UNet body (``"unet"``), a softmax head with
+(``"darknet"``), the UNet body (``"unet"``) or MobileNetV2
+(``"mobilenet"``), a softmax head with
 constant anchors, and the v2 loss. The model is built on the card unless
 ``create_model`` is told otherwise.
 """
@@ -52,8 +53,8 @@ class Yolo(YoloBase):
 
         The JAX facade's arguments, plus ``seed`` (the HE_NORMAL init is
         drawn from a ``torch.Generator``) and ``device`` (the card unless
-        told "cpu"). ``backbone``: "darknet" or "unet"; "mobilenet" is
-        not ported yet. ``pretrained_backbone``: a Model or dict whose
+        told "cpu"). ``backbone``: "darknet", "unet" or "mobilenet".
+        ``pretrained_backbone``: a Model or dict whose
         backbone parameters are grafted, or a name resolved in the local
         weight cache, whose file graft needs the converter (not ported
         yet). ``dtype`` is the compute dtype of the convs (default f32).

@@ -1,7 +1,8 @@
 """YOLOv3 facade (reference yolov3/__init__.py parity).
 
-Port of tf2_yolo_tpu/yolov3.py: Darknet-53 (``"full_darknet"``) or the
-tiny body (``"tiny_darknet"``), constant anchors split evenly across the
+Port of tf2_yolo_tpu/yolov3.py: Darknet-53 (``"full_darknet"``), the
+tiny body (``"tiny_darknet"``), a ResNet or a backbone factory, constant
+anchors split evenly across the
 output levels, and the per-level v3 loss list. The model is built on the
 card unless ``create_model`` is told otherwise.
 """
@@ -62,13 +63,16 @@ class Yolo(YoloBase):
 
         The JAX facade's arguments, plus ``seed`` (the HE_NORMAL init is
         drawn from a ``torch.Generator``) and ``device`` (the card unless
-        told "cpu"). ``backbone``: "full_darknet" or "tiny_darknet" (the
-        tiny body has two levels and takes 2 x B anchors); the ResNet
-        names and a backbone factory are not ported yet. ``dtype`` is the
-        compute dtype of the convs (default f32). Weight files
-        (``pretrained_weights``, a string ``pretrained_body``) are the
-        port's ``torch.save`` files; a Model or dict ``pretrained_body``
-        grafts its backbone parameters.
+        told "cpu"). ``backbone``: "full_darknet", "tiny_darknet" (the
+        tiny body has two levels and takes 2 x B anchors),
+        "resnet{50,101,152}{,v2}", or a factory ``f(dtype=, generator=,
+        device=)`` returning an ``nn.Module`` of the (c3, c4, c5) taps at
+        strides 8, 16 and 32 with their channels in ``out_channels``
+        (the JAX package's ``f(bn_axis_name=, dtype=, name=)``).
+        ``dtype`` is the compute dtype of the convs (default f32). Weight
+        files (``pretrained_weights``, a string ``pretrained_body``) are
+        the port's ``torch.save`` files; a Model or dict
+        ``pretrained_body`` grafts its backbone parameters.
         """
         if not callable(backbone) and backbone not in _BACKBONES:
             raise ValueError(f"Invalid backbone: {backbone}")

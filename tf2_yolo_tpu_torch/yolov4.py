@@ -21,6 +21,9 @@ from .ops.losses import wrap_yolo_loss_v4
 
 __all__ = ["Yolo", "MetricKind"]
 
+_BACKBONES = ("csp_darknet", "resnet50", "resnet101", "resnet152",
+              "resnet50v2", "resnet101v2", "resnet152v2")
+
 
 class Yolo(YoloBase):
     """YOLOv4: CSPDarknet-53 + SPP/PAN, CIoU loss, anchor parameters."""
@@ -151,10 +154,15 @@ class Yolo(YoloBase):
         """Build the v4 model (reference yolov4/__init__.py:190-276).
 
         The JAX facade's arguments, plus: ``seed`` draws the v4 init
-        (RandomNormal(0, 0.02)) from a ``torch.Generator``; ``device``
-        (the card unless told "cpu"); ``packed`` the fused backbone
-        route of ``YoloV4`` (False, True or 3; the JAX package sets it
-        process-wide with ``set_packed_early``). ``dtype`` is the compute
+        (RandomNormal(0, 0.02); a ResNet's glorot-uniform) from a
+        ``torch.Generator``; ``device`` (the card unless told "cpu");
+        ``packed`` the fused backbone route of ``YoloV4`` (False, True or
+        3, CSPDarknet-53 only; the JAX package sets it process-wide with
+        ``set_packed_early``). ``backbone``: "csp_darknet", a ResNet
+        ("resnet50", "resnet101", "resnet152" and their "v2"), or a
+        factory ``f(dtype=, generator=, device=)`` returning an
+        ``nn.Module`` of the (c3, c4, c5) taps at strides 8, 16 and 32
+        with their channels in ``out_channels``. ``dtype`` is the compute
         dtype of the convs (default f32). Weight files
         (``pretrained_weights``, a string ``pretrained_body``) are the
         port's ``torch.save`` files.
@@ -172,15 +180,17 @@ class Yolo(YoloBase):
                            for _ in range(self.pan_layers * self.abox_num)]
                 use_arg_anchors = False
 
-        if callable(backbone) or backbone != "csp_darknet":
-            raise NotImplementedError(
-                f"backbone {backbone!r}: only csp_darknet is ported yet "
-                "(ROADMAP.md, queue 1, item 8: other families)")
+        # a factory callable (``f(dtype=, generator=, device=)`` -> an
+        # nn.Module yielding the (c3, c4, c5) taps, with their channels in
+        # ``out_channels``) is the torch form of the JAX package's
+        # wrap-any-backbone PAN constructor
+        if not callable(backbone) and backbone not in _BACKBONES:
+            raise ValueError(f"Invalid backbone: {backbone}")
 
         gen = torch.Generator(device=device).manual_seed(int(seed))
         module = YoloV4(anchors, self.class_num,
                         dtype=dtype or torch.float32, generator=gen,
-                        device=device, packed=packed)
+                        device=device, packed=packed, backbone=backbone)
         self._model = Model(module, self.input_shape,
                             input_rescale=input_rescale, device=device)
         self._model.default_frozen = self._frozen_predicate()
