@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's YOLOv4 serving, deployment and
-training paths, of the YOLOv1.5, v2 and v3 families, and of the ResNet,
-MobileNetV2 and factory backbones and the classifiers, on one CUDA
-card.
+training paths, of the YOLOv1.5, v2 and v3 families, of the ResNet,
+MobileNetV2 and factory backbones and the classifiers, and of YOLOv1.5's
+int8 serving and the reference-weight converter, on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--batch 8] [--size 416]
                           [--requests 2] [--train-batch 32] [--steps 3]
@@ -198,7 +198,26 @@ Phases (each raises on failure, so the exit code is nonzero):
      YOLOv4 with ResNet-152: one request; the csp_darknet53 (1000 classes,
      448^2) and darknet19 (416^2) classifiers: one step of 16 each. The conv
      kernel's launches are the tree's convs a request and a step, those on
-     the tensor cores as their plans say.
+     the tensor cores as their plans say;
+ 16. YOLOv1.5's SAME geometries on kernel Q and the converter, new draws
+     on a generator of their own: (a) Q against ``conv_int8_plain`` at
+     the 7x7 stride-2 SAME stem (448^2, the gather route, K = 147 padded
+     to 160) and the 14^2 1024->1024 3x3 stride-2 SAME conv (the ring) at
+     the serving batch and at 32, bf16 and f32 (and the served stem's f32
+     image to bf16), equal bit for bit, timed as phase 3 times Q, beside
+     K1 alone; (b) YOLOv1.5 at 448^2 through its facade, bf16, BN
+     calibrated, ``calibrate_int8`` on two seeded batches, then
+     ``make_serving_fn(quant=)`` at gates 0 and 256: the int8 ConvBNs by
+     gate (23 at 0), Q's launches at the two SAME geometries counted
+     (the stem at gate 0, the stride 2 at both), the kernel route held
+     to the plain route by phase 11's rule, and ms/request of int8 at
+     both gates and of bf16; (c) the reference-weight round trip of
+     YOLOv4, YOLOv3 and YOLOv1.5 in memory on the card:
+     ``convert.export_reference_weights`` of a model, the matching
+     ``convert_*`` from the dict into a fresh model of another seed,
+     the state_dicts and one served request equal bit for bit. The
+     native reader is not driven here: the card's machine has no
+     ``jpeglib.h``, ``png.h``, libjpeg or libpng to build it against.
 
 Weights are random, from ``--seed``: conv kernels drawn with the port's
 HE_NORMAL from a seeded ``torch.Generator``. With BN at its init
@@ -215,6 +234,7 @@ every measurement go to ``--log-dir`` (default ``build/chip_smoke/``).
 """
 
 import argparse
+import collections
 import contextlib
 import copy
 import ctypes
@@ -230,6 +250,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tf2_yolo_tpu_torch import convert as convert_mod
 from tf2_yolo_tpu_torch import engine, yolov1_5, yolov2, yolov3, yolov4
 from tf2_yolo_tpu_torch.data import encode_to_grid
 from tf2_yolo_tpu_torch.export import (calibrate_int8, folded_copy,
@@ -881,6 +902,14 @@ INT8_SHAPES = [
     ("stage4.block.expand 26^2 256->256 3x3s1", 26, 26, 256, 256, 3, 1),
     ("stage4.down 52^2 256->512 3x3s2", 52, 52, 256, 512, 3, 2),
 ]
+# Phase 16: Q at flax's SAME geometries, YOLOv1.5's two (name, H, W, Ci,
+# Co, k, stride, padding): the DarknetV1 stem (pad 2 above and left, 3
+# below and right; the gather route, K = 147 padded to 160) and the 14^2
+# -> 7^2 stride 2 (pad 0 above, 1 below; the ring)
+INT8_SAME_SHAPES = [
+    ("v1 stem 448^2 3->64 7x7s2 SAME", 448, 448, 3, 64, 7, 2, "same"),
+    ("v1 14^2 1024->1024 3x3s2 SAME", 14, 14, 1024, 1024, 3, 2, "same"),
+]
 
 
 def int8_plan_line(plan):
@@ -889,9 +918,10 @@ def int8_plan_line(plan):
             f"{plan.smem_bytes}")
 
 
-def phase_int8_checks(gen, n):
-    """Kernel Q against ``conv_int8_plain`` at each INT8_SHAPES shape at
-    batch ``n``, bf16 -> bf16 and f32 -> f32 (and the served stem's f32
+def phase_int8_checks(gen, n, shapes=None):
+    """Kernel Q against ``conv_int8_plain`` at each INT8_SHAPES shape (or
+    ``shapes``, whose entries may add a padding: phase 16) at batch
+    ``n``, bf16 -> bf16 and f32 -> f32 (and the served stem's f32
     image -> bf16): equal bit for bit (int32 sums are exact and the
     epilogue has no FMA contraction), on the route, tile, split and ring
     that ``_plan`` picks. Times, each launched alone in a CUDA graph (so
@@ -900,21 +930,24 @@ def phase_int8_checks(gen, n):
     pass's output (replayed, so its split-K counters must clear
     themselves: its output is held equal too), the first kernel
     (``conv_int8_before_launch``, quantizing in its prologue; also held
-    equal) and K1 (``conv_bn_stats``, bf16, no statistics) at the same
-    shape; Q through its wrapper and through the wrapper's implementation
+    equal; at the geometries it takes, those of INT8_SHAPES) and K1
+    (``conv_bn_stats``, bf16, no statistics) at the same shape; Q
+    through its wrapper and through the wrapper's implementation
     without the custom op (its dispatch cost), the plain version, and for
     the 1x1 shape the one-call yardstick ``torch._int_mm`` on the same
     int8 operands alone."""
     results, failed = [], []
     bf, f32 = torch.bfloat16, torch.float32
     stream = lambda: torch.cuda.current_stream().cuda_stream
-    for name, h, w, ci, co, k, stride in INT8_SHAPES:
+    for name, h, w, ci, co, k, stride, *rest in shapes or INT8_SHAPES:
+        padding = rest[0] if rest else "darknet"
+        first_kernel = not rest
         kern = torch.empty(k, k, ci, co, device="cuda")
         he_normal_(kern, gen)
         wq8, sw = int8_mod.quantize_weights(kern)
         wq = int8_mod.weight_layout(wq8)
         t = 0.1 * torch.randn(co, generator=gen, device="cuda")
-        plan = int8_mod._plan(n, h, w, ci, co, k, stride)
+        plan = int8_mod._plan(n, h, w, ci, co, k, stride, padding)
         dtypes = [(bf, bf), (f32, f32)] + ([(f32, bf)] if ci == 3 else [])
         for in_dt, out_dt in dtypes:
             x = torch.randn(n, h, w, ci, generator=gen,
@@ -924,42 +957,47 @@ def phase_int8_checks(gen, n):
                                                device="cuda"))).contiguous()
             before = (conv_int8.launches, conv_int8.tc_launches,
                       conv_int8.quant_launches)
-            y = conv_int8(x, wq, c, t, sx, k, stride, out_dt)
+            y = conv_int8(x, wq, c, t, sx, k, stride, out_dt,
+                          padding=padding)
             check((conv_int8.launches, conv_int8.tc_launches,
                    conv_int8.quant_launches)
                   == (before[0] + 1, before[1] + 1, before[2] + 1),
                   f"int8 {name}: the wrapper did not launch its kernels")
-            yp = conv_int8_plain(x, wq, c, t, sx, k, stride, out_dt)
+            yp = conv_int8_plain(x, wq, c, t, sx, k, stride, out_dt,
+                                 padding)
             torch.cuda.synchronize()
             equal = torch.equal(y, yp)
             err = (y.float() - yp.float()).abs().max().item()
             ms = graph_ms(lambda: conv_int8(x, wq, c, t, sx, k, stride,
-                                            out_dt))
+                                            out_dt, padding=padding))
             # the two launches apart, on scratch of the same plan
-            xq, ws, counters = int8_mod._buffers(x, plan, co, k, stride)
+            xq, ws, counters = int8_mod._buffers(x, plan, co, k, stride,
+                                                 padding)
             y_conv = torch.empty_like(y)
             int8_mod._quantize_launch(x, sx, xq, counters, k, stride, plan,
-                                      stream())
+                                      stream(), padding)
             quant_ms = graph_ms(lambda: int8_mod._quantize_launch(
-                x, sx, xq, None, k, stride, plan, stream()))
+                x, sx, xq, None, k, stride, plan, stream(), padding))
             conv_ms = graph_ms(lambda: int8_mod._conv_launch(
                 xq, wq, c, t, y_conv, ws, counters, k, stride, plan,
-                stream()))
-            y_before = int8_mod._before_forward(x, wq, c, t, sx, k, stride,
-                                                out_dt)
-            before_ms = graph_ms(lambda: int8_mod._before_forward(
-                x, wq, c, t, sx, k, stride, out_dt))
+                stream(), padding))
+            y_before = before_ms = None
+            if first_kernel:
+                y_before = int8_mod._before_forward(x, wq, c, t, sx, k,
+                                                    stride, out_dt)
+                before_ms = graph_ms(lambda: int8_mod._before_forward(
+                    x, wq, c, t, sx, k, stride, out_dt))
             torch.cuda.synchronize()
             conv_equal = torch.equal(y_conv, yp)
-            before_equal = torch.equal(y_before, yp)
-            wrapper_ms = cuda_ms(lambda: conv_int8(x, wq, c, t, sx, k,
-                                                   stride, out_dt), 20)
+            before_equal = y_before is None or torch.equal(y_before, yp)
+            wrapper_ms = cuda_ms(lambda: conv_int8(
+                x, wq, c, t, sx, k, stride, out_dt, padding=padding), 20)
             # the same launches without the custom op's dispatch
-            direct_ms = cuda_ms(lambda: int8_mod._impl(x, wq, c, t, sx, k,
-                                                       stride, out_dt), 20)
+            direct_ms = cuda_ms(lambda: int8_mod._impl(
+                x, wq, c, t, sx, k, stride, out_dt, padding), 20)
             plain_ms = cuda_ms(lambda: conv_int8_plain(
-                x, wq, c, t, sx, k, stride, out_dt), 2)
-            m = n * (h // stride) * (w // stride)
+                x, wq, c, t, sx, k, stride, out_dt, padding), 2)
+            m = y.numel() // co
             ops = 2.0 * m * co * k * k * ci
             nbytes = (x.numel() * x.element_size() + wq.numel() + 8 * co
                       + y.numel() * y.element_size())
@@ -968,8 +1006,8 @@ def phase_int8_checks(gen, n):
             if in_dt == bf:
                 kb, bb = kern.to(bf), torch.zeros(co, dtype=bf,
                                                   device="cuda")
-                k1_ms = graph_ms(lambda: conv_bn_stats(x, kb, bb, stride,
-                                                       False))
+                k1_ms = graph_ms(lambda: conv_bn_stats(
+                    x, kb, bb, stride, False, padding=padding))
             if k == 1:
                 xm = int8_mod.quantize_int8_plain(x, sx).reshape(m, ci)
                 wt = wq[:, :ci].t().contiguous()
@@ -985,15 +1023,19 @@ def phase_int8_checks(gen, n):
                      tops=ops / ms / 1e9, bound_share=bound / ms,
                      route=plan.route, config=plan.config,
                      grid=list(plan.grid), splits=plan.splits,
-                     stages=plan.stages)
+                     stages=plan.stages, padding=str(padding))
             results.append(r)
             print(f"  int8 {r['dtype']:20s} b{n:<2d} {name:40s} "
                   f"[{int8_plan_line(plan)}] equal {equal} (max|d| "
-                  f"{err:.3g}; the conv launch replayed alone {conv_equal}, "
-                  f"the first kernel {before_equal}) | Q alone {ms:.4f} ms "
+                  f"{err:.3g}; the conv launch replayed alone {conv_equal}"
+                  + ("" if y_before is None
+                     else f", the first kernel {before_equal}")
+                  + f") | Q alone {ms:.4f} ms "
                   f"({r['tops']:.1f} TOP/s, {bound / ms:.1%} of bound): "
                   f"quantize pass {quant_ms:.4f} + conv {conv_ms:.4f} ms; "
-                  f"before (the first kernel) {before_ms:.4f} ms; through "
+                  + ("" if before_ms is None else
+                     f"before (the first kernel) {before_ms:.4f} ms; ")
+                  + f"through "
                   f"the wrapper {wrapper_ms:.3f} ms (without the custom op "
                   f"{direct_ms:.3f} ms), plain {plain_ms:.3f} ms, bound "
                   f"{bound:.4f} ms ({bound_by})"
@@ -2590,10 +2632,13 @@ def direct_wrappers():
     them, but calling their implementations directly instead of through
     their custom ops: the same launches without the dispatcher, for the
     A/B of the ops' host cost only."""
-    def conv(x, wq, c, t, sx, ksize, stride, out_dtype, plain=False):
+    def conv(x, wq, c, t, sx, ksize, stride, out_dtype, plain=False,
+             padding="darknet"):
         if plain:
-            return conv_int8_plain(x, wq, c, t, sx, ksize, stride, out_dtype)
-        return int8_mod._impl(x, wq, c, t, sx, ksize, stride, out_dtype)
+            return conv_int8_plain(x, wq, c, t, sx, ksize, stride, out_dtype,
+                                   padding)
+        return int8_mod._impl(x, wq, c, t, sx, ksize, stride, out_dtype,
+                              padding)
 
     saved = layers_mod.conv_int8, nms_ops.nms_keep
     layers_mod.conv_int8, nms_ops.nms_keep = conv, nms_mod._nms_keep_impl
@@ -4034,6 +4079,253 @@ def backbone_launches(backbones, key):
     return total
 
 
+# ---------------------------------------------------------------- phase 16
+# YOLOv1.5 served int8 (448^2, the slice's main path): its 23 ConvBNs by
+# gate (all at 0; those of min(Ci, Co) >= 256 at 256), and Q's launches a
+# request at YOLOv1.5's two SAME geometries by gate (the stem only at 0)
+V1_SIZE = 448
+V1_INT8_REPS = 3                 # timed requests a turn, two turns each
+V1_GEOMETRIES = {0: {"7x7s2 same gather": 1, "3x3s2 same ring": 1},
+                 256: {"7x7s2 same gather": 0, "3x3s2 same ring": 1}}
+# the convert round trip: (name, facade, input size, create_model
+# keyword arguments, converter)
+CONVERT_RUNS = [
+    ("yolov4", yolov4, 416, dict(anchors=ANCHORS.tolist(),
+                                 pretrained_body=None),
+     lambda h5w, state: convert_mod.convert_yolov4(h5w, CLASSES)),
+    ("yolov3", yolov3, 416, dict(pretrained_body=None),
+     lambda h5w, state: convert_mod.convert_yolov3(h5w, CLASSES)),
+    ("yolov1.5", yolov1_5, 448, {},
+     lambda h5w, state: convert_mod.convert_yolov1_positional(
+         h5w, state, CLASSES, 2)),
+]
+
+
+def reset_int8_counters():
+    reset_serve_counters()
+    conv_int8.by_geometry.clear()
+
+
+def int8_counted(serve, x):
+    """``serve(x)`` with every counter set to 0 just before and read just
+    after; Q's launches by geometry beside."""
+    torch.cuda.synchronize()
+    reset_int8_counters()
+    out = serve(x)
+    torch.cuda.synchronize()
+    return out, dict(serve_counters(),
+                     by_geometry=dict(conv_int8.by_geometry))
+
+
+def v1_head_logits(model, x):
+    """The v1 head conv's output (f32) of one eval forward."""
+    logits = []
+    handle = model.head.conv.register_forward_hook(
+        lambda m, inp, out: logits.append(out[0].float()))
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        handle.remove()
+    return logits[0]
+
+
+def phase_v1_int8(args, card):
+    """Phase 16b: YOLOv1.5 at 448^2 through its facade, bf16, random
+    weights from the seed, BN calibrated as phase 4's; ``calibrate_int8``
+    on two seeded batches, then ``make_serving_fn(quant=)`` at gates 0
+    and 256: every calibrated ConvBN of min(Ci, Co) >= gate on Q, the
+    rest and the head on K1, one NMS; Q's launches at the two SAME
+    geometries counted (the stem at gate 0, the 14^2 stride 2 at both);
+    the kernel route against the plain route by phase 11's rule (gate 0:
+    the head logits, every int8 layer being exact on both routes; gate
+    256: layer by layer); ms/request of int8 at both gates and of bf16."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 16)
+    yolo, model = family_model(yolov1_5, V1_SIZE, {}, torch.bfloat16,
+                               args.seed)
+    model.eval()
+    convbns = [m for m in model.modules()
+               if isinstance(m, ConvBN) and m.bn is not None]
+    convs = conv_count(model)
+    check(len(convbns) == 23 and convs == 24,
+          f"YOLOv1.5: {len(convbns)} ConvBNs, {convs} convs; want 23, 24")
+    calibrate_bn(model, torch.rand(args.batch, V1_SIZE, V1_SIZE, 3,
+                                   generator=gen, device="cuda"))
+    x = torch.rand(args.batch, V1_SIZE, V1_SIZE, 3, generator=gen,
+                   device="cuda")
+    with torch.inference_mode():
+        joint = family_joint(model(x), 1).float()
+    threshold = float(torch.quantile(
+        joint[0], max(0.0, 1 - 16 / joint.shape[1])))
+    calib = [torch.rand(args.batch, V1_SIZE, V1_SIZE, 3, generator=gen,
+                        device="cuda") for _ in range(2)]
+    quant = calibrate_int8(model, calib)
+    scales = list(_tree_leaves(quant["quant"]))
+    check(len(scales) == 23 and all(float(v) > 0 for v in scales),
+          "YOLOv1.5 calibration: want 23 positive scales")
+    plain = use_plain_route(copy.deepcopy(model))
+    tol = TOL[torch.bfloat16]
+    out, serves = dict(threshold=threshold), {
+        "bf16": make_serving_fn(model, CLASSES, 1, threshold=threshold)}
+    (rows_b, keep_b), cnt_b = int8_counted(serves["bf16"], x)
+    check(cnt_b["conv_bn_stats"] == convs and cnt_b["conv_int8"] == 0
+          and cnt_b["conv_bn_stats_tc"] == conv_routes(model)["tc"]
+          and cnt_b["nms_keep"] == 1, f"YOLOv1.5 bf16 request: {cnt_b}")
+    launches = dict(conv_int8=0, conv_int8_tc=0, conv_int8_quant=0)
+    geometry = collections.Counter()
+    for gate in (0, 256):
+        n_q = sum(min(m.conv.kernel.shape[2:]) >= gate for m in convbns)
+        serve = make_serving_fn(model, CLASSES, 1, threshold=threshold,
+                                quant=quant, int8_min_channels=gate)
+        check(sum(isinstance(m, Int8ConvBN) for m in serve.program.modules())
+              == n_q, f"YOLOv1.5 gate {gate}: want {n_q} int8 ConvBNs")
+        (rows_q, keep_q), cnt = int8_counted(serve, x)
+        # the K1 convs left (the head's 13 channels take the CUDA cores)
+        # by their plans' routes; Q's launches at the SAME geometries
+        want = dict(conv_bn_stats=convs - n_q,
+                    conv_bn_stats_tc=conv_routes(serve.program)["tc"],
+                    conv_int8=n_q, conv_int8_tc=n_q, conv_int8_quant=n_q,
+                    nms_keep=1, soft_nms_keep=0, fused=0)
+        same = {k: cnt["by_geometry"].get(k, 0)
+                for k in V1_GEOMETRIES[gate]}
+        check({k: cnt[k] for k in want} == want
+              and same == V1_GEOMETRIES[gate],
+              f"YOLOv1.5 int8 gate {gate}: launches {cnt}, want {want} and "
+              f"{V1_GEOMETRIES[gate]}")
+        for k in launches:
+            launches[k] += cnt[k]
+        geometry.update(cnt["by_geometry"])
+        check(bool(torch.isfinite(rows_q).all()) and int(keep_q.sum()) > 0,
+              f"YOLOv1.5 int8 gate {gate}: degenerate rows")
+        sp = make_serving_fn(plain, CLASSES, 1, threshold=threshold,
+                             quant=quant, int8_min_channels=gate)
+        res = dict(int8_convbns=n_q, launches=cnt,
+                   kept=int(keep_q.sum()), kept_bf16=int(keep_b.sum()))
+        if gate == 0:
+            lq = v1_head_logits(serve.program.model, x)
+            lp = v1_head_logits(sp.program.model, x)
+            torch.cuda.synchronize()
+            scale = max(1.0, lp.abs().max().item())
+            d = (lq - lp).abs()
+            ok = bool((d <= tol["y_rel"] * lp.abs()
+                       + tol["y_scale"] * scale).all())
+            res.update(logit_max_abs_err=d.max().item(), logit_scale=scale)
+            print(f"  YOLOv1.5 int8 gate 0: {n_q} ConvBNs on Q; launches "
+                  f"{cnt}; kernel vs plain route head logits max|d| "
+                  f"{d.max().item():.3e} (scale {scale:.3g}; bound "
+                  f"{tol['y_rel']:.3g}*|l| + {tol['y_scale']:.0e}*scale)")
+            check(ok, "YOLOv1.5 int8 gate 0: the routes' head logits differ")
+        else:
+            lr = layer_routes(serve.program.model, x)
+            res.update(layer_routes=lr)
+            print(f"  YOLOv1.5 int8 gate 256: {n_q} ConvBNs on Q; launches "
+                  f"{cnt}; kernel vs plain route layer by layer: "
+                  f"{lr['int8_equal']}/{lr['int8_layers']} Int8ConvBN equal "
+                  f"bit for bit, {lr['k1_within']}/{lr['k1_layers']} K1 "
+                  f"convs within the bf16 bound (max|d| "
+                  f"{lr['k1_max_abs_err']:.3e})")
+            check(lr["int8_layers"] == n_q == lr["int8_equal"]
+                  and lr["k1_layers"] == convs - n_q == lr["k1_within"],
+                  "YOLOv1.5 int8 gate 256: a layer's routes differ")
+        out[f"gate{gate}"] = res
+        serves[f"int8 gate {gate}"] = serve
+    del plain
+    times = {}
+    for name in list(serves) + list(serves)[::-1]:
+        serves[name](x)
+        for _ in range(V1_INT8_REPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            serves[name](x)
+            torch.cuda.synchronize()
+            times.setdefault(name, []).append(
+                (time.perf_counter() - t1) * 1e3)
+    out["ms_per_request"] = {k: float(np.median(v)) for k, v in times.items()}
+    out["runs"] = times
+    for name, ms in out["ms_per_request"].items():
+        print(f"  YOLOv1.5 {name:12s} b{args.batch} {V1_SIZE}^2: {ms:.2f} "
+              f"ms/request (median of {len(times[name])}) [{card}]")
+    out.update(launches, by_geometry=dict(geometry), convs=convs,
+               convs_tc=conv_routes(model)["tc"],
+               seconds=time.perf_counter() - t0)
+    del serves, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_convert(args):
+    """Phase 16c: the reference-weight round trip in memory on the card,
+    no h5py: ``convert.export_reference_weights`` of a model on the card
+    (random weights from the seed, BN calibrated), the matching
+    ``convert_*`` from that dict, merged into a fresh model of another
+    seed on the card: the state_dicts equal bit for bit, and so are one
+    served request's (rows, keep) of the two."""
+    out = {}
+    for i, (name, mod, size, kw, converter) in enumerate(CONVERT_RUNS):
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(args.seed + 160 + i)
+        yolo, src = family_model(mod, size, kw, torch.bfloat16, args.seed)
+        _, dst = family_model(mod, size, kw, torch.bfloat16, args.seed + 1)
+        calibrate_bn(src.eval(), torch.rand(2, size, size, 3, generator=gen,
+                                            device="cuda"))
+        kw_export = {"bbox_num": 2} if yolo.version == 1 else {}
+        h5w = convert_mod.export_reference_weights(
+            src, yolo.version, CLASSES, **kw_export)
+        before = sum(not torch.equal(a, b) for a, b in zip(
+            src.state_dict().values(), dst.state_dict().values()))
+        state = convert_mod.merge_into_variables(
+            dst.state_dict(), *converter(h5w, dst.state_dict()))
+        dst.load_state_dict(state, strict=True)
+        src_state, dst_state = src.state_dict(), dst.state_dict()
+        differ = [k for k in src_state
+                  if not torch.equal(src_state[k], dst_state[k])]
+        x = torch.rand(args.batch, size, size, 3, generator=gen,
+                       device="cuda")
+        with torch.inference_mode():
+            joint = family_joint(src.eval()(x), yolo.version).float()
+        threshold = float(torch.quantile(
+            joint[0], max(0.0, 1 - 16 / joint.shape[1])))
+        rows_s, keep_s = make_serving_fn(src, CLASSES, yolo.version,
+                                         threshold=threshold)(x)
+        rows_d, keep_d = make_serving_fn(dst.eval(), CLASSES, yolo.version,
+                                         threshold=threshold)(x)
+        torch.cuda.synchronize()
+        equal = torch.equal(rows_s, rows_d) and torch.equal(keep_s, keep_d)
+        out[name] = dict(layers=len(h5w), tensors=len(src_state),
+                         differing_before=before, differing_after=len(differ),
+                         served_equal=equal, kept=int(keep_s.sum()),
+                         seconds=time.perf_counter() - t0)
+        print(f"  convert {name}: {len(h5w)} reference layers from the card "
+              f"-> {len(src_state)} tensors ({before} differed before, "
+              f"{len(differ)} after); one request of {args.batch} x "
+              f"{size}^2 equal bit for bit {equal} (kept "
+              f"{int(keep_s.sum())}) [{out[name]['seconds']:.1f} s]")
+        check(before > 0 and not differ and equal and int(keep_s.sum()) > 0,
+              f"convert {name}: round trip differs: {differ[:5]}")
+        del src, dst, state, src_state, dst_state
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_v1_same(args, card):
+    """Phase 16: kernel Q at YOLOv1.5's SAME geometries (a), YOLOv1.5
+    served int8 (b), the convert round trip (c). The native reader's
+    phase is left out: the card's machine has neither ``jpeglib.h`` nor
+    ``png.h`` nor libjpeg and libpng to build ``native/loader.cpp``
+    against (README.md)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 16)
+    q_same = []
+    for n in (args.batch, DEPLOY_BIG_BATCH):
+        q_same += phase_int8_checks(gen, n, INT8_SAME_SHAPES)
+    out = dict(q_same=q_same, v1_int8=phase_v1_int8(args, card),
+               convert=phase_convert(args))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 16 took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4167,6 +4459,12 @@ def main(argv=None):
           "MobileNetV2, YOLOv4 with ResNet-152 (a request), and the "
           "csp_darknet53 and darknet19 classifiers (a step each)")
     backbones = phase_backbones(args, card)
+
+    print(f"phase 16: kernel Q at YOLOv1.5's SAME geometries (b{args.batch} "
+          f"and b{DEPLOY_BIG_BATCH}); YOLOv1.5 at {V1_SIZE}^2 served int8 at "
+          "gates 0 and 256; the reference-weight round trip of YOLOv4, "
+          "YOLOv3 and YOLOv1.5 on the card")
+    v1_same = phase_v1_same(args, card)
 
     def bf16_at(results, shape):
         return [r for r in results
@@ -4465,6 +4763,34 @@ def main(argv=None):
             tflops=r["kernel_tflops"], bound_share=r["bound_share"],
             plan_route=r["route"], plan_config=r["config"],
             cuda_core_ms=r["cuda_core_ms"]))
+    # Q at YOLOv1.5's SAME geometries (phase 16a, bf16 -> bf16, at the
+    # serving batch and at 32), with their launches on phase 16b's int8
+    # requests (the stem at gate 0, the 14^2 stride 2 at gates 0 and 256)
+    for shape, key in zip(INT8_SAME_SHAPES, ("7x7s2 same gather",
+                                             "3x3s2 same ring")):
+        rs = {q["batch"]: q for q in v1_same["q_same"]
+              if q["shape"] == shape[0]
+              and q["dtype"] == "bfloat16 -> bfloat16"}
+        r = rs[args.batch]
+        kernels.append(dict(
+            name=f"conv_int8 {key}", route="cuda",
+            source="tf2_yolo_tpu_torch/csrc/conv_int8.cu",
+            replaces="tf2_yolo_tpu/models/layers.py:389 (ConvBN._quant_call "
+                     "with padding SAME, XLA conv_general_dilated s8 x s8 -> "
+                     "s32, no Pallas kernel)",
+            launches=v1_same["v1_int8"]["by_geometry"].get(key, 0),
+            max_abs_err=max(q["max_abs_err"] for q in v1_same["q_same"]
+                            if q["shape"] == shape[0]),
+            at=f"{shape[0]}, batch {r['batch']}, bf16",
+            ms=r["ms"], quant_ms=r["quant_ms"], conv_ms=r["conv_ms"],
+            wrapper_ms=r["wrapper_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            tops=r["tops"], bound_share=r["bound_share"],
+            k1_bf16_ms=r["k1_bf16_ms"], plan_route=r["route"],
+            plan_config=r["config"], plan_splits=r["splits"],
+            **{f"b{DEPLOY_BIG_BATCH}_{field}": rs[DEPLOY_BIG_BATCH][field]
+               for field in ("ms", "bound_ms", "bound_by", "bound_share",
+                             "k1_bf16_ms", "plain_ms")}))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched")
     seconds = time.perf_counter() - t_start
@@ -4482,7 +4808,7 @@ def main(argv=None):
                   device_eval=evaluation, conv_same=same_res,
                   families=families, conv_backbones=backbone_res,
                   depthwise=depthwise_res, backbones=backbones,
-                  kernels=kernels,
+                  v1_same=v1_same, kernels=kernels,
                   seconds=seconds)
     os.makedirs(args.log_dir, exist_ok=True)
     with open(os.path.join(args.log_dir, "chip_smoke.json"), "w") as f:

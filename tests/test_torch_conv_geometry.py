@@ -15,7 +15,7 @@ port against the JAX package, on the CPU.
   ``AnchorHead``;
 - the int8 form of a biased ConvBN (``Int8ConvBN``) against the JAX
   ``_quant_call`` applied eagerly, and ``make_serving_fn(quant=)``
-  refusing a calibrated ConvBN of a geometry kernel Q does not take.
+  serving a calibrated ConvBN of each SAME geometry through kernel Q.
 
 Weights come from one JAX ``init`` through ``bridge.from_flax``; inputs
 from a numpy seed. Single modules compare at 1e-5.
@@ -37,6 +37,7 @@ from tf2_yolo_tpu_torch import export
 from tf2_yolo_tpu_torch.bridge import from_flax
 from tf2_yolo_tpu_torch.models import heads, layers
 from tf2_yolo_tpu_torch.ops.kernels import conv_bn
+from tf2_yolo_tpu_torch.ops.kernels import conv_int8 as int8_mod
 from tf2_yolo_tpu_torch.ops.kernels.conv_bn import (conv_bn_stats,
                                                     conv_bn_stats_plain)
 
@@ -447,11 +448,28 @@ def test_int8_biased_convbn_matches_jax(k):
 @pytest.mark.parametrize("k,stride,darknet_pad", [
     (3, 2, False), (7, 2, False), (2, 1, False)])
 def test_int8_refuses_the_same_geometries(k, stride, darknet_pad):
+    """Kernel Q takes flax's SAME geometries (a run-time top/left pad):
+    a calibrated ConvBN of each serves as an ``Int8ConvBN`` whose output
+    is the plain int8 conv at ``padding="same"`` (then the activation),
+    of ceil(H / s) x ceil(W / s); below the channel gate it stays a
+    float ConvBN. tests/test_torch_int8_same.py holds these against the
+    JAX ``_quant_call``."""
     tm = layers.ConvBN(8, 16, k, stride, use_bias=True,
                        darknet_pad=darknet_pad, device="cpu").eval()
     quant = {"quant": {"in_scale": torch.tensor(0.01)}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        export._serving_copy(tm, quant, 0)
+    assert layers.int8_geometry_ok(tm)
+    served = export._serving_copy(tm, quant, 0)
+    assert isinstance(served, layers.Int8ConvBN)
+    assert served.padding == "same"
+    x = torch.from_numpy(
+        np.random.RandomState(k).randn(2, 9, 8, 8).astype(np.float32))
+    with torch.no_grad():
+        got = served(x)
+    want = layers.ACTS_EVAL["leaky"](int8_mod.conv_int8_plain(
+        x, served.wq, served.c, served.t, 0.01, k, stride, torch.float32,
+        "same"))
+    assert got.shape == (2, -(-9 // stride), -(-8 // stride), 16)
+    assert torch.equal(got, want)
     # below the channel gate it stays a float ConvBN
     assert isinstance(export._serving_copy(tm, quant, 256), layers.ConvBN)
     # the darknet 3x3 stride 2 is Q's

@@ -152,10 +152,21 @@ def test_augmenters_equal_under_a_seed(sets, name):
     _assert_batches_equal(jseq, tseq)
 
 
-def test_native_reader_raises(sets):
+def test_native_reader_raises(sets, monkeypatch):
+    """A native reader that cannot be built raises with the build error
+    (it never falls back to PIL quietly); an unknown reader raises.
+    tests/test_torch_native.py holds the built reader to the JAX
+    package's."""
+    from tf2_yolo_tpu_torch import native
+
     img_dir, lab_dir = sets["labelimg"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_build_error",
+                        RuntimeError("g++ failed on loader.cpp"))
+    with pytest.raises(ValueError, match="could not be built: g.. failed"):
         tdata.YoloDataSequence(img_dir, lab_dir, reader="native")
+    with pytest.raises(RuntimeError, match="native loader unavailable"):
+        native.load_image(os.path.join(img_dir, "x.png"), (8, 8))
     with pytest.raises(ValueError, match="Invalid reader"):
         tdata.YoloDataSequence(img_dir, lab_dir, reader="tf")
 

@@ -17,6 +17,7 @@ import torch
 
 import jax
 
+from tests.helpers_convert import remove_files_after_test  # noqa: F401
 from tests.helpers_data import make_dataset
 from tests.helpers_torch import release_memory_after_module  # noqa: F401
 from tests.helpers_torch import flat, numpy_tree
@@ -198,11 +199,13 @@ def _export_model_to_a_tpu(y):
                               pretrained_body=None, device="cpu"),
      None, "ResNet"),
     (_export_model_to_a_tpu, ValueError, "platforms"),
-    (lambda y: y.export_reference_h5("x"), NotImplementedError, "ROADMAP"),
+    # ported since (tests/test_torch_convert.py, test_torch_native.py):
+    # each reaches the error of its own arguments
+    (lambda y: y.export_reference_h5("x"), ValueError, "create_model"),
     (lambda y: facade_base.graft_backbone_file(None, "x"),
-     NotImplementedError, "ROADMAP"),
+     FileNotFoundError, "x"),
     (lambda y: y.read_file_to_sequence("a", "b", reader="native"),
-     NotImplementedError, "ROADMAP"),
+     FileNotFoundError, "'a'"),
 ], ids=["backbone", "export_model", "export_reference_h5",
         "graft_backbone_file", "native_reader"])
 def test_unported_options_raise(call, exc, match):

@@ -57,7 +57,10 @@ def test_the_walk_finds_the_port():
                  "tf2_yolo_tpu_torch.models.mobilenet",
                  "tf2_yolo_tpu_torch.models.classifiers",
                  "tf2_yolo_tpu_torch.config",
-                 "tf2_yolo_tpu_torch.assets"):
+                 "tf2_yolo_tpu_torch.assets",
+                 "tf2_yolo_tpu_torch.convert",
+                 "tf2_yolo_tpu_torch.native",
+                 "tf2_yolo_tpu_torch.tools.bench_reader"):
         assert name in MODULES
 
 
@@ -80,6 +83,19 @@ def test_every_module_of_the_port_imports_without_jax():
 
 def test_chip_smoke_imports_without_jax():
     proc = _imports_cleanly("import chip_smoke")
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_the_port_imports_without_h5py():
+    """The card's machine may have no h5py: the converter imports it in
+    its two h5 functions only, and every converter takes a weight dict in
+    place of a path."""
+    code = ("import importlib, sys; "
+            f"[importlib.import_module(m) for m in {MODULES!r}]; "
+            "assert 'h5py' not in sys.modules")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
 
 

@@ -13,10 +13,13 @@
 // XLA's conv_general_dilated with s8 x s8 -> s32, not a Pallas kernel; here
 // it is a kernel of its own, since PyTorch has no int8 convolution on CUDA.
 //
-// Geometry: 1x1 stride 1; 3x3 stride 1 SAME; 3x3 stride 2 with the darknet
-// top/left pad then VALID (H, W even): input row ho*stride - 1 + ky, column
-// wo*stride - 1 + kx, zero outside the image (a zero quantizes to zero, so
-// the padding is exact).  K = ks*ks*Ci in the HWIO order (ky, kx, c),
+// Geometry: a ks x ks conv of stride 1 or 2 (ks = 1, 2, 3 or 7) whose top
+// and left pad and output size (ho, wo) come from the wrapper
+// (ops/kernels/conv_bn.conv_geometry: the darknet 3x3 stride-2 pad, flax's
+// SAME, or an explicit pad): input row ho_i*stride - pad_top + ky, column
+// wo_i*stride - pad_left + kx, zero outside the image, past the bottom and
+// right edges included (a zero quantizes to zero, so the padding is
+// exact).  K = ks*ks*Ci in the HWIO order (ky, kx, c),
 // zero-padded to kp, a multiple of 32.  The weights come as the (Co, kp)
 // int8 matrix, row-major (ops/kernels/conv_int8.weight_layout): K-major,
 // as wgmma's 8-bit B operand must be.
@@ -139,16 +142,16 @@ template <typename T>
 __global__ void __launch_bounds__(256)
 quantize_im2col_kernel(const T* __restrict__ x, int8_t* __restrict__ cols,
                        int n, int h, int wd, int ci, int ks, int stride,
-                       int kp, float sx, int* __restrict__ counters,
+                       int ho, int wo, int pad_top, int pad_left, int kp,
+                       float sx, int* __restrict__ counters,
                        int ncounters) {
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int step = gridDim.x * blockDim.x;
   for (int i = tid; i < ncounters; i += step) counters[i] = 0;
-  const int ho = h / stride, wo = wd / stride, m_total = n * ho * wo;
-  const int pad = ks == 3 ? 1 : 0, kfull = ks * ks * ci;
+  const int m_total = n * ho * wo, kfull = ks * ks * ci;
   for (int m = tid; m < m_total; m += step) {
     const int wo_i = m % wo, t = m / wo, ho_i = t % ho, nn = t / ho;
-    const int hi0 = ho_i * stride - pad, wi0 = wo_i * stride - pad;
+    const int hi0 = ho_i * stride - pad_top, wi0 = wo_i * stride - pad_left;
     for (int k16 = 0; k16 < kp; k16 += 16) {
       // (ky, kx, c) of byte k16, then stepped byte by byte
       int c = k16 % ci, kx = k16 / ci % ks, ky = k16 / ci / ks;
@@ -366,7 +369,7 @@ conv_int8_wgmma_kernel(const int8_t* __restrict__ xq,
                        int* __restrict__ ws, int* __restrict__ counters,
                        int out_bf16, int n, int h, int wd, int ci, int co,
                        int kp, int ks, int stride, int ho, int wo,
-                       int sps) {
+                       int pad_top, int pad_left, int sps) {
   constexpr int STAGE = Smem<BN, STAGES>::STAGE;
   constexpr int AHEAD = STAGES - 2;       // slices in flight
   constexpr int R = BN / 2;               // accumulators a thread
@@ -376,7 +379,6 @@ conv_int8_wgmma_kernel(const int8_t* __restrict__ xq,
                               & (ALIGN - 1));
 
   const int tid = threadIdx.x, wgi = tid >> 7;
-  const int pad = ks == 3 ? 1 : 0;
   const int kfull = ks * ks * ci;
   const int m_total = n * ho * wo;
   const int m0 = blockIdx.x * BM;
@@ -394,8 +396,8 @@ conv_int8_wgmma_kernel(const int8_t* __restrict__ xq,
     a_ok[i] = m < m_total;
     const int mm = a_ok[i] ? m : 0;
     const int wo_i = mm % wo, t = mm / wo, ho_i = t % ho, nn = t / ho;
-    a_hi[i] = ho_i * stride - pad;
-    a_wi[i] = wo_i * stride - pad;
+    a_hi[i] = ho_i * stride - pad_top;
+    a_wi[i] = wo_i * stride - pad_left;
     a_pix[i] = (nn * h + a_hi[i]) * wd + a_wi[i];
   }
 
@@ -553,8 +555,8 @@ template <int BN, int STAGES>
 int launch_wgmma(const int8_t* xq, const int8_t* wq, const float* cs,
                  const float* ts, void* y, int* ws, int* counters,
                  int out_bf16, int n, int h, int wd, int ci, int co, int kp,
-                 int ks, int stride, int sps, dim3 grid,
-                 cudaStream_t stream) {
+                 int ks, int stride, int ho, int wo, int pad_top,
+                 int pad_left, int sps, dim3 grid, cudaStream_t stream) {
   static int allowed[tc::MAX_DEVICES] = {};
   auto kernel = conv_int8_wgmma_kernel<BN, STAGES>;
   const int bytes = Smem<BN, STAGES>::bytes(sps);
@@ -562,7 +564,7 @@ int launch_wgmma(const int8_t* xq, const int8_t* wq, const float* cs,
   if (err != 0) return err;
   kernel<<<grid, THREADS, bytes, stream>>>(
       xq, wq, cs, ts, y, ws, counters, out_bf16, n, h, wd, ci, co, kp, ks,
-      stride, h / stride, wd / stride, sps);
+      stride, ho, wo, pad_top, pad_left, sps);
   return 0;
 }
 
@@ -570,27 +572,28 @@ template <int STAGES>
 int launch_bn(int config, const int8_t* xq, const int8_t* wq,
               const float* cs, const float* ts, void* y, int* ws,
               int* counters, int out_bf16, int n, int h, int wd, int ci,
-              int co, int kp, int ks, int stride, int sps, dim3 grid,
+              int co, int kp, int ks, int stride, int ho, int wo,
+              int pad_top, int pad_left, int sps, dim3 grid,
               cudaStream_t stream) {
   switch (config) {
     case 0:     // 4 slots of 48 KB fill the shared memory
       if constexpr (STAGES == 4)
         return launch_wgmma<256, STAGES>(
             xq, wq, cs, ts, y, ws, counters, out_bf16, n, h, wd, ci, co, kp,
-            ks, stride, sps, grid, stream);
+            ks, stride, ho, wo, pad_top, pad_left, sps, grid, stream);
       break;
     case 1:
       return launch_wgmma<128, STAGES>(
           xq, wq, cs, ts, y, ws, counters, out_bf16, n, h, wd, ci, co, kp,
-          ks, stride, sps, grid, stream);
+          ks, stride, ho, wo, pad_top, pad_left, sps, grid, stream);
     case 2:
       return launch_wgmma<64, STAGES>(
           xq, wq, cs, ts, y, ws, counters, out_bf16, n, h, wd, ci, co, kp,
-          ks, stride, sps, grid, stream);
+          ks, stride, ho, wo, pad_top, pad_left, sps, grid, stream);
     case 3:
       return launch_wgmma<32, STAGES>(
           xq, wq, cs, ts, y, ws, counters, out_bf16, n, h, wd, ci, co, kp,
-          ks, stride, sps, grid, stream);
+          ks, stride, ho, wo, pad_top, pad_left, sps, grid, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -869,23 +872,35 @@ int launch_geom(const void* x, const int8_t* wq, const float* cs,
 
 }  // namespace
 
+// The geometry of a ksize x ksize conv of stride `stride` with output
+// (ho, wo) and top / left pad (pad_top, pad_left) that the kernels take.
+static bool geometry_ok(int ksize, int stride, int ho, int wo, int pad_top,
+                        int pad_left) {
+  return ksize >= 1 && ksize <= 7 && (stride == 1 || stride == 2) && ho >= 1
+         && wo >= 1 && pad_top >= 0 && pad_top < ksize && pad_left >= 0
+         && pad_left < ksize;
+}
+
 // The quantize pass: x (N, H, W, Ci), bf16 if in_dtype is 1 else f32,
 // 16-byte aligned.  im2col 0: xq the int8 copy of x (the ring route);
-// im2col 1: xq the (M, kp) int8 rows of the implicit GEMM of the ksize x
-// ksize, stride conv (the gather route), 16-byte aligned.  Clears
-// counters[0 .. ncounters).  Returns the cudaError_t of the launch.
+// im2col 1: xq the (M, kp) int8 rows, M = n * ho * wo, of the implicit
+// GEMM of the ksize x ksize, stride conv with top / left pad (pad_top,
+// pad_left) (the gather route), 16-byte aligned.  Clears counters[0 ..
+// ncounters).  Returns the cudaError_t of the launch.
 extern "C" int conv_int8_quantize_launch(const void* x, void* xq, int n,
                                          int h, int wd, int ci, int ksize,
-                                         int stride, int kp, int im2col,
-                                         int in_dtype, float sx,
+                                         int stride, int ho, int wo,
+                                         int pad_top, int pad_left, int kp,
+                                         int im2col, int in_dtype, float sx,
                                          void* counters, int ncounters,
                                          void* stream) {
   if (in_dtype < 0 || in_dtype > 1 || n < 1 || h < 1 || wd < 1 || ci < 1
       || ncounters < 0 || (ncounters > 0 && counters == nullptr)
-      || !(sx > 0.f) || kp % 16 || kp < ksize * ksize * ci)
+      || !(sx > 0.f) || kp % 16 || kp < ksize * ksize * ci
+      || !geometry_ok(ksize, stride, ho, wo, pad_top, pad_left))
     return (int)cudaErrorInvalidValue;
   const int64_t numel = (int64_t)n * h * wd * ci;
-  const int64_t rows = (int64_t)n * (h / stride) * (wd / stride);
+  const int64_t rows = (int64_t)n * ho * wo;
   int64_t work = im2col ? rows : numel / 8;
   if (work < ncounters) work = ncounters;
   int64_t blocks = (work + 255) / 256;       // grid-stride beyond 8 a SM
@@ -898,10 +913,12 @@ extern "C" int conv_int8_quantize_launch(const void* x, void* xq, int n,
   const float* xf = static_cast<const float*>(x);
   if (im2col && in_dtype == 1)
     quantize_im2col_kernel<<<(unsigned)blocks, 256, 0, s>>>(
-        xb, q, n, h, wd, ci, ksize, stride, kp, sx, cnt, ncounters);
+        xb, q, n, h, wd, ci, ksize, stride, ho, wo, pad_top, pad_left, kp,
+        sx, cnt, ncounters);
   else if (im2col)
     quantize_im2col_kernel<<<(unsigned)blocks, 256, 0, s>>>(
-        xf, q, n, h, wd, ci, ksize, stride, kp, sx, cnt, ncounters);
+        xf, q, n, h, wd, ci, ksize, stride, ho, wo, pad_top, pad_left, kp,
+        sx, cnt, ncounters);
   else if (in_dtype == 1)
     quantize_int8_kernel<<<(unsigned)blocks, 256, 0, s>>>(xb, q, numel, sx, cnt,
                                                 ncounters);
@@ -913,7 +930,8 @@ extern "C" int conv_int8_quantize_launch(const void* x, void* xq, int n,
 
 // The int8 conv on the quantized input xq (N, H, W, Ci) int8, Ci % 16 ==
 // 0 (a 16-byte chunk inside one tap; the gather route passes its (M, kp)
-// rows as N = H = 1, W = M, Ci = kp, a 1x1 conv).  wq is the (co, kp) int8
+// rows as N = H = 1, W = M, Ci = kp, a 1x1 conv), output (N, ho, wo, co)
+// with top / left pad (pad_top, pad_left).  wq is the (co, kp) int8
 // weight matrix, cs and ts the f32 affine of co entries; out_dtype 0 =
 // float32, 1 = bfloat16.  config 0/1/2/3 is the tile of 256/128/64/32
 // channels, stages the ring's slots (4 or 6; 4 for 256); grid (ceil(M /
@@ -927,14 +945,13 @@ extern "C" int conv_int8_launch(const void* xq, const void* wq,
                                 const void* cs, const void* ts, void* y,
                                 void* ws, void* counters, int n, int h,
                                 int wd, int ci, int co, int kp, int ksize,
-                                int stride, int out_dtype, int config,
+                                int stride, int ho, int wo, int pad_top,
+                                int pad_left, int out_dtype, int config,
                                 int stages, int grid_x, int grid_y,
                                 int splits, void* stream) {
   const int slices = (kp + wg::SLICE - 1) / wg::SLICE;
-  const bool geom = (ksize == 1 && stride == 1) || (ksize == 3
-                                                    && (stride == 1
-                                                        || stride == 2));
-  if (!geom || out_dtype < 0 || out_dtype > 1 || config < 0 || config > 3
+  if (!geometry_ok(ksize, stride, ho, wo, pad_top, pad_left)
+      || out_dtype < 0 || out_dtype > 1 || config < 0 || config > 3
       || kp != (ksize * ksize * ci + 31) / 32 * 32 || ci % 16 || splits < 1
       || slices % splits
       || (splits > 1 && (ws == nullptr || counters == nullptr))
@@ -952,9 +969,11 @@ extern "C" int conv_int8_launch(const void* xq, const void* wq,
   const int err =
       stages == 4
           ? wg::launch_bn<4>(config, q, w, c, t, y, part, cnt, out_dtype, n,
-                             h, wd, ci, co, kp, ksize, stride, sps, grid, s)
+                             h, wd, ci, co, kp, ksize, stride, ho, wo,
+                             pad_top, pad_left, sps, grid, s)
           : wg::launch_bn<6>(config, q, w, c, t, y, part, cnt, out_dtype, n,
-                             h, wd, ci, co, kp, ksize, stride, sps, grid, s);
+                             h, wd, ci, co, kp, ksize, stride, ho, wo,
+                             pad_top, pad_left, sps, grid, s);
   if (err != 0) return err;
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 """Dataset reading + anchor-grid label encoding.
 
 Port of tf2_yolo_tpu/data/dataset.py, numpy as there. ``reader="native"``
-(the JAX package's C++ loader) is not ported yet and raises; ``shard``'s
-default index is the ``torch.distributed`` rank.
+is the port's copy of the C++ loader (``tf2_yolo_tpu_torch.native``),
+built at first use; where it cannot be built it raises with the build
+error. ``shard``'s default index is the ``torch.distributed`` rank.
 
 Behavioral parity with the reference ``YoloDataSequence``
 (utils/tools.py:71-339): same constructor surface, file discovery,
@@ -129,13 +130,14 @@ class YoloDataSequence:
                 "create_model(input_rescale=...) or batches will be "
                 "normalized with the default 1/255.", UserWarning)
 
-        if reader == "native":
-            raise NotImplementedError(
-                'reader="native": the C++ loader is not ported yet '
-                "(ROADMAP.md, queue 1, item 7: the native loader); use "
-                '"PIL" or "cv"')
-        if reader not in ("cv", "PIL"):
+        if reader not in ("cv", "PIL", "native"):
             raise ValueError(f"Invalid reader: {reader}")
+        if reader == "native":
+            from .. import native
+            if not native.available():
+                raise ValueError(
+                    "native reader requested but libyolodata could not "
+                    f"be built: {native.build_error()}")
         if label_format not in ("labelimg", "labelme"):
             raise ValueError(f"Invalid format: {label_format}")
 
@@ -204,6 +206,10 @@ class YoloDataSequence:
 
     def _load_image(self, name, image_data=None):
         """Read + resize one image; returns (array, zoom_ratio[w, h])."""
+        if self.reader == "native" and image_data is None:
+            from .. import native
+            return native.load_image(
+                os.path.join(self.img_path, name), self.size)
         if self.reader == "cv":
             import cv2 as cv
             if image_data is not None:
@@ -288,6 +294,24 @@ class YoloDataSequence:
         encode_to_grid(boxes, labels, img.shape[:2], self.grid_shape,
                        self.class_num, out=label_batch[pos])
 
+    def _native_fast_path(self, names):
+        """Whole-batch decode+parse+encode in C++ (native reader).
+        Only for labelimg + no augmenter/preprocessing; otherwise the
+        per-image Python path below runs (with native image decode)."""
+        from .. import native
+
+        img_paths = [os.path.join(self.img_path, n) for n in names]
+        xml_paths = [os.path.join(self.label_path,
+                                  n[:n.rfind(".")] + ".xml")
+                     for n in names]
+        imgs, labels = native.load_and_encode_batch(
+            img_paths, xml_paths, self.size, self.grid_shape,
+            self.class_names,
+            threads=max(1, min(self.thread_num, os.cpu_count() or 1)))
+        img_batch = imgs if self.uint8 else imgs.astype(np.float64)
+        label_batch = labels.astype(np.float64)
+        return img_batch, label_batch
+
     def __getitem__(self, idx):
         if idx >= len(self):
             raise IndexError("Sequence index out of range")
@@ -295,6 +319,18 @@ class YoloDataSequence:
         start = idx * self.batch_size
         names = self.path_list[start:start + self.batch_size]
         bsz = len(names)
+
+        if (self.reader == "native"
+                and self.label_format == "labelimg"
+                and self.augmenter is None
+                and self.preprocessing is None):
+            img_batch, label_batch = self._native_fast_path(names)
+            if self.show_progress:
+                print(f"\r{min(100, ceil((start + bsz) / total * 100)):3d}"
+                      "% read", end="")
+            if not self.uint8 and self.rescale is not None:
+                img_batch = img_batch * self.rescale
+            return img_batch, label_batch
 
         img_batch = np.empty((bsz, *self.size, 3),
                              np.uint8 if self.uint8 else np.float64)

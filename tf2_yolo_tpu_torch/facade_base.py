@@ -4,9 +4,9 @@ Port of tf2_yolo_tpu/facade_base.py: dataset/sequence readers, vis_img,
 metric-spec parsing ("obj+iou+recall0.6"), the multi-level label pyramid
 of v3/v4, and pretrained-weight resolution from a local weight cache (no
 downloads). Weight files are the port's own ``torch.save`` files
-(``Model.save_weights``). The v1.5, v2, v3 and v4 facades are ported,
-their serving artifact (``export_model``) included; the reference h5
-files are not yet.
+(``Model.save_weights``, ``convert.convert_to_cache``). The v1.5, v2, v3
+and v4 facades are ported, their serving artifact (``export_model``)
+and the reference h5 export (``export_reference_h5``) included.
 """
 
 import functools
@@ -52,16 +52,25 @@ def resolve_pretrained(name, kind):
     return None
 
 
-def _not_ported(what):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1, item 7: "
-        "convert.py)")
-
-
 def graft_backbone_file(model, path):
-    """Graft only the backbone from a saved weight file: needs the
-    converter (``convert.py``), not ported yet."""
-    _not_ported("graft_backbone_file")
+    """Graft ONLY the backbone from a weight file of the port
+    (``Model.save_weights``, ``convert.convert_to_cache``: a
+    ``state_dict``) into ``model`` (an ``engine.Model``), parameters and
+    BatchNorm statistics, shapes checked. The file may hold a whole
+    network (its ``backbone.*`` entries are taken) or a bare backbone."""
+    import torch
+
+    from .bridge import to_flax
+    from .convert import merge_into_variables
+
+    restored = to_flax(torch.load(path, map_location="cpu",
+                                  weights_only=True))
+    params, stats = restored["params"], restored["batch_stats"]
+    src = params.get("backbone", params)
+    sstats = stats.get("backbone", stats)
+    model.set_variables(merge_into_variables(
+        model.variables, {"backbone": src},
+        {"backbone": sstats} if sstats else {}))
 
 
 def graft_backbone_params(model, src):
@@ -174,8 +183,8 @@ class YoloBase:
         Returns (img, label) for single-level versions, or
         (img, [label_coarse, ..., label_fine]) for v3/v4
         (reference yolov3/__init__.py:183-249). ``reader``: "PIL"
-        (default) or "cv"; "native" (the JAX package's C++ loader)
-        raises NotImplementedError.
+        (default), "cv" or "native" (the C++ loader,
+        ``tf2_yolo_tpu_torch.native``, built at first use).
         """
         seq = YoloDataSequence(
             img_path=img_path, label_path=label_path,
@@ -234,9 +243,24 @@ class YoloBase:
 
     # ------------------------------------------------------------------
     def export_reference_h5(self, path):
-        """Save the weights as a keras h5 file the reference loads: needs
-        the converter (``convert.py``), not ported yet."""
-        _not_ported("export_reference_h5")
+        """Save the current weights as a keras h5 file the REFERENCE
+        builders load — the inverse of ``pretrained_weights``
+        conversion, so a model trained here deploys with the
+        reference/TF tooling. v3/v4 write the reference's structural
+        layer names (load with ``ref_model.load_weights(path,
+        by_name=True)``); v1/v2 write positional conv2d_N names valid
+        for the first reference model built in a fresh process (see
+        ``convert.export_reference_weights``). Darknet-family backbones
+        only. Needs ``h5py``.
+
+        Returns the written {layer: {weight: array}} dict."""
+        if self.model is None:
+            raise ValueError("create_model() first")
+        from .convert import export_reference_h5 as _export
+        kw = ({"bbox_num": self._bbox_num} if self.version == 1
+              else {"abox_num": self._bbox_num})
+        return _export(self.model.variables, self.version,
+                       self.class_num, path, **kw)
 
     def export_model(self, path, batch_size=1, threshold=0.5,
                      nms_mode=1, nms_threshold=0.45, nms_sigma=0.5,

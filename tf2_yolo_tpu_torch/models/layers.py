@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels.conv_bn import _GEOMETRIES as INT8_GEOMETRIES
 from ..ops.kernels.conv_bn import conv_bn_stats
 from ..ops.kernels.conv_int8 import conv_int8, quantize_weights, \
     weight_layout
@@ -364,9 +365,10 @@ class Int8ConvBN(nn.Module):
     input as it comes (the image at the stem) and runs ``conv_int8``,
     whose output is rounded once to the ConvBN's dtype; the activation
     (eval form) runs in that dtype. ``plain`` follows
-    ``use_plain_route``. Q takes 1x1, 3x3 stride 1 and the darknet 3x3
-    stride 2 (:func:`int8_geometry_ok`); another geometry raises
-    NotImplementedError."""
+    ``use_plain_route``. Q takes the ConvBN's geometry and padding as
+    they are (the darknet 3x3 stride-2 pad, or flax's SAME: YOLOv1.5's
+    7x7 stride-2 stem and 3x3 stride 2), as the JAX ``_quant_call``
+    does (:func:`int8_geometry_ok`)."""
 
     def __init__(self, convbn, sx):
         super().__init__()
@@ -374,11 +376,9 @@ class Int8ConvBN(nn.Module):
             raise ValueError("Int8ConvBN needs a ConvBN with BatchNorm")
         if not int8_geometry_ok(convbn):
             k = convbn.conv.kernel.shape[0]
-            raise NotImplementedError(
+            raise ValueError(
                 f"int8 conv {k}x{k} stride {convbn.conv.stride} "
-                f"(padding {convbn.conv.padding!r}): kernel Q takes "
-                "1x1, 3x3 stride 1 and the darknet 3x3 stride 2 only "
-                "(ROADMAP.md, queue 1, item 8: Q at the SAME geometries)")
+                f"(padding {convbn.conv.padding!r}): not a ConvBN geometry")
         kernel = convbn.conv.kernel
         wq, sw = quantize_weights(kernel)
         bn = convbn.bn
@@ -397,23 +397,30 @@ class Int8ConvBN(nn.Module):
         self.sx = float(sx_t)
         self.ksize = kernel.shape[0]
         self.stride = convbn.conv.stride
+        self.padding = convbn.conv.padding
         self.act = convbn.act
         self.dtype = convbn.dtype
         self.plain = convbn.conv.plain
 
     def forward(self, x):
         y = conv_int8(x.contiguous(), self.wq, self.c, self.t, self.sx,
-                      self.ksize, self.stride, self.dtype, self.plain)
+                      self.ksize, self.stride, self.dtype, self.plain,
+                      self.padding)
         return ACTS_EVAL[self.act](y)
 
 
 def int8_geometry_ok(convbn):
-    """Whether kernel Q takes ``convbn``'s geometry: 1x1, 3x3 stride 1,
-    and 3x3 stride 2 with the darknet pad (not the SAME stride-2, 7x7 and
-    2x2 convs of v1 and the UNet)."""
+    """Whether kernel Q takes ``convbn``'s geometry: every ConvBN's, as
+    the JAX ``_quant_call`` quantizes every ConvBN: a conv geometry of K1
+    (``conv_bn.conv_geometry``) with the darknet pad (SAME at stride 1,
+    the darknet pad for 3x3 stride 2) or flax's SAME (YOLOv1.5's 7x7
+    stride-2 stem and 3x3 stride 2, the 2x2 of a ConvBN)."""
     k, stride = convbn.conv.kernel.shape[0], convbn.conv.stride
-    return (k, stride) in ((1, 1), (3, 1)) or \
-        ((k, stride) == (3, 2) and convbn.conv.padding == "darknet")
+    padding = convbn.conv.padding
+    if (k, stride) not in INT8_GEOMETRIES:
+        return False
+    return padding == "same" or (padding == "darknet"
+                                 and (stride == 1 or k == 3))
 
 
 @contextlib.contextmanager

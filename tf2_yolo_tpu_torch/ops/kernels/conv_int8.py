@@ -1,7 +1,7 @@
 """Static-scale int8 conv with its quantize pass and affine epilogue.
 
-``conv_int8(x, wq, c, t, sx, ksize, stride, out_dtype)`` computes, on an
-NHWC ``x`` (bf16 or f32):
+``conv_int8(x, wq, c, t, sx, ksize, stride, out_dtype, padding=)``
+computes, on an NHWC ``x`` (bf16 or f32):
 
 - xq = clamp(round(x / sx), -127, 127), round half to even, with a true
   division (no reciprocal);
@@ -10,9 +10,14 @@ NHWC ``x`` (bf16 or f32):
   (no fused multiply-add), rounded once to ``out_dtype``.
 
 ``wq`` is the (Co, kp) int8 matrix of :func:`weight_layout`; ``c`` and
-``t`` are f32 (Co,). Geometries as the conv kernel: 1x1 stride 1; 3x3
-stride 1 SAME; 3x3 stride 2 with the darknet top/left pad then VALID
-(H and W even).
+``t`` are f32 (Co,). Geometries as the conv kernel K1
+(``conv_bn.conv_geometry``): ``padding="darknet"`` (the default: SAME at
+stride 1, the darknet top/left pad then VALID for 3x3 stride 2),
+``"same"`` (flax's ``"SAME"``, the smaller half of the pad on top and
+left: YOLOv1.5's 7x7 stride-2 stem and 3x3 stride-2 conv) or an int pad
+on every side; the kernels take the top and left pad and the output size
+at run time and read zeros past the bottom and right edges. Symmetric
+quantization maps the zero pad to zero, so every pad is exact.
 
 Source note. On a CUDA tensor this launches ``csrc/conv_int8.cu``, the
 port of the JAX package's static-scale int8 ConvBN (``ConvBN._quant_call``,
@@ -28,8 +33,9 @@ arrive applies the epilogue to the exact int32 sum). Chunks of 16 bytes
 lie in one tap for Ci % 16 == 0 (the "ring" route); for other Ci (the
 "gather" route: the stem's Ci = 3, K = 27 zero-padded to 32) the
 quantize pass writes the implicit GEMM's (M, kp) int8 rows, which the
-conv reads as a 1x1 conv. :func:`_plan` picks the route, the tile, the
-split and the ring's depth. Bound by bytes at 3.35 TB/s on every YOLOv4
+conv reads as a 1x1 conv (YOLOv1.5's 7x7 stem: K = 147 padded to 160).
+:func:`_plan` picks the route, the tile, the split and the ring's
+depth. Bound by bytes at 3.35 TB/s on every YOLOv4
 layer but the 3x3 ones at 26^2 and below with Ci >= 256 (int8 peak 1979
 TOP/s). Every operand is copied in 16-byte chunks: the wrapper raises
 ValueError on a tensor off a 16-byte boundary
@@ -45,6 +51,7 @@ fake implementation gives the shape), so a program traced by
 ``torch.export`` calls the kernel, or on the CPU the plain version.
 """
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -53,11 +60,13 @@ import torch
 import torch.nn.functional as F
 
 from ._build import load_library
-from .conv_bn import _check_aligned
+from .conv_bn import (_check_aligned, _pads, _padding_of, conv_geometry,
+                      geometry_key)
 
 SOURCE = ("conv_int8.cu", ())        # source and extra nvcc flags
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_GEOMETRIES = {(1, 1), (3, 1), (3, 2)}
+# the geometries of the first kernel (``conv_int8_before_launch``)
+_BEFORE_GEOMETRIES = {(1, 1), (3, 1), (3, 2)}
 _INT32_MAX = 2 ** 31 - 1
 _SMS = 132                           # H100 SMs
 _BM = 128                            # output rows a block
@@ -101,17 +110,16 @@ def _split_choices(slices):
             if slices % d == 0 and (d == 1 or slices // d >= _MIN_SLICES)]
 
 
-def _geometry(n, h, wd, ci, co, ksize, stride):
-    if (ksize, stride) not in _GEOMETRIES:
-        raise ValueError(f"unsupported conv {ksize}x{ksize} stride {stride}")
-    if stride == 2 and (h % 2 or wd % 2):
-        raise ValueError(f"stride 2 needs even H and W, got {h}x{wd}")
+def _geometry(n, h, wd, ci, co, ksize, stride, padding="darknet"):
+    """(M, :class:`conv_bn.Geometry`) of the conv; raises ValueError on
+    a geometry the kernels do not take."""
     if min(n, h, wd, ci, co) < 1:
         raise ValueError(f"empty conv {(n, h, wd, ci)} -> {co}")
-    return n * (h // stride) * (wd // stride)
+    g = conv_geometry(h, wd, ksize, stride, padding)
+    return n * g.ho * g.wo, g
 
 
-def _plan(n, h, wd, ci, co, ksize, stride):
+def _plan(n, h, wd, ci, co, ksize, stride, padding="darknet"):
     """The launch plan (pure Python: the CPU tests reach it). The
     256-channel tile where it alone gives two waves of blocks (it reads
     a quarter fewer bytes from L2 an operation, but holds an SM alone with
@@ -124,7 +132,7 @@ def _plan(n, h, wd, ci, co, ksize, stride):
     or fewer, on the gather route, and with the 256-channel tile (whose 4
     slots fill the shared memory). Raises ValueError on a shape the
     kernel does not take."""
-    m = _geometry(n, h, wd, ci, co, ksize, stride)
+    m, _ = _geometry(n, h, wd, ci, co, ksize, stride, padding)
     rows = -(-m // _BM)
     kp = padded_k(ksize, ci)
     choices = _split_choices(-(-kp // _SLICE))
@@ -155,7 +163,10 @@ def _before_plan(n, h, wd, ci, co, ksize, stride):
     for chip_smoke.py's before/after timing): (ring, config, grid), the
     widest tile that Co fills, halved while the grid would not cover the
     132 SMs; ring for Ci % 32 == 0."""
-    rows = -(-_geometry(n, h, wd, ci, co, ksize, stride) // _BM)
+    if (ksize, stride) not in _BEFORE_GEOMETRIES:
+        raise ValueError(f"the first kernel takes no {ksize}x{ksize} "
+                         f"stride {stride} conv")
+    rows = -(-_geometry(n, h, wd, ci, co, ksize, stride)[0] // _BM)
     tiles = {0: 128, 1: 64, 2: 32}       # its config ids
     config = next(c for c, bn in tiles.items() if bn <= co or c == 2)
     cols = lambda c: -(-co // tiles[c])
@@ -194,7 +205,7 @@ def quantize_int8_plain(x, sx):
     return torch.clamp(q, -QMAX, QMAX).to(torch.int8)
 
 
-def _check(x, wq, c, t, sx, ksize, stride, out_dtype):
+def _check(x, wq, c, t, sx, ksize, stride, out_dtype, padding="darknet"):
     if x.dim() != 4 or wq.dim() != 2 or c.dim() != 1 or t.dim() != 1:
         raise ValueError(
             f"want x (N,H,W,Ci), wq (Co,kp), c (Co,), t (Co,); got "
@@ -202,16 +213,13 @@ def _check(x, wq, c, t, sx, ksize, stride, out_dtype):
             f"{tuple(t.shape)}")
     n, h, wd, ci = x.shape
     co, kp = wq.shape
-    if (ksize, stride) not in _GEOMETRIES:
-        raise ValueError(f"unsupported conv {ksize}x{ksize} stride {stride}")
+    g = conv_geometry(h, wd, ksize, stride, padding)
     if kp != padded_k(ksize, ci) or c.shape[0] != co or t.shape[0] != co:
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, wq "
                          f"{tuple(wq.shape)} for {ksize}x{ksize}, c "
                          f"{tuple(c.shape)}, t {tuple(t.shape)}")
-    if stride == 2 and (h % 2 or wd % 2):
-        raise ValueError(f"stride 2 needs even H and W, got {h}x{wd}")
     if x.numel() == 0 or x.numel() > _INT32_MAX \
-            or n * (h // stride) * (wd // stride) * co > _INT32_MAX:
+            or n * g.ho * g.wo * co > _INT32_MAX:
         raise ValueError(f"unsupported size {tuple(x.shape)} -> {co}")
     if x.dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:
         raise TypeError(f"x and the output take {list(_DTYPE_CODES)}, got "
@@ -227,24 +235,26 @@ def _check(x, wq, c, t, sx, ksize, stride, out_dtype):
         raise ValueError("x, wq, c and t must be contiguous")
     if not float(sx) > 0.0:
         raise ValueError(f"the input scale must be positive, got {sx}")
-    return n, h, wd, ci, co
+    return n, h, wd, ci, co, g
 
 
-def conv_int8_plain(x, wq, c, t, sx, ksize, stride, out_dtype):
+def conv_int8_plain(x, wq, c, t, sx, ksize, stride, out_dtype,
+                    padding="darknet"):
     """Plain PyTorch version, exact: the same quantize; the conv as an
     f64 product of the unfolded int8 values (every partial sum is an
-    integer below 9 * 2048 * 127**2 < 2**53), cast to int32; then
+    integer below 49 * 2048 * 127**2 < 2**53), cast to int32; then
     float(acc) * c and + t as two separate operations."""
-    n, h, wd, ci, co = _check(x, wq, c, t, sx, ksize, stride, out_dtype)
+    n, h, wd, ci, co, g = _check(x, wq, c, t, sx, ksize, stride, out_dtype,
+                                 padding)
     xq = quantize_int8_plain(x, sx).double().permute(0, 3, 1, 2)
     # (Co, ky, kx, c) -> (Co, c, ky, kx): unfold's order of the columns
     w = wq[:, :ksize * ksize * ci].double().reshape(co, ksize, ksize, ci)
     w = w.permute(0, 3, 1, 2).reshape(co, ci * ksize * ksize)
-    pad = ksize // 2
-    if stride == 2:
-        xq = F.pad(xq, (1, 0, 1, 0))              # darknet top/left pad
+    pad = _pads(h, wd, ksize, stride, padding)
+    if type(pad) is not int:                  # (left, right, top, bottom)
+        xq = F.pad(xq, pad)
         pad = 0
-    ho, wo = h // stride, wd // stride
+    ho, wo = g.ho, g.wo
     cols = F.unfold(xq, ksize, padding=pad, stride=stride)  # N, K, L
     acc = torch.matmul(w, cols).to(torch.int32)            # N, Co, L
     y = acc.float() * c.view(1, -1, 1)
@@ -253,14 +263,17 @@ def conv_int8_plain(x, wq, c, t, sx, ksize, stride, out_dtype):
         .contiguous()
 
 
-def _columns_int8(xq, ksize, stride, kp):
+def _columns_int8(xq, ksize, stride, kp, padding="darknet"):
     """(N, H, W, Ci) int8 -> the (M, kp) f64 rows of the implicit GEMM in
-    the kernel's K order (ky, kx, c): input pixel (ho * stride - pad + ky,
-    wo * stride - pad + kx), zero outside the image and past K."""
+    the kernel's K order (ky, kx, c): input pixel (ho * stride - pad_top
+    + ky, wo * stride - pad_left + kx), zero outside the image and past
+    K."""
     n, h, wd, ci = xq.shape
-    ho, wo = h // stride, wd // stride
-    pad = 1 if ksize == 3 else 0
-    xp = F.pad(xq.double(), (0, 0, pad, pad, pad, pad))
+    g = conv_geometry(h, wd, ksize, stride, padding)
+    ho, wo = g.ho, g.wo
+    bottom = max((ho - 1) * stride + ksize - h - g.pad_top, 0)
+    right = max((wo - 1) * stride + ksize - wd - g.pad_left, 0)
+    xp = F.pad(xq.double(), (0, 0, g.pad_left, right, g.pad_top, bottom))
     taps = [xp[:, ky:ky + stride * (ho - 1) + 1:stride,
                kx:kx + stride * (wo - 1) + 1:stride]
             for ky in range(ksize) for kx in range(ksize)]
@@ -268,23 +281,27 @@ def _columns_int8(xq, ksize, stride, kp):
     return F.pad(cols, (0, kp - cols.shape[1]))
 
 
-def conv_int8_acc_plain(xq, wq, ksize, stride, k0=0, k1=None):
+def conv_int8_acc_plain(xq, wq, ksize, stride, k0=0, k1=None,
+                        padding="darknet"):
     """The int32 sums of the conv of int8 ``xq`` (N, H, W, Ci) with the
     (Co, kp) matrix ``wq`` over the K columns k0 .. k1 only (all of them
     by default), (N, Ho, Wo, Co): what one split of the kernel's K slices
     adds. f64 products of the unfolded values, exact below 2**53."""
     n, h, wd, _ = xq.shape
-    cols = _columns_int8(xq, ksize, stride, wq.shape[1])[:, k0:k1]
+    g = conv_geometry(h, wd, ksize, stride, padding)
+    cols = _columns_int8(xq, ksize, stride, wq.shape[1], padding)[:, k0:k1]
     acc = torch.matmul(cols, wq[:, k0:k1].double().t())
-    return acc.to(torch.int32).reshape(n, h // stride, wd // stride, -1)
+    return acc.to(torch.int32).reshape(n, g.ho, g.wo, -1)
 
 
-def conv_int8_xq_plain(xq, wq, c, t, ksize, stride, out_dtype):
+def conv_int8_xq_plain(xq, wq, c, t, ksize, stride, out_dtype,
+                       padding="darknet"):
     """The conv half of :func:`conv_int8_plain` on an already quantized
     int8 ``xq``: float(acc) * c, then + t, rounded once to ``out_dtype``.
     ``conv_int8_xq_plain(quantize_int8_plain(x, sx), ...)`` equals
     ``conv_int8_plain(x, ..., sx, ...)`` bit for bit."""
-    y = conv_int8_acc_plain(xq, wq, ksize, stride).float() * c
+    y = conv_int8_acc_plain(xq, wq, ksize, stride,
+                            padding=padding).float() * c
     y = y + t
     return y.to(out_dtype)
 
@@ -293,9 +310,9 @@ def conv_int8_xq_plain(xq, wq, c, t, ksize, stride, out_dtype):
 def _library():
     lib = load_library(*SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.conv_int8_quantize_launch.argtypes = [ptr] * 2 + [i32] * 9 \
+    lib.conv_int8_quantize_launch.argtypes = [ptr] * 2 + [i32] * 13 \
         + [ctypes.c_float, ptr, i32, ptr]
-    lib.conv_int8_launch.argtypes = [ptr] * 7 + [i32] * 14 + [ptr]
+    lib.conv_int8_launch.argtypes = [ptr] * 7 + [i32] * 18 + [ptr]
     lib.conv_int8_before_launch.argtypes = [ptr] * 5 + [i32] * 10 \
         + [ctypes.c_float] + [i32] * 4 + [ptr]
     for fn in (lib.conv_int8_quantize_launch, lib.conv_int8_launch,
@@ -310,12 +327,15 @@ def _raise_on(err, what, plan=None):
                            f"{err}" + (f" ({plan})" if plan else ""))
 
 
-def _quantize_launch(x, sx, xq, counters, ksize, stride, plan, stream):
+def _quantize_launch(x, sx, xq, counters, ksize, stride, plan, stream,
+                     padding="darknet"):
     """The quantize pass into ``xq`` (by ``plan.route``); clears
     ``counters``."""
     n, h, wd, ci = x.shape
+    g = conv_geometry(h, wd, ksize, stride, padding)
     err = _library().conv_int8_quantize_launch(
-        x.data_ptr(), xq.data_ptr(), n, h, wd, ci, ksize, stride, plan.kp,
+        x.data_ptr(), xq.data_ptr(), n, h, wd, ci, ksize, stride, g.ho, g.wo,
+        g.pad_top, g.pad_left, plan.kp,
         int(plan.route == "gather"), _DTYPE_CODES[x.dtype], float(sx),
         None if counters is None else counters.data_ptr(),
         0 if counters is None else counters.numel(), stream)
@@ -324,32 +344,34 @@ def _quantize_launch(x, sx, xq, counters, ksize, stride, plan, stream):
 
 
 def _conv_launch(xq, wq, c, t, y, ws, counters, ksize, stride, plan,
-                 stream):
+                 stream, padding="darknet"):
     """The int8 conv of the quantize pass's ``xq`` into ``y`` by
     ``plan``; the gather route's rows are a 1x1 conv over kp channels."""
     if plan.route == "gather":
         (n, h), (wd, ci), ksize, stride = (1, 1), xq.shape, 1, 1
+        g = conv_geometry(h, wd, 1, 1)
     else:
         n, h, wd, ci = xq.shape
+        g = conv_geometry(h, wd, ksize, stride, padding)
     co, kp = wq.shape
     ptr = lambda v: None if v is None else v.data_ptr()
     err = _library().conv_int8_launch(
         xq.data_ptr(), wq.data_ptr(), c.data_ptr(), t.data_ptr(),
         y.data_ptr(), ptr(ws), ptr(counters), n, h, wd, ci, co, kp, ksize,
-        stride, _DTYPE_CODES[y.dtype], plan.config, plan.stages, *plan.grid,
-        plan.splits, stream)
+        stride, g.ho, g.wo, g.pad_top, g.pad_left, _DTYPE_CODES[y.dtype],
+        plan.config, plan.stages, *plan.grid, plan.splits, stream)
     _raise_on(err, "conv", plan)
     conv_int8.launches += 1
     conv_int8.tc_launches += 1
 
 
-def _buffers(x, plan, co, ksize, stride):
+def _buffers(x, plan, co, ksize, stride, padding="darknet"):
     """The scratch of one call: the int8 copy of x (ring route) or the
     (M, kp) int8 rows of the implicit GEMM (gather route); where K is
     split, the int32 partial tiles (splits, M * Co) and one counter a
     tile (None otherwise)."""
-    n, h, wd, _ = x.shape
-    m = n * (h // stride) * (wd // stride)
+    n, h, wd, ci = x.shape
+    m, _ = _geometry(n, h, wd, ci, co, ksize, stride, padding)
     shape = (m, plan.kp) if plan.route == "gather" else x.shape
     xq = torch.empty(shape, dtype=torch.int8, device=x.device)
     if plan.splits == 1:
@@ -361,24 +383,28 @@ def _buffers(x, plan, co, ksize, stride):
     return xq, ws, counters
 
 
-def _forward_cuda(x, wq, c, t, sx, ksize, stride, out_dtype, dims):
-    n, h, wd, ci, co = dims
-    plan = _plan(n, h, wd, ci, co, ksize, stride)
-    y = torch.empty((n, h // stride, wd // stride, co), dtype=out_dtype,
-                    device=x.device)
-    xq, ws, counters = _buffers(x, plan, co, ksize, stride)
+def _forward_cuda(x, wq, c, t, sx, ksize, stride, out_dtype, dims,
+                  padding="darknet"):
+    n, h, wd, ci, co, g = dims
+    plan = _plan(n, h, wd, ci, co, ksize, stride, padding)
+    y = torch.empty((n, g.ho, g.wo, co), dtype=out_dtype, device=x.device)
+    xq, ws, counters = _buffers(x, plan, co, ksize, stride, padding)
     _check_aligned([v for v in (x, wq, xq, y, ws, counters)
                     if v is not None], "conv_int8")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _quantize_launch(x, sx, xq, counters, ksize, stride, plan, stream)
-    _conv_launch(xq, wq, c, t, y, ws, counters, ksize, stride, plan, stream)
+    _quantize_launch(x, sx, xq, counters, ksize, stride, plan, stream,
+                     padding)
+    _conv_launch(xq, wq, c, t, y, ws, counters, ksize, stride, plan, stream,
+                 padding)
+    conv_int8.by_geometry[geometry_key(ksize, stride, padding,
+                                       plan.route)] += 1
     return y
 
 
 def _before_forward(x, wq, c, t, sx, ksize, stride, out_dtype):
     """The first kernel on the same call (chip_smoke.py's "before"
     column; not counted, on no model path)."""
-    n, h, wd, ci, co = _check(x, wq, c, t, sx, ksize, stride, out_dtype)
+    n, h, wd, ci, co, _ = _check(x, wq, c, t, sx, ksize, stride, out_dtype)
     ring, config, grid = _before_plan(n, h, wd, ci, co, ksize, stride)
     y = torch.empty((n, h // stride, wd // stride, co), dtype=out_dtype,
                     device=x.device)
@@ -393,40 +419,51 @@ def _before_forward(x, wq, c, t, sx, ksize, stride, out_dtype):
     return y
 
 
-def _impl(x, wq, c, t, sx, ksize, stride, out_dtype):
-    dims = _check(x, wq, c, t, sx, ksize, stride, out_dtype)
+def _impl(x, wq, c, t, sx, ksize, stride, out_dtype, padding="darknet"):
+    dims = _check(x, wq, c, t, sx, ksize, stride, out_dtype, padding)
     if x.device.type == "cpu":
-        return conv_int8_plain(x, wq, c, t, sx, ksize, stride, out_dtype)
+        return conv_int8_plain(x, wq, c, t, sx, ksize, stride, out_dtype,
+                               padding)
     if x.device.type == "cuda":
-        return _forward_cuda(x, wq, c, t, sx, ksize, stride, out_dtype, dims)
+        return _forward_cuda(x, wq, c, t, sx, ksize, stride, out_dtype, dims,
+                             padding)
     raise ValueError(f"no conv_int8 kernel for {x.device}")
 
 
 @torch.library.custom_op("tf2_yolo_tpu_torch::conv_int8", mutates_args=())
 def _conv_int8_op(x: torch.Tensor, wq: torch.Tensor, c: torch.Tensor,
                   t: torch.Tensor, sx: float, ksize: int, stride: int,
-                  out_dtype: torch.dtype) -> torch.Tensor:
-    return _impl(x, wq, c, t, sx, ksize, stride, out_dtype)
+                  out_dtype: torch.dtype,
+                  padding: str = "darknet") -> torch.Tensor:
+    return _impl(x, wq, c, t, sx, ksize, stride, out_dtype,
+                 _padding_of(padding))
 
 
 @_conv_int8_op.register_fake
-def _(x, wq, c, t, sx, ksize, stride, out_dtype):
+def _(x, wq, c, t, sx, ksize, stride, out_dtype, padding="darknet"):
     n, h, wd, _ = x.shape
-    return x.new_empty((n, h // stride, wd // stride, wq.shape[0]),
-                       dtype=out_dtype)
+    g = conv_geometry(h, wd, ksize, stride, _padding_of(padding))
+    return x.new_empty((n, g.ho, g.wo, wq.shape[0]), dtype=out_dtype)
 
 
-def conv_int8(x, wq, c, t, sx, ksize, stride, out_dtype, plain=False):
+def conv_int8(x, wq, c, t, sx, ksize, stride, out_dtype, plain=False,
+              padding="darknet"):
     """See the module docstring. CPU tensors take the plain version; CUDA
     tensors launch the kernel, or raise. ``plain=True`` forces the plain
-    version on any device (the reference route)."""
+    version on any device (the reference route). ``padding``
+    (``conv_bn.conv_geometry``): ``"darknet"``, ``"same"`` or an int."""
     if plain:
-        return conv_int8_plain(x, wq, c, t, sx, ksize, stride, out_dtype)
+        return conv_int8_plain(x, wq, c, t, sx, ksize, stride, out_dtype,
+                               padding)
     if x.device.type not in ("cpu", "cuda"):  # a meta tensor would pass
         raise ValueError(f"no conv_int8 kernel for {x.device}")
-    return _conv_int8_op(x, wq, c, t, float(sx), ksize, stride, out_dtype)
+    return _conv_int8_op(x, wq, c, t, float(sx), ksize, stride, out_dtype,
+                         str(padding))
 
 
 conv_int8.launches = 0
 conv_int8.tc_launches = 0
 conv_int8.quant_launches = 0
+# calls by conv_bn.geometry_key(ksize, stride, padding, route), e.g.
+# "7x7s2 same gather", "3x3s2 darknet ring"
+conv_int8.by_geometry = collections.Counter()

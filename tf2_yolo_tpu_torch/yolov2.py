@@ -54,10 +54,11 @@ class Yolo(YoloBase):
         The JAX facade's arguments, plus ``seed`` (the HE_NORMAL init is
         drawn from a ``torch.Generator``) and ``device`` (the card unless
         told "cpu"). ``backbone``: "darknet", "unet" or "mobilenet".
-        ``pretrained_backbone``: a Model or dict whose
-        backbone parameters are grafted, or a name resolved in the local
-        weight cache, whose file graft needs the converter (not ported
-        yet). ``dtype`` is the compute dtype of the convs (default f32).
+        ``pretrained_backbone``: a Model or dict whose backbone
+        parameters are grafted, or a name resolved in the local weight
+        cache (``{backbone}_backbone_{name}.pt``), whose backbone
+        parameters and statistics are grafted. ``dtype`` is the compute
+        dtype of the convs (default f32).
         """
         if backbone not in ("darknet", "unet", "mobilenet"):
             raise ValueError(f"Invalid backbone: {backbone}")
