@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's YOLOv4 serving, deployment and
 training paths, of the YOLOv1.5, v2 and v3 families, of the ResNet,
-MobileNetV2 and factory backbones and the classifiers, and of YOLOv1.5's
-int8 serving and the reference-weight converter, on one CUDA card.
+MobileNetV2 and factory backbones and the classifiers, of YOLOv1.5's
+int8 serving and the reference-weight converter, and of the parallel
+layer's data-parallel and pipeline paths, on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--batch 8] [--size 416]
                           [--requests 2] [--train-batch 32] [--steps 3]
@@ -217,7 +218,28 @@ Phases (each raises on failure, so the exit code is nonzero):
      ``convert_*`` from the dict into a fresh model of another seed,
      the state_dicts and one served request equal bit for bit. The
      native reader is not driven here: the card's machine has no
-     ``jpeglib.h``, ``png.h``, libjpeg or libpng to build it against.
+     ``jpeglib.h``, ``png.h``, libjpeg or libpng to build it against;
+ 17. the parallel paths (YOLOv4 ``packed=3`` at 416^2, new draws from
+     ``--seed`` + 17 for (b) and (c)): (a) a process group of one
+     process (nccl through a HashStore, no socket) and ``set_bn_group``:
+     phase 7's bf16 step at batch 32 against the same step without a
+     group, the loss and the running statistics bit for bit, the
+     gradients bit for bit or within twice the spread of two ungrouped
+     runs (the fused kernels' dW adds with f32 atomics); (b) two
+     processes on the one card (this script with ``--dp-child``, gloo
+     over CUDA tensors through a FileStore in a temporary directory, 180
+     s for both, killed on any failure), each on 16 of the same 32 rows
+     of an f32 step, against one process on all 32: the loss by phase 8's
+     bound, the gradients and the running statistics' step by its probe
+     rule, the two processes' statistics and gradients equal, each
+     process's K1/K2/K3 launches those of one step; (c)
+     ``split_yolov4(n_stages=3)`` on cuda:0 x 3, f32 batch 16: ``run``
+     bit for bit the eval forward, the frozen-statistics
+     ``value_and_grad`` at microbatch 8 against the gradient-accumulated
+     single program and train mode at microbatch 16 against the single
+     train step by the probe rule, with their launches;
+     ``merged_variables`` into a fresh YoloV4 and a save / load in a
+     temporary directory bit for bit. ms/step of each beside the card.
 
 Weights are random, from ``--seed``: conv kernels drawn with the port's
 HE_NORMAL from a seeded ``torch.Generator``. With BN at its init
@@ -241,6 +263,7 @@ import ctypes
 import functools
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -286,8 +309,13 @@ from tf2_yolo_tpu_torch.ops.kernels.nms import (nms_keep, nms_keep_plain,
                                                 soft_overlap_words_plain,
                                                 suppression_words_plain)
 from tf2_yolo_tpu_torch.ops.nms import _sorted_by_conf, apply_nms_device
-from tf2_yolo_tpu_torch.parallel import (create_train_state, make_optimizer,
-                                         make_train_step)
+from tf2_yolo_tpu_torch.ops.losses import wrap_yolo_loss_v4
+from tf2_yolo_tpu_torch.parallel import (PipelineExecutor, create_train_state,
+                                         distributed_initialize,
+                                         distributed_shutdown, make_optimizer,
+                                         make_train_step, process_batch_slice,
+                                         split_yolov4)
+from tf2_yolo_tpu_torch.parallel.multihost import default_group
 from tf2_yolo_tpu_torch.tools import bench_packed_probe as probe
 from tf2_yolo_tpu_torch.tools.train_profile import (ANCHORS, CLASSES,
                                                     card_line, make_training,
@@ -4326,6 +4354,410 @@ def phase_v1_same(args, card):
     return out
 
 
+# ---------------------------------------------------------------- phase 17
+
+PAR_BATCH = 32                 # (a), (b): phase 7's training batch
+PIPE_BATCH, PIPE_MICRO = 16, 8  # (c)
+CHILD_TIMEOUT_S = 180          # for both children of (b) together
+PROBE_EPS = 1e-6
+
+
+def v4_losses(size):
+    """The three v4 level losses of ``make_training``, coarse first."""
+    return [wrap_yolo_loss_v4(((size // 32) * 2 ** lvl,) * 2, 3, CLASSES,
+                              ANCHORS[3 * lvl:3 * lvl + 3])
+            for lvl in range(3)]
+
+
+def grads_of(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def buffers_of(model):
+    return {n: b.detach().clone() for n, b in model.named_buffers()}
+
+
+def probe_rule(got, ref, probe, floor=1e-3):
+    """Phase 8's rule, leaf by leaf: rel L2 to the reference within
+    min(0.3, max(5 x the probe's (the reference on the input moved by
+    1e-6), ``floor``)). Returns (worst leaf, its rel L2, its probe, the
+    leaves that fail)."""
+    rel = {k: rel_l2(got[k], ref[k]) for k in ref}
+    noise = {k: rel_l2(probe[k], ref[k]) for k in ref}
+    failed = [k for k in ref if rel[k] > min(0.3, max(5 * noise[k], floor))]
+    worst = max(rel, key=rel.get)
+    return worst, rel[worst], noise[worst], failed
+
+
+def stats_deltas(after, before):
+    """What one step added to each running statistic (momentum 0.99:
+    0.01 x the batch statistic)."""
+    return {k: after[k] - before[k] for k in after}
+
+
+def parallel_world1(args, card):
+    """(a) A process group of one process (nccl through a HashStore, no
+    socket) and ``set_bn_group``: phase 7's bf16 step at batch 32, held to
+    the same step without a group: the loss and the running statistics
+    bit for bit, each gradient leaf bit for bit or, in rel L2, within
+    max(4 times the distance of two ungrouped runs, 1e-3): dW of the
+    fused kernels adds with f32 atomics, whose order changes from run to
+    run, and the all-reduce's autograd node changes the order in which
+    autograd adds a tensor's incoming gradients; the chaotic backward
+    grows those last bits to 1.2e-4 in some leaves (measured; 283 of 330
+    leaves were bit for bit)."""
+    runs = {}
+    for name in ("ungrouped", "ungrouped again", "grouped"):
+        grouped = name == "grouped"
+        if grouped:
+            distributed_initialize(device="cuda:0", backend="nccl",
+                                   timeout_s=60)
+        try:
+            group = default_group() if grouped else None
+            state, step, x, ys = make_training(
+                args.seed, PAR_BATCH, args.size, torch.bfloat16, packed=3,
+                group=group)
+            reset_train_counters()
+            _, logs = step(state, x, ys)
+            torch.cuda.synchronize()
+            counts = train_counters()
+            runs[name] = dict(loss=float(logs["loss"]),
+                              grads=grads_of(state.model),
+                              stats=buffers_of(state.model), counts=counts)
+            runs[name]["ms"] = timed_steps(state, step, x, ys, 3)[0]
+        finally:
+            if grouped:
+                distributed_shutdown()
+        del state, step, x, ys
+    base, again, grp = (runs[k] for k in ("ungrouped", "ungrouped again",
+                                          "grouped"))
+    equal, spread_ok = 0, []
+    for k, g in grp["grads"].items():
+        a, a2 = base["grads"][k], again["grads"][k]
+        if torch.equal(g, a):
+            equal += 1
+            continue
+        d, spread = rel_l2(g, a), rel_l2(a2, a)
+        spread_ok.append((k, d, spread, d <= max(4 * spread, 1e-3)))
+    stats_equal = all(torch.equal(grp["stats"][k], v)
+                      for k, v in base["stats"].items())
+    bad = [s for s in spread_ok if not s[3]]
+    ms = {k: float(np.median(r["ms"])) for k, r in runs.items()}
+    print(f"  (a) nccl group of 1 (HashStore), bf16 b{PAR_BATCH}: loss "
+          f"{grp['loss']:.6f} grouped / {base['loss']:.6f} / "
+          f"{again['loss']:.6f} ungrouped twice (bit for bit: "
+          f"{grp['loss'] == base['loss']}); running statistics "
+          f"bit for bit: {stats_equal}; gradient leaves bit for bit "
+          f"{equal}/{len(base['grads'])}, the rest within max(4 x the "
+          f"rel L2 of two ungrouped runs, 1e-3): {len(spread_ok) - len(bad)}"
+          f"/{len(spread_ok)} (largest {max((d for _, d, _, _ in spread_ok), default=0.0):.2e}); "
+          f"launches {grp['counts']}")
+    print(f"  (a) ms/step {ms['grouped']:.2f} grouped, {ms['ungrouped']:.2f} "
+          f"ungrouped [{card}]")
+    check(grp["loss"] == base["loss"], "(a) the grouped loss differs")
+    check(stats_equal, "(a) the grouped running statistics differ")
+    check(not bad, f"(a) grouped gradients outside the spread: {bad[:3]}")
+    check(all(grp["counts"][k] == v for k, v in TRAIN_LAUNCHES[3].items()),
+          f"(a) launches {grp['counts']}, want {TRAIN_LAUNCHES[3]}")
+    return dict(loss=grp["loss"], loss_ungrouped=base["loss"],
+                grads_bit_equal=equal, grads_in_spread=len(spread_ok),
+                stats_bit_equal=stats_equal, launches=grp["counts"],
+                ms_per_step=ms)
+
+
+def one_process_step(seed, size, eps=0.0):
+    """The f32 step of ``make_training`` on all PAR_BATCH rows (images
+    moved by ``eps``): loss, gradients, running statistics before and
+    after."""
+    state, step, x, ys = make_training(seed, PAR_BATCH, size, torch.float32,
+                                       packed=3)
+    before = buffers_of(state.model)
+    _, logs = step(state, x + eps, ys)
+    out = dict(loss=float(logs["loss"]), grads=grads_of(state.model),
+               deltas=stats_deltas(buffers_of(state.model), before))
+    del state, step, x, ys
+    return out
+
+
+def dp_child(rank, store, out_dir, seed, size):
+    """One of (b)'s two processes: gloo over CUDA tensors through the
+    FileStore ``store``, the f32 ``packed=3`` step of ``make_training``
+    on this process's 16 of its 32 rows; writes ``dp_<rank>.pt``."""
+    distributed_initialize(num_processes=2, process_id=rank, backend="gloo",
+                           device="cuda:0", store=store, timeout_s=60)
+    try:
+        state, step, x, ys = make_training(seed, PAR_BATCH, size,
+                                           torch.float32, packed=3,
+                                           group=default_group())
+        sl = process_batch_slice(PAR_BATCH)
+        xs, yss = x[sl].contiguous(), tuple(y[sl] for y in ys)
+        before = buffers_of(state.model)
+        reset_train_counters()
+        _, logs = step(state, xs, yss)
+        torch.cuda.synchronize()
+        out = dict(loss=float(logs["loss"]), counts=train_counters(),
+                   stats=buffers_of(state.model),
+                   deltas=stats_deltas(buffers_of(state.model), before))
+        grads = grads_of(state.model)
+        out["grad_sums"] = {k: g.double().sum().item()
+                            for k, g in grads.items()}
+        if rank == 0:
+            out["grads"] = grads
+        out["ms"] = timed_steps(state, step, xs, yss, 2)[0]
+        torch.save(out, os.path.join(out_dir, f"dp_{rank}.pt"))
+    finally:
+        distributed_shutdown()
+    return 0
+
+
+def parallel_two_processes(args, card):
+    """(b) Two processes on the one card (``dp_child``), each on 16 of
+    the same 32 rows, held to one process on all 32: the loss by phase
+    8's bound, the running statistics' step and the gradients by its
+    probe rule; both processes' running statistics and gradients equal
+    bit for bit; K1, K2 and K3 launched in each process as in one step."""
+    seed = args.seed + 17
+    ref = one_process_step(seed, args.size)
+    probe = one_process_step(seed, args.size, PROBE_EPS)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-child",
+             str(rank), os.path.join(tmp, "store"), tmp, "--seed",
+             str(args.seed), "--size", str(args.size)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in (0, 1)]
+        deadline = time.monotonic() + CHILD_TIMEOUT_S
+        try:
+            for rank, p in enumerate(procs):
+                try:
+                    log, _ = p.communicate(
+                        timeout=max(deadline - time.monotonic(), 1))
+                except subprocess.TimeoutExpired:
+                    raise RuntimeError(f"(b) process {rank} did not end in "
+                                       f"{CHILD_TIMEOUT_S} s")
+                check(p.returncode == 0, f"(b) process {rank} exited "
+                      f"{p.returncode}:\n{log[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        r0, r1 = (torch.load(os.path.join(tmp, f"dp_{rank}.pt"),
+                             map_location="cuda", weights_only=False)
+                  for rank in (0, 1))
+    loss_rel = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
+    loss_noise = abs(probe["loss"] - ref["loss"]) / abs(ref["loss"])
+    g = probe_rule(r0["grads"], ref["grads"], probe["grads"])
+    s = probe_rule(r0["deltas"], ref["deltas"], probe["deltas"], floor=1e-4)
+    same_stats = all(torch.equal(v, r1["stats"][k])
+                     for k, v in r0["stats"].items())
+    same_grads = r0["grad_sums"] == r1["grad_sums"]
+    ms = [float(np.median(r["ms"])) for r in (r0, r1)]
+    print(f"  (b) 2 processes, gloo, FileStore, f32 b16 each against 1 "
+          f"process b{PAR_BATCH}: loss {r0['loss']:.6f} / {ref['loss']:.6f} "
+          f"(rel {loss_rel:.2e}; probe {loss_noise:.2e}; bound 1e-5 + 4 x "
+          f"probe); gradients worst {g[1]:.2e} at {g[0]} (probe {g[2]:.2e}), "
+          f"{len(g[3])} outside min(0.3, max(5 x probe, 1e-3)); running "
+          f"statistics' step worst {s[1]:.2e} at {s[0]} (probe {s[2]:.2e}), "
+          f"{len(s[3])} outside; the processes' statistics equal {same_stats}, "
+          f"gradients equal {same_grads}")
+    print(f"  (b) launches in each process's step: {r0['counts']} / "
+          f"{r1['counts']}; ms/step {ms[0]:.2f} / {ms[1]:.2f} (two processes "
+          f"sharing the card) [{card}]")
+    check(loss_rel <= 1e-5 + 4 * loss_noise, "(b) the losses differ")
+    check(not g[3], f"(b) gradients differ at {g[3][:5]}")
+    check(not s[3], f"(b) running statistics differ at {s[3][:5]}")
+    check(same_stats and same_grads, "(b) the two processes differ")
+    for r in (r0, r1):
+        check(all(r["counts"][k] == v for k, v in TRAIN_LAUNCHES[3].items()
+                  if not k.endswith("_tc")),
+              f"(b) launches {r['counts']}, want {TRAIN_LAUNCHES[3]}")
+    launches = {k: r0["counts"][k] + r1["counts"][k] for k in r0["counts"]}
+    return dict(loss=r0["loss"], loss_one_process=ref["loss"],
+                loss_rel=loss_rel, loss_rel_probe=loss_noise,
+                grad_worst=g[:3], stats_worst=s[:3], launches=launches,
+                ms_per_step=ms)
+
+
+def pipeline_launches(counts, n_forward, n_backward):
+    """The K1 / K2 / K3 launches of ``n_forward`` train-mode forwards and
+    ``n_backward`` backwards of ``packed=3`` (phase 7's per step)."""
+    per = TRAIN_LAUNCHES[3]
+    want = dict(conv_bn_stats=n_forward * per["conv_bn_stats"],
+                fused_gemm_fwd=n_forward * per["fused_gemm_fwd"],
+                fused_conv3x3_fwd=n_forward * per["fused_conv3x3_fwd"],
+                fused_gemm_bwd=n_backward * per["fused_gemm_bwd"],
+                fused_conv3x3_bwd=n_backward * per["fused_conv3x3_bwd"])
+    return all(counts[k] == v for k, v in want.items()), want
+
+
+def parallel_pipeline(args, card):
+    """(c) ``split_yolov4(n_stages=3)`` of an f32 ``packed=3`` YOLOv4 on
+    ["cuda:0"] x 3, batch 16: ``run`` equal bit for bit to the whole
+    model's eval forward (at the batch and at microbatch 8), the
+    frozen-statistics ``value_and_grad`` at microbatch 8 against the
+    gradient-accumulated single-program step and train mode at
+    microbatch 16 against the single train step, both by phase 8's probe
+    rule; ``merged_variables`` into a fresh YoloV4 and a save / load in
+    a temporary directory, bit for bit."""
+    seed = args.seed + 17
+    state, _, x, ys = make_training(seed, PIPE_BATCH, args.size,
+                                    torch.float32, packed=3)
+    model = state.model
+    del state
+    losses = v4_losses(args.size)
+
+    def loss_fn(out, *y):
+        return sum(lf(t, o) for lf, t, o in zip(losses, y, out))
+
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    halves = [slice(0, PIPE_MICRO), slice(PIPE_MICRO, PIPE_BATCH)]
+
+    def single(train, eps=0.0):
+        """The single program from ``start``: gradients (and the
+        statistics' step), then ``start`` again."""
+        model.load_state_dict(start)
+        model.zero_grad(set_to_none=True)
+        model.train(train)
+        for sl in ([slice(None)] if train else halves):
+            n = 1 if train else len(halves)
+            (loss_fn(model(x[sl] + eps), *(y[sl] for y in ys)) / n
+             ).backward()
+        out = dict(grads=grads_of(model),
+                   deltas=stats_deltas(buffers_of(model), start_buffers))
+        model.load_state_dict(start)
+        return out
+
+    start_buffers = buffers_of(model)
+    model.eval()
+    with torch.no_grad():
+        whole = model(x)
+        whole_mb = [torch.cat(o) for o in zip(*(model(x[sl])
+                                                for sl in halves))]
+    refs = {mode: (single(mode == "train"),
+                   single(mode == "train", PROBE_EPS))
+            for mode in ("frozen", "train")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single(True)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3
+
+    stages, params, train_stages = split_yolov4(model, 3, with_train=True)
+    pipe = PipelineExecutor(stages, params, devices=["cuda:0"] * 3,
+                            train_stages=train_stages)
+    reset_train_counters()
+    run_equal = (all(torch.equal(a, b) for a, b in zip(pipe.run(x), whole))
+                 and all(torch.equal(a, b) for a, b in
+                         zip(pipe.run(x, PIPE_MICRO), whole_mb)))
+    run_convs = conv_bn_stats.launches
+    out = {}
+    for mode, micro in (("frozen", PIPE_MICRO), ("train", PIPE_BATCH)):
+        model.load_state_dict(start)
+        reset_train_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = pipe.value_and_grad(loss_fn, train=mode == "train")(
+            x, *ys, microbatch=micro)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = train_counters()
+        got = {k: t for g in grads for k, t in g.items()}
+        ref, probe = refs[mode]
+        g = probe_rule(got, ref["grads"], probe["grads"])
+        deltas = stats_deltas(buffers_of(model), start_buffers)
+        s = (probe_rule(deltas, ref["deltas"], probe["deltas"], floor=1e-4)
+             if mode == "train" else None)
+        out[mode] = dict(loss=float(loss), grad_worst=g[:3],
+                         grads_failed=g[3], launches=counts, ms=ms,
+                         stats_worst=s[:3] if s else None,
+                         stats_failed=s[3] if s else [],
+                         stats_equal=all(torch.equal(deltas[k], v)
+                                         for k, v in ref["deltas"].items()))
+    # train mode at microbatch 16: two forwards (fill, recompute) and one
+    # backward; frozen statistics: eval forwards on the conv kernel only
+    train_ok, train_want = pipeline_launches(out["train"]["launches"], 2, 1)
+    frozen_convs = out["frozen"]["launches"]["conv_bn_stats"]
+    fresh = YoloV4(ANCHORS, CLASSES, dtype=torch.float32,
+                   generator=torch.Generator(device="cuda").manual_seed(1))
+    fresh.load_state_dict(pipe.merged_variables(), strict=True)
+    fresh.eval()
+    with torch.no_grad():
+        merged_equal = all(torch.equal(a, b) for a, b in
+                           zip(fresh(x), pipe.run(x)))
+    trained = [{k: v.clone() for k, v in m.state_dict().items()}
+               for m in pipe.params]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pp_") as tmp:
+        pipe.save(os.path.join(tmp, "pipe.pt"))
+        for m in pipe.params:
+            for v in m.state_dict().values():
+                v.zero_()
+        pipe.load(os.path.join(tmp, "pipe.pt"))
+    saved_equal = all(torch.equal(v, t[k]) for m, t in zip(pipe.params,
+                                                           trained)
+                      for k, v in m.state_dict().items())
+    print(f"  (c) 3 stages on cuda:0 x 3, f32 b{PIPE_BATCH}: run equal to "
+          f"the eval forward bit for bit {run_equal} ({run_convs} conv "
+          f"launches: 3 x {CONVS_PER_FORWARD}); merged into a fresh YoloV4 "
+          f"{merged_equal}; save / load {saved_equal}")
+    for mode in ("frozen", "train"):
+        r = out[mode]
+        print(f"  (c) {mode} statistics, microbatch "
+              f"{PIPE_MICRO if mode == 'frozen' else PIPE_BATCH}: loss "
+              f"{r['loss']:.6f}; gradients worst {r['grad_worst'][1]:.2e} at "
+              f"{r['grad_worst'][0]} (probe {r['grad_worst'][2]:.2e}), "
+              f"{len(r['grads_failed'])} outside; running statistics equal "
+              f"to the single step's {r['stats_equal']}; launches "
+              f"{r['launches']}; {r['ms']:.1f} ms")
+    print(f"  (c) ms/step train mode: pipeline {out['train']['ms']:.1f}, "
+          f"single program {single_ms:.1f} [{card}]")
+    check(run_equal, "(c) run differs from the eval forward")
+    check(run_convs == 3 * CONVS_PER_FORWARD, f"(c) run launched {run_convs}")
+    check(merged_equal and saved_equal, "(c) merge or save/load differs")
+    for mode in ("frozen", "train"):
+        check(not out[mode]["grads_failed"], f"(c) {mode} gradients differ "
+              f"at {out[mode]['grads_failed'][:5]}")
+    check(not out["train"]["stats_failed"], "(c) train-mode running "
+          f"statistics differ at {out['train']['stats_failed'][:5]}")
+    check(out["frozen"]["stats_equal"], "(c) frozen mode moved statistics")
+    check(frozen_convs == 4 * CONVS_PER_FORWARD,
+          f"(c) frozen mode launched {frozen_convs} convs, want "
+          f"{4 * CONVS_PER_FORWARD}")
+    check(train_ok, f"(c) train launches {out['train']['launches']}, want "
+          f"{train_want}")
+    launches = {k: out["frozen"]["launches"][k] + out["train"]["launches"][k]
+                for k in out["train"]["launches"]}
+    launches["conv_bn_stats"] += run_convs
+    return dict(run_equal=run_equal, merged_equal=merged_equal,
+                saved_equal=saved_equal, launches=launches,
+                single_train_ms=single_ms,
+                **{mode: {k: v for k, v in r.items()
+                          if k not in ("grads_failed", "stats_failed")}
+                   for mode, r in out.items()})
+
+
+def phase_parallel(args, card):
+    """Phase 17: (a), (b) and (c); every process group is left and
+    every child process ended on every path."""
+    t0 = time.perf_counter()
+    try:
+        world1 = parallel_world1(args, card)
+        torch.cuda.empty_cache()
+        two = parallel_two_processes(args, card)
+        torch.cuda.empty_cache()
+        pipe = parallel_pipeline(args, card)
+    finally:
+        distributed_shutdown()
+    seconds = time.perf_counter() - t0
+    print(f"  phase 17 took {seconds:.1f} s")
+    launches = {k: world1["launches"].get(k, 0) + two["launches"].get(k, 0)
+                + pipe["launches"].get(k, 0) for k in world1["launches"]}
+    return dict(world1=world1, two_processes=two, pipeline=pipe,
+                launches=launches, seconds=seconds)
+
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4336,10 +4768,15 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--log-dir",
                    default=os.path.join(ROOT, "build", "chip_smoke"))
+    p.add_argument("--dp-child", nargs=3, metavar=("RANK", "STORE", "DIR"),
+                   help="run one process of phase 17's (b) and exit")
     args = p.parse_args(argv)
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
+    if args.dp_child:
+        rank, store, out_dir = args.dp_child
+        return dp_child(int(rank), store, out_dir, args.seed + 17, args.size)
     t_start = time.perf_counter()
     card = card_line()
     print(f"phase 1: {torch.cuda.get_device_name(0)}, torch "
@@ -4466,6 +4903,12 @@ def main(argv=None):
           "YOLOv3 and YOLOv1.5 on the card")
     v1_same = phase_v1_same(args, card)
 
+    print(f"phase 17: the parallel paths, YOLOv4 packed=3 at {args.size}^2: "
+          "(a) a process group of one (nccl, HashStore) against phase 7's "
+          "step, (b) two processes on the card (gloo, FileStore) against "
+          "one, (c) a 3-stage pipeline against the single program")
+    parallel = phase_parallel(args, card)
+
     def bf16_at(results, shape):
         return [r for r in results
                 if r["dtype"] == "bfloat16" and r["shape"] == shape][-1]
@@ -4492,13 +4935,15 @@ def main(argv=None):
     int8_td2 = int8_bf16(INT8_SHAPES[3][0], DEPLOY_BIG_BATCH)
 
     def train_launches(name):
-        """Launches in the packed=3 run, the packed=True run and the
-        facade's fit (phase 10), and all of them."""
+        """Launches in the packed=3 run, the packed=True run, the
+        facade's fit (phase 10) and the parallel paths (phase 17), and
+        all of them."""
         runs = (trained["launches"][name], trained1["launches"][name],
-                facade["fit"]["launches"][name])
+                facade["fit"]["launches"][name],
+                parallel["launches"][name])
         return dict(launches=sum(runs), launches_training_packed3=runs[0],
                     launches_training_packed1=runs[1],
-                    launches_facade_fit=runs[2])
+                    launches_facade_fit=runs[2], launches_parallel=runs[3])
     def family_launches(counter):
         """Launches of ``counter`` in phase 14's requests and steps."""
         return sum(families[name][run][counter]
@@ -4808,7 +5253,7 @@ def main(argv=None):
                   device_eval=evaluation, conv_same=same_res,
                   families=families, conv_backbones=backbone_res,
                   depthwise=depthwise_res, backbones=backbones,
-                  v1_same=v1_same, kernels=kernels,
+                  v1_same=v1_same, parallel=parallel, kernels=kernels,
                   seconds=seconds)
     os.makedirs(args.log_dir, exist_ok=True)
     with open(os.path.join(args.log_dir, "chip_smoke.json"), "w") as f:

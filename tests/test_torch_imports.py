@@ -5,6 +5,7 @@ searched afterwards."""
 
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -60,7 +61,11 @@ def test_the_walk_finds_the_port():
                  "tf2_yolo_tpu_torch.assets",
                  "tf2_yolo_tpu_torch.convert",
                  "tf2_yolo_tpu_torch.native",
-                 "tf2_yolo_tpu_torch.tools.bench_reader"):
+                 "tf2_yolo_tpu_torch.tools.bench_reader",
+                 "tf2_yolo_tpu_torch.parallel.input",
+                 "tf2_yolo_tpu_torch.parallel.mesh",
+                 "tf2_yolo_tpu_torch.parallel.multihost",
+                 "tf2_yolo_tpu_torch.parallel.pipeline"):
         assert name in MODULES
 
 
@@ -83,6 +88,23 @@ def test_every_module_of_the_port_imports_without_jax():
 
 def test_chip_smoke_imports_without_jax():
     proc = _imports_cleanly("import chip_smoke")
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_the_multiprocess_worker_imports_no_jax():
+    """The worker of the port's multi-process tests imports the port
+    only: its source names no JAX module, and importing it with every
+    module it names loads none."""
+    path = os.path.join(REPO, "tests", "_torch_multiprocess_worker.py")
+    with open(path) as f:
+        names = re.findall(r"^\s*(?:from|import)\s+([\w.]+)", f.read(),
+                           re.M)
+    assert "tf2_yolo_tpu_torch.parallel" in names
+    assert not [m for m in names if m.split(".")[0] in FORBIDDEN], names
+    proc = _imports_cleanly(
+        "import importlib; sys.path.insert(0, 'tests'); "
+        f"[importlib.import_module(m) for m in {sorted(set(names))!r}]; "
+        "import _torch_multiprocess_worker")
     assert proc.returncode == 0, proc.stderr
 
 

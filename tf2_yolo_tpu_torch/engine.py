@@ -11,8 +11,14 @@ fit position) live in :mod:`tf2_yolo_tpu_torch.parallel.checkpoint`.
 A step's logs stay tensors on the device: ``fit`` reads them to the host
 once an epoch (and ``evaluate`` once a call), unless a batch-end callback
 reads them, so the host queues the next steps while the card runs.
-(Multi-device training and XLA options are not ported; ``compile``
-raises for them.)
+
+Multi-process data parallelism: after
+``parallel.distributed_initialize`` in every process, ``compile`` takes
+the process group (BatchNorm statistics over it, gradients averaged over
+it, :func:`~tf2_yolo_tpu_torch.parallel.train.make_train_step`) and
+every process calls ``fit`` / ``evaluate`` with its own shard and the
+per-process ``batch_size``. (Tensor parallelism and XLA options are not
+ported; ``compile`` raises for them.)
 """
 
 import itertools
@@ -22,12 +28,15 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .data.pipeline import prefetch_to_device, threaded_prefetch, to_device
-from .models.layers import set_bn_stats_sg
-from .parallel.train import (TrainState, _cast_input, get_lr_multiplier,
-                             make_eval_step, make_optimizer,
-                             make_train_step, set_lr_multiplier)
+from .models.layers import set_bn_group, set_bn_stats_sg
+from .parallel.multihost import default_group, host_device
+from .parallel.train import (TrainState, _cast_input, broadcast_tensors,
+                             get_lr_multiplier, make_eval_step,
+                             make_optimizer, make_train_step,
+                             set_lr_multiplier)
 
 
 def _metric_name(fn, prefix=""):
@@ -353,6 +362,7 @@ class Model:
         self._train_step = None
         self._eval_step = None
         self._state = None
+        self._group = None           # the process group of compile
         self._interrupted = False
         self.stop_training = False   # callbacks set True to end fit
 
@@ -440,6 +450,11 @@ class Model:
             xla_options, n_model, tp_min_channels: the JAX engine's XLA
                 options and tensor parallelism; not ported, and anything
                 but their defaults raises NotImplementedError.
+
+        With a process group up (``parallel.distributed_initialize``),
+        the model's BatchNorm statistics are taken over it
+        (``models.layers.set_bn_group``) and the train step averages the
+        gradients over it: the data-parallel step over the global batch.
         """
         del tp_min_channels          # read only when n_model > 1
         if int(n_model) > 1:
@@ -503,15 +518,65 @@ class Model:
             self.module, bool(bn_stats_sg_scope),
             None if bn_stats_sg_scope is True or not bn_stats_sg_scope
             else bn_stats_sg_scope)
+        self._group = default_group()
+        set_bn_group(self.module, self._group)
         self._train_step = make_train_step(
             loss_fns, metric_fns, metric_names,
-            input_rescale=self.input_rescale)
+            input_rescale=self.input_rescale, group=self._group)
         self._eval_step = make_eval_step(
             loss_fns, metric_fns, metric_names,
             input_rescale=self.input_rescale)
         self._state = None        # reset optimizer state
 
     # ------------------------------------------------------------------
+    def _check_shards(self, n_rows):
+        """Multi-process: every process must pass as many rows (or
+        batches of a sequence), or the global batch is not what each
+        process's step assumes and the processes fall out of step."""
+        if self._group is None:
+            return
+        t = torch.tensor([n_rows, -n_rows], dtype=torch.float64,
+                         device=host_device())
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._group)
+        hi, lo = int(t[0]), -int(t[1])
+        if hi != lo:
+            n = dist.get_world_size(self._group)
+            raise ValueError(
+                f"global batch of {n_rows} rows x {n} processes: every "
+                f"process must pass as many rows (between {lo} and {hi} "
+                "here); make every process's shard length the same "
+                "multiple of batch_size (parallel.process_batch_slice, "
+                "YoloDataSequence.shard)")
+
+    def _broadcast_variables(self):
+        """Multi-process: every process starts ``fit`` from process 0's
+        parameters and statistics (equal already where every process
+        built its model from one seed)."""
+        if self._group is not None:
+            broadcast_tensors(self.module.state_dict().values(),
+                              self._group)
+
+    def _any_process(self, flag):
+        """Multi-process: whether ``flag`` is set in any process (a
+        signal reaches the processes at different steps)."""
+        if self._group is None:
+            return flag
+        t = torch.tensor([float(flag)], device=host_device())
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._group)
+        return bool(t[0] > 0)
+
+    def _mean_over_processes(self, means):
+        """Multi-process: each host mean averaged over the processes
+        (equal batches make it the mean over the global batches)."""
+        if self._group is None or not means:
+            return means
+        keys = sorted(means)
+        t = torch.tensor([means[k] for k in keys], dtype=torch.float64,
+                         device=host_device())
+        dist.all_reduce(t, group=self._group)
+        n = dist.get_world_size(self._group)
+        return {k: float(v) / n for k, v in zip(keys, t.tolist())}
+
     def _ensure_state(self):
         if self._state is None:
             if self._tx is None:
@@ -616,6 +681,19 @@ class Model:
                 ``val_*`` history keys.
             prefetch: look-ahead depth (batches) of the device feed; 0
                 converts and copies each batch inline.
+
+        Multi-process runs (``parallel.distributed_initialize`` before
+        ``compile``): every process calls fit() with its OWN disjoint
+        shard of the data (``parallel.process_batch_slice`` or
+        ``YoloDataSequence.shard``) and the per-process ``batch_size``,
+        as many rows in each; the optimizer sees the global batch
+        (``batch_size`` x the process count), as one process over the
+        concatenated shards would. The processes start from process 0's
+        variables. Checkpoints: every process passes the same
+        ``checkpoint_dir`` (a directory all of them see); process 0
+        writes, all of them wait for it and all of them resume from it
+        (``parallel.checkpoint``). An interrupt in any process stops
+        every process at the same step.
         """
         from .parallel.checkpoint import (latest_checkpoint,
                                           restore_checkpoint,
@@ -629,9 +707,12 @@ class Model:
         if is_sequence:
             self._check_uint8_seq(x)
             steps_per_epoch = len(x)
+            self._check_shards(steps_per_epoch)
         else:
             n_rows = np.asarray(x).shape[0]
             steps_per_epoch = -(-n_rows // batch_size)
+            self._check_shards(n_rows)
+        self._broadcast_variables()
         initial_epoch = 0
         skip_batches = 0
         if resume:
@@ -703,6 +784,9 @@ class Model:
                     for cb in callbacks:
                         if hasattr(cb, "on_train_batch_end"):
                             cb.on_train_batch_end(batch_i, logs, self)
+                    if checkpoint_on_interrupt:
+                        self._interrupted = self._any_process(
+                            self._interrupted)
                     if self._interrupted or self.stop_training:
                         break
 
@@ -770,7 +854,9 @@ class Model:
     def evaluate(self, x, y=None, batch_size=20, verbose=1):
         """Eval-mode loss/metrics, mean over the batches. ``x`` is an
         ndarray with ``y`` labels, or a sequence yielding (img, labels)
-        batches with ``y=None``."""
+        batches with ``y=None``. Multi-process: each process passes its
+        own shard, as in fit, and every process gets the mean over all
+        of them."""
         self._ensure_state()
         if _is_sequence(x, y):
             self._check_uint8_seq(x)
@@ -778,7 +864,7 @@ class Model:
                                  np.random.RandomState(0))
         logs_acc = [self._eval_step(self._state, xb, yb)
                     for xb, yb in self._feed(iterator)]
-        means = _epoch_means(logs_acc)
+        means = self._mean_over_processes(_epoch_means(logs_acc))
         if verbose:
             print(" - ".join(f"{k}: {v:.4f}" for k, v in means.items()))
         return means
@@ -787,7 +873,8 @@ class Model:
     def predict(self, x, batch_size=32, verbose=0):
         """Eval-mode forward in batches of ``batch_size``; returns an
         ndarray, or a list of ndarrays (multi-output), f32, rows aligned
-        with ``x``. uint8 images normalize on the device."""
+        with ``x``. uint8 images normalize on the device. Multi-process:
+        each process predicts its own rows, with no collective."""
         x = np.asarray(x)
         if x.dtype != np.uint8:
             x = x.astype(np.float32, copy=False)

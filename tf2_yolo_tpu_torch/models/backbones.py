@@ -269,7 +269,12 @@ class CSPDarknet53(nn.Module):
     TPU's lanes) is the same computation as 1 without lane packing and
     raises. ``False`` (or 0) and eval mode take the plain path
     throughout. Same parameters and the same math up to summation
-    order."""
+    order.
+
+    ``section`` cuts the body for pipeline parallelism: "early" runs the
+    stem and stages 1-3 and returns c3; "late" takes ``x`` AS c3, runs
+    stages 4-5 and returns (c4, c5). Each section takes the route that
+    ``packed`` gives its stages in the whole body."""
 
     out_channels = (256, 512, 1024)
 
@@ -289,10 +294,13 @@ class CSPDarknet53(nn.Module):
                             CSPStage(ci, f, blocks, narrow, **kw))
             ci = f
 
-    def forward(self, x):
+    def forward(self, x, section=None):
+        if section not in (None, "early", "late"):
+            raise ValueError(f"Invalid section: {section!r}")
         packed = self.packed if self.training else 0
-        first = 0
-        if packed == 3:
+        first = 3 if section == "late" else 0
+        last = 3 if section == "early" else len(self.SPECS)
+        if section != "late" and packed == 3:
             y4, aff = packed_conv3x3(self.stem, x)
             y2, aff, (b, h, w) = p3_stage(self.stage1, y4, aff)
             y2, aff, (b, h, w) = p3_stage(self.stage2,
@@ -300,10 +308,10 @@ class CSPDarknet53(nn.Module):
             x = rows_to(activate(y2, aff, "mish", self.stage2.out.dtype),
                         b, h, w)
             first = 2
-        else:
+        elif section != "late":
             x = self.stem(x)
         taps = {}
-        for i in range(first, len(self.SPECS)):
+        for i in range(first, last):
             stage = getattr(self, f"stage{i + 1}")
             if packed and i >= 2:
                 y2, aff, (b, h, w) = packed_stage(stage, x)
@@ -312,6 +320,10 @@ class CSPDarknet53(nn.Module):
             else:
                 x = stage(x)
             taps[i] = x
+        if section == "early":
+            return taps[2]
+        if section == "late":
+            return taps[3], taps[4]
         return taps[2], taps[3], taps[4]
 
 

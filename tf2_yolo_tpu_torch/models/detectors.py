@@ -17,7 +17,13 @@ neck, 7 of them stride 2) and 3 biased head convs. YOLOv3 (Darknet-53):
 head (darknet), or 16 ConvActBNs and a head (UNet), or MobileNetV2 and a
 head. YOLOv3 and v4 also take the ResNets by name (``"resnet50"`` ...
 ``"resnet152v2"``) and a user backbone factory in place of their body.
-``pipeline_stage`` is not ported.
+
+``forward(x, pipeline_stage=None)`` cuts every family for pipeline
+parallelism (``parallel.pipeline``): ``"backbone"`` runs the body alone
+and returns its taps, ``"neck"`` takes ``x`` AS those taps and runs the
+rest; YOLOv4 with its stock CSPDarknet-53 also cuts the body after
+stage 3 (``"backbone_early"`` -> c3, ``"backbone_late"`` -> (c3, c4,
+c5)). Each cut runs exactly the submodules of its part.
 """
 
 import numpy as np
@@ -65,6 +71,12 @@ def _body(backbone, default, kw):
     else:
         module = default(**kw)
     return module, tuple(module.out_channels)
+
+
+def _check_pipeline_stage(stage, extra=()):
+    """Validate a ``pipeline_stage`` value (parallel/pipeline.py cuts)."""
+    if stage not in (None, "backbone", "neck") + tuple(extra):
+        raise ValueError(f"Invalid pipeline_stage: {stage!r}")
 
 
 def _split_anchors(anchors, num_levels):
@@ -123,8 +135,16 @@ class YoloV1(nn.Module):
         self.backbone = DarknetV1(**kw)
         self.head = HeadV1(1024, bbox_num, class_num, **kw)
 
-    def forward(self, x):
-        return self.head(self.backbone(x))
+    def forward(self, x, pipeline_stage=None):
+        """``pipeline_stage``: None runs the whole net; "backbone"
+        returns the DarkNet-v1 feature map; "neck" takes ``x`` AS that
+        feature and runs the head."""
+        _check_pipeline_stage(pipeline_stage)
+        if pipeline_stage != "neck":
+            x = self.backbone(x)
+        if pipeline_stage == "backbone":
+            return x
+        return self.head(x)
 
 
 class YoloV2(nn.Module):
@@ -163,14 +183,22 @@ class YoloV2(nn.Module):
                                anchors_as_params=False, init=he_normal_,
                                **kw)
 
-    def forward(self, x):
+    def forward(self, x, pipeline_stage=None):
+        """``pipeline_stage``: None runs the whole net; "backbone"
+        returns the backbone's taps ((passthrough, feat) for DarkNet-19,
+        one feature map otherwise); "neck" takes ``x`` AS those taps and
+        runs the rest."""
+        _check_pipeline_stage(pipeline_stage)
+        taps = x if pipeline_stage == "neck" else self.backbone(x)
+        if pipeline_stage == "backbone":
+            return taps
         if self.backbone_name == "darknet":
-            passthrough, feat = self.backbone(x)
+            passthrough, feat = taps
             conv = self.neck2(self.neck1(feat))
             pt = space_to_depth(self.passthrough(passthrough), 2)
             feat = self.neck3(torch.cat([pt, conv], dim=-1))
         else:
-            feat = self.backbone(x)
+            feat = taps
         return self.head(feat)
 
 
@@ -214,15 +242,23 @@ class YoloV3(nn.Module):
                                        init=he_normal_, **kw))
         self.levels = len(feats)
 
-    def forward(self, x):
+    def forward(self, x, pipeline_stage=None):
+        """``pipeline_stage``: None runs the whole net; "backbone"
+        returns the backbone's taps ((c3, c4, c5), or (tap, bottleneck)
+        for the tiny body); "neck" takes ``x`` AS those taps and runs
+        the FPN and the heads."""
+        _check_pipeline_stage(pipeline_stage)
+        taps = x if pipeline_stage == "neck" else self.backbone(x)
+        if pipeline_stage == "backbone":
+            return tuple(taps)
         if self.tiny:
-            tap, bottleneck = self.backbone(x)
+            tap, bottleneck = taps
             out1 = self.tiny_out1(bottleneck)
             up = upsample2x(self.tiny_up(bottleneck))
             out2 = self.tiny_out2(torch.cat([up, tap], dim=-1))
             feats = [out1, out2]
         else:
-            c3, c4, c5 = self.backbone(x)
+            c3, c4, c5 = taps
             t, out1 = self.fpn1(c5)
             t = torch.cat([upsample2x(self.up1(t)), c4], dim=-1)
             t, out2 = self.fpn2(t)
@@ -293,8 +329,30 @@ class YoloV4(nn.Module):
             self.add_module(f"head{i + 1}",
                             AnchorHead(ci, anc, class_num, **kw))
 
-    def forward(self, x):
-        c3, c4, c5 = self.backbone(x)
+    def forward(self, x, pipeline_stage=None):
+        """``pipeline_stage``: None runs the whole network; "backbone"
+        returns the (c3, c4, c5) taps; "neck" takes ``x`` AS those taps
+        and runs the neck and the heads. "backbone_early" and
+        "backbone_late" cut the stock CSPDarknet-53 itself, for 3-stage
+        pipelines: stem + stages 1-3 -> c3, then stages 4-5 -> (c3, c4,
+        c5); both take the packed routes in train mode as the whole body
+        does (``CSPDarknet53(section=...)``)."""
+        _check_pipeline_stage(pipeline_stage,
+                              extra=("backbone_early", "backbone_late"))
+        if pipeline_stage in ("backbone_early", "backbone_late"):
+            if not isinstance(self.backbone, CSPDarknet53):
+                raise ValueError(
+                    "backbone_early/backbone_late cuts require the "
+                    "stock csp_darknet backbone")
+            if pipeline_stage == "backbone_early":
+                return self.backbone(x, section="early")
+            return (x, *self.backbone(x, section="late"))
+        if pipeline_stage == "neck":
+            c3, c4, c5 = x
+        else:
+            c3, c4, c5 = self.backbone(x)
+        if pipeline_stage == "backbone":
+            return (c3, c4, c5)
 
         # top-down path with SPP at the coarsest level
         t_s = self.td1_spp_pre(self.td1_pre2(self.td1_pre1(c5)))

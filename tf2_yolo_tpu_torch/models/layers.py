@@ -32,7 +32,9 @@ eval-mode ConvBN (``ConvBN._quant_call`` of the JAX package), built by
 the calibration capture that ``export.calibrate_int8`` switches on.
 Training: :func:`set_bn_stats_sg` sets the frozen-statistics BatchNorm
 backward on one model's ConvBNs (``set_bn_stats_stop_gradient`` of the
-JAX package, per model instead of process-global).
+JAX package, per model instead of process-global); :func:`set_bn_group`
+takes one model's train-mode statistics over the processes of a process
+group (the JAX package's ``bn_axis_name``).
 """
 
 import contextlib
@@ -170,8 +172,9 @@ class BNState(nn.Module):
     biased variance mean(y^2) - mean^2, clipped at 0 (``clip=False``:
     the JAX ConvBN's, unclipped), over N*H*W, from the conv kernel's
     sums ``s1``, ``s2`` where a K1 conv precedes (:func:`conv_then_bn`,
-    ConvBN), else from an f32 reduction of y; the running statistics are
-    updated in place. In eval mode the running statistics normalise.
+    ConvBN), else from an f32 reduction of y, over the processes of
+    ``group`` where one is set (:func:`set_bn_group`); the running
+    statistics are updated in place. In eval mode the running statistics normalise.
     (y - mean) * (rsqrt(var + eps) * scale) + bias is computed in f32
     and rounded once to y's dtype."""
 
@@ -184,6 +187,7 @@ class BNState(nn.Module):
         self.register_buffer("var", torch.ones(features, device=device))
         self.eps = eps
         self.momentum = momentum
+        self.group = None            # set_bn_group
 
     @torch.no_grad()
     def update_running(self, mean, var):
@@ -198,8 +202,11 @@ class BNState(nn.Module):
             if s1 is None:
                 a = y.float()
                 s1, s2 = a.mean(dim=(0, 1, 2)), (a * a).mean(dim=(0, 1, 2))
-                count = 1
-            mean, var = batch_stats(s1, s2, count, clip)
+                if self.group is None:
+                    count = 1
+                else:                 # sums again, to add over processes
+                    s1, s2 = s1 * count, s2 * count
+            mean, var = batch_stats(s1, s2, count, clip, self.group)
             self.update_running(mean, var)
         else:
             mean, var = self.mean, self.var
@@ -319,7 +326,8 @@ class ConvBN(nn.Module):
         train = self.training and bn is not None
         y, s1, s2 = self.conv(x, want_stats=train)
         if train and self.bn_sg:
-            mean, var = batch_stats(s1, s2, y.numel() // y.shape[-1])
+            mean, var = batch_stats(s1, s2, y.numel() // y.shape[-1],
+                                    group=bn.group)
             bn.update_running(mean, var)
             mean, var = mean.detach(), var.detach()
             dt = self.dtype
@@ -449,11 +457,63 @@ def capture_input_absmax(model):
             h.remove()
 
 
-def batch_stats(s1, s2, count, clip=False):
+def set_bn_group(model, group):
+    """Take the train-mode BatchNorm statistics of ``model`` over the
+    processes of ``group`` (a ``torch.distributed`` process group; None
+    takes them over this process's batch): every BNState of the model,
+    those of the packed regions' ConvBNs included, adds its sums over the
+    group before it divides (the JAX package's
+    ``bn_axis_name``: ``psum`` of the sums in ConvBN, ``pmean`` in the
+    frozen-statistics route; :func:`batch_stats`). Every process then
+    holds the same mean and variance, and the same running statistics.
+    Per model, as :func:`set_bn_stats_sg`; returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, BNState):
+            m.group = group
+    return model
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over a process group, whose backward is the sum of the
+    cotangents over the group (the transpose of ``psum`` is ``psum``)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return _AllReduceSum.apply(dout.contiguous(), ctx.group), None
+
+
+def _all_reduce(t, group):
+    """The sum of ``t`` over ``group``, differentiable, so that each
+    process's gradient carries every process's loss through the shared
+    statistics. An in-place ``all_reduce`` would give the same forward
+    and drop the other processes' cotangents."""
+    return _AllReduceSum.apply(t, group)
+
+
+def batch_stats(s1, s2, count, clip=False, group=None):
     """Batch mean and biased variance from the sums of y and y^2 over
     ``count`` values per channel (f32): s2 / count - mean^2, clipped at
     0 where ``clip`` (flax's ``nn.BatchNorm``; the JAX ConvBN does not
-    clip)."""
+    clip). With a process ``group``, s1 and s2 are first summed over its
+    processes in one all-reduce (:func:`_all_reduce`) and the count is
+    ``count`` times the group's size, so the statistics are those of the
+    global batch: every process holds as many rows (``Model.fit`` checks
+    it; the JAX ConvBN multiplies by ``axis_size`` the same way). The
+    count stays a host number, so that the division is the same
+    operation as without a group (on the card, PyTorch multiplies by
+    the reciprocal of a host divisor and divides by a tensor one)."""
+    if group is not None:
+        n = s1.shape[0]
+        sums = _all_reduce(torch.cat([s1, s2]), group)
+        s1, s2 = sums[:n], sums[n:]
+        count = count * torch.distributed.get_world_size(group)
     mean = s1 / count
     var = s2 / count - mean * mean
     return mean, (torch.clamp(var, min=0.0) if clip else var)

@@ -35,8 +35,9 @@ Not ported (TPU machinery): batch-into-lanes packing (``pack_batch``,
 ``rows_to_unpacked``, the p > 1 tiling in ``bn_affine``, the ``p_down``
 branch of ``P3CSPStage`` that runs its down conv at a higher packing
 factor; p = 1 throughout), the ``im2col`` flag of
-``PackedPallasConvBN3x3``, and the cross-replica ``axis_name`` branch of
-``_fold_stats``.
+``PackedPallasConvBN3x3``. The cross-replica ``axis_name`` branch of
+``_fold_stats`` is the ``group`` of each ConvBN's BNState
+(``layers.set_bn_group``).
 """
 
 import torch
@@ -94,9 +95,10 @@ def rows_to(y2, b, h, w):
 
 
 def _fold_stats(bn, s1, s2, count):
-    """Batch statistics from the sums, the running-statistics update,
-    and the affine for this layer's consumers."""
-    mean, var = batch_stats(s1, s2, count)
+    """Batch statistics from the sums (over the processes of
+    ``bn.group`` where one is set), the running-statistics update, and
+    the affine for this layer's consumers."""
+    mean, var = batch_stats(s1, s2, count, group=bn.group)
     bn.update_running(mean, var)
     return bn_affine(mean, var, bn.scale, bn.bias)
 

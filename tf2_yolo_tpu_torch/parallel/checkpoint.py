@@ -11,8 +11,15 @@ temporary directory and renamed into place, so a listed ``step_N`` is
 complete. ``block=False`` snapshots the state to host memory at once (the
 next step may then change it) and writes on a background thread, one
 write in flight at a time; :func:`wait_for_saves` fences it. Plain
-weight files are ``Model.save_weights``. (The multi-process collective
-save comes with the parallel paths.)
+weight files are ``Model.save_weights``.
+
+Multi-process runs (``parallel.distributed_initialize``): the state is
+the same in every process (data parallelism), so :func:`save_checkpoint`
+is collective: process 0 writes and prunes, then every process waits at
+a barrier, so that none lists or reads the directory before the write
+and the pruning are done; ``block=False`` blocks there. Every process
+restores from the same file. The directory must be one that every
+process sees.
 """
 
 import os
@@ -23,6 +30,8 @@ import threading
 from typing import Optional
 
 import torch
+
+from .multihost import barrier, process_count, process_index
 
 _STEP_DIR = re.compile(r"^step_(\d+)$")
 _FILE = "state.pt"
@@ -95,18 +104,31 @@ def save_checkpoint(path: str, state, keep: int = 3, block: bool = True,
     ``position`` is the fit position (epoch to run next, batches of it
     already trained). ``block=False``: snapshot now, write in the
     background (call :func:`wait_for_saves`, or save or restore again,
-    to fence)."""
+    to fence). Collective in a multi-process run: every process calls
+    it, process 0 writes, all wait for the write (``block`` is
+    ignored)."""
     path = os.path.abspath(path)
     ckpt_dir = os.path.join(path, f"step_{int(state.step)}")
     # one write in flight: fence the previous before pruning or saving
     wait_for_saves()
-    tree = _host_copy({"model": state.model.state_dict(),
-                       "optimizer": state.optimizer.state_dict(),
-                       "step": int(state.step),
-                       "position": tuple(int(p) for p in position)})
+    multi = process_count() > 1
+    if multi and process_index() != 0:
+        barrier()
+        return ckpt_dir
+    tree = {"model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step),
+            "position": tuple(int(p) for p in position)}
+    if multi:
+        try:
+            _write(path, ckpt_dir, tree, keep)
+        finally:                 # the others wait here, written or not
+            barrier()
+        return ckpt_dir
     if block:
         _write(path, ckpt_dir, tree, keep)
         return ckpt_dir
+    tree = _host_copy(tree)      # the next step updates the live tensors
 
     def work():
         try:

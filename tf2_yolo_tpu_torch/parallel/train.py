@@ -14,6 +14,10 @@ operations: inner (adam, adamw, sgd or rmsprop, then the learning rate)
 multiplier. ``torch.optim``'s classes differ from optax's in rmsprop
 (decay 0.99, eps outside the root), adamw (weight decay 1e-2) and where
 their bias corrections round, so none is used.
+
+Data parallelism (``make_train_step(group=...)``) is the explicit form of
+what GSPMD derives for the JAX step over a global batch: statistics sums
+and gradients reduced over the process group.
 """
 
 import math
@@ -21,6 +25,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 _INNER = ("adam", "adamw", "sgd", "rmsprop")
 _B1, _B2 = 0.9, 0.999          # adam's decays, optax's defaults
@@ -275,8 +281,69 @@ def _forward(model, loss_fns, metric_fns, metric_names, x, ys,
     return total, logs
 
 
+_BUCKET = 1 << 23              # elements of one gradient all-reduce
+
+
+def _buckets(grads):
+    """Consecutive runs of ``grads`` of one dtype and at most _BUCKET
+    elements (or one larger tensor)."""
+    run, size = [], 0
+    for g in grads:
+        if run and (g.dtype != run[0].dtype or size + g.numel() > _BUCKET):
+            yield run
+            run, size = [], 0
+        run.append(g)
+        size += g.numel()
+    if run:
+        yield run
+
+
+def _reduce_grads(state, group):
+    """Average the gradients of the optimizer's parameters over the
+    processes of ``group``, in place, in the order of the parameters'
+    names: the same list on every process, whatever gradients this
+    process has (a parameter without one adds zeros, so that no process
+    waits on a reduce that another skips). One all-reduce a bucket of
+    concatenated gradients (:data:`_BUCKET` elements)."""
+    own = {id(p) for p in state.optimizer.param_groups[0]["params"]}
+    params = [p for _, p in sorted(state.model.named_parameters(),
+                                   key=lambda kv: kv[0]) if id(p) in own]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    world = dist.get_world_size(group)
+    for grads in _buckets([p.grad for p in params]):
+        flat = _flatten_dense_tensors(grads)
+        dist.all_reduce(flat, group=group)
+        flat.div_(world)
+        for g, r in zip(grads, _unflatten_dense_tensors(flat, grads)):
+            g.copy_(r)
+
+
+@torch.no_grad()
+def broadcast_tensors(tensors, group, src=0):
+    """Overwrite ``tensors`` in place with process ``src``'s, one
+    broadcast a bucket of concatenated tensors (:data:`_BUCKET`
+    elements)."""
+    for run in _buckets(list(tensors)):
+        flat = _flatten_dense_tensors(run)
+        dist.broadcast(flat, src=src, group=group)
+        for t, r in zip(run, _unflatten_dense_tensors(flat, run)):
+            t.copy_(r)
+
+
+def _mean_logs(logs, group):
+    """``{name: 0-d tensor}`` averaged over the processes of ``group``
+    (one all-reduce)."""
+    keys = list(logs)
+    vals = torch.stack([logs[k].detach().float() for k in keys])
+    dist.all_reduce(vals, group=group)
+    vals = vals / dist.get_world_size(group)
+    return dict(zip(keys, vals.unbind()))
+
+
 def make_train_step(loss_fns, metric_fns=None, metric_names=None,
-                    input_rescale=1 / 255):
+                    input_rescale=1 / 255, group=None):
     """Build ``train_step(state, x, y_tuple) -> (state, logs)``.
 
     loss_fns: one loss per model output (summed).
@@ -284,6 +351,16 @@ def make_train_step(loss_fns, metric_fns=None, metric_names=None,
         their log names, computed on the step's outputs.
     input_rescale: on-device normalization factor for uint8 image
         batches (see ``_cast_input``).
+    group: a ``torch.distributed`` process group for the data-parallel
+        step: every process passes its own rows, the model's BatchNorm
+        statistics are taken over the group (``layers.set_bn_group``,
+        whose backward sums their cotangents over it), and after the
+        backward the gradients are averaged over the group before the
+        update. The losses are means over each process's batch, so with
+        equal batches this is the gradient of the global batch's mean
+        loss: the step of one process on the concatenated batch (the
+        JAX package's one GSPMD program). The logs are averaged over the
+        group too.
     ``logs`` holds ``loss`` and each metric as 0-d tensors on the
     model's device (reading one waits for the step).
     """
@@ -295,9 +372,13 @@ def make_train_step(loss_fns, metric_fns=None, metric_names=None,
         loss, metrics = _forward(state.model, loss_fns, metric_fns,
                                  metric_names, x, ys, input_rescale)
         loss.backward()
+        logs = {"loss": loss.detach(), **metrics}
+        if group is not None:
+            _reduce_grads(state, group)
+            logs = _mean_logs(logs, group)
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach(), **metrics}
+        return state, logs
 
     return train_step
 

@@ -19,8 +19,10 @@ kernel by category. With ``--serve`` it traces ``--steps`` requests of
   fused gemm fwd/bwd the hand-written fused GEMM kernels
   fused conv3x3 forward / backward
                      the hand-written fused 3x3 conv kernels (``--packed 3``)
+  int8 conv          kernel Q: its quantize passes and its int8 convs
   optimizer          the optimizer chain's multi-tensor kernels
-  nms                the hand-written NMS kernels (``--serve``)
+  nms                the hand-written NMS kernels, greedy and Soft-NMS
+                     (``--serve``)
   elementwise        everything else (BN normalise, mish, leaky and their
                      backward, casts, reductions, the loss, copies)
 
@@ -45,6 +47,7 @@ import torch
 
 from ..export import make_serving_fn
 from ..models import YoloV4, use_plain_route
+from ..models.layers import set_bn_group
 from ..ops.losses import wrap_yolo_loss_v4
 from ..parallel import create_train_state, make_optimizer, make_train_step
 
@@ -62,16 +65,20 @@ def card_line():
     return out[0].strip()
 
 
-def make_training(seed, batch, size, dtype, plain=False, packed=3):
+def make_training(seed, batch, size, dtype, plain=False, packed=3,
+                  group=None):
     """A YoloV4(packed=...) train state on the card with the v4 init
     drawn from ``seed``, Adam 1e-3, the three v4 losses, one batch of
     random images and synthetic labels (four boxes per image and level,
-    as the JAX package's training benchmark makes them)."""
+    as the JAX package's training benchmark makes them). With a process
+    ``group``, the data-parallel step over it (BatchNorm statistics and
+    gradients reduced over the group)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     model = YoloV4(ANCHORS, CLASSES, dtype=dtype, generator=gen,
                    packed=packed)
     if plain:
         use_plain_route(model)
+    set_bn_group(model, group)
     state = create_train_state(model, make_optimizer("adam", 1e-3))
     rng = np.random.RandomState(seed)
     x = torch.rand(batch, size, size, 3, generator=gen, device="cuda")
@@ -87,7 +94,7 @@ def make_training(seed, batch, size, dtype, plain=False, packed=3):
                 y[b, gy, gx, :5] = [*rng.rand(2), 0.2, 0.3, 1.0]
                 y[b, gy, gx, 5 + rng.randint(CLASSES)] = 1.0
         ys.append(torch.from_numpy(y).cuda())
-    return state, make_train_step(loss_fns), x, tuple(ys)
+    return state, make_train_step(loss_fns, group=group), x, tuple(ys)
 
 
 def timed_steps(state, step, x, ys, steps):
@@ -142,9 +149,10 @@ CATEGORIES = (
                              "fused_gemm_dx_tc_kernel",
                              "fused_gemm_dw_tc_kernel",
                              "fused_gemm_ctab_kernel")),
+    ("int8 conv", ("quantize_int8_kernel", "quantize_im2col_kernel",
+                   "conv_int8_wgmma_kernel", "conv_int8_kernel")),
     ("optimizer", ("multi_tensor_apply", "adam")),
-    ("nms", ("nms_lattice_kernel", "nms_scan_kernel",
-             "soft_nms_keep_kernel")),
+    ("nms", ("nms_lattice_kernel", "nms_scan_kernel", "soft_walk_kernel")),
     # SPP's max-pool kernels carry "nhwc" in their names
     ("elementwise", ("max_pool",)),
     ("conv backward", ("cudnn", "cutlass", "xmma", "dgrad", "wgrad", "nhwc",
