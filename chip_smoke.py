@@ -239,7 +239,39 @@ Phases (each raises on failure, so the exit code is nonzero):
      single program and train mode at microbatch 16 against the single
      train step by the probe rule, with their launches;
      ``merged_variables`` into a fresh YoloV4 and a save / load in a
-     temporary directory bit for bit. ms/step of each beside the card.
+     temporary directory bit for bit. ms/step of each beside the card;
+ 18. tensor parallelism and PP x DP (new draws from ``--seed`` + 18): K1
+     at two of the slices that YOLOv4's sharded layers take at n_model 2
+     (td1_pre2's 13^2 512->512 3x3 and stage3.pre's 52^2 256->64 1x1) at
+     batch 16 against its plain version, timed as phase 3 times it; (a)
+     two processes on the one card (this script with ``--tp-child``, gloo
+     over CUDA tensors through a FileStore), ``engine.Model(YoloV4(
+     packed=False), bf16).compile("adam", n_model=2)`` and ``fit`` of one
+     step of the same 16 rows in both, against one process without tensor
+     parallelism on the same weights and rows: the loss by phase 8's
+     bound and the running statistics' step by its probe rule; the
+     gathered gradients, leaf by leaf, bit for bit the unsliced bf16
+     step's or, in rel L2 to the unsliced f32 step on the same weights
+     and rows, within max(4 x the unsliced bf16 step's, 1e-3) (in bf16
+     the probe itself moves most gradients past phase 8's 0.3 cap); the
+     whole (unsliced) leaves and their Adam moments equal on both
+     processes bit for bit, 110 K1 launches a step in each, all on the
+     tensor cores (each sliced shape's plan and the wrapper's count of
+     its launches printed), and the collectives counted: one channel
+     gather and one cotangent all-reduce a sliced layer, on the model
+     group; then ms/step of both beside the unsliced step. An f32 step
+     of a fresh model (batch 4) on the same grid holds the gathered
+     gradients, the loss and the statistics' step to phase 8's probe
+     rule; (b) the checkpoint the two processes save (gathered,
+     process 0 writes) restored into an unsliced YoloV4: its eval heads
+     bit for bit the sliced model's, or within the rel L2 of the plain
+     route to the kernel route; (c) ``split_yolov4(n_stages=2)`` of an f32
+     ``packed=3`` YOLOv4, stage meshes of ranks {0, 1} and {2, 3} (this
+     script four times with ``--pp-child``): ``run`` at microbatch 8 bit
+     for bit the eval forward of the same rows, the frozen-statistics
+     ``value_and_grad`` against the gradient-accumulated single program
+     by the probe rule, each process's K1/K2/K3 launches, ms/step beside
+     the single program's.
 
 Weights are random, from ``--seed``: conv kernels drawn with the port's
 HE_NORMAL from a seeded ``torch.Generator``. With BN at its init
@@ -261,6 +293,7 @@ import contextlib
 import copy
 import ctypes
 import functools
+import hashlib
 import json
 import os
 import subprocess
@@ -312,10 +345,16 @@ from tf2_yolo_tpu_torch.ops.nms import _sorted_by_conf, apply_nms_device
 from tf2_yolo_tpu_torch.ops.losses import wrap_yolo_loss_v4
 from tf2_yolo_tpu_torch.parallel import (PipelineExecutor, create_train_state,
                                          distributed_initialize,
-                                         distributed_shutdown, make_optimizer,
-                                         make_train_step, process_batch_slice,
+                                         distributed_shutdown, make_mesh,
+                                         make_optimizer, make_train_step,
+                                         process_batch_slice,
+                                         restore_checkpoint, save_checkpoint,
                                          split_yolov4)
+from tf2_yolo_tpu_torch.parallel.collectives import (gather_state_dict,
+                                                     recording,
+                                                     sharded_dims)
 from tf2_yolo_tpu_torch.parallel.multihost import default_group
+from tf2_yolo_tpu_torch.parallel.train import TrainState
 from tf2_yolo_tpu_torch.tools import bench_packed_probe as probe
 from tf2_yolo_tpu_torch.tools.train_profile import (ANCHORS, CLASSES,
                                                     card_line, make_training,
@@ -4389,6 +4428,28 @@ def probe_rule(got, ref, probe, floor=1e-3):
     return worst, rel[worst], noise[worst], failed
 
 
+def precision_rule(got, ref, truth, floor=1e-3):
+    """Phase 18(a)'s rule for the bf16 gradients, leaf by leaf: ``got``
+    bit for bit ``ref`` (the unsliced bf16 step) or, in rel L2 to
+    ``truth`` (the unsliced f32 step on the same weights and batch),
+    within max(4 x ``ref``'s, ``floor``): tensor parallelism may round
+    differently, not worse. Returns (the leaves bit for bit, the worst
+    leaf by got's distance over its limit, that distance, ref's, the
+    leaves that fail)."""
+    equal, ratio, dist = 0, {}, {}
+    for k in ref:
+        if torch.equal(got[k], ref[k]):
+            equal += 1
+            continue
+        dist[k] = (rel_l2(got[k], truth[k]), rel_l2(ref[k], truth[k]))
+        ratio[k] = dist[k][0] / max(4 * dist[k][1], floor)
+    if not ratio:
+        return equal, None, 0.0, 0.0, []
+    worst = max(ratio, key=ratio.get)
+    return (equal, worst, *dist[worst],
+            [k for k, r in ratio.items() if r > 1])
+
+
 def stats_deltas(after, before):
     """What one step added to each running statistic (momentum 0.99:
     0.01 x the batch statistic)."""
@@ -4758,6 +4819,531 @@ def phase_parallel(args, card):
 
 
 
+# ---------------------------------------------------------------- phase 18
+
+TP_BATCH = 16                  # (a): both processes take the same 16 rows
+TP_F32_BATCH = 4               # (a)'s f32 step, the gradients' check
+TP_EVAL_ROWS = 2               # (b): rows of the eval forwards compared
+PP_BATCH, PP_MICRO = 16, 8     # (c)
+PP_RANKS = ([0, 1], [2, 3])    # (c): the stage meshes
+# K1 at two of the slices that YOLOv4's sharded layers take at n_model 2
+# (name, H, W, Ci, Co / 2, k, stride), at (a)'s batch
+TP_CONV_SHAPES = [
+    ("td1_pre2 13^2 512->512 3x3s1 (1024 / 2)", 13, 13, 512, 512, 3, 1),
+    ("stage3.pre 52^2 256->64 1x1 (128 / 2)", 52, 52, 256, 64, 1, 1),
+]
+
+
+def start_children(flag, n, args, tmp):
+    """This script ``n`` times with ``flag RANK STORE DIR`` (a FileStore
+    in ``tmp``)."""
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(rank),
+         os.path.join(tmp, "store"), tmp, "--seed", str(args.seed),
+         "--size", str(args.size)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(n)]
+
+
+def finish_children(procs, flag, tmp, what, started):
+    """Wait for :func:`start_children`'s processes, CHILD_TIMEOUT_S from
+    ``started`` for all of them, and load what each wrote; every child is
+    killed on any failure (also of the caller, who calls this in a
+    ``finally``-guarded block)."""
+    deadline = started + CHILD_TIMEOUT_S
+    try:
+        for rank, p in enumerate(procs):
+            try:
+                log, _ = p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"{what} process {rank} did not end in "
+                                   f"{CHILD_TIMEOUT_S} s")
+            check(p.returncode == 0, f"{what} process {rank} exited "
+                  f"{p.returncode}:\n{log[-3000:]}")
+    finally:
+        kill_children(procs)
+    return [torch.load(os.path.join(tmp, f"{flag[2:]}_{rank}.pt"),
+                       map_location="cuda", weights_only=False)
+            for rank in range(len(procs))]
+
+
+def kill_children(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def wait_for_file(path, what):
+    """Poll for ``path`` (written by the parent), CHILD_TIMEOUT_S at
+    most."""
+    deadline = time.monotonic() + CHILD_TIMEOUT_S
+    while not os.path.exists(path):
+        check(time.monotonic() < deadline, f"{what}: no {path}")
+        time.sleep(0.05)
+
+
+class StepCapture:
+    """``fit``'s first step: its loss, launches, collectives (the log of
+    ``records`` up to the step's end), gradients and running statistics,
+    the sliced ones gathered over the model group."""
+
+    def __init__(self, records):
+        self.records, self.out = records, None
+
+    def on_train_batch_end(self, batch, logs, m):
+        if self.out is not None:
+            return
+        torch.cuda.synchronize()
+        mod = m.module
+        self.out = dict(loss=float(logs["loss"]), counts=train_counters(),
+                        by_shape=dict(conv_bn_stats.by_shape),
+                        records=list(self.records))
+        self.out.update(grads=gather_state_dict(mod, grads_of(mod)),
+                        stats=gather_state_dict(mod, buffers_of(mod)))
+
+
+def tp_training(args, n_model, dtype, eps=0.0, batch=TP_BATCH):
+    """(a)'s step through the user's path: the YOLOv4 of
+    ``make_training`` (``packed=False``, ``dtype``, ``batch``) in
+    ``engine.Model``, ``compile("adam", n_model=...)`` and ``fit`` of one
+    step on the images moved by ``eps``. Returns (model, x on the card,
+    ys, the first step's capture, the sliced layers' K1 shapes: the keys
+    of ``conv_bn_stats.by_shape``)."""
+    state, _, x, ys = make_training(args.seed + 18, batch, args.size, dtype,
+                                    packed=False)
+    model = engine.Model(state.model, (args.size, args.size, 3))
+    del state
+    before = buffers_of(model.module)
+    model.compile("adam", loss=v4_losses(args.size), learning_rate=1e-3,
+                  n_model=n_model)
+    shapes = set()
+
+    def seen(mod, inputs):
+        n, h, w, ci = inputs[0].shape
+        k, _, _, co = mod.conv.kernel.shape
+        shapes.add((n, h, w, ci, co, k, mod.conv.stride, mod.conv.padding))
+
+    hooks = [m.register_forward_pre_hook(seen)
+             for m in model.module.modules()
+             if isinstance(m, ConvBN) and m.tp is not None]
+    reset_train_counters()
+    conv_bn_stats.by_shape.clear()
+    with recording() as records:
+        cap = StepCapture(records)
+        model.fit((x + eps).cpu().numpy(), [y.cpu().numpy() for y in ys],
+                  epochs=1, batch_size=batch, shuffle=False, verbose=0,
+                  callbacks=[cap])
+    for h in hooks:
+        h.remove()
+    cap.out["deltas"] = stats_deltas(cap.out["stats"], before)
+    return model, x, ys, cap.out, shapes
+
+
+def tp_child(rank, store, out_dir, args):
+    """One of (a)'s two processes: gloo over CUDA tensors through the
+    FileStore ``store``, the ``(data 1, model 2)`` grid of
+    ``compile(n_model=2)``. The bf16 step of :func:`tp_training` on the
+    same 16 rows as the other process, a timed step after it, then (b):
+    the checkpoint (gathered, process 0 writes) and the sliced model's
+    eval forward of TP_EVAL_ROWS images; then the f32 step of a fresh
+    model. Writes ``tp-child_<rank>.pt``."""
+    t0 = time.perf_counter()
+    distributed_initialize(num_processes=2, process_id=rank, backend="gloo",
+                           device="cuda:0", store=store, timeout_s=60)
+    try:
+        model, x, ys, out, shapes = tp_training(args, 2, torch.bfloat16)
+        times = {"bf16 step": time.perf_counter() - t0}
+        mesh = model.mesh
+        dims = sharded_dims(model.module)
+        out["records"] = [dict(kind=r.kind, dim=r.dim, numel=r.numel,
+                               axis="model" if r.group is mesh.model_group
+                               else "other") for r in out["records"]]
+        out["sharded"] = dims
+        out["shapes"] = sorted(shapes)
+        local = model.module.state_dict()
+        out["local_numel"] = sum(v.numel() for v in local.values())
+        moments = model._state.optimizer.state_dict()["state"]
+        names = [n for n, _ in model.module.named_parameters()]
+        out["replicated"] = {
+            k: hashlib.sha1(v.cpu().numpy().tobytes()).hexdigest()
+            for k, v in local.items() if k not in dims}
+        out["replicated_moments"] = {
+            names[i]: {k: hashlib.sha1(v.cpu().numpy().tobytes()).hexdigest()
+                       for k, v in st.items()}
+            for i, st in moments.items() if names[i] not in dims}
+        # the parent computes its references while this step ran; the
+        # timed step waits until the card is this pair's alone
+        wait_for_file(os.path.join(out_dir, "go"), "(a)")
+        times["go"] = time.perf_counter() - t0
+        out["ms"] = timed_steps(model._state, model._train_step, x, ys, 1)[0]
+        ckpt = save_checkpoint(os.path.join(out_dir, "ckpt"), model._state)
+        times["checkpoint"] = time.perf_counter() - t0
+        model.module.eval()
+        with torch.no_grad():
+            heads = model.module(x[:TP_EVAL_ROWS])
+        out["ckpt"], out["heads"] = ckpt, [h.float() for h in heads]
+        del model, x, ys, local, heads
+        torch.cuda.empty_cache()
+        f32 = tp_training(args, 2, torch.float32, batch=TP_F32_BATCH)[3]
+        out["f32"] = {k: f32[k] for k in ("loss", "grads", "deltas")}
+        times["f32 step"] = time.perf_counter() - t0
+        out["times"] = times
+        if rank != 0:
+            for key in ("grads", "deltas", "stats", "heads", "f32"):
+                out.pop(key)
+        torch.save(out, os.path.join(out_dir, f"tp-child_{rank}.pt"))
+    finally:
+        distributed_shutdown()
+    return 0
+
+
+def pp_child(rank, store, out_dir, args):
+    """One of (c)'s four processes: ``split_yolov4(n_stages=2)`` of the
+    f32 ``packed=3`` YOLOv4 of ``make_training`` on the stage meshes
+    PP_RANKS (gloo over CUDA tensors, stage transfers through the host):
+    ``run`` and the frozen-statistics ``value_and_grad`` at microbatch
+    PP_MICRO, each process on its PP_MICRO / 2 rows of a microbatch, with
+    their launches and times; writes ``pp-child_<rank>.pt``."""
+    # started with (a)'s children: the card is (c)'s after "start"
+    wait_for_file(os.path.join(out_dir, "start"), "(c)")
+    t0 = time.perf_counter()
+    distributed_initialize(num_processes=4, process_id=rank, backend="gloo",
+                           device="cuda:0", store=store, timeout_s=60)
+    try:
+        state, _, x, ys = make_training(args.seed + 18, PP_BATCH, args.size,
+                                        torch.float32, packed=3)
+        model = state.model
+        del state
+        meshes = [make_mesh(ranks=r) for r in PP_RANKS]
+        stages, params = split_yolov4(model, 2)
+        pipe = PipelineExecutor(stages, params, meshes=meshes)
+        losses = v4_losses(args.size)
+
+        def loss_fn(out, *y):
+            return sum(lf(t, o) for lf, t, o in zip(losses, y, out))
+
+        step = pipe.value_and_grad(loss_fn, train=False)
+        reset_train_counters()
+        run = pipe.run(x, PP_MICRO)
+        torch.cuda.synchronize()
+        out = dict(stage=pipe.stage, run_counts=train_counters(),
+                   convs=sum(isinstance(m, Conv)
+                             for m in params[pipe.stage].modules()))
+        times = {"run": time.perf_counter() - t0}
+        wait_for_file(os.path.join(out_dir, "go"), "(c)")
+        reset_train_counters()
+        torch.cuda.synchronize()
+        times["go"] = time.perf_counter() - t0
+        loss, grads = step(x, *ys, microbatch=PP_MICRO)
+        torch.cuda.synchronize()
+        times["step"] = time.perf_counter() - t0
+        out.update(ms=(times["step"] - times["go"]) * 1e3, loss=float(loss),
+                   times=times, counts=train_counters(),
+                   grads={k: v.clone() for k, v in grads[pipe.stage].items()})
+        if rank != meshes[pipe.stage].ranks[0]:
+            out.pop("grads")
+        if rank == 0:
+            out["run"] = run
+        torch.save(out, os.path.join(out_dir, f"pp-child_{rank}.pt"))
+    finally:
+        distributed_shutdown()
+    return 0
+
+
+def tp_conv_checks(args):
+    """K1 at TP_CONV_SHAPES, (a)'s batch, against its plain version, as
+    phase 3 checks and times it, on a generator of its own."""
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 18)
+    return phase_conv_checks(gen, TP_BATCH, TP_CONV_SHAPES)
+
+
+def unsliced_reference(args):
+    """(a)'s bf16 step without tensor parallelism, then the same model's
+    next step timed, before any child process starts."""
+    model, x, ys, out, _ = tp_training(args, 1, torch.bfloat16)
+    out["ms"] = timed_steps(model._state, model._train_step, x, ys, 1)[0]
+    del model, x, ys
+    torch.cuda.empty_cache()
+    return out
+
+
+def tensor_parallel_run(args, card, ref):
+    """(a) and (b): see the module docstring; ``ref`` is
+    :func:`unsliced_reference`'s."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        # the children start (they take seconds to reach the card) while
+        # this process computes the other references; they time their
+        # step after the "go" file
+        procs = start_children("--tp-child", 2, args, tmp)
+        started = time.monotonic()
+        try:
+            refs = {}
+            for dtype, name, eps, batch in (
+                    (torch.bfloat16, "probe", PROBE_EPS, TP_BATCH),
+                    (torch.float32, "truth", 0.0, TP_BATCH),
+                    (torch.float32, "ref", 0.0, TP_F32_BATCH),
+                    (torch.float32, "probe", PROBE_EPS, TP_F32_BATCH)):
+                refs[dtype, name] = tp_training(args, 1, dtype, eps,
+                                                batch)[3]
+                torch.cuda.empty_cache()
+            t_refs = time.perf_counter() - t0
+            open(os.path.join(tmp, "go"), "w").close()
+            r0, r1 = finish_children(procs, "--tp-child", tmp, "(a)",
+                                     started)
+        finally:
+            kill_children(procs)
+        t_children = time.perf_counter() - t0
+        probe = refs[torch.bfloat16, "probe"]
+        truth = refs[torch.float32, "truth"]
+        ref32 = refs[torch.float32, "ref"]
+        probe32 = refs[torch.float32, "probe"]
+        # (b): the gathered checkpoint into an unsliced model
+        state, _, x, _ = make_training(args.seed + 18, TP_BATCH, args.size,
+                                       torch.bfloat16, packed=False)
+        fresh = YoloV4(ANCHORS, CLASSES, dtype=torch.bfloat16,
+                       generator=torch.Generator(device="cuda").manual_seed(1))
+        del state
+        restore_checkpoint(r0["ckpt"], TrainState(
+            fresh, make_optimizer("adam", 1e-3)(fresh)))
+    fresh.eval()
+    with torch.no_grad():
+        heads = [h.float() for h in fresh(x[:TP_EVAL_ROWS])]
+        use_plain_route(fresh)
+        plain = [h.float() for h in fresh(x[:TP_EVAL_ROWS])]
+    bit_equal = all(torch.equal(a, b) for a, b in zip(r0["heads"], heads))
+    sharded_rel = max(rel_l2(a, b) for a, b in zip(r0["heads"], heads))
+    plain_rel = max(rel_l2(a, b) for a, b in zip(plain, heads))
+    del fresh, x
+    torch.cuda.empty_cache()
+
+    def loss_rels(got, want, noisy):
+        return (abs(got - want) / abs(want), abs(noisy - want) / abs(want))
+
+    loss_rel, loss_noise = loss_rels(r0["loss"], ref["loss"], probe["loss"])
+    g = precision_rule(r0["grads"], ref["grads"], truth["grads"])
+    st = probe_rule(r0["deltas"], ref["deltas"], probe["deltas"], floor=1e-4)
+    f32 = r0["f32"]
+    loss32 = loss_rels(f32["loss"], ref32["loss"], probe32["loss"])
+    g32 = probe_rule(f32["grads"], ref32["grads"], probe32["grads"])
+    st32 = probe_rule(f32["deltas"], ref32["deltas"], probe32["deltas"],
+                      floor=1e-4)
+    same_leaves = r0["replicated"] == r1["replicated"]
+    same_moments = r0["replicated_moments"] == r1["replicated_moments"]
+    dims = r0["sharded"]
+    units = len({k.rsplit(".", 2)[0] for k in dims})
+    gathers = [r for r in r0["records"] if r["kind"] == "all_gather"]
+    reduces = [r for r in r0["records"] if r["kind"] == "all_reduce"]
+    structure_ok = (all(r["axis"] == "model" for r in r0["records"])
+                    and all(r["dim"] == 3 for r in gathers)
+                    and len(gathers) == len(reduces) == units)
+    moved = sum(r["numel"] for r in r0["records"])
+    whole = sum(v.numel() for v in ref["stats"].values()) + sum(
+        v.numel() for v in ref["grads"].values())
+    print(f"  (a) {len(dims)} leaves of {units} layers sliced at n_model 2 "
+          f"(tp_min_channels 128); K1 plans of the sliced shapes at b"
+          f"{TP_BATCH}:")
+    for key in r0["shapes"]:
+        n, h, w, ci, co, k, stride, pad = key
+        plan = conv_mod._tc_plan(n, h, w, ci, co, k, stride, torch.bfloat16,
+                                 pad)
+        print(f"    {h}^2 {ci}->{co} {k}x{k}s{stride} x{r0['by_shape'][key]}"
+              f": [{plan_line(plan)}]")
+    print(f"  (a) 2 processes, gloo, (data 1, model 2), bf16 b{TP_BATCH} "
+          f"against 1 process: loss {r0['loss']:.6f} / {ref['loss']:.6f} "
+          f"(rel {loss_rel:.2e}; probe {loss_noise:.2e}); running "
+          f"statistics' step worst {st[1]:.2e} at {st[0]} (probe "
+          f"{st[2]:.2e}), {len(st[3])} outside; gradients bit for bit "
+          f"{g[0]}/{len(ref['grads'])}, the rest in rel L2 to the f32 step "
+          f"within max(4 x the unsliced bf16 step's, 1e-3): worst "
+          f"{g[2]:.2e} at {g[1]} (unsliced {g[3]:.2e}), {len(g[4])} "
+          f"outside; the whole leaves equal on both processes "
+          f"{same_leaves}, their Adam moments {same_moments}")
+    print(f"  (a) f32 b{TP_F32_BATCH}, the same grid: loss {f32['loss']:.6f} / "
+          f"{ref32['loss']:.6f} (rel {loss32[0]:.2e}; probe "
+          f"{loss32[1]:.2e}); gradients worst {g32[1]:.2e} at {g32[0]} "
+          f"(probe {g32[2]:.2e}), {len(g32[3])} outside; running "
+          f"statistics' step worst {st32[1]:.2e} at {st32[0]} (probe "
+          f"{st32[2]:.2e}), {len(st32[3])} outside")
+    print(f"  (a) bf16 launches in each process's step: K1 "
+          f"{r0['counts']['conv_bn_stats']} / {r1['counts']['conv_bn_stats']}"
+          f", on the tensor cores {r0['counts']['conv_bn_stats_tc']} / "
+          f"{r1['counts']['conv_bn_stats_tc']}; collectives: {len(gathers)} "
+          f"channel gathers and {len(reduces)} cotangent all-reduces on the "
+          f"model group, {moved / 1e6:.1f} M elements; this process holds "
+          f"{r0['local_numel'] / 1e6:.2f} M of the model's "
+          f"{whole / 1e6:.2f} M parameters and statistics")
+    ms = [float(np.median(r["ms"])) for r in (r0, r1)]
+    ref_ms = float(np.median(ref["ms"]))
+    print(f"  (a) the references took {t_refs:.1f} s, the children ended "
+          f"at {t_children:.1f} s (process 0 from its start: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in r0["times"].items())
+          + f"), (b) at {time.perf_counter() - t0:.1f} s")
+    print(f"  (a) ms/step bf16 {ms[0]:.2f} / {ms[1]:.2f} (two processes "
+          f"sharing the card, gloo through the host) against {ref_ms:.2f} "
+          f"unsliced [{card}]")
+    print(f"  (b) the gathered checkpoint in an unsliced model: eval heads "
+          f"bit for bit {bit_equal} (rel L2 {sharded_rel:.2e}; the plain "
+          f"route's {plain_rel:.2e})")
+    check(loss_rel <= 1e-5 + 4 * loss_noise, "(a) the bf16 losses differ")
+    check(not st[3], f"(a) bf16 running statistics differ at {st[3][:5]}")
+    check(not g[4], f"(a) bf16 gradients differ at {g[4][:5]}")
+    check(loss32[0] <= 1e-5 + 4 * loss32[1], "(a) the f32 losses differ")
+    check(not g32[3], f"(a) f32 gradients differ at {g32[3][:5]}")
+    check(not st32[3], f"(a) f32 running statistics differ at {st32[3][:5]}")
+    check(same_leaves and same_moments,
+          "(a) the whole leaves differ between the processes")
+    check(structure_ok, f"(a) collectives {r0['records'][:6]}")
+    for r in (r0, r1):
+        check(r["counts"]["conv_bn_stats"] == CONVS_PER_FORWARD
+              and r["counts"]["conv_bn_stats_tc"] == CONVS_PER_FORWARD,
+              f"(a) launches {r['counts']}, want {CONVS_PER_FORWARD} on "
+              "the tensor cores")
+    check(bit_equal or sharded_rel <= plain_rel,
+          "(b) the restored model's heads differ")
+    # the wrapper's own count of each shape's launches, in both processes
+    by_shape = {s[0]: sum(c for r in (r0, r1)
+                          for (n, h, w, ci, co, k, st_, _), c
+                          in r["by_shape"].items()
+                          if (h, w, ci, co, k, st_) == tuple(s[1:7]))
+                for s in TP_CONV_SHAPES}
+    return dict(loss=r0["loss"], loss_one_process=ref["loss"],
+                loss_rel=loss_rel, loss_rel_probe=loss_noise,
+                grads_bit_equal=g[0], grad_worst=g[1:4],
+                grads_outside=len(g[4]),
+                stats_worst=st[:3], f32_loss_rel=loss32,
+                f32_grad_worst=g32[:3], f32_stats_worst=st32[:3],
+                replicated_equal=same_leaves, moments_equal=same_moments,
+                sliced_leaves=len(dims), sliced_layers=units,
+                gathers=len(gathers), reduces=len(reduces),
+                collective_elements=moved,
+                local_numel=r0["local_numel"], whole_numel=whole,
+                launches=r0["counts"]["conv_bn_stats"]
+                + r1["counts"]["conv_bn_stats"],
+                launches_by_shape=by_shape,
+                ms_per_step=ms, unsliced_ms_per_step=ref_ms,
+                checkpoint_bit_equal=bit_equal,
+                checkpoint_rel=sharded_rel, plain_rel=plain_rel)
+
+
+def pp_dp_run(args, card, procs, tmp, started):
+    """(c): see the module docstring. ``procs`` were started at the
+    phase's start in ``tmp`` (their imports overlap (a)); they take the
+    card at the "start" file, compute this process's references while
+    they set up and run ``run``, and time their step after "go"; this
+    process times its own after they end."""
+    t0 = time.perf_counter()
+    open(os.path.join(tmp, "start"), "w").close()
+    state, _, x, ys = make_training(args.seed + 18, PP_BATCH,
+                                    args.size, torch.float32,
+                                    packed=3)
+    model = state.model
+    del state
+    losses = v4_losses(args.size)
+
+    def loss_fn(out, *y):
+        return sum(lf(t, o) for lf, t, o in zip(losses, y, out))
+
+    model.eval()
+    rows = PP_MICRO // len(PP_RANKS[0])
+    with torch.no_grad():
+        # the rows each process runs, one launch a chunk as there
+        chunks = [torch.cat(o) for o in zip(*(
+            model(x[i:i + rows]) for i in range(0, PP_BATCH, rows)))]
+        whole = model(x)
+    halves = [slice(0, PP_MICRO), slice(PP_MICRO, PP_BATCH)]
+
+    def single(eps=0.0):
+        model.zero_grad(set_to_none=True)
+        for sl in halves:
+            (loss_fn(model(x[sl] + eps), *(y[sl] for y in ys)) / 2
+             ).backward()
+        return grads_of(model)
+
+    ref, probe = single(), single(PROBE_EPS)
+    t_refs = time.perf_counter() - t0
+    open(os.path.join(tmp, "go"), "w").close()
+    res = finish_children(procs, "--pp-child", tmp, "(c)", started)
+    t_children = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    single()
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t1) * 1e3
+    model.zero_grad(set_to_none=True)
+    del model
+    torch.cuda.empty_cache()
+    run = res[0]["run"]
+    run_equal = all(torch.equal(a, b) for a, b in zip(run, chunks))
+    run_whole = max(rel_l2(a, b) for a, b in zip(run, whole))
+    got = {k: v for r in res if "grads" in r for k, v in r["grads"].items()}
+    g = probe_rule(got, ref, probe)
+    counts_ok = all(
+        r["run_counts"]["conv_bn_stats"] == 2 * r["convs"]
+        and r["counts"]["conv_bn_stats"] == 4 * r["convs"]
+        and not any(v for k, v in r["counts"].items()
+                    if not k.startswith("conv_bn_stats"))
+        for r in res)
+    ms = [r["ms"] for r in res]
+    print(f"  (c) 2 stages x 2 processes (ranks {PP_RANKS[0]} | "
+          f"{PP_RANKS[1]}), f32 b{PP_BATCH}, microbatch {PP_MICRO} ({rows} "
+          f"rows a process): run equal to the eval forward of the same "
+          f"rows bit for bit {run_equal} (rel L2 {run_whole:.2e} to the "
+          f"forward of all {PP_BATCH} rows at once); frozen-statistics loss "
+          f"{res[0]['loss']:.6f} on every process "
+          f"{len({r['loss'] for r in res}) == 1}; gradients worst {g[1]:.2e} "
+          f"at {g[0]} (probe {g[2]:.2e}), {len(g[3])} outside")
+    print(f"  (c) launches (run; value_and_grad) by process: "
+          + "; ".join(f"stage {r['stage']}: K1 "
+                      f"{r['run_counts']['conv_bn_stats']}, "
+                      f"{r['counts']['conv_bn_stats']} "
+                      f"({r['convs']} convs), K2/K3 "
+                      f"{sum(v for k, v in r['counts'].items() if not k.startswith('conv_bn_stats'))}"
+                      for r in res))
+    print(f"  (c) the references took {t_refs:.1f} s, the children ended "
+          f"at {t_children:.1f} s (process 0 from \"start\": "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in res[0]["times"].items())
+          + ")")
+    print(f"  (c) ms/step frozen statistics: {' / '.join(f'{v:.1f}' for v in ms)}"
+          f" by process, single program {single_ms:.1f} [{card}]")
+    check(run_equal, "(c) run differs from the eval forward")
+    check(len({r["loss"] for r in res}) == 1, "(c) the losses differ")
+    check(not g[3], f"(c) gradients differ at {g[3][:5]}")
+    check(counts_ok, "(c) launches " + str([(r["run_counts"], r["counts"])
+                                            for r in res]))
+    return dict(run_equal=run_equal, run_rel_whole=run_whole,
+                loss=res[0]["loss"], grad_worst=g[:3],
+                launches=sum(r["run_counts"]["conv_bn_stats"]
+                             + r["counts"]["conv_bn_stats"] for r in res),
+                ms_per_step=ms, single_ms=single_ms)
+
+
+def phase_tensor_parallel(args, card):
+    """Phase 18: K1 at the sliced shapes, (a) + (b), (c); every child
+    process ended on every path."""
+    t0 = time.perf_counter()
+    convs = tp_conv_checks(args)
+    ref = unsliced_reference(args)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pp_") as tmp:
+        # (c)'s four children start now and wait for their "start" file:
+        # their imports overlap (a), which they leave the card to
+        procs = start_children("--pp-child", 4, args, tmp)
+        started = time.monotonic()
+        try:
+            tp = tensor_parallel_run(args, card, ref)
+            torch.cuda.empty_cache()
+            pp = pp_dp_run(args, card, procs, tmp, started)
+        finally:
+            kill_children(procs)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"  phase 18 took {seconds:.1f} s")
+    return dict(conv=convs, tensor_parallel=tp, pp_dp=pp,
+                launches=tp["launches"] + pp["launches"], seconds=seconds)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4770,20 +5356,30 @@ def main(argv=None):
                    default=os.path.join(ROOT, "build", "chip_smoke"))
     p.add_argument("--dp-child", nargs=3, metavar=("RANK", "STORE", "DIR"),
                    help="run one process of phase 17's (b) and exit")
+    p.add_argument("--tp-child", nargs=3, metavar=("RANK", "STORE", "DIR"),
+                   help="run one process of phase 18's (a) and exit")
+    p.add_argument("--pp-child", nargs=3, metavar=("RANK", "STORE", "DIR"),
+                   help="run one process of phase 18's (c) and exit")
     args = p.parse_args(argv)
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
+    # every process, the children too: f32 library convs and matmuls
+    # without TF32, as the plain versions and the references take them
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     if args.dp_child:
         rank, store, out_dir = args.dp_child
         return dp_child(int(rank), store, out_dir, args.seed + 17, args.size)
+    for child, flag in ((tp_child, args.tp_child), (pp_child, args.pp_child)):
+        if flag:
+            rank, store, out_dir = flag
+            return child(int(rank), store, out_dir, args)
     t_start = time.perf_counter()
     card = card_line()
     print(f"phase 1: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(card)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
 
     build_s = phase_build(args.log_dir)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -4909,6 +5505,14 @@ def main(argv=None):
           "one, (c) a 3-stage pipeline against the single program")
     parallel = phase_parallel(args, card)
 
+    print(f"phase 18: tensor parallelism and PP x DP, YOLOv4 at "
+          f"{args.size}^2: K1 at two sliced shapes; (a) packed=False bf16 "
+          f"b{TP_BATCH} on a (data 1, model 2) grid of two processes against "
+          "one, (b) its gathered checkpoint in an unsliced model, (c) 2 "
+          f"stages x 2 processes, f32 b{PP_BATCH}, against the single "
+          "program")
+    tp_phase = phase_tensor_parallel(args, card)
+
     def bf16_at(results, shape):
         return [r for r in results
                 if r["dtype"] == "bfloat16" and r["shape"] == shape][-1]
@@ -4971,7 +5575,9 @@ def main(argv=None):
                 + facade["evaluate_predict_launches"]["conv_bn_stats"]
                 + evaluation["conv_launches"]
                 + family_launches("conv_bn_stats")
-                + backbone_counts("conv_bn_stats")},
+                + backbone_counts("conv_bn_stats")
+                + tp_phase["launches"]},
+             launches_tensor_parallel=tp_phase["launches"],
              launches_families=family_launches("conv_bn_stats"),
              launches_backbones=backbone_counts("conv_bn_stats"),
              launches_serving=served["conv_launches"],
@@ -5236,6 +5842,27 @@ def main(argv=None):
             **{f"b{DEPLOY_BIG_BATCH}_{field}": rs[DEPLOY_BIG_BATCH][field]
                for field in ("ms", "bound_ms", "bound_by", "bound_share",
                              "k1_bf16_ms", "plain_ms")}))
+    # K1 at two of the slices of YOLOv4's sharded layers at n_model 2
+    # (phase 18, bf16, (a)'s batch), with their launches in (a)'s step in
+    # both processes
+    for shape in TP_CONV_SHAPES:
+        r = bf16_at(tp_phase["conv"], shape[0])
+        kernels.append(dict(
+            name=f"conv_bn_stats n_model 2 {shape[0]}", route="cuda",
+            source="tf2_yolo_tpu_torch/csrc/conv_bn.cu",
+            replaces="tf2_yolo_tpu/ops/pallas/conv_bn_kernel.py:114 and "
+                     ":346 (under tensor parallelism the JAX package runs "
+                     "XLA convs: models/layers.py:52-57)",
+            launches=tp_phase["tensor_parallel"]["launches_by_shape"][
+                shape[0]],
+            max_abs_err=max(q["max_abs_err"] for q in tp_phase["conv"]
+                            if q["shape"] == shape[0]),
+            at=f"{shape[0]}, batch {r['batch']}, bf16",
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            tflops=r["kernel_tflops"], bound_share=r["bound_share"],
+            plan_route=r["route"], plan_config=r["config"],
+            cuda_core_ms=r["cuda_core_ms"]))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched")
     seconds = time.perf_counter() - t_start
@@ -5253,7 +5880,8 @@ def main(argv=None):
                   device_eval=evaluation, conv_same=same_res,
                   families=families, conv_backbones=backbone_res,
                   depthwise=depthwise_res, backbones=backbones,
-                  v1_same=v1_same, parallel=parallel, kernels=kernels,
+                  v1_same=v1_same, parallel=parallel,
+                  tensor_parallel=tp_phase, kernels=kernels,
                   seconds=seconds)
     os.makedirs(args.log_dir, exist_ok=True)
     with open(os.path.join(args.log_dir, "chip_smoke.json"), "w") as f:

@@ -1,9 +1,11 @@
-"""Worker process for tests/test_torch_multiprocess.py.
+"""Worker process of the port's multi-process tests
+(tests/test_torch_multiprocess.py, test_torch_parallel.py,
+test_torch_tensor_parallel.py, test_torch_pipeline.py).
 
-One process of a 2-process data-parallel run of the PyTorch port on the
-CPU: gloo, a FileStore rendezvous, this process's half of the rows. It
-imports torch, numpy and the port only, never JAX: the parent test holds
-what the workers write against the JAX package on the concatenated data.
+One process of a run of the PyTorch port on the CPU: gloo, a FileStore
+rendezvous, this process's share of the rows. It imports torch, numpy and
+the port only, never JAX: the parent test holds what the workers write
+against the JAX package on the concatenated data.
 
     python _torch_multiprocess_worker.py <mode> <pid> <nprocs> <store> <dir>
 
@@ -18,6 +20,21 @@ worker: evaluate and predict on the initial weights, fit 2 epochs with a
 checkpoint after each (the variables after its first step kept apart),
 and a fit resumed from the epoch-1 checkpoint to 2 epochs; ``<dir>/v2.pt`` holds the initial weights, the result goes to
 ``<dir>/fit_<pid>.json``.
+
+``mode`` "tp" (4 processes): tests/test_sharding.py's TinyDetector on a
+``(data 2, model 2)`` grid (``Model.compile(n_model=2,
+tp_min_channels=16)``): fit 2 epochs of one step with a checkpoint after
+each (the first step's collectives and gathered variables kept apart), a
+restore of the last checkpoint into an unsliced model, a sliced model
+resumed from the first, and the same fit at ``n_model=1``;
+``<dir>/tp.pt`` holds
+the weights and data, the result goes to ``<dir>/tp_<pid>.pt``.
+
+``mode`` "pipe" (4 processes): tests/test_pipeline.py's two stages on the
+stage meshes {0, 1} and {2, 3} (``PipelineExecutor(meshes=)``): the
+forward, ``value_and_grad``, three SGD steps, the train-mode BatchNorm
+step, ``merged_variables``; ``<dir>/pipe.pt`` holds the weights and
+data, the result goes to ``<dir>/pipe_<pid>.pt``.
 """
 
 import gc
@@ -92,6 +109,61 @@ class UNetBlock(torch.nn.Module):
         return self.last
 
 
+TINY_ANCHORS = np.array([[0.2, 0.2], [0.4, 0.3]], np.float32)
+
+
+class TinyDetector(torch.nn.Module):
+    """tests/test_sharding.py's TinyDetector under flax's names: two
+    ConvBNs (16 and 32 channels, 3x3 stride 2, leaky), an 8x8 average
+    pool and a softmax anchor head of 2 anchors and 2 classes."""
+
+    def __init__(self):
+        super().__init__()
+        from tf2_yolo_tpu_torch.models.heads import AnchorHead
+        from tf2_yolo_tpu_torch.models.layers import ConvBN, he_normal_
+        self.ConvBN_0 = ConvBN(3, 16, 3, 2, act="leaky", device="cpu")
+        self.ConvBN_1 = ConvBN(16, 32, 3, 2, act="leaky", device="cpu")
+        self.AnchorHead_0 = AnchorHead(32, TINY_ANCHORS, 2,
+                                       prob_act="softmax",
+                                       anchors_as_params=False,
+                                       init=he_normal_, device="cpu")
+
+    def forward(self, x):
+        x = self.ConvBN_1(self.ConvBN_0(x))
+        x = torch.nn.functional.avg_pool2d(x.permute(0, 3, 1, 2), 8)
+        return self.AnchorHead_0(x.permute(0, 2, 3, 1))
+
+
+class Stage(torch.nn.Module):
+    """tests/test_pipeline.py's stages: flax ``nn.Conv(co, (3, 3),
+    stride)`` (SAME, biased) and, with ``bn``,
+    ``nn.BatchNorm(momentum=0.9)`` (eps 1e-5); then relu (stage 0) or the
+    spatial mean (stage 1), under flax's auto names."""
+
+    def __init__(self, ci, co, stride, bn, last):
+        super().__init__()
+        from tf2_yolo_tpu_torch.models.layers import BNState, Conv
+        self.Conv_0 = Conv(ci, co, 3, stride, use_bias=True, device="cpu",
+                           padding="same")
+        if bn:
+            self.BatchNorm_0 = BNState(co, "cpu", eps=1e-5, momentum=0.9)
+        self.bn, self.last = bn, last
+
+    def forward(self, x):
+        y = self.Conv_0(x)[0]
+        if self.bn:
+            y = self.BatchNorm_0(y)
+        return y.mean(dim=(1, 2)) if self.last else torch.relu(y)
+
+
+def stage_fn(train):
+    """A stage callable of ``PipelineExecutor`` in eval or train mode."""
+    def fn(module, a):
+        module.train(train)
+        return module(a)
+    return fn
+
+
 def inplace_all_reduce(t, group):
     """The wrong reduce: the sum in the forward, but invisible to
     autograd, whose backward then passes the local cotangent only."""
@@ -111,10 +183,10 @@ def run_stacks(pid, io_dir):
     from tf2_yolo_tpu_torch.parallel.train import TrainState
 
     data = torch.load(os.path.join(io_dir, "stacks.pt"), weights_only=True)
+    result = {"mesh": run_mesh(data)}
     step = make_train_step(
         [lambda ct, out: (out * ct).sum() / out.shape[0]],
         group=default_group())
-    result = {}
     differentiable = layers._all_reduce
     for name, cls in (("convbn", Stack), ("csp", PackedStage),
                       ("convactbn", UNetBlock)):
@@ -145,6 +217,41 @@ def run_stacks(pid, io_dir):
                        bridge.flax_leaves(model, grad=True).items()})
     layers._all_reduce = differentiable
     torch.save(result, os.path.join(io_dir, f"stacks_{pid}.pt"))
+
+
+def run_mesh(data):
+    """``make_mesh(n_model=2)`` of the two processes, and one ConvBN
+    sliced over it: its place, its groups, and its gathered output and
+    gradients beside the whole layer's, on the stacks' first input."""
+    from tf2_yolo_tpu_torch.models.layers import ConvBN, set_tensor_parallel
+    from tf2_yolo_tpu_torch.parallel import (make_mesh,
+                                             tensor_parallel_shardings)
+    from tf2_yolo_tpu_torch.parallel.collectives import recording
+    mesh = make_mesh(n_model=2)
+    out = dict(shape=mesh.shape, ranks=mesh.ranks,
+               data_index=mesh.data_index, model_index=mesh.model_index,
+               data_ranks=mesh.data_ranks,
+               no_data_group=mesh.data_group is None,
+               same=make_mesh(n_model=2) is mesh,
+               model_group_size=torch.distributed.get_world_size(
+                   mesh.model_group))
+    x = data["convbn_x"].clone().requires_grad_()
+    layers = []
+    for sliced in (False, True):
+        torch.manual_seed(0)
+        layer = ConvBN(8, 16, 3, 1, act="mish", device="cpu").eval()
+        if sliced:
+            plan = tensor_parallel_shardings(layer, mesh, min_channels=16)
+            set_tensor_parallel(layer, mesh, plan)
+        with recording() as records:
+            y = layer(x)
+            (gx,) = torch.autograd.grad((y * y).sum(), x)
+        layers.append(dict(y=y.detach(), gx=gx,
+                           kernel=tuple(layer.conv.kernel.shape),
+                           records=[(r.kind, r.dim, r.numel)
+                                    for r in records]))
+    out["whole"], out["sliced"] = layers
+    return out
 
 
 def peak_rss():
@@ -238,6 +345,156 @@ def run_fit(pid, io_dir):
         json.dump(out, f)
 
 
+def _collective_axes(records, mesh):
+    return [dict(kind=r.kind, dim=r.dim, numel=r.numel,
+                 axis=("model" if r.group is mesh.model_group else
+                       "data" if r.group is mesh.data_group else "other"))
+            for r in records]
+
+
+def run_tp(pid, io_dir):
+    from tf2_yolo_tpu_torch.engine import Model
+    from tf2_yolo_tpu_torch.ops.losses import wrap_yolo_loss_v2
+    from tf2_yolo_tpu_torch.parallel import (make_optimizer,
+                                             process_batch_slice,
+                                             restore_checkpoint)
+    from tf2_yolo_tpu_torch.parallel.checkpoint import _optimizer_tree
+    from tf2_yolo_tpu_torch.parallel.collectives import (Shard, recording,
+                                                         sharded_dims)
+    from tf2_yolo_tpu_torch.parallel.multihost import barrier
+    from tf2_yolo_tpu_torch.parallel.train import TrainState
+
+    data = torch.load(os.path.join(io_dir, "tp.pt"), weights_only=True)
+    x, y = data["x"].numpy(), data["y"].numpy()
+    loss = wrap_yolo_loss_v2((2, 2), 2, 2, TINY_ANCHORS)
+
+    def fresh(n_model):
+        m = Model(TinyDetector(), (64, 64, 3), device="cpu")
+        m.set_variables(data["weights"])
+        m.compile("sgd", loss=loss, learning_rate=1e-2, n_model=n_model,
+                  tp_min_channels=16)
+        return m
+
+    out = dict(pid=pid)
+    model = fresh(2)
+    mesh = model.mesh
+    sl = process_batch_slice(x.shape[0], mesh)
+    out["mesh"] = dict(data_index=mesh.data_index,
+                       model_index=mesh.model_index, rows=(sl.start, sl.stop))
+
+    class FirstStep:
+        """The first step's collectives, loss and gathered variables."""
+
+        def on_epoch_begin(self, epoch, m):
+            if epoch == 0:
+                self.rec = recording()
+                self.records = self.rec.__enter__()
+
+        def on_train_batch_end(self, batch, logs, m):
+            if "step1" in out:
+                return
+            self.rec.__exit__(None, None, None)
+            out["collectives"] = _collective_axes(self.records, mesh)
+            out["step1_loss"] = float(logs["loss"])
+            out["step1"] = {k: v.clone() for k, v in m.variables.items()}
+
+    ck = os.path.join(io_dir, "ck_tp")
+    out["loss"] = model.fit(x[sl], y[sl], epochs=2, batch_size=4,
+                            shuffle=False, verbose=0,
+                            callbacks=[FirstStep()], checkpoint_dir=ck,
+                            checkpoint_every=1)["loss"]
+    out["final"] = {k: v.clone() for k, v in model.variables.items()}
+    out["final_moments"] = _optimizer_tree(model._state, Shard.gather)
+    dims = sharded_dims(model.module)
+    out["sharded"] = dims
+    out["local_shapes"] = {k: tuple(v.shape)
+                           for k, v in model.module.state_dict().items()}
+    out["count_params"] = model.count_params()
+    # the whole leaves and their moments, as this process holds them
+    moments = model._state.optimizer.state_dict()["state"]
+    out["replicated"] = {k: v.clone() for k, v in
+                         model.module.state_dict().items() if k not in dims}
+    names = [n for n, _ in model.module.named_parameters()]
+    out["replicated_moments"] = {
+        names[i]: {k: v.clone() for k, v in st.items()}
+        for i, st in moments.items() if names[i] not in dims}
+
+    # the last checkpoint restored into an unsliced model (process 0)
+    if pid == 0:
+        whole = TinyDetector()
+        state = TrainState(whole, make_optimizer("sgd", 1e-2)(whole))
+        restore_checkpoint(os.path.join(ck, "step_2"), state)
+        out["restored"] = {k: v.clone() for k, v in
+                           whole.state_dict().items()}
+        out["restored_moments"] = state.optimizer.state_dict()
+    # a sliced resume from the first checkpoint alone
+    ck1 = os.path.join(io_dir, "ck_tp_epoch1")
+    if pid == 0:
+        shutil.copytree(os.path.join(ck, "step_1"),
+                        os.path.join(ck1, "step_1"))
+    barrier()
+    resumed = fresh(2)
+    out["resume_loss"] = resumed.fit(x[sl], y[sl], epochs=2, batch_size=4,
+                                     shuffle=False, verbose=0,
+                                     checkpoint_dir=ck1,
+                                     resume=True)["loss"]
+    out["resumed"] = {k: v.clone() for k, v in resumed.variables.items()}
+
+    # the same fit at n_model=1: four processes on the data axis
+    dp = fresh(1)
+    sl1 = process_batch_slice(x.shape[0])
+    out["dp_loss"] = dp.fit(x[sl1], y[sl1], epochs=2, batch_size=2,
+                            shuffle=False, verbose=0)["loss"]
+    torch.save(out, os.path.join(io_dir, f"tp_{pid}.pt"))
+
+
+def run_pipe(pid, io_dir):
+    from tf2_yolo_tpu_torch.parallel import (PipelineExecutor, make_mesh,
+                                             make_optimizer)
+
+    data = torch.load(os.path.join(io_dir, "pipe.pt"), weights_only=True)
+    meshes = [make_mesh(ranks=[0, 1]), make_mesh(ranks=[2, 3])]
+    out = dict(pid=pid)
+
+    def mse(o, yb):
+        return ((o - yb) ** 2).mean()
+
+    def pipeline(bn):
+        mods = [Stage(3, 8, 1, bn, False), Stage(8, 4, 2, bn, True)]
+        key = "bn" if bn else "plain"
+        for m, w in zip(mods, data[f"{key}_weights"]):
+            m.load_state_dict(w, strict=True)
+        return PipelineExecutor([stage_fn(False)] * 2, mods, meshes=meshes,
+                                train_stages=[stage_fn(True)] * 2)
+
+    x, y = data["x"], data["y"]
+    pipe = pipeline(False)
+    out["stage"] = pipe.stage
+    out["run"] = pipe.run(x, microbatch=4)
+    loss, grads = pipe.value_and_grad(mse, train=False)(x, y, microbatch=4)
+    out["loss"], out["grads"] = float(loss), grads
+    tx = make_optimizer("sgd", 0.1)
+    opt = pipe.init_opt(tx)
+    step = pipe.value_and_grad(mse, train=False)
+    losses = []
+    for _ in range(3):
+        loss, g = step(x, torch.zeros_like(y), microbatch=4)
+        pipe.apply_grads(tx, opt, g)
+        losses.append(float(loss))
+    out["sgd_losses"] = losses
+    out["merged"] = pipe.merged_variables()
+    # train-mode BatchNorm, the whole batch a microbatch: the statistics
+    # over the stage's two processes
+    bn = pipeline(True)
+    xb, yb = data["bn_x"], data["bn_y"]
+    loss, grads = bn.value_and_grad(mse)(xb, yb)
+    out["bn_loss"], out["bn_grads"] = float(loss), grads
+    out["bn_stats"] = {k: v.clone() for k, v in
+                       bn.params[bn.stage].state_dict().items()
+                       if k.endswith(("mean", "var"))}
+    torch.save(out, os.path.join(io_dir, f"pipe_{pid}.pt"))
+
+
 def main():
     mode, pid, nprocs, store, io_dir = sys.argv[1:6]
     pid, nprocs = int(pid), int(nprocs)
@@ -253,6 +510,10 @@ def main():
             run_stacks(pid, io_dir)
         elif mode == "fit":
             run_fit(pid, io_dir)
+        elif mode == "tp":
+            run_tp(pid, io_dir)
+        elif mode == "pipe":
+            run_pipe(pid, io_dir)
         else:
             raise ValueError(f"unknown mode {mode!r}")
     finally:

@@ -40,6 +40,15 @@ def numpy_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+def jit_init(module, x, seed=0):
+    """``module.init(PRNGKey(seed), x, train=False)`` as one jitted
+    program: the same bits as the eager init for the darknet detectors
+    (checked for YOLOv1, v2, v3 and v3 tiny), in a third of the time on
+    the CPU (the eager init compiles and runs op by op)."""
+    return jax.jit(lambda key, xin: module.init(key, xin, train=False))(
+        jax.random.PRNGKey(seed), x)
+
+
 def with_random_bn(variables, rng):
     """Replace every BN scale/bias/mean/var leaf with a seeded draw."""
     def walk(params, stats):

@@ -376,7 +376,10 @@ def test_weights_round_trip_and_variables(jax_run, tmp_path):
 
 
 @pytest.mark.parametrize("kw, exc, match", [
-    (dict(n_model=2), NotImplementedError, "ROADMAP"),
+    # ported: one process cannot hold a model axis of 2, as the JAX engine
+    # refuses it on one device (tests/test_torch_tensor_parallel.py runs
+    # it in four processes)
+    (dict(n_model=2), ValueError, "must divide the 1 processes"),
     (dict(xla_options={"x": "1"}), NotImplementedError, "ROADMAP"),
     # ported: what it refuses now is a scope of the wrong type, as the
     # JAX engine does (tests/test_torch_bn_sg.py holds the rest)

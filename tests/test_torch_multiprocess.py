@@ -22,8 +22,9 @@ import torch
 
 import jax
 
-from tests.helpers_multiprocess import TIMEOUT_S, fixture_data, run_workers
+from tests.helpers_multiprocess import LIMIT_S, fixture_data, run_workers
 from tests.helpers_torch import release_memory_after_module  # noqa: F401
+from tests.helpers_torch import jit_init
 from tf2_yolo_tpu_torch import bridge
 
 torch.set_num_threads(1)
@@ -42,8 +43,8 @@ def fit_runs(tmp_path_factory):
     while they run: its train and eval steps (``parallel.make_train_step``
     / ``make_eval_step``, jitted on one device, as ``Model.fit`` and
     ``Model.evaluate`` run them batch by batch) on the same global
-    batches, from the JAX engine's initial weights (``Model(seed=0)``)."""
-    from tf2_yolo_tpu.engine import Model
+    batches, from the JAX engine's initial weights (``Model(seed=0)``'s
+    init)."""
     from tf2_yolo_tpu.models import YoloV2
     from tf2_yolo_tpu.ops import wrap_yolo_loss_v2
     from tf2_yolo_tpu.parallel import (create_train_state, make_eval_step,
@@ -52,7 +53,8 @@ def fit_runs(tmp_path_factory):
     io_dir = tmp_path_factory.mktemp("fit")
     x, y, anchors, g, classes = fixture_data()
     module = YoloV2(anchors=anchors, class_num=classes)
-    variables = Model(module, input_shape=(64, 64, 3), seed=0).variables
+    # Model(seed=0)'s init, jitted: the same bits
+    variables = jit_init(module, np.zeros((1, 64, 64, 3), np.float32))
     torch.save(bridge.from_flax(variables), str(io_dir / "v2.pt"))
     errors = []
 
@@ -93,7 +95,7 @@ def fit_runs(tmp_path_factory):
         oracle["step1_abs_sum"] = _jax_abs_sum((state.params,
                                                 state.batch_stats))
         del state
-        t.join(TIMEOUT_S + 10)
+        t.join(LIMIT_S + 10)
         assert not t.is_alive(), "the fit workers did not end"
         if errors:
             raise errors[0]
@@ -102,7 +104,7 @@ def fit_runs(tmp_path_factory):
             with open(io_dir / f"fit_{pid}.json") as f:
                 results[pid] = json.load(f)
     finally:
-        t.join(TIMEOUT_S + 10)
+        t.join(LIMIT_S + 10)
         shutil.rmtree(io_dir, ignore_errors=True)
     return results, oracle
 

@@ -3,7 +3,9 @@ feed and the data axis (``process_batch_slice``, ``put_global_batch``,
 ``best_data_axis``, ``make_mesh``), the process group in one process, and
 the data-parallel step in two processes on small stacks.
 
-The two-process checks run tests/_torch_multiprocess_worker.py twice
+Tensor parallelism's grid (``make_mesh(n_model=2)``) and a ConvBN
+sliced over it run in the same two workers; its plan is held to the JAX
+rule here. The two-process checks run tests/_torch_multiprocess_worker.py twice
 (gloo on the CPU, a FileStore rendezvous), each process on half of the
 rows, and hold one train step of a two-ConvBN stack, of a CSP stage on
 the fused-GEMM route (``packed=1``) and of the v2 UNet's ConvActBN to
@@ -103,12 +105,62 @@ def test_make_mesh_matches_jax():
         make_mesh(2)
 
 
+def _grid_of_two_processes(stacks):
+    """``make_mesh(n_model=2)`` in the two stack workers: one row of the
+    model axis (rank r at model index r), made once; a ConvBN sliced over
+    it gathers the whole layer's output and input gradient (one channel
+    gather forward, one cotangent all-reduce backward)."""
+    _, results = stacks
+    for pid, r in enumerate(results):
+        mesh = r["mesh"]
+        assert mesh["shape"] == {"data": 1, "model": 2}
+        assert mesh["ranks"] == (0, 1)
+        assert (mesh["data_index"], mesh["model_index"]) == (0, pid)
+        assert mesh["data_ranks"] == (pid,) and mesh["no_data_group"]
+        assert mesh["same"] and mesh["model_group_size"] == 2
+        whole, sliced = mesh["whole"], mesh["sliced"]
+        assert sliced["kernel"] == (3, 3, 8, 8) and not whole["records"]
+        np.testing.assert_allclose(sliced["y"].numpy(), whole["y"].numpy(),
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(sliced["gx"].numpy(),
+                                   whole["gx"].numpy(), rtol=1e-5,
+                                   atol=1e-6)
+        assert sliced["records"] == [
+            ("all_gather", 3, whole["y"].numel()),
+            ("all_reduce", None, whole["gx"].numel())]
+
+
+def _plan_matches_jax(stacks):
+    """``tensor_parallel_shardings`` of the two-ConvBN stack against the
+    JAX package's rule on its variables, at two gates."""
+    from tf2_yolo_tpu.parallel import make_mesh as jmake_mesh
+    from tf2_yolo_tpu.parallel import tensor_parallel_shardings as jplan
+    from tests._torch_multiprocess_worker import Stack
+    from tf2_yolo_tpu_torch.parallel.mesh import Mesh
+    variables = jax.eval_shape(lambda: _jax_stack().init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8, 8, 8)), train=False))
+    grid = Mesh(shape={"data": 1, "model": 2}, ranks=(0, 1))
+    for gate in (16, 32):
+        want = {k: (None if v.spec == jax.sharding.PartitionSpec()
+                    else len(v.spec) - 1)
+                for k, v in bridge.state_dict_names(
+                    jplan(variables, jmake_mesh(4, 2), gate)).items()}
+        assert tensor_parallel_shardings(Stack(), grid, gate) == want
+
+
 @pytest.mark.parametrize("call", [
-    lambda: make_mesh(n_model=2), lambda: tensor_parallel_shardings({}, None),
-    lambda: make_mesh_spatial(1, 2), lambda: spatial_sharding(None)])
-def test_tensor_and_spatial_parallelism_raise(call):
+    _grid_of_two_processes, _plan_matches_jax,
+    lambda stacks: make_mesh_spatial(1, 2),
+    lambda stacks: spatial_sharding(None)],
+    ids=[f"<lambda>{i}" for i in range(4)])
+def test_tensor_and_spatial_parallelism_raise(call, stacks):
+    """Tensor parallelism is ported (the two cases above); spatial
+    partitioning still raises, naming queue 1, item 9."""
+    if call in (_grid_of_two_processes, _plan_matches_jax):
+        call(stacks)
+        return
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        call()
+        call(stacks)
 
 
 # ------------------------------------------ the process group in one process

@@ -7,14 +7,19 @@ batch and split into microbatches, and YOLOv4 cut in 2 and 3 stages
 (the cut's partition, train-mode BatchNorm with microbatches against
 the port's single-program steps bit for bit, save / load / merge); the
 YOLOv4 cases against the JAX package are in
-tests/test_torch_pipeline_v4.py.
+tests/test_torch_pipeline_v4.py. PP x DP (``meshes=``,
+``test_pipeline_meshes_dp_within_stage``) runs the two small stages in
+four gloo processes on the CPU, stage meshes {0, 1} and {2, 3}
+(tests/_torch_multiprocess_worker.py, mode "pipe"), against the JAX
+composed program computed here while they run.
 
-Not mirrored: ``test_pipeline_meshes_dp_within_stage`` (PP x DP is not
-ported; ``meshes=`` raises) and the JAX device sets of
-``test_pipeline_stage_placement`` (here: every stage's tensors on its
-torch device). The two-stage nets' weights come from the JAX ``init``s
-through ``bridge``.
+Not mirrored: the JAX device sets of ``test_pipeline_stage_placement``
+(here: every stage's tensors on its torch device). The two-stage nets'
+weights come from the JAX ``init``s through ``bridge``.
 """
+
+import shutil
+import threading
 
 import numpy as np
 import pytest
@@ -24,14 +29,16 @@ from torch import nn
 import jax
 import jax.numpy as jnp
 
+from tests._torch_multiprocess_worker import Stage as _Stage
 from tests.helpers_convert import remove_files_after_test  # noqa: F401
+from tests.helpers_multiprocess import LIMIT_S, run_workers
 from tests.helpers_torch import release_memory_after_module  # noqa: F401
 from tests.helpers_torch import flat, numpy_tree
 from tf2_yolo_tpu_torch import bridge
 from tf2_yolo_tpu_torch.models import YoloV4
-from tf2_yolo_tpu_torch.models.layers import BNState, Conv
 from tf2_yolo_tpu_torch.parallel import (PipelineExecutor, make_optimizer,
                                          split_detector, split_yolov4)
+from tf2_yolo_tpu_torch.parallel.mesh import Mesh
 
 torch.set_num_threads(1)
 CPU2 = ["cpu", "cpu"]
@@ -62,26 +69,6 @@ def _jax_stages(bn):
             return x.mean(axis=(1, 2))
 
     return Stage0(), Stage1()
-
-
-class _Stage(nn.Module):
-    """flax ``nn.Conv(co, (3, 3), stride)`` (SAME, biased) and, with
-    ``bn``, ``nn.BatchNorm(momentum=0.9)`` (eps 1e-5); then relu (stage 0)
-    or the spatial mean (stage 1), under flax's auto names."""
-
-    def __init__(self, ci, co, stride, bn, last):
-        super().__init__()
-        self.Conv_0 = Conv(ci, co, 3, stride, use_bias=True, device="cpu",
-                           padding="same")
-        if bn:
-            self.BatchNorm_0 = BNState(co, "cpu", eps=1e-5, momentum=0.9)
-        self.bn, self.last = bn, last
-
-    def forward(self, x):
-        y = self.Conv_0(x)[0]
-        if self.bn:
-            y = self.BatchNorm_0(y)
-        return y.mean(dim=(1, 2)) if self.last else torch.relu(y)
 
 
 def _two_stage(bn=False, batch=8, seed=0):
@@ -140,8 +127,18 @@ def test_pipeline_stage_placement():
 
 def test_pipeline_refuses_what_it_cannot_run():
     _, _, stages, mods, x, _ = _two_stage()
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        PipelineExecutor(stages, mods, meshes=[object(), object()])
+
+    def grid(ranks, n_model=1):
+        return Mesh(shape={"data": len(ranks) // n_model, "model": n_model},
+                    ranks=tuple(ranks))
+    for meshes, match in (
+            ([grid([0])], "2 stages need 2 meshes"),
+            ([grid([0, 1], 2), grid([2, 3], 2)], "model axis must be 1"),
+            ([grid([0, 1]), grid([2])], "the same data size"),
+            ([grid([0]), grid([0])], "disjoint"),
+            ([grid([1]), grid([2])], "process 0 is in no stage mesh")):
+        with pytest.raises(ValueError, match=match):
+            PipelineExecutor(stages, mods, meshes=meshes)
     with pytest.raises(ValueError, match="need 2 devices"):
         PipelineExecutor(stages, mods, devices=["cpu"])
     with pytest.raises(ValueError, match="2 stages but 1 params"):
@@ -259,6 +256,97 @@ def test_pipeline_train_mode_bn_microbatched_matches_sequential():
     assert float(loss) == pytest.approx(total, rel=1e-5)
     _assert_grads(grads, acc)
     _assert_stats(pipe, [c["batch_stats"] for c in cur])
+
+
+# ------------------------------------------ PP x DP: four processes
+
+@pytest.fixture(scope="module")
+def pp_dp(tmp_path_factory):
+    """The four workers' results (mode "pipe") and the JAX oracles of
+    tests/test_pipeline.py's ``test_pipeline_meshes_dp_within_stage``
+    (the composed program's forward and ``value_and_grad``) and of the
+    train-mode step of the BatchNorm stages on the whole batch."""
+    io_dir = tmp_path_factory.mktemp("pipe")
+    (m0, m1), params, _, _, x, _ = _two_stage()
+    y = np.random.RandomState(2).rand(8, 4).astype(np.float32)
+    bmods, bparams, _, _, xb, _ = _two_stage(bn=True)
+    yb = np.random.RandomState(8).rand(8, 4).astype(np.float32)
+    torch.save(dict(plain_weights=[bridge.from_flax(p) for p in params],
+                    bn_weights=[bridge.from_flax(p) for p in bparams],
+                    x=torch.from_numpy(x), y=torch.from_numpy(y),
+                    bn_x=torch.from_numpy(xb), bn_y=torch.from_numpy(yb)),
+               str(io_dir / "pipe.pt"))
+    errors = []
+
+    def workers():
+        try:
+            run_workers("pipe", str(io_dir), nprocs=4)
+        except BaseException as exc:        # pytest.fail's outcome
+            errors.append(exc)
+
+    t = threading.Thread(target=workers)
+    t.start()
+    try:
+        def composed(p0p1):
+            p0, p1 = p0p1
+            return jnp.mean((m1.apply(p1, m0.apply(p0, x)) - y) ** 2)
+
+        loss, grads = jax.value_and_grad(composed)(tuple(params))
+        oracle = dict(out=np.asarray(m1.apply(params[1],
+                                              m0.apply(params[0], x))),
+                      loss=float(loss), grads=[g["params"] for g in grads],
+                      bn=_jax_train_step(bmods, bparams, xb, yb))
+        t.join(LIMIT_S + 10)
+        assert not t.is_alive(), "the pipe workers did not end"
+        if errors:
+            raise errors[0]
+        results = [torch.load(str(io_dir / f"pipe_{pid}.pt"),
+                              weights_only=False) for pid in range(4)]
+    finally:
+        t.join(LIMIT_S + 10)
+        shutil.rmtree(io_dir, ignore_errors=True)
+    return results, oracle
+
+
+def test_pipeline_meshes_dp_within_stage(pp_dp):
+    """PP x DP: each stage over its own two processes, the microbatch's
+    rows split over them; the forward on every process equals the
+    composed program (rtol / atol 1e-6), the loss (rtol 1e-5) and each
+    stage's gradients (rtol 2e-5, atol 1e-6) its value_and_grad, and
+    three SGD steps lower the loss (tests/test_pipeline.py's bounds)."""
+    results, oracle = pp_dp
+    assert [r["stage"] for r in results] == [0, 0, 1, 1]
+    for r in results:
+        np.testing.assert_allclose(r["run"].numpy(), oracle["out"],
+                                   rtol=1e-6, atol=1e-6)
+        assert r["loss"] == pytest.approx(oracle["loss"], rel=1e-5)
+        assert r["grads"][1 - r["stage"]] is None
+        _assert_grads([r["grads"][r["stage"]]],
+                      [oracle["grads"][r["stage"]]])
+        assert r["sgd_losses"][-1] < r["sgd_losses"][0], r["sgd_losses"]
+        assert r["sgd_losses"] == results[0]["sgd_losses"]
+    # the trained stages, merged in every process from their owners
+    for r in results[1:]:
+        for k, v in r["merged"].items():
+            assert torch.equal(v, results[0]["merged"][k]), k
+
+
+def test_pipeline_meshes_train_mode_bn(pp_dp):
+    """Train-mode BatchNorm under PP x DP: each stage's statistics over
+    its two processes, so a step of the whole batch is the single-device
+    train step: loss, gradients and the running statistics."""
+    results, oracle = pp_dp
+    want_l, want_g, want_stats = oracle["bn"]
+    for r in results:
+        s = r["stage"]
+        assert r["bn_loss"] == pytest.approx(want_l, rel=1e-5)
+        _assert_grads([r["bn_grads"][s]], [want_g[s]])
+        want = {k.replace("/", "."): v
+                for k, v in flat(want_stats[s], "").items()}
+        assert r["bn_stats"].keys() == want.keys()
+        for k, v in want.items():
+            np.testing.assert_allclose(r["bn_stats"][k].numpy(), v,
+                                       rtol=1e-5, atol=1e-7, err_msg=k)
 
 
 # ---------------------------------------------------------------- YOLOv4

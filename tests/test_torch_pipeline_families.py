@@ -15,7 +15,7 @@ import torch
 import jax
 
 from tests.helpers_torch import release_memory_after_module  # noqa: F401
-from tests.helpers_torch import numpy_tree
+from tests.helpers_torch import jit_init, numpy_tree
 from tf2_yolo_tpu_torch import bridge
 from tf2_yolo_tpu_torch import models as tm
 from tf2_yolo_tpu_torch.parallel import PipelineExecutor, split_detector
@@ -77,7 +77,7 @@ def _model(ctor, seed=0):
 def test_split_detector_matches_jax_eval(name):
     jm, ctor, size = _cases()[name]
     x = np.random.RandomState(5).rand(2, size, size, 3).astype(np.float32)
-    v = numpy_tree(jm.init(jax.random.PRNGKey(0), x[:1], train=False))
+    v = numpy_tree(jit_init(jm, x[:1]))
     fwd = jax.jit(lambda xin: jm.apply(v, xin, train=False))
     want = [np.asarray(o) for o in _outs(fwd(x))]
     probe = [np.asarray(o) for o in _outs(fwd(x + EPS_PROBE))]
@@ -117,10 +117,9 @@ def test_split_detector_equals_the_whole_model(name):
         model.load_state_dict(start)
         model.zero_grad(set_to_none=True)
         model.train(train)
-        if not train:
-            with torch.no_grad():
-                want = _outs(model(x))
-        loss_1 = _loss(model(x))
+        out = model(x)
+        want = [o.detach() for o in _outs(out)]    # eval: the forward
+        loss_1 = _loss(out)
         loss_1.backward()
         grads_1 = {k: p.grad for k, p in model.named_parameters()}
         after = {k: t.clone() for k, t in model.state_dict().items()}

@@ -39,13 +39,22 @@ def from_flax(variables):
             raise ValueError("convert the quant collection on its own: "
                              "from_flax({'quant': ...})")
         return {"quant": _tree_to_torch(variables["quant"])}
+    return {name: torch.from_numpy(np.array(leaf))
+            for name, leaf in state_dict_names(variables).items()}
+
+
+def state_dict_names(variables):
+    """``{state_dict name: leaf}`` of a flax ``{"params": ...,
+    "batch_stats": ...}`` tree (or a JAX ``TrainState``) whose leaves may
+    be anything (arrays, shardings, shapes): the names
+    :func:`from_flax` gives them, the leaves as they are."""
     if hasattr(variables, "params"):
         variables = {"params": variables.params,
                      "batch_stats": variables.batch_stats}
     out = {}
     for collection in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(collection, {})):
-            out[".".join(path)] = torch.from_numpy(np.array(leaf))
+            out[".".join(path)] = leaf
     return out
 
 

@@ -17,8 +17,13 @@ Multi-process data parallelism: after
 the process group (BatchNorm statistics over it, gradients averaged over
 it, :func:`~tf2_yolo_tpu_torch.parallel.train.make_train_step`) and
 every process calls ``fit`` / ``evaluate`` with its own shard and the
-per-process ``batch_size``. (Tensor parallelism and XLA options are not
-ported; ``compile`` raises for them.)
+per-process ``batch_size``. Tensor parallelism (``compile(n_model=k)``):
+the processes form a ``(world / k, k)`` grid (``parallel.mesh``), the
+wide ConvBNs and head convs are sliced over its model axis
+(``models.layers.set_tensor_parallel``), and the statistics, gradients and
+logs are reduced over its data axis; the processes of one model group
+pass the same rows (``parallel.process_batch_slice(n, model.mesh)``).
+(XLA options are not ported; ``compile`` raises for them.)
 """
 
 import itertools
@@ -31,8 +36,12 @@ import torch
 import torch.distributed as dist
 
 from .data.pipeline import prefetch_to_device, threaded_prefetch, to_device
-from .models.layers import set_bn_group, set_bn_stats_sg
-from .parallel.multihost import default_group, host_device
+from .models.layers import (set_bn_group, set_bn_stats_sg,
+                            set_tensor_parallel)
+from .parallel.collectives import (gather_state_dict, sharded_dims,
+                                   slice_state_dict)
+from .parallel.mesh import make_mesh, tensor_parallel_shardings
+from .parallel.multihost import default_group, host_device, process_count
 from .parallel.train import (TrainState, _cast_input, broadcast_tensors,
                              get_lr_multiplier, make_eval_step,
                              make_optimizer, make_train_step,
@@ -362,7 +371,9 @@ class Model:
         self._train_step = None
         self._eval_step = None
         self._state = None
-        self._group = None           # the process group of compile
+        self._group = None           # the data group of compile
+        self._world = None           # every process of compile's mesh
+        self.mesh = None             # compile's ("data", "model") grid
         self._interrupted = False
         self.stop_training = False   # callbacks set True to end fit
 
@@ -374,26 +385,33 @@ class Model:
 
     @params.setter
     def params(self, new_params):
-        """Copy ``{name: array or tensor}`` into the named parameters in
-        place; the optimizer chain's state is kept."""
+        """Copy ``{name: array or tensor}`` (full, unsharded values) into
+        the named parameters in place; the optimizer chain's state is
+        kept."""
         own = self.params
         unknown = sorted(set(new_params) - set(own))
         if unknown:
             raise KeyError(f"no such parameters: {unknown[:5]}")
+        new_params = slice_state_dict(self.module, {
+            k: torch.as_tensor(np.asarray(v)) for k, v in new_params.items()})
         with torch.no_grad():
             for name, value in new_params.items():
-                own[name].copy_(torch.as_tensor(np.asarray(value)))
+                own[name].copy_(value)
 
     @property
     def variables(self):
         """The module's ``state_dict`` (parameters and BatchNorm
-        statistics)."""
-        return self.module.state_dict()
+        statistics), the full tree: under tensor parallelism the sliced
+        entries are gathered over the model group (collective: every
+        process of the group reads it)."""
+        return gather_state_dict(self.module)
 
     def set_variables(self, variables):
         """Load a full ``state_dict`` (e.g. ``bridge.from_flax`` of a JAX
-        ``Model.variables``), resetting the optimizer state."""
-        self.module.load_state_dict(variables, strict=True)
+        ``Model.variables``), resetting the optimizer state; a sliced
+        model takes its slices."""
+        self.module.load_state_dict(slice_state_dict(self.module,
+                                                     variables), strict=True)
         self._state = None
 
     @property
@@ -416,7 +434,12 @@ class Model:
         return dict(self.module.named_buffers())
 
     def count_params(self):
-        return sum(p.numel() for p in self.module.parameters())
+        """The parameters of the full model (a sliced one counts its
+        whole layers)."""
+        dims = sharded_dims(self.module)
+        n = self.module.tensor_parallel[0].n if dims else 1
+        return sum(p.numel() * (n if name in dims else 1)
+                   for name, p in self.module.named_parameters())
 
     # ------------------------------------------------------------------
     def compile(self, optimizer="adam", loss=None, metrics=None,
@@ -447,20 +470,37 @@ class Model:
                 loss and the running statistics are unchanged; only the
                 backward drops the batch statistics' term. Each compile
                 sets it anew.
-            xla_options, n_model, tp_min_channels: the JAX engine's XLA
-                options and tensor parallelism; not ported, and anything
-                but their defaults raises NotImplementedError.
+            n_model: size of the model axis (default 1: data parallelism
+                only). > 1 needs a process group whose size it divides:
+                the processes form the ``(world / n_model, n_model)``
+                grid (``parallel.make_mesh``), every process takes
+                process 0's variables, and the ConvBNs and head convs
+                that ``parallel.tensor_parallel_shardings`` plans are
+                sliced over the model axis
+                (``models.layers.set_tensor_parallel``; a ``packed``
+                model raises ValueError). The first such compile slices
+                the module; a later one must keep ``n_model``.
+            tp_min_channels: the smallest output-channel count that is
+                sliced (read only when n_model > 1).
+            xla_options: the JAX engine's XLA options; not ported, and
+                anything but None raises NotImplementedError.
 
         With a process group up (``parallel.distributed_initialize``),
-        the model's BatchNorm statistics are taken over it
-        (``models.layers.set_bn_group``) and the train step averages the
-        gradients over it: the data-parallel step over the global batch.
+        the model's BatchNorm statistics are taken over the mesh's data
+        axis (``models.layers.set_bn_group``) and the train step averages
+        the gradients and the logs over it: the data-parallel step over
+        the global batch.
         """
-        del tp_min_channels          # read only when n_model > 1
-        if int(n_model) > 1:
-            raise NotImplementedError(
-                "n_model > 1: tensor parallelism is not ported yet "
-                "(ROADMAP.md, queue 1, item 9: parallel)")
+        n_model = int(n_model)
+        world = process_count()
+        if n_model < 1 or world % n_model:
+            raise ValueError(f"n_model={n_model} must divide the {world} "
+                             "processes")
+        sliced = getattr(self.module, "tensor_parallel", None)
+        if sliced is not None and sliced[0].n != n_model:
+            raise ValueError(
+                f"the module is sliced over {sliced[0].n} processes; "
+                f"compile(n_model={n_model}) needs a new Model")
         if xla_options is not None:
             raise NotImplementedError(
                 "xla_options: XLA compiler options have no counterpart in "
@@ -518,7 +558,17 @@ class Model:
             self.module, bool(bn_stats_sg_scope),
             None if bn_stats_sg_scope is True or not bn_stats_sg_scope
             else bn_stats_sg_scope)
-        self._group = default_group()
+        self.mesh = make_mesh(n_model=n_model)
+        if n_model > 1 and sliced is None:
+            # every process slices the same tree: process 0's
+            broadcast_tensors(self.module.state_dict().values(),
+                              self.mesh.group)
+            set_tensor_parallel(
+                self.module, self.mesh, tensor_parallel_shardings(
+                    self.module, self.mesh, int(tp_min_channels)))
+        self._world = default_group()
+        self._group = (self._world if n_model == 1
+                       else self.mesh.data_group)
         set_bn_group(self.module, self._group)
         self._train_step = make_train_step(
             loss_fns, metric_fns, metric_names,
@@ -533,14 +583,14 @@ class Model:
         """Multi-process: every process must pass as many rows (or
         batches of a sequence), or the global batch is not what each
         process's step assumes and the processes fall out of step."""
-        if self._group is None:
+        if self._world is None:
             return
         t = torch.tensor([n_rows, -n_rows], dtype=torch.float64,
                          device=host_device())
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._group)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._world)
         hi, lo = int(t[0]), -int(t[1])
         if hi != lo:
-            n = dist.get_world_size(self._group)
+            n = dist.get_world_size(self._world)
             raise ValueError(
                 f"global batch of {n_rows} rows x {n} processes: every "
                 f"process must pass as many rows (between {lo} and {hi} "
@@ -551,18 +601,20 @@ class Model:
     def _broadcast_variables(self):
         """Multi-process: every process starts ``fit`` from process 0's
         parameters and statistics (equal already where every process
-        built its model from one seed)."""
+        built its model from one seed); under tensor parallelism, from
+        those of the first process of its data group, which holds the
+        same slice."""
         if self._group is not None:
             broadcast_tensors(self.module.state_dict().values(),
-                              self._group)
+                              self._group, src=self.mesh.data_ranks[0])
 
     def _any_process(self, flag):
         """Multi-process: whether ``flag`` is set in any process (a
         signal reaches the processes at different steps)."""
-        if self._group is None:
+        if self._world is None:
             return flag
         t = torch.tensor([float(flag)], device=host_device())
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._group)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._world)
         return bool(t[0] > 0)
 
     def _mean_over_processes(self, means):
@@ -898,12 +950,12 @@ class Model:
 
     # ------------------------------------------------------------------
     def save_weights(self, path):
-        """``torch.save`` of the module's ``state_dict`` (parameters and
-        BatchNorm statistics) as CPU tensors. Not a flax msgpack file:
-        the JAX package's weight files do not load here, nor these
-        there."""
+        """``torch.save`` of the module's full ``state_dict``
+        (:attr:`variables`: parameters and BatchNorm statistics) as CPU
+        tensors. Not a flax msgpack file: the JAX package's weight files
+        do not load here, nor these there."""
         torch.save({k: v.detach().cpu()
-                    for k, v in self.module.state_dict().items()}, path)
+                    for k, v in self.variables.items()}, path)
 
     def load_weights(self, path):
         """Load a :meth:`save_weights` file onto the model's device,

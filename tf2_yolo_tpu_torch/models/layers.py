@@ -34,7 +34,10 @@ Training: :func:`set_bn_stats_sg` sets the frozen-statistics BatchNorm
 backward on one model's ConvBNs (``set_bn_stats_stop_gradient`` of the
 JAX package, per model instead of process-global); :func:`set_bn_group`
 takes one model's train-mode statistics over the processes of a process
-group (the JAX package's ``bn_axis_name``).
+group (the JAX package's ``bn_axis_name``); :func:`set_tensor_parallel`
+slices one model's wide ConvBNs and head convs over the model axis of a
+process grid (``parallel.mesh``), each then running Megatron-style
+between the collectives of ``parallel.collectives``.
 """
 
 import contextlib
@@ -49,6 +52,8 @@ from ..ops.kernels.conv_bn import conv_bn_stats
 from ..ops.kernels.conv_int8 import conv_int8, quantize_weights, \
     weight_layout
 from ..ops.kernels.fused_gemm import act_and_grad
+from ..parallel.collectives import (Shard, copy_to_model, gather_channels,
+                                    record)
 
 BN_EPS = 1e-3                  # tf.keras default, as the JAX package
 BN_MOMENTUM = 0.99             # running = 0.99 running + 0.01 batch
@@ -151,14 +156,20 @@ class Conv(nn.Module):
         self.padding = padding
         self.dtype = dtype
         self.plain = False
+        self.tp = None               # set_tensor_parallel (a head conv)
 
     def forward(self, x, want_stats=False):
         dt = self.dtype
+        if self.tp is not None:
+            x = copy_to_model(x, self.tp)
         k = self.kernel.to(dt)
         b = (self.bias.to(dt) if self.bias is not None
              else torch.zeros(k.shape[-1], dtype=dt, device=k.device))
-        return conv_bn_stats(x.to(dt).contiguous(), k, b, self.stride,
-                             want_stats, self.plain, self.padding)
+        y, s1, s2 = conv_bn_stats(x.to(dt).contiguous(), k, b, self.stride,
+                                  want_stats, self.plain, self.padding)
+        if self.tp is not None:
+            y = gather_channels(y, self.tp)
+        return y, s1, s2
 
 
 class BNState(nn.Module):
@@ -320,8 +331,16 @@ class ConvBN(nn.Module):
         self.act = act
         self.dtype = dtype
         self.bn_sg = False
+        self.tp = None               # set_tensor_parallel
 
     def forward(self, x):
+        if self.tp is None:
+            return self._forward(x)
+        # Megatron's f, the layer on this process's channels, then g
+        return gather_channels(self._forward(copy_to_model(x, self.tp)),
+                               self.tp)
+
+    def _forward(self, x):
         bn = self.bn
         train = self.training and bn is not None
         y, s1, s2 = self.conv(x, want_stats=train)
@@ -473,6 +492,96 @@ def set_bn_group(model, group):
     return model
 
 
+_TP_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue 1, item 9: "
+                  "parallel)")
+
+
+def _tp_units(model, plan):
+    """The layers that ``plan`` slices: ``{module name: (module, {leaf:
+    dim})}``, a ConvBN with its conv's and BN's leaves, or a conv alone
+    (the biased head convs, whose consumers read the gathered output).
+    Raises NotImplementedError for a sliced leaf of any other layer."""
+    modules = dict(model.named_modules())
+    units = {}
+    for key, dim in plan.items():
+        if dim is None:
+            continue
+        path, _, leaf = key.rpartition(".")
+        owner = modules[path]
+        parent_path = path.rpartition(".")[0]
+        parent = modules[parent_path]
+        if isinstance(owner, (Conv, BNState)) and isinstance(parent, ConvBN):
+            unit, name = parent, parent_path
+            leaf = f"{path[len(parent_path):].lstrip('.')}.{leaf}"
+        elif isinstance(owner, Conv) and not isinstance(parent, ConvActBN):
+            unit, name = owner, path
+        else:
+            what = (f"{type(parent).__name__} ({parent_path})"
+                    if isinstance(parent, ConvActBN)
+                    else f"{type(owner).__name__} ({path}; a keras conv "
+                         "+ BatchNorm pair or a depthwise or dense layer)")
+            raise NotImplementedError(
+                f"tensor parallelism of {what} {_TP_NOT_PORTED}")
+        units.setdefault(name, (unit, {}))[1][leaf] = dim
+    for name, (unit, leaves) in units.items():
+        want = {k for k, _ in unit.named_parameters()} | {
+            k for k, _ in unit.named_buffers()}
+        if set(leaves) != want:
+            raise ValueError(f"the plan slices {sorted(leaves)} of {name} "
+                             f"but not {sorted(want - set(leaves))}")
+    return units
+
+
+def set_tensor_parallel(model, mesh, plan):
+    """Slice ``model`` over the model axis of ``mesh`` by ``plan``
+    (``parallel.tensor_parallel_shardings``: ``{state_dict name: dim or
+    None}``): each planned ConvBN and head conv keeps only this process's
+    ``Co / n_model`` output channels of its kernel, bias, BN scale and
+    bias and running statistics (the rest is freed: the memory per card
+    falls) and runs Megatron-style, ``parallel.collectives``: f (the
+    input's cotangent summed over the model group in the backward), the
+    conv kernel on the weight slice, BN and the activation on the
+    channel slice, then g (the slices gathered on the channel axis), so
+    that every consumer sees the full tensor. The BN sums of a slice are
+    taken over the group of :func:`set_bn_group` (the mesh's data
+    group). Everything else stays whole and is computed alike in every
+    process of the model group. Per model, as :func:`set_bn_group`; the
+    sliced entries are kept as ``model.tensor_parallel = (Shard,
+    {name: dim})`` (``collectives.gather_state_dict``). Returns
+    ``model``.
+
+    Raises ValueError for a ``packed`` model (its fused routes are
+    single-device, in the JAX package too) and NotImplementedError for a
+    sliced leaf outside a ConvBN or a head conv (the keras backbones'
+    conv + BatchNorm pairs, depthwise and dense layers, ConvActBN)."""
+    n = mesh.shape["model"]
+    if n == 1:
+        return model
+    if getattr(model, "tensor_parallel", None) is not None:
+        raise ValueError("the model is sliced already")
+    if any(getattr(m, "packed", False) for m in model.modules()):
+        raise ValueError("a packed model's fused routes are single-device: "
+                         "tensor parallelism needs packed=False")
+    units = _tp_units(model, plan)
+    shard = Shard(mesh.model_group, n, mesh.model_index)
+    dims = {}
+    with torch.no_grad():
+        for name, (unit, leaves) in units.items():
+            for leaf, dim in leaves.items():
+                path, _, attr = leaf.rpartition(".")
+                mod = unit.get_submodule(path) if path else unit
+                t = getattr(mod, attr)
+                part = shard.slice(t, dim).clone()
+                if isinstance(t, nn.Parameter):
+                    t.data = part
+                else:
+                    mod._buffers[attr] = part
+                dims[f"{name}.{leaf}" if name else leaf] = dim
+            unit.tp = shard
+    model.tensor_parallel = (shard, dims)
+    return model
+
+
 class _AllReduceSum(torch.autograd.Function):
     """The sum over a process group, whose backward is the sum of the
     cotangents over the group (the transpose of ``psum`` is ``psum``)."""
@@ -481,6 +590,7 @@ class _AllReduceSum(torch.autograd.Function):
     def forward(ctx, t, group):
         ctx.group = group
         out = t.clone()
+        record("all_reduce", group, None, out.numel())
         torch.distributed.all_reduce(out, group=group)
         return out
 

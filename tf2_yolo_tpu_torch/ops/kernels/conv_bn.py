@@ -328,6 +328,7 @@ def _forward_cuda(x, w, b, stride, want_stats, dims, padding="darknet"):
     route = "im2col" if plan.config >= _IM2COL else plan.route
     conv_bn_stats.by_geometry[
         geometry_key(ks, stride, padding, route)] += 1
+    conv_bn_stats.by_shape[(n, h, wd, ci, co, ks, stride, padding)] += 1
     if not want_stats:
         return y, None, None
     s1, s2 = s.float()
@@ -465,3 +466,5 @@ conv_bn_stats.launches = 0
 conv_bn_stats.tc_launches = 0
 # launches by geometry_key(ksize, stride, padding, route)
 conv_bn_stats.by_geometry = collections.Counter()
+# launches by (n, h, w, ci, co, ksize, stride, padding)
+conv_bn_stats.by_shape = collections.Counter()

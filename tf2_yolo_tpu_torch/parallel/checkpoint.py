@@ -19,7 +19,12 @@ is collective: process 0 writes and prunes, then every process waits at
 a barrier, so that none lists or reads the directory before the write
 and the pruning are done; ``block=False`` blocks there. Every process
 restores from the same file. The directory must be one that every
-process sees.
+process sees. Under tensor parallelism (``Model.compile(n_model > 1)``)
+process 0 holds a slice of the wide layers: every process first gathers
+each sliced entry of the model and of the optimizer's moments over its
+model group, so a checkpoint is always the unsharded tree, and
+:func:`restore_checkpoint` into a sliced model takes this process's
+slice (``collectives.slice_state_dict``).
 """
 
 import os
@@ -31,6 +36,8 @@ from typing import Optional
 
 import torch
 
+from .collectives import (Shard, gather_state_dict, sharded_dims,
+                          slice_state_dict)
 from .multihost import barrier, process_count, process_index
 
 _STEP_DIR = re.compile(r"^step_(\d+)$")
@@ -112,11 +119,13 @@ def save_checkpoint(path: str, state, keep: int = 3, block: bool = True,
     # one write in flight: fence the previous before pruning or saving
     wait_for_saves()
     multi = process_count() > 1
+    # collective under tensor parallelism: every process gathers
+    model_tree = gather_state_dict(state.model)
+    opt_tree = _optimizer_tree(state, Shard.gather)
     if multi and process_index() != 0:
         barrier()
         return ckpt_dir
-    tree = {"model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+    tree = {"model": model_tree, "optimizer": opt_tree,
             "step": int(state.step),
             "position": tuple(int(p) for p in position)}
     if multi:
@@ -143,6 +152,31 @@ def save_checkpoint(path: str, state, keep: int = 3, block: bool = True,
     return ckpt_dir
 
 
+def _slice(shard, t, dim):
+    return shard.slice(t, dim).contiguous()
+
+
+def _optimizer_tree(state, fn, tree=None):
+    """The optimizer's ``state_dict`` (``tree``, default the live one)
+    with ``fn(shard, moment, dim)`` applied to each moment of a sliced
+    parameter (``collectives.sharded_dims``): the moments have their
+    parameter's shape. The tree as it is for an unsliced model."""
+    tree = state.optimizer.state_dict() if tree is None else tree
+    dims = sharded_dims(state.model)
+    if not dims:
+        return tree
+    shard = state.model.tensor_parallel[0]
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    order = [names[id(p)] for p in state.optimizer.param_groups[0]["params"]]
+    moments = {}
+    for idx, entry in tree["state"].items():
+        dim = dims.get(order[idx])
+        moments[idx] = entry if dim is None else {
+            k: (fn(shard, v, dim) if torch.is_tensor(v) and v.dim() > 0
+                else v) for k, v in entry.items()}
+    return {**tree, "state": moments}
+
+
 def latest_checkpoint(path: str) -> Optional[str]:
     wait_for_saves()
     if not os.path.isdir(path):
@@ -157,7 +191,9 @@ def restore_checkpoint(ckpt_dir: str, state):
     wait_for_saves()
     tree = torch.load(os.path.join(ckpt_dir, _FILE), map_location="cpu",
                       weights_only=True)
-    state.model.load_state_dict(tree["model"])
-    state.optimizer.load_state_dict(tree["optimizer"])
+    state.model.load_state_dict(slice_state_dict(state.model,
+                                                 tree["model"]))
+    state.optimizer.load_state_dict(
+        _optimizer_tree(state, _slice, tree["optimizer"]))
     state.step = int(tree["step"])
     return state, tuple(tree["position"])

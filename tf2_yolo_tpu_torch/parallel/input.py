@@ -8,6 +8,8 @@ sees it through the collectives of the step (the BatchNorm sums summed
 over the processes, the gradients averaged; ``parallel.train``), which
 is what JAX's ``make_array_from_process_local_data`` gives the one GSPMD
 program. In a single process both are the whole batch on the device.
+Under tensor parallelism the processes of one model group load the same
+rows (``process_batch_slice(n, mesh)``).
 """
 
 from typing import Any
@@ -49,16 +51,23 @@ def put_global_batch(batch: Any, device=None):
     return put(batch)
 
 
-def process_batch_slice(global_batch_size: int) -> slice:
+def process_batch_slice(global_batch_size: int, mesh=None) -> slice:
     """The slice of the global batch this process should load.
 
-    Even split by process index; requires the global batch to divide by
-    the process count (every process takes as many rows)."""
-    n = process_count()
+    Even split by the process's place on the data axis; requires the
+    global batch to divide by the axis (every process takes as many
+    rows). Without ``mesh`` the data axis is every process, by rank;
+    with a ``parallel.mesh.Mesh`` it is the mesh's, by data index, so
+    that the processes of one model group (tensor parallelism) read the
+    same rows, as the JAX engine binds one global batch over the
+    ``("data", "model")`` mesh."""
+    if mesh is None:
+        n, i = process_count(), process_index()
+    else:
+        n, i = mesh.shape["data"], mesh.data_index
     if global_batch_size % n:
         raise ValueError(
             f"global batch {global_batch_size} must divide by the "
             f"process count {n}")
     per = global_batch_size // n
-    i = process_index()
     return slice(i * per, (i + 1) * per)

@@ -30,17 +30,32 @@ Both BatchNorm modes:
   microbatches it is the train steps of the microbatches in turn with
   their gradients accumulated (GPipe's BN semantics).
 
-Not ported: ``meshes=`` (data parallelism inside a stage, PP x DP).
+PP x DP (``meshes=``, one ``parallel.mesh.Mesh`` per stage over disjoint
+processes of the process group): each process runs the stage whose mesh
+holds it, on its share of each microbatch's rows (the data index's
+``microbatch / data size`` rows), and the activations and cotangents
+move between the processes of the same data index in consecutive stages
+(``torch.distributed`` send / recv: of host copies under gloo, whose
+send takes no CUDA tensor, and of the card's tensors under nccl). A
+stage's gradients are averaged over its mesh's data group, and its
+train-mode BatchNorm takes its statistics over that group
+(``layers.set_bn_group``), so a step equals the single program's on
+the whole batch, as a data-parallel step does.
 """
 
+import json
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
-from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+from torch.utils._pytree import (tree_flatten, tree_map, tree_unflatten,
+                                 treespec_dumps, treespec_loads)
 
-_NOT_PORTED = ("PP x DP is not ported yet (ROADMAP.md, queue 1, item 9: "
-               "parallel)")
+from .multihost import (barrier, host_device, process_device,
+                        process_index)
+from .train import average_grads, broadcast_tensors
 
 
 class PipelineExecutor:
@@ -52,6 +67,14 @@ class PipelineExecutor:
     construction; :func:`split_detector` and :func:`split_yolov4` give
     modules that are VIEWS of one model's submodules (the same tensors,
     so placing a stage moves that part of the model), not copies.
+
+    ``meshes``: instead, one ``parallel.mesh.Mesh`` per stage over
+    disjoint processes, each of model axis 1 and all of one data size
+    (PP x DP, see the module docstring): every process calls every
+    method with the whole batch; ``run`` and the loss come back whole on
+    every process, the gradients, ``init_opt``'s chains and
+    ``apply_grads`` are this process's stage's (None for the others).
+    Each microbatch must divide by the data size.
 
     Forward:  ``run(x, microbatch)`` -> the last stage's outputs, rows
               aligned with ``x``.
@@ -67,8 +90,6 @@ class PipelineExecutor:
                  devices: Optional[Sequence] = None,
                  meshes: Optional[Sequence] = None,
                  train_stages: Optional[Sequence[Callable]] = None):
-        if meshes is not None:
-            raise NotImplementedError(f"meshes=: {_NOT_PORTED}")
         if len(stages) != len(params):
             raise ValueError(
                 f"{len(stages)} stages but {len(params)} params trees")
@@ -76,6 +97,13 @@ class PipelineExecutor:
             raise ValueError(
                 f"{len(stages)} stages but {len(train_stages)} "
                 f"train_stages")
+        self.stages = list(stages)
+        self.train_stages = (list(train_stages)
+                             if train_stages is not None else None)
+        self.meshes = None
+        if meshes is not None:
+            self._init_meshes(params, list(meshes))
+            return
         if devices is None:
             devices = [f"cuda:{i}"
                        for i in range(torch.cuda.device_count())]
@@ -84,17 +112,52 @@ class PipelineExecutor:
             raise ValueError(
                 f"{len(stages)} stages need {len(stages)} devices, "
                 f"got {len(devices)} (a device may repeat)")
-        self.stages = list(stages)
-        self.train_stages = (list(train_stages)
-                             if train_stages is not None else None)
         self.devices = devices[:len(stages)]
         self.params = [m.to(d) for m, d in zip(params, self.devices)]
+
+    def _init_meshes(self, params, meshes):
+        """PP x DP: this process's stage, its mesh, its peers in the
+        stages before and after, its stage module on its device (the
+        device of ``distributed_initialize``, else the card) with the
+        BatchNorm statistics over the mesh's data group."""
+        from ..models.layers import set_bn_group
+        n = len(self.stages)
+        if len(meshes) < n:
+            raise ValueError(f"{n} stages need {n} meshes, got "
+                             f"{len(meshes)}")
+        meshes = meshes[:n]
+        if any(m.shape["model"] != 1 for m in meshes):
+            raise ValueError("a stage mesh's model axis must be 1 (PP x DP)")
+        if len({m.shape["data"] for m in meshes}) != 1:
+            raise ValueError("every stage mesh needs the same data size, "
+                             f"got {[m.shape['data'] for m in meshes]}")
+        ranks = [r for m in meshes for r in m.ranks]
+        if len(set(ranks)) != len(ranks):
+            raise ValueError("the stage meshes must be disjoint")
+        me = process_index()
+        owner = [s for s, m in enumerate(meshes) if me in m]
+        if not owner:
+            raise ValueError(f"process {me} is in no stage mesh")
+        s = self.stage = owner[0]
+        self.meshes, self.mesh = meshes, meshes[s]
+        pos = self.mesh.ranks.index(me)
+        self._prev = meshes[s - 1].ranks[pos] if s > 0 else None
+        self._next = meshes[s + 1].ranks[pos] if s + 1 < n else None
+        device = process_device() or torch.device("cuda")
+        self.devices = [device] * n
+        self.params = list(params)
+        self.params[s] = params[s].to(device)
+        set_bn_group(self.params[s], self.mesh.data_group)
 
     # -- forward ------------------------------------------------------
     @torch.no_grad()
     def run(self, x, microbatch: Optional[int] = None):
         """Eval-mode forward; returns the last stage's outputs
-        concatenated over microbatches (same structure as one)."""
+        concatenated over microbatches (same structure as one). Under
+        ``meshes``: every process passes the whole ``x`` and gets the
+        whole output, on its device (collective)."""
+        if self.meshes is not None:
+            return self._run_meshes(x, microbatch)
         outs = []
         for mb in self._split(x, microbatch):
             y = mb
@@ -126,6 +189,8 @@ class PipelineExecutor:
                 "with_train=True)")
         fns = self.train_stages if use_train else self.stages
         n_stages = len(fns)
+        if self.meshes is not None:
+            return self._step_meshes(fns, loss_fn, use_train)
 
         def step(x, *aux, microbatch: Optional[int] = None):
             mbs = self._split(x, microbatch)
@@ -201,8 +266,10 @@ class PipelineExecutor:
     def init_opt(self, tx):
         """One optimizer chain per stage over its module's parameters
         (``tx`` from ``parallel.train.make_optimizer``; its ``frozen``
-        predicate sees the model's parameter names)."""
-        return [tx(m) for m in self.params]
+        predicate sees the model's parameter names); under ``meshes``
+        only this process's stage has one (None for the others)."""
+        return [tx(m) if self._runs(s) else None
+                for s, m in enumerate(self.params)]
 
     def apply_grads(self, tx, opt_states, grads):
         """Update each stage's parameters in place with its optimizer
@@ -210,6 +277,8 @@ class PipelineExecutor:
         BatchNorm statistics pass through. Returns ``opt_states``."""
         del tx                            # the chains carry it
         for m, opt, g in zip(self.params, opt_states, grads):
+            if opt is None:
+                continue
             for k, p in m.named_parameters():
                 p.grad = g[k]
             opt.step()
@@ -218,10 +287,17 @@ class PipelineExecutor:
     # -- persistence ---------------------------------------------------
     def save(self, path: str) -> None:
         """``torch.save`` of every stage's ``state_dict`` (CPU tensors),
-        the pipeline's counterpart of ``Model.save_weights``."""
-        torch.save({str(i): {k: v.detach().cpu()
-                             for k, v in m.state_dict().items()}
-                    for i, m in enumerate(self.params)}, path)
+        the pipeline's counterpart of ``Model.save_weights``; under
+        ``meshes`` every process first takes each stage from its mesh's
+        first process, process 0 writes and all wait for it
+        (collective)."""
+        self._sync_stages()
+        if self.meshes is None or process_index() == 0:
+            torch.save({str(i): {k: v.detach().cpu()
+                                 for k, v in m.state_dict().items()}
+                        for i, m in enumerate(self.params)}, path)
+        if self.meshes is not None:
+            barrier()
 
     def load(self, path: str) -> None:
         """Load a :meth:`save` file into the stage modules, on their
@@ -234,12 +310,168 @@ class PipelineExecutor:
         """One ``state_dict`` (CPU tensors) of every stage's variables,
         the inverse of :func:`split_detector` / :func:`split_yolov4`: the
         whole model's ``load_state_dict`` takes it, so a pipeline-trained
-        model goes on to the single-program paths."""
+        model goes on to the single-program paths. Collective under
+        ``meshes`` (each stage from its mesh's first process)."""
+        self._sync_stages()
         merged = {}
         for m in self.params:
             merged.update({k: v.detach().cpu()
                            for k, v in m.state_dict().items()})
         return merged
+
+    # -- PP x DP ------------------------------------------------------
+    def _runs(self, s):
+        """Whether this process runs stage ``s``."""
+        return self.meshes is None or s == self.stage
+
+    def _sync_stages(self):
+        """Under ``meshes``: every stage's tensors in every process from
+        the first process of the stage's mesh (every process holds
+        views of one whole model)."""
+        if self.meshes is None:
+            return
+        for m, mesh in zip(self.params, self.meshes):
+            broadcast_tensors(list(m.state_dict().values()),
+                              dist.group.WORLD, src=mesh.ranks[0])
+
+    def _rows(self, tree):
+        """This process's rows of a microbatch (its data index's)."""
+        d = self.mesh.shape["data"]
+        leaves, spec = tree_flatten(tree)
+        total = leaves[0].shape[0]
+        if total % d:
+            raise ValueError(f"microbatch {total} must divide by the "
+                             f"stage meshes' data size {d}")
+        r, i = total // d, self.mesh.data_index
+        return tree_unflatten([t[i * r:(i + 1) * r] for t in leaves], spec)
+
+    def _send(self, tree, dst):
+        """``tree`` to process ``dst``: its structure, shapes and dtypes,
+        then each leaf."""
+        leaves, spec = tree_flatten(tree)
+        _send_bytes(_meta(spec, leaves), dst)
+        dev = host_device()
+        for t in leaves:
+            dist.send(t.detach().to(dev).contiguous(), dst)
+
+    def _recv(self, src):
+        """A tree of :meth:`_send` from process ``src``, on this
+        process's device."""
+        spec, metas = _unmeta(_recv_bytes(src))
+        dev = host_device()
+        leaves = []
+        for shape, dtype in metas:
+            t = torch.empty(shape, dtype=dtype, device=dev)
+            dist.recv(t, src)
+            leaves.append(t.to(self.devices[self.stage]))
+        return tree_unflatten(leaves, spec)
+
+    def _mb_split(self, x, microbatch):
+        mbs = self._split(x, microbatch)
+        self._rows(mbs[0])                 # the division check
+        return mbs
+
+    def _run_meshes(self, x, microbatch):
+        s, last = self.stage, len(self.stages) - 1
+        mbs = self._mb_split(x, microbatch)
+        outs = []
+        for mb in mbs:
+            y = (self._recv(self._prev) if s > 0
+                 else self._put(self._rows(mb), s))
+            y = self.stages[s](self.params[s], y)
+            if s < last:
+                self._send(y, self._next)
+            else:
+                outs.append(y)
+        return self._gather_rows(self._cat(outs) if s == last else None,
+                                 len(mbs))
+
+    def _gather_rows(self, local, n_mb):
+        """The last stage's rows of every microbatch (``local``, on its
+        processes; None on the others) as the whole output on every
+        process, rows aligned with ``x``: the structure from the last
+        stage's first process, then each leaf summed over every process
+        into zeros (exact: each row has one writer)."""
+        src = self.meshes[-1].ranks[0]
+        if process_index() == src:
+            leaves, spec = tree_flatten(local)
+            _bcast_bytes(_meta(spec, leaves), src)
+        else:
+            spec, metas = _unmeta(_bcast_bytes(None, src))
+        if local is not None:
+            leaves = tree_flatten(local)[0]
+            metas = [(tuple(t.shape), t.dtype) for t in leaves]
+        d = self.mesh.shape["data"]
+        dev = host_device()
+        out = []
+        for k, (shape, dtype) in enumerate(metas):
+            per = shape[0] // n_mb              # this rank's rows a mb
+            full = torch.zeros((shape[0] * d, *shape[1:]), dtype=dtype,
+                               device=dev)
+            if local is not None:
+                i = self.mesh.data_index
+                view = full.view(n_mb, d, per, *shape[1:])
+                view[:, i] = leaves[k].to(dev).view(n_mb, per, *shape[1:])
+            dist.all_reduce(full)
+            out.append(full.to(self.devices[self.stage]))
+        return tree_unflatten(out, spec)
+
+    def _step_meshes(self, fns, loss_fn, use_train):
+        s, last = self.stage, len(self.stages) - 1
+        module = self.params[s]
+
+        def step(x, *aux, microbatch: Optional[int] = None):
+            mbs = self._mb_split(x, microbatch)
+            aux_mbs = [self._split(a, microbatch) for a in aux]
+            n = len(mbs)
+            module.zero_grad(set_to_none=True)
+            xs, dys, total = [None] * n, [None] * n, 0.0
+            # fill: this stage's forward of each microbatch's rows,
+            # keeping its input; the last stage seeds the cotangents
+            for i, mb in enumerate(mbs):
+                y = (self._recv(self._prev) if s > 0
+                     else self._put(self._rows(mb), s))
+                xs[i] = y
+                with torch.no_grad():
+                    y = fns[s](module, y)
+                if s < last:
+                    self._send(y, self._next)
+                    continue
+                am = tuple(self._put(self._rows(a[i]), s) for a in aux_mbs)
+                leaves, spec = tree_flatten(y)
+                leaves = [t.detach().requires_grad_() for t in leaves]
+                with torch.enable_grad():
+                    loss = loss_fn(tree_unflatten(leaves, spec), *am)
+                    dy = torch.autograd.grad(loss / n, leaves,
+                                             allow_unused=True)
+                total = total + loss.detach().float() / n
+                dys[i] = [torch.zeros_like(t) if g is None else g
+                          for t, g in zip(leaves, dy)]
+            # drain, newest microbatch first
+            for i in reversed(range(n)):
+                dy = (self._recv(self._next) if s < last else dys[i])
+                dy = tree_flatten(dy)[0]
+                dx = self._backward(fns[s], s, xs[i], dy, use_train)
+                xs[i] = None
+                if s > 0:
+                    self._send(dx, self._prev)
+            if self.mesh.data_group is not None:
+                average_grads([p for _, p in sorted(
+                    module.named_parameters(), key=lambda kv: kv[0])],
+                    self.mesh.data_group)
+            # the mean loss, from the last stage's processes to all
+            d = self.mesh.shape["data"]
+            mean = torch.zeros(1, device=host_device())
+            if s == last:
+                mean += total.to(mean.device) / d
+            dist.all_reduce(mean)
+            grads = [None] * len(self.stages)
+            grads[s] = {k: (p.grad if p.grad is not None
+                            else torch.zeros_like(p))
+                        for k, p in module.named_parameters()}
+            return mean[0].to(self.devices[s]), grads
+
+        return step
 
     # -- helpers ------------------------------------------------------
     def _put(self, tree, s):
@@ -265,6 +497,48 @@ class PipelineExecutor:
                              f"microbatch {mb}")
         return [tree_unflatten([t[i * mb:(i + 1) * mb] for t in leaves],
                                spec) for i in range(total // mb)]
+
+
+def _meta(spec, leaves):
+    """A tree's structure, leaf shapes and dtypes as bytes."""
+    return json.dumps([treespec_dumps(spec),
+                       [[list(t.shape), str(t.dtype).split(".")[-1]]
+                        for t in leaves]]).encode()
+
+
+def _unmeta(data):
+    spec, metas = json.loads(data.decode())
+    return treespec_loads(spec), [(tuple(shape), getattr(torch, dtype))
+                                  for shape, dtype in metas]
+
+
+def _send_bytes(data, dst):
+    dev = host_device()
+    dist.send(torch.tensor([len(data)], dtype=torch.int64, device=dev), dst)
+    dist.send(torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev),
+              dst)
+
+
+def _recv_bytes(src):
+    dev = host_device()
+    n = torch.zeros(1, dtype=torch.int64, device=dev)
+    dist.recv(n, src)
+    buf = torch.empty(int(n[0]), dtype=torch.uint8, device=dev)
+    dist.recv(buf, src)
+    return buf.cpu().numpy().tobytes()
+
+
+def _bcast_bytes(data, src):
+    """``data`` (bytes, on process ``src``) on every process."""
+    dev = host_device()
+    n = torch.tensor([0 if data is None else len(data)], dtype=torch.int64,
+                     device=dev)
+    dist.broadcast(n, src)
+    buf = (torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+           if data is not None else
+           torch.empty(int(n[0]), dtype=torch.uint8, device=dev))
+    dist.broadcast(buf, src)
+    return buf.cpu().numpy().tobytes()
 
 
 class _View(nn.Module):

@@ -17,7 +17,10 @@ their bias corrections round, so none is used.
 
 Data parallelism (``make_train_step(group=...)``) is the explicit form of
 what GSPMD derives for the JAX step over a global batch: statistics sums
-and gradients reduced over the process group.
+and gradients reduced over the process group. Under tensor parallelism
+the group is the mesh's data group (``parallel.mesh``): a sliced leaf
+keeps its own slice's gradient and moments, and a whole one is computed
+alike, bit for bit, in every process of its model group.
 """
 
 import math
@@ -27,6 +30,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+from .collectives import all_reduce_
 
 _INNER = ("adam", "adamw", "sgd", "rmsprop")
 _B1, _B2 = 0.9, 0.999          # adam's decays, optax's defaults
@@ -300,21 +305,26 @@ def _buckets(grads):
 
 def _reduce_grads(state, group):
     """Average the gradients of the optimizer's parameters over the
-    processes of ``group``, in place, in the order of the parameters'
-    names: the same list on every process, whatever gradients this
-    process has (a parameter without one adds zeros, so that no process
-    waits on a reduce that another skips). One all-reduce a bucket of
-    concatenated gradients (:data:`_BUCKET` elements)."""
+    processes of ``group``, in place (:func:`average_grads`)."""
     own = {id(p) for p in state.optimizer.param_groups[0]["params"]}
-    params = [p for _, p in sorted(state.model.named_parameters(),
-                                   key=lambda kv: kv[0]) if id(p) in own]
+    average_grads([p for _, p in sorted(state.model.named_parameters(),
+                                        key=lambda kv: kv[0])
+                   if id(p) in own], group)
+
+
+def average_grads(params, group):
+    """Average the ``.grad`` of ``params`` over the processes of
+    ``group``, in place, in the order given: the same list on every
+    process, whatever gradients this process has (a parameter without
+    one adds zeros, so that no process waits on a reduce that another
+    skips). One all-reduce a bucket of concatenated gradients
+    (:data:`_BUCKET` elements)."""
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     world = dist.get_world_size(group)
     for grads in _buckets([p.grad for p in params]):
-        flat = _flatten_dense_tensors(grads)
-        dist.all_reduce(flat, group=group)
+        flat = all_reduce_(_flatten_dense_tensors(grads), group)
         flat.div_(world)
         for g, r in zip(grads, _unflatten_dense_tensors(flat, grads)):
             g.copy_(r)
@@ -336,8 +346,8 @@ def _mean_logs(logs, group):
     """``{name: 0-d tensor}`` averaged over the processes of ``group``
     (one all-reduce)."""
     keys = list(logs)
-    vals = torch.stack([logs[k].detach().float() for k in keys])
-    dist.all_reduce(vals, group=group)
+    vals = all_reduce_(torch.stack([logs[k].detach().float()
+                                    for k in keys]), group)
     vals = vals / dist.get_world_size(group)
     return dict(zip(keys, vals.unbind()))
 

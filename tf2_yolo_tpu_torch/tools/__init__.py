@@ -1,1 +1,2 @@
-"""Measurement scripts of the port that run on the card."""
+"""Tools of the port: measurement scripts that run on the card, and
+``fetch_weights`` (the pretrained-weight cache)."""
