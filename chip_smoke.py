@@ -3,7 +3,8 @@
 training paths, of the YOLOv1.5, v2 and v3 families, of the ResNet,
 MobileNetV2 and factory backbones and the classifiers, of YOLOv1.5's
 int8 serving and the reference-weight converter, and of the parallel
-layer's data-parallel and pipeline paths, on one CUDA card.
+layer's data-parallel, pipeline, tensor-parallel and spatially
+partitioned paths, on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--batch 8] [--size 416]
                           [--requests 2] [--train-batch 32] [--steps 3]
@@ -271,7 +272,42 @@ Phases (each raises on failure, so the exit code is nonzero):
      for bit the eval forward of the same rows, the frozen-statistics
      ``value_and_grad`` against the gradient-accumulated single program
      by the probe rule, each process's K1/K2/K3 launches, ms/step beside
-     the single program's.
+     the single program's;
+ 19. spatial partitioning and the last tensor-parallel layer kinds (new
+     draws from ``--seed`` + 19): K1 at three row slabs of (a)'s step
+     (a stage-1 3x3 of the 208^2 level, 104 rows and one fetched, top
+     pad 0; bu2_dn's darknet stride 2 on rows 13..25 of 26, an odd first
+     row; the stem's rows 0..208 of 416 with the image's top pad, on the
+     small-Ci route) at batch 16 against its plain version, timed as
+     phase 3 times it; (a) two processes on the one card (this script
+     with ``--space-child``, gloo), ``YoloV4(packed=False)`` bf16 at
+     batch 16 under ``set_spatial_parallel`` on a ``(data 1, space 2)``
+     grid (``make_mesh_spatial``; the 13^2 level splits 7 + 6), the
+     gathered eval heads of 2 images and one step of the spatial train
+     step (``make_train_step(mesh=)``), each process on its image rows
+     of the same 16 images, against one process on the whole images and
+     the same weights: loss, running statistics' step and eval heads bit
+     for bit or, in rel L2 to the whole f32 model's, within min(0.3,
+     max(4 x the whole bf16 model's, 1e-3)) (the precision rule,
+     capped); the gradients by the same rule (a bias whose exact
+     gradient is 0 measured over its layer's kernel or scale gradient)
+     where the whole bf16 step's own distance leaves the limit under the
+     cap: the random nets' bf16 steps are chaotic, their gradients 0.8-1.4
+     in median rel L2 from the f32 step's, so the leaves at the cap are
+     counted and printed with their distance to the whole bf16 step's,
+     and every leaf is held by an f32 step at batch 4 by phase 8's probe
+     rule; the row messages (forward fetches and backward
+     returns: count, largest, elements; every message at most the 6 rows
+     of SPP's window), 110 K1 launches a step in each process, all on
+     the tensor cores, those at slab geometries counted, and ms/step
+     beside the whole model's; (b) the same two processes on a ``(data
+     1, model 2)`` grid: YOLOv4 with ResNet-50 and YOLOv2 with
+     MobileNetV2 and with the UNet, bf16 at batch 8, one Adam step of a
+     linear loss each, sliced at the default gate against unsliced by
+     the same rules (the loss's distance over the sum of its terms'
+     magnitudes: they have both signs), and an f32 step at batch 2 each
+     by phase 8's probe rule, with the sliced leaves and the K1 launches
+     of the sliced convs.
 
 Weights are random, from ``--seed``: conv kernels drawn with the port's
 HE_NORMAL from a seeded ``torch.Generator``. With BN at its init
@@ -311,14 +347,16 @@ from tf2_yolo_tpu_torch import engine, yolov1_5, yolov2, yolov3, yolov4
 from tf2_yolo_tpu_torch.data import encode_to_grid
 from tf2_yolo_tpu_torch.export import (calibrate_int8, folded_copy,
                                        load_serving, make_serving_fn)
-from tf2_yolo_tpu_torch.models import YoloV4, use_plain_route
+from tf2_yolo_tpu_torch.models import YoloV2, YoloV4, use_plain_route
 from tf2_yolo_tpu_torch.models import layers as layers_mod
 from tf2_yolo_tpu_torch import models as models_mod
 from tf2_yolo_tpu_torch.models import ResNet
 from tf2_yolo_tpu_torch.models.layers import (BNState, Conv, ConvActBN,
                                               ConvBN, DepthwiseConv,
                                               Int8ConvBN, glorot_uniform_,
-                                              he_normal_, set_bn_stats_sg)
+                                              he_normal_, set_bn_stats_sg,
+                                              set_spatial_parallel,
+                                              set_tensor_parallel)
 from tf2_yolo_tpu_torch.ops import nms as nms_ops
 from tf2_yolo_tpu_torch.ops.decode import decode_multi_level
 from tf2_yolo_tpu_torch.ops.evalmatch import match_pred_arrays
@@ -346,14 +384,17 @@ from tf2_yolo_tpu_torch.ops.losses import wrap_yolo_loss_v4
 from tf2_yolo_tpu_torch.parallel import (PipelineExecutor, create_train_state,
                                          distributed_initialize,
                                          distributed_shutdown, make_mesh,
-                                         make_optimizer, make_train_step,
+                                         make_mesh_spatial, make_optimizer,
+                                         make_train_step,
                                          process_batch_slice,
                                          restore_checkpoint, save_checkpoint,
-                                         split_yolov4)
+                                         spatial_sharding, split_yolov4,
+                                         tensor_parallel_shardings)
 from tf2_yolo_tpu_torch.parallel.collectives import (gather_state_dict,
                                                      recording,
                                                      sharded_dims)
 from tf2_yolo_tpu_torch.parallel.multihost import default_group
+from tf2_yolo_tpu_torch.parallel.spatial import split_rows
 from tf2_yolo_tpu_torch.parallel.train import TrainState
 from tf2_yolo_tpu_torch.tools import bench_packed_probe as probe
 from tf2_yolo_tpu_torch.tools.train_profile import (ANCHORS, CLASSES,
@@ -4416,38 +4457,120 @@ def buffers_of(model):
     return {n: b.detach().clone() for n, b in model.named_buffers()}
 
 
-def probe_rule(got, ref, probe, floor=1e-3):
+def probe_rule(got, ref, probe, floor=1e-3, scales=None):
     """Phase 8's rule, leaf by leaf: rel L2 to the reference within
     min(0.3, max(5 x the probe's (the reference on the input moved by
-    1e-6), ``floor``)). Returns (worst leaf, its rel L2, its probe, the
-    leaves that fail)."""
-    rel = {k: rel_l2(got[k], ref[k]) for k in ref}
-    noise = {k: rel_l2(probe[k], ref[k]) for k in ref}
+    1e-6), ``floor``)); ``scales`` as in :func:`precision_rule`. Returns
+    (worst leaf, its rel L2, its probe, the leaves that fail)."""
+    rel = {k: leaf_distance(got, ref, k, scales) for k in ref}
+    noise = {k: leaf_distance(probe, ref, k, scales) for k in ref}
     failed = [k for k in ref if rel[k] > min(0.3, max(5 * noise[k], floor))]
     worst = max(rel, key=rel.get)
     return worst, rel[worst], noise[worst], failed
 
 
-def precision_rule(got, ref, truth, floor=1e-3):
+def precision_rule(got, ref, truth, floor=1e-3, cap=None, scales=None):
     """Phase 18(a)'s rule for the bf16 gradients, leaf by leaf: ``got``
     bit for bit ``ref`` (the unsliced bf16 step) or, in rel L2 to
     ``truth`` (the unsliced f32 step on the same weights and batch),
     within max(4 x ``ref``'s, ``floor``): tensor parallelism may round
-    differently, not worse. Returns (the leaves bit for bit, the worst
-    leaf by got's distance over its limit, that distance, ref's, the
-    leaves that fail)."""
-    equal, ratio, dist = 0, {}, {}
+    differently, not worse. With ``cap`` (phase 19), never more than
+    ``cap``. ``scales`` (:func:`zero_grad_leaves`) measures a leaf's
+    distance over the scale given there instead of over its own norm.
+    Returns (the leaves bit for bit, the worst leaf by got's distance
+    over its limit, that distance, ref's, the leaves that fail, the
+    leaves whose limit is the cap)."""
+    equal, ratio, dist, capped = 0, {}, {}, []
     for k in ref:
         if torch.equal(got[k], ref[k]):
             equal += 1
             continue
-        dist[k] = (rel_l2(got[k], truth[k]), rel_l2(ref[k], truth[k]))
-        ratio[k] = dist[k][0] / max(4 * dist[k][1], floor)
+        dist[k] = (leaf_distance(got, truth, k, scales),
+                   leaf_distance(ref, truth, k, scales))
+        limit = max(4 * dist[k][1], floor)
+        if cap is not None and limit > cap:
+            limit = cap
+            capped.append(k)
+        ratio[k] = dist[k][0] / limit
     if not ratio:
-        return equal, None, 0.0, 0.0, []
+        return equal, None, 0.0, 0.0, [], []
     worst = max(ratio, key=ratio.get)
     return (equal, worst, *dist[worst],
-            [k for k, r in ratio.items() if r > 1])
+            [k for k, r in ratio.items() if r > 1], capped)
+
+
+def rule_line(res, n=1, train=False):
+    """One line of :func:`precision_rule`'s result over ``n`` leaves;
+    with ``train`` (:func:`train_failures`) the leaves at the cap that
+    lie outside are named apart."""
+    equal, worst, d, d_ref, failed, capped = res
+    line = f"bit for bit {equal}/{n}"
+    if worst is not None:
+        line += (f", the rest in rel L2 to the f32 result within min("
+                 f"{RULE_CAP}, max(4 x the whole bf16 result's, 1e-3)): "
+                 f"worst {d:.2e} at {worst} (whole {d_ref:.2e}), "
+                 f"{len(capped)} at the cap")
+        if train:
+            held = train_failures(res)
+            line += (f" ({len(failed) - len(held)} of them outside: beyond "
+                     f"the bf16 reference's reach), {len(held)} outside "
+                     "below it")
+            failed = held
+        else:
+            line += f", {len(failed)} outside"
+        if failed:
+            line += f": {failed[:3]}"
+    return line
+
+
+def train_failures(res):
+    """The leaves of a train-mode bf16 step that fail
+    :func:`precision_rule`, but those at the cap: the random nets' bf16
+    steps are chaotic (the whole bf16 step's gradients lie 0.8-1.4 in
+    median rel L2 from the f32 step's, and their gradients through the
+    eval forward still 0.3-0.4), and a leaf whose whole bf16 result is
+    that far cannot tell a wrong result from rounding. Every leaf is
+    held by the f32 steps (phase 8's probe rule, capped)."""
+    capped = set(res[5])
+    return [k for k in res[4] if k not in capped]
+
+
+def to_whole(got, ref):
+    """The median and largest rel L2 of ``got``'s leaves to ``ref``'s
+    (the whole bf16 step's), printed beside the rule: how far slicing or
+    partitioning moves a bf16 step by itself."""
+    rel = sorted(rel_l2(got[k], ref[k]) for k in ref)
+    return (f"rel L2 to the whole bf16 step's median "
+            f"{rel[len(rel) // 2]:.2e}, largest {rel[-1]:.2e}")
+
+
+def zero_grad_leaves(truth):
+    """{bias leaf: the gradient norm of its layer's kernel or scale} for
+    each bias of ``truth`` (an f32 step's gradients) whose exact gradient
+    is 0 (a BatchNorm after it, or after the linear layer it feeds, takes
+    a constant out): its norm there is rounding, at most 1e-5 of that
+    other norm, as the CPU tests tell such a leaf. A rel L2 to such a
+    leaf measures only rounding, so the rules measure its distance over
+    that other norm."""
+    out = {}
+    for k, t in truth.items():
+        base = k[:-len("bias")]
+        other = truth.get(base + "kernel", truth.get(base + "scale"))
+        if not k.endswith("bias") or other is None:
+            continue
+        norm = other.float().norm().item()
+        if t.float().norm().item() <= 1e-5 * norm:
+            out[k] = norm
+    return out
+
+
+def leaf_distance(got, want, k, scales=None):
+    """rel L2 of ``got[k]`` to ``want[k]``, or, for a leaf of ``scales``,
+    the norm of their difference over the scale given there."""
+    if scales and k in scales:
+        return ((got[k].float() - want[k].float()).norm().item()
+                / max(scales[k], 1e-30))
+    return rel_l2(got[k], want[k])
 
 
 def stats_deltas(after, before):
@@ -5344,6 +5467,403 @@ def phase_tensor_parallel(args, card):
                 launches=tp["launches"] + pp["launches"], seconds=seconds)
 
 
+# ---------------------------------------------------------------- phase 19
+SPACE_BATCH = 16               # (a): both processes take the same 16 rows
+SPACE_F32_BATCH = 4            # (a)'s f32 step, the probe rule
+SPACE_EVAL_ROWS = 2            # (a): rows of the gathered eval heads
+TP19_BATCH = 8                 # (b)
+TP19_F32_BATCH = 2             # (b)'s f32 steps, the probe rule
+# the most phase 19's rel L2 rules allow, as phase 8's probe rule
+RULE_CAP = 0.3
+TP19_FAMILIES = ("v4_resnet50", "v2_mobilenet", "v2_unet")
+# K1 at three of the row slabs of (a)'s step (name, H, W, Ci, Co, k,
+# stride, explicit geometry), at (a)'s batch: process 1's slab of the
+# 208^2 level for a stage-1 3x3 (its 104 rows and the one above, top pad
+# 0), process 1's slab of bu2_dn (rows 13..25 of 26: an odd first row,
+# the darknet stride 2 without its pad) and process 0's stem slab (rows
+# 0..208 of 416, the image's top pad; the small-Ci route)
+SLAB_CONV_SHAPES = [
+    ("slab 3x3s1 208^2 rows 103..207 32->64 (104 + 1, pad 0)", 105, 208,
+     32, 64, 3, 1, conv_mod.Geometry(104, 208, 0, 1)),
+    ("slab 3x3s2 darknet 26^2 rows 13..25 256->512", 13, 26, 256, 512, 3,
+     2, conv_mod.Geometry(6, 13, 0, 1)),
+    ("slab stem 416^2 rows 0..208 3->32 (pad 1)", 209, 416, 3, 32, 3, 1,
+     conv_mod.Geometry(208, 416, 1, 1)),
+]
+
+
+def space_run(args, dtype, batch, mesh=None, eps=0.0, eval_rows=0):
+    """(a)'s step: the YOLOv4 of ``make_training`` (``packed=False``,
+    ``dtype``, ``batch``, Adam 1e-3, the v4 losses), spatially
+    partitioned over ``mesh`` (``set_spatial_parallel``, the spatial
+    step) or whole, one step on the images moved by ``eps``; first, with
+    ``eval_rows``, the eval heads of that many images (gathered). Returns
+    (state, step, the step's input, ys, the capture: loss, launches,
+    K1 shapes, row messages, gradients, running statistics' step)."""
+    state, _, x, ys = make_training(args.seed + 19, batch, args.size, dtype,
+                                    packed=False)
+    model = state.model
+    step = make_train_step(v4_losses(args.size), mesh=mesh)
+    cut = (lambda t: t) if mesh is None else spatial_sharding(mesh)
+    if mesh is not None:
+        set_spatial_parallel(model, mesh, (args.size, args.size))
+    out = {}
+    if eval_rows:
+        model.eval()
+        with torch.no_grad():
+            out["heads"] = [h.float() for h in model(cut(x[:eval_rows]))]
+    xin = cut(x + eps)
+    before = buffers_of(model)
+    reset_train_counters()
+    conv_bn_stats.by_shape.clear()
+    with recording() as records:
+        _, logs = step(state, xin, ys)
+    torch.cuda.synchronize()
+    out.update(loss=float(logs["loss"]), counts=train_counters(),
+               by_shape=dict(conv_bn_stats.by_shape),
+               records=[(r.kind, r.dim, r.numel, r.rows) for r in records],
+               grads=grads_of(model),
+               deltas=stats_deltas(buffers_of(model), before))
+    return state, step, xin, ys, out
+
+
+def tp19_model(name, dtype, seed, batch=TP19_BATCH):
+    """(b)'s network ``name`` (YOLOv4 with ResNet-50, YOLOv2 with
+    MobileNetV2 or the UNet; bf16 or f32, 3 classes) from ``seed``, on
+    the card, with ``batch`` images and the linear loss's cotangents."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if name == "v4_resnet50":
+        model = YoloV4(ANCHORS, CLASSES, dtype=dtype, generator=gen,
+                       backbone="resnet50")
+    else:
+        model = YoloV2(ANCHORS[:5], CLASSES, dtype=dtype, generator=gen,
+                       backbone=name[3:])
+    x = torch.rand(batch, 416, 416, 3, generator=gen, device="cuda")
+    with torch.no_grad():
+        shapes = [h.shape for h in as_outputs(model.eval()(x[:1]))]
+    cts = [torch.randn(batch, *s[1:], generator=gen, device="cuda")
+           for s in shapes]
+    return model, x, cts
+
+
+def tp19_run(name, dtype, seed, mesh=None, batch=TP19_BATCH, eps=0.0):
+    """(b): one Adam step of ``name`` on the linear loss, on ``batch``
+    images moved by ``eps``, sliced over ``mesh``'s model axis (the
+    default gate of 128) or whole. Returns the loss, its scale (the sum
+    of its terms' magnitudes: the terms have both signs), the gathered
+    gradients, launches, the sliced leaves and the launches of the
+    sliced convs (K1 at their slices' Co / 2)."""
+    model, x, cts = tp19_model(name, dtype, seed, batch)
+    sliced, hooks, calls = {}, [], [0]
+    if mesh is not None:
+        set_tensor_parallel(model, mesh,
+                            tensor_parallel_shardings(model, mesh))
+        sliced = sharded_dims(model)
+
+        def count(mod, args):
+            calls[0] += 1
+
+        hooks = [m.register_forward_pre_hook(count)
+                 for n, m in model.named_modules()
+                 if isinstance(m, Conv) and f"{n}.kernel" in sliced]
+    state = create_train_state(model, make_optimizer("adam", 1e-3))
+    scale = []
+
+    def linear(ct, out):
+        scale.append(float((out * ct).abs().sum().detach()) / out.shape[0])
+        return (out * ct).sum() / out.shape[0]
+
+    step = make_train_step([linear] * len(cts))
+    reset_train_counters()
+    _, logs = step(state, x + eps, tuple(cts))
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    grads = grads_of(model)
+    if mesh is not None:
+        grads = gather_state_dict(model, grads)
+    return dict(loss=float(logs["loss"]), scale=sum(scale), grads=grads,
+                counts=train_counters(), sliced=len(sliced),
+                launches_at_slice=calls[0])
+
+
+def space_child(rank, store, out_dir, args):
+    """One of phase 19's two processes: gloo over CUDA tensors through
+    the FileStore ``store``. (a) the ``(data 1, space 2)`` grid: the
+    gathered eval heads and the bf16 step of :func:`space_run` on the
+    same 16 images as the other process, its image rows by the split,
+    then a timed step after the parent's "go" and the f32 step; (b) the
+    ``(data 1, model 2)`` grid: :func:`tp19_run` of each family. Writes
+    ``space-child_<rank>.pt``."""
+    t0 = time.perf_counter()
+    distributed_initialize(num_processes=2, process_id=rank, backend="gloo",
+                           device="cuda:0", store=store, timeout_s=60)
+    try:
+        mesh = make_mesh_spatial(1, 2)
+        state, step, xin, ys, out = space_run(
+            args, torch.bfloat16, SPACE_BATCH, mesh,
+            eval_rows=SPACE_EVAL_ROWS)
+        out["rows"] = tuple(xin.shape)
+        times = {"bf16 step": time.perf_counter() - t0}
+        wait_for_file(os.path.join(out_dir, "go"), "19(a)")
+        out["ms"] = timed_steps(state, step, xin, ys, 2)[0]
+        times["timed"] = time.perf_counter() - t0
+        del state, step, xin, ys
+        torch.cuda.empty_cache()
+        f32 = space_run(args, torch.float32, SPACE_F32_BATCH, mesh)[4]
+        out["f32"] = {k: f32[k] for k in ("loss", "grads", "deltas")}
+        times["f32 step"] = time.perf_counter() - t0
+        del f32
+        torch.cuda.empty_cache()
+        tmesh = make_mesh(n_model=2)
+        out["tp"] = {name: tp19_run(name, torch.bfloat16, args.seed + 19,
+                                    tmesh)
+                     for name in TP19_FAMILIES}
+        times["tp"] = time.perf_counter() - t0
+        out["tp_f32"] = {name: tp19_run(name, torch.float32, args.seed + 19,
+                                        tmesh, TP19_F32_BATCH)
+                         for name in TP19_FAMILIES}
+        times["tp f32"] = time.perf_counter() - t0
+        out["times"] = times
+        if rank != 0:
+            for key in ("grads", "deltas", "heads", "f32"):
+                out.pop(key)
+            for r in (*out["tp"].values(), *out["tp_f32"].values()):
+                r.pop("grads")
+        torch.save(out, os.path.join(out_dir, f"space-child_{rank}.pt"))
+    finally:
+        distributed_shutdown()
+    return 0
+
+
+def space_references(args):
+    """(a) and (b)'s references in one process, on the same weights and
+    images: the whole model's bf16 step (and its eval heads) and the f32
+    step on them (the precision rule's truth); the f32 step at
+    SPACE_F32_BATCH and its probe; each family's bf16 and f32 step, and
+    its f32 step at TP19_F32_BATCH and that step's probe. The
+    whole bf16 model's next steps are timed later (``refs["timer"]``),
+    when the card is this process's alone."""
+    refs = {}
+    for key, dtype, batch, eps in (
+            ("bf16", torch.bfloat16, SPACE_BATCH, 0.0),
+            ("truth", torch.float32, SPACE_BATCH, 0.0),
+            ("f32", torch.float32, SPACE_F32_BATCH, 0.0),
+            ("probe", torch.float32, SPACE_F32_BATCH, PROBE_EPS)):
+        run = space_run(args, dtype, batch, eps=eps,
+                        eval_rows=SPACE_EVAL_ROWS if batch == SPACE_BATCH
+                        else 0)
+        refs[key] = run[4]
+        if key == "bf16":
+            refs["timer"] = functools.partial(timed_steps, *run[:4], 2)
+        del run
+        torch.cuda.empty_cache()
+    for name in TP19_FAMILIES:
+        refs[name] = {dt: tp19_run(name, dtype, args.seed + 19,
+                                   batch=batch, eps=eps)
+                      for dt, dtype, batch, eps in (
+                          ("bf16", torch.bfloat16, TP19_BATCH, 0.0),
+                          ("truth", torch.float32, TP19_BATCH, 0.0),
+                          ("f32", torch.float32, TP19_F32_BATCH, 0.0),
+                          ("probe", torch.float32, TP19_F32_BATCH,
+                           PROBE_EPS))}
+        torch.cuda.empty_cache()
+    return refs
+
+
+def row_messages(records):
+    """(count, largest in rows, elements) of the row messages of one
+    process's step, forward (fetches) and backward (returns)."""
+    rows = [r for r in records if r[0].startswith("row_")]
+    return (len(rows), max((r[3] for r in rows), default=0),
+            sum(r[2] for r in rows))
+
+
+def slab_launches(results):
+    """K1's launches at an explicit (slab) geometry in both processes'
+    step, and those at each of SLAB_CONV_SHAPES."""
+    total = sum(c for r in results for key, c in r["by_shape"].items()
+                if isinstance(key[7], conv_mod.Geometry))
+    each = {s[0]: sum(r["by_shape"].get(
+        (SPACE_BATCH, *s[1:8]), 0) for r in results)
+        for s in SLAB_CONV_SHAPES}
+    return total, each
+
+
+def phase_spatial(args, card):
+    """Phase 19: K1 at SLAB_CONV_SHAPES, (a) spatial partitioning and (b)
+    tensor parallelism of the remaining layer kinds; every child process
+    ended on every path."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 19)
+    convs = phase_conv_checks(gen, SPACE_BATCH, SLAB_CONV_SHAPES)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_space_") as tmp:
+        procs = start_children("--space-child", 2, args, tmp)
+        started = time.monotonic()
+        try:
+            refs = space_references(args)
+            t_refs = time.perf_counter() - t0
+            open(os.path.join(tmp, "go"), "w").close()
+            r0, r1 = finish_children(procs, "--space-child", tmp, "19",
+                                     started)
+        finally:
+            kill_children(procs)
+    t_children = time.perf_counter() - t0
+    ref_ms = float(np.median(refs.pop("timer")()[0]))
+    torch.cuda.empty_cache()
+    ref, truth = refs["bf16"], refs["truth"]
+    rule = functools.partial(precision_rule, cap=RULE_CAP)
+    loss = rule({"loss": torch.tensor(r0["loss"])},
+                {"loss": torch.tensor(ref["loss"])},
+                {"loss": torch.tensor(truth["loss"])})
+    zeros = zero_grad_leaves(truth["grads"])
+    g = rule(r0["grads"], ref["grads"], truth["grads"], scales=zeros)
+    st = rule(r0["deltas"], ref["deltas"], truth["deltas"])
+    heads = rule(dict(enumerate(r0["heads"])), dict(enumerate(ref["heads"])),
+                 dict(enumerate(truth["heads"])))
+    f32 = r0["f32"]
+    loss32 = (abs(f32["loss"] - refs["f32"]["loss"]),
+              abs(refs["probe"]["loss"] - refs["f32"]["loss"]))
+    g32 = probe_rule(f32["grads"], refs["f32"]["grads"],
+                     refs["probe"]["grads"],
+                     scales=zero_grad_leaves(refs["f32"]["grads"]))
+    st32 = probe_rule(f32["deltas"], refs["f32"]["deltas"],
+                      refs["probe"]["deltas"], floor=1e-4)
+    msgs = [row_messages(r["records"]) for r in (r0, r1)]
+    gathers = [[c for c in r["records"] if c[0] == "all_gather"]
+               for r in (r0, r1)]
+    slabs, slab_each = slab_launches((r0, r1))
+    ms = [float(np.median(r["ms"])) for r in (r0, r1)]
+    level = args.size // 32
+    print(f"  (a) 2 processes, gloo, (data 1, space 2), YOLOv4 packed=False "
+          f"bf16 b{SPACE_BATCH} {args.size}^2: image rows "
+          f"{r0['rows'][1]} + {r1['rows'][1]}, the {level}^2 level "
+          + " + ".join(str(hi - lo) for lo, hi in split_rows(level, 2)))
+    print(f"  (a) against 1 process: loss {r0['loss']:.6f} / "
+          f"{ref['loss']:.6f} ({rule_line(loss)}); running statistics' "
+          f"step {rule_line(st, len(ref['deltas']))}; gathered eval heads "
+          f"of {SPACE_EVAL_ROWS} images {rule_line(heads, 3)}")
+    print(f"  (a) the train step's gradients ({len(zeros)} biases of exact "
+          f"gradient 0 over their layer's scale): "
+          f"{rule_line(g, len(ref['grads']), train=True)}; "
+          f"{to_whole(r0['grads'], ref['grads'])}")
+    print(f"  (a) f32 b{SPACE_F32_BATCH}, phase 8's probe rule: loss "
+          f"{f32['loss']:.6f} / "
+          f"{refs['f32']['loss']:.6f} (|diff| {loss32[0]:.2e}, probe "
+          f"{loss32[1]:.2e}); gradients worst {g32[1]:.2e} at {g32[0]} "
+          f"(probe {g32[2]:.2e}), {len(g32[3])} outside; running "
+          f"statistics' step worst {st32[1]:.2e} at {st32[0]} (probe "
+          f"{st32[2]:.2e}), {len(st32[3])} outside")
+    print(f"  (a) row messages a step (forward fetches and backward "
+          f"returns) by process: " + "; ".join(
+              f"{n} messages, largest {mx} rows, {el / 1e6:.2f} M elements"
+              for n, mx, el in msgs)
+          + f"; heads' all-gathers {len(gathers[0])} / {len(gathers[1])}")
+    print(f"  (a) K1 launches a step: {r0['counts']['conv_bn_stats']} / "
+          f"{r1['counts']['conv_bn_stats']}, on the tensor cores "
+          f"{r0['counts']['conv_bn_stats_tc']} / "
+          f"{r1['counts']['conv_bn_stats_tc']}; {slabs} at slab geometries "
+          f"in both; at the checked slabs: {slab_each}")
+    print(f"  (a) ms/step bf16 {ms[0]:.2f} / {ms[1]:.2f} (two processes "
+          f"sharing the card, rows through the host) against {ref_ms:.2f} "
+          f"whole [{card}]")
+    tp_res = {}
+    for name in TP19_FAMILIES:
+        got, got32 = r0["tp"][name], r0["tp_f32"][name]
+        want, tru = refs[name]["bf16"], refs[name]["truth"]
+        want32, probe32 = refs[name]["f32"], refs[name]["probe"]
+        fzeros = zero_grad_leaves(tru["grads"])
+        tg = rule(got["grads"], want["grads"], tru["grads"], scales=fzeros)
+        # the linear loss's terms have both signs: over their scale
+        tl = rule({"loss": torch.tensor(got["loss"])},
+                  {"loss": torch.tensor(want["loss"])},
+                  {"loss": torch.tensor(tru["loss"])},
+                  scales={"loss": tru["scale"]})
+        fg = probe_rule(got32["grads"], want32["grads"], probe32["grads"],
+                        scales=zero_grad_leaves(want32["grads"]))
+        fl = probe_rule({"loss": torch.tensor(got32["loss"])},
+                        {"loss": torch.tensor(want32["loss"])},
+                        {"loss": torch.tensor(probe32["loss"])},
+                        scales={"loss": want32["scale"]})
+        tp_res[name] = dict(
+            loss=got["loss"], loss_whole=want["loss"],
+            loss_outside=len(tl[4]), grads_bit_equal=tg[0],
+            grad_worst=tg[1:4], grads_outside=len(train_failures(tg)),
+            grads_capped=len(tg[5]), zero_grad_biases=len(fzeros),
+            f32_loss=(got32["loss"], want32["loss"], fl[1], fl[2]),
+            f32_loss_outside=len(fl[3]), f32_grad_worst=fg[:3],
+            f32_grads_outside=len(fg[3]), sliced_leaves=got["sliced"],
+            launches=sum(r["tp"][name]["counts"]["conv_bn_stats"]
+                         + r["tp_f32"][name]["counts"]["conv_bn_stats"]
+                         for r in (r0, r1)),
+            launches_at_slice=got["launches_at_slice"]
+            + r1["tp"][name]["launches_at_slice"],
+            tensor_cores=got["counts"]["conv_bn_stats_tc"]
+            + r1["tp"][name]["counts"]["conv_bn_stats_tc"])
+        print(f"  (b) {name} bf16 b{TP19_BATCH} at n_model 2: "
+              f"{got['sliced']} leaves sliced; loss {got['loss']:.6f} / "
+              f"{want['loss']:.6f} (over the terms' scale "
+              f"{tru['scale']:.4g}: {rule_line(tl)}); gradients "
+              f"({len(fzeros)} biases of exact gradient 0 over their "
+              f"layer's scale) {rule_line(tg, len(want['grads']), True)}; "
+              f"{to_whole(got['grads'], want['grads'])}; K1 "
+              f"launches {got['counts']['conv_bn_stats']} / "
+              f"{r1['tp'][name]['counts']['conv_bn_stats']} "
+              f"({got['counts']['conv_bn_stats_tc']} on the tensor cores), "
+              f"{tp_res[name]['launches_at_slice']} of both processes' at a "
+              f"slice's Co / 2")
+        print(f"  (b) {name} f32 b{TP19_F32_BATCH}, phase 8's probe rule: "
+              f"loss {got32['loss']:.6f} / {want32['loss']:.6f} (|diff| "
+              f"over the terms' scale {fl[1]:.2e}, probe {fl[2]:.2e}); "
+              f"gradients "
+              f"worst {fg[1]:.2e} at {fg[0]} (probe {fg[2]:.2e}), "
+              f"{len(fg[3])} outside" + (f": {fg[3][:3]}" if fg[3] else ""))
+    seconds = time.perf_counter() - t0
+    print(f"  the references took {t_refs:.1f} s, the children ended at "
+          f"{t_children:.1f} s (process 0 from its start: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in r0["times"].items())
+          + f"); phase 19 took {seconds:.1f} s")
+    check(not loss[4], "19(a) the bf16 losses differ")
+    check(not train_failures(g), f"19(a) bf16 gradients differ at "
+          f"{train_failures(g)[:5]}")
+    check(not st[4], f"19(a) bf16 running statistics differ at {st[4][:5]}")
+    check(not heads[4], "19(a) the gathered eval heads differ")
+    check(loss32[0] <= 1e-5 * abs(refs["f32"]["loss"]) + 4 * loss32[1],
+          "19(a) the f32 losses differ")
+    check(not g32[3], f"19(a) f32 gradients differ at {g32[3][:5]}")
+    check(not st32[3], f"19(a) f32 running statistics differ at "
+          f"{st32[3][:5]}")
+    for r, (n, mx, _) in zip((r0, r1), msgs):
+        check(n > 0 and mx <= 6, f"19(a) row messages {n}, largest {mx}")
+        check(r["counts"]["conv_bn_stats"] == CONVS_PER_FORWARD
+              and r["counts"]["conv_bn_stats_tc"] == CONVS_PER_FORWARD,
+              f"19(a) launches {r['counts']}, want {CONVS_PER_FORWARD} on "
+              "the tensor cores")
+    check(all(len(gs) == 3 and all(c[1] == 1 for c in gs)
+              for gs in gathers), "19(a) the heads' gathers")
+    check(all(v > 0 for v in slab_each.values()),
+          f"19(a) the checked slabs were not launched: {slab_each}")
+    for name, r in tp_res.items():
+        check(not r["loss_outside"] and not r["grads_outside"],
+              f"19(b) {name}: the sliced bf16 step differs")
+        check(not r["f32_loss_outside"] and not r["f32_grads_outside"],
+              f"19(b) {name}: the sliced f32 step differs")
+        check(r["sliced_leaves"] > 0 and r["launches_at_slice"] > 0,
+              f"19(b) {name}: nothing sliced")
+    return dict(conv=convs, loss=r0["loss"], loss_whole=ref["loss"],
+                grads_bit_equal=g[0], grad_worst=g[1:4],
+                grads_capped=len(g[5]), zero_grad_biases=len(zeros),
+                stats_bit_equal=st[0], heads_bit_equal=heads[0],
+                f32_loss=loss32, f32_grad_worst=g32[:3],
+                f32_stats_worst=st32[:3], row_messages=msgs,
+                slab_launches=slabs, slab_launches_by_shape=slab_each,
+                launches=r0["counts"]["conv_bn_stats"]
+                + r1["counts"]["conv_bn_stats"]
+                + sum(r["launches"] for r in tp_res.values()),
+                ms_per_step=ms, whole_ms_per_step=ref_ms,
+                tensor_parallel=tp_res, seconds=seconds)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5360,6 +5880,9 @@ def main(argv=None):
                    help="run one process of phase 18's (a) and exit")
     p.add_argument("--pp-child", nargs=3, metavar=("RANK", "STORE", "DIR"),
                    help="run one process of phase 18's (c) and exit")
+    p.add_argument("--space-child", nargs=3,
+                   metavar=("RANK", "STORE", "DIR"),
+                   help="run one process of phase 19 and exit")
     args = p.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -5371,7 +5894,8 @@ def main(argv=None):
     if args.dp_child:
         rank, store, out_dir = args.dp_child
         return dp_child(int(rank), store, out_dir, args.seed + 17, args.size)
-    for child, flag in ((tp_child, args.tp_child), (pp_child, args.pp_child)):
+    for child, flag in ((tp_child, args.tp_child), (pp_child, args.pp_child),
+                        (space_child, args.space_child)):
         if flag:
             rank, store, out_dir = flag
             return child(int(rank), store, out_dir, args)
@@ -5513,6 +6037,14 @@ def main(argv=None):
           "program")
     tp_phase = phase_tensor_parallel(args, card)
 
+    print(f"phase 19: spatial partitioning and the remaining tensor-parallel "
+          f"layers: K1 at three row slabs; (a) YOLOv4 packed=False bf16 "
+          f"b{SPACE_BATCH} at {args.size}^2 on a (data 1, space 2) grid of "
+          f"two processes against one, (b) YOLOv4-ResNet-50, "
+          f"YOLOv2-MobileNetV2 and YOLOv2-UNet bf16 b{TP19_BATCH} at "
+          "n_model 2 against n_model 1")
+    space_phase = phase_spatial(args, card)
+
     def bf16_at(results, shape):
         return [r for r in results
                 if r["dtype"] == "bfloat16" and r["shape"] == shape][-1]
@@ -5576,8 +6108,9 @@ def main(argv=None):
                 + evaluation["conv_launches"]
                 + family_launches("conv_bn_stats")
                 + backbone_counts("conv_bn_stats")
-                + tp_phase["launches"]},
+                + tp_phase["launches"] + space_phase["launches"]},
              launches_tensor_parallel=tp_phase["launches"],
+             launches_spatial=space_phase["launches"],
              launches_families=family_launches("conv_bn_stats"),
              launches_backbones=backbone_counts("conv_bn_stats"),
              launches_serving=served["conv_launches"],
@@ -5863,6 +6396,27 @@ def main(argv=None):
             tflops=r["kernel_tflops"], bound_share=r["bound_share"],
             plan_route=r["route"], plan_config=r["config"],
             cuda_core_ms=r["cuda_core_ms"]))
+    # K1 at three of the row slabs of spatial partitioning (phase 19,
+    # bf16, (a)'s batch), with their launches in (a)'s step in both
+    # processes
+    for shape in SLAB_CONV_SHAPES:
+        r = bf16_at(space_phase["conv"], shape[0])
+        kernels.append(dict(
+            name=f"conv_bn_stats {shape[0]}", route="cuda",
+            source="tf2_yolo_tpu_torch/csrc/conv_bn.cu",
+            replaces="tf2_yolo_tpu/ops/pallas/conv_bn_kernel.py:114 and "
+                     ":346 (under spatial partitioning the JAX package runs "
+                     "XLA convs on GSPMD's halo-exchanged shards: "
+                     "models/layers.py:52-57)",
+            launches=space_phase["slab_launches_by_shape"][shape[0]],
+            max_abs_err=max(q["max_abs_err"] for q in space_phase["conv"]
+                            if q["shape"] == shape[0]),
+            at=f"{shape[0]}, batch {r['batch']}, bf16",
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            tflops=r["kernel_tflops"], bound_share=r["bound_share"],
+            plan_route=r["route"], plan_config=r["config"],
+            cuda_core_ms=r["cuda_core_ms"]))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched")
     seconds = time.perf_counter() - t_start
@@ -5881,7 +6435,8 @@ def main(argv=None):
                   families=families, conv_backbones=backbone_res,
                   depthwise=depthwise_res, backbones=backbones,
                   v1_same=v1_same, parallel=parallel,
-                  tensor_parallel=tp_phase, kernels=kernels,
+                  tensor_parallel=tp_phase, spatial=space_phase,
+                  kernels=kernels,
                   seconds=seconds)
     os.makedirs(args.log_dir, exist_ok=True)
     with open(os.path.join(args.log_dir, "chip_smoke.json"), "w") as f:

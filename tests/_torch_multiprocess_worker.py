@@ -26,9 +26,22 @@ and a fit resumed from the epoch-1 checkpoint to 2 epochs; ``<dir>/v2.pt`` holds
 tp_min_channels=16)``): fit 2 epochs of one step with a checkpoint after
 each (the first step's collectives and gathered variables kept apart), a
 restore of the last checkpoint into an unsliced model, a sliced model
-resumed from the first, and the same fit at ``n_model=1``;
+resumed from the first, and the same fit at ``n_model=1``; then one step
+of each of YOLOv4 with ResNet-50, YOLOv2 with MobileNetV2 and with the
+UNet, and a classifier (a Dense on a ResNet v2 block: a lone BatchNorm
+and convs without one), sliced and unsliced (``tp_families``);
 ``<dir>/tp.pt`` holds
 the weights and data, the result goes to ``<dir>/tp_<pid>.pt``.
+
+``mode`` "space" (4 processes): spatial partitioning. tests/test_sharding.py's
+TinyDetector step (SGD 1e-2) on a ``(data 1, space 4)`` grid, whose
+pooled level splits 1 + 1 + 0 + 0, and on a ``(2, 2)`` grid, with its
+collectives; then, on the ``(2, 2)`` grid, each family model of
+``<dir>/space.pt`` (f32, batch 2, rows that split unevenly): its eval
+forward and its input's gradient, and one train step (SGD at learning
+rate 0) of a linear loss whose running statistics and gradients (those of
+the big leaves ``sampled``) it keeps; ``<dir>/space.pt``
+holds the weights and data, the result goes to ``<dir>/space_<pid>.pt``.
 
 ``mode`` "pipe" (4 processes): tests/test_pipeline.py's two stages on the
 stage meshes {0, 1} and {2, 3} (``PipelineExecutor(meshes=)``): the
@@ -43,6 +56,7 @@ import json
 import os
 import shutil
 import sys
+import zlib
 
 import numpy as np
 import torch
@@ -120,18 +134,85 @@ class TinyDetector(torch.nn.Module):
     def __init__(self):
         super().__init__()
         from tf2_yolo_tpu_torch.models.heads import AnchorHead
-        from tf2_yolo_tpu_torch.models.layers import ConvBN, he_normal_
+        from tf2_yolo_tpu_torch.models.layers import (AvgPool, ConvBN,
+                                                      he_normal_)
         self.ConvBN_0 = ConvBN(3, 16, 3, 2, act="leaky", device="cpu")
         self.ConvBN_1 = ConvBN(16, 32, 3, 2, act="leaky", device="cpu")
+        self.pool = AvgPool(8)
         self.AnchorHead_0 = AnchorHead(32, TINY_ANCHORS, 2,
                                        prob_act="softmax",
                                        anchors_as_params=False,
                                        init=he_normal_, device="cpu")
 
     def forward(self, x):
-        x = self.ConvBN_1(self.ConvBN_0(x))
-        x = torch.nn.functional.avg_pool2d(x.permute(0, 3, 1, 2), 8)
-        return self.AnchorHead_0(x.permute(0, 2, 3, 1))
+        return self.AnchorHead_0(self.pool(self.ConvBN_1(self.ConvBN_0(x))))
+
+
+@torch.no_grad()
+def _clipped_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=None):
+    return t.normal_(mean, std, generator=generator).clamp_(a, b)
+
+
+def family_model(name, bn_stats=None):
+    """A family network of the "space" and "tp" modes, f32 on the CPU,
+    by ``name``: ``v4`` (``packed=False``), ``v4_resnet50``,
+    ``v3_resnet50v2``, ``v2_darknet``, ``v2_mobilenet``, ``v2_unet``,
+    ``v1``; 3 classes.
+    Its weights come from a seed (the same in every process), the
+    truncated normals drawn as normals clamped to the same interval
+    (``trunc_normal_`` takes seconds for the 10^7-element kernels);
+    ``bn_stats`` (a part of a ``state_dict``) is loaded over them."""
+    from tf2_yolo_tpu_torch.models import YoloV1, YoloV2, YoloV3, YoloV4
+    anchors = np.stack([np.linspace(0.1, 0.8, 9),
+                        np.linspace(0.1, 0.7, 9)], axis=1)
+    gen = torch.Generator().manual_seed(0)
+    kw = dict(device="cpu", generator=gen)
+    trunc, torch.nn.init.trunc_normal_ = (torch.nn.init.trunc_normal_,
+                                          _clipped_normal_)
+    try:
+        if name.startswith("v4"):
+            model = YoloV4(anchors, 3, backbone=name[3:] or "csp_darknet",
+                           **kw)
+        elif name.startswith("v3"):
+            model = YoloV3(anchors, 3, backbone=name[3:], **kw)
+        elif name.startswith("v2"):
+            model = YoloV2(anchors[:5], 3, backbone=name[3:], **kw)
+        else:
+            model = YoloV1(2, 3, **kw)
+    finally:
+        torch.nn.init.trunc_normal_ = trunc
+    if bn_stats is not None:
+        model.load_state_dict(bn_stats, strict=False)
+    return model
+
+
+def _as_list(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+SAMPLE = 4096
+
+
+def sampled(leaves):
+    """``{name: tensor}`` with each leaf of more than 16 SAMPLE elements
+    cut to SAMPLE of them, drawn by a generator seeded from its name
+    (the same elements wherever it is called): the big models'
+    gradients compared without moving them whole between processes."""
+    out = {}
+    for k, t in leaves.items():
+        t = t.detach()
+        if t.numel() > 16 * SAMPLE:
+            gen = torch.Generator().manual_seed(zlib.crc32(k.encode()))
+            t = t.flatten()[torch.randint(t.numel(), (SAMPLE,),
+                                          generator=gen)]
+        out[k] = t.clone()
+    return out
+
+
+def linear_loss(ct, out):
+    """A loss linear in the outputs (the "stacks" mode's): its gradient
+    does not depend on the outputs' rounding."""
+    return (out * ct).sum() / out.shape[0]
 
 
 class Stage(torch.nn.Module):
@@ -445,7 +526,245 @@ def run_tp(pid, io_dir):
     sl1 = process_batch_slice(x.shape[0])
     out["dp_loss"] = dp.fit(x[sl1], y[sl1], epochs=2, batch_size=2,
                             shuffle=False, verbose=0)["loss"]
+    out["families"] = tp_families(mesh)
     torch.save(out, os.path.join(io_dir, f"tp_{pid}.pt"))
+
+
+TP_FAMILIES = ("v4_resnet50", "v2_mobilenet", "v2_unet", "classifier")
+TP_CHAOTIC = ("v4_resnet50", "v2_mobilenet", "classifier")
+
+
+class PreactBody(torch.nn.Module):
+    """Two ConvBNs to 128 channels, then a ResNet v2 bottleneck: its
+    ``pre_bn`` a lone BatchNorm and its ``conv3`` and projection convs
+    without one, all 128 wide."""
+
+    def __init__(self):
+        super().__init__()
+        from tf2_yolo_tpu_torch.models.layers import ConvBN
+        from tf2_yolo_tpu_torch.models.resnet import BottleneckV2
+        self.a = ConvBN(3, 128, 3, 1, act="mish", device="cpu")
+        self.b = ConvBN(128, 128, 3, 2, act="leaky", device="cpu")
+        self.block = BottleneckV2(128, 32, project=True, device="cpu")
+
+    def forward(self, x):
+        return self.block(self.b(self.a(x)))
+
+
+def tp_family_model(name):
+    """:func:`family_model`, or ``"classifier"``: a ``Classifier`` whose
+    Dense (128 -> 256) the plan slices, on :class:`PreactBody`."""
+    if name != "classifier":
+        return family_model(name)
+    from tf2_yolo_tpu_torch.models import Classifier
+    torch.manual_seed(0)
+    return Classifier(PreactBody(), 256, features=128, device="cpu")
+
+
+def tp_families(mesh):
+    """One train step (SGD at learning rate 0, the linear loss) of each
+    of TP_FAMILIES at 32^2 on the (data 2, model 2) grid, batch 4: sliced
+    at n_model 2 (``tensor_parallel_shardings`` at its default gate of
+    128), unsliced (n_model 1: the statistics and gradients over the same
+    data group), and, for TP_CHAOTIC, unsliced on the images moved by
+    1e-6 (the probe of the train-mode chaos; 0 for the others); before
+    the whole and the sliced step, from running statistics of
+    :func:`_layer_statistics`, the eval forward and its backward.
+    Returns {name: {"loss": {run: loss}, "leaves": {name:
+    (rel L2 sliced, rel L2 probe, the leaf's norm, the norm of its
+    layer's kernel or scale)}, "eval_leaves": {name: rel L2 of the
+    sliced eval gradient to the whole one}, "sliced": [names]}}, the
+    gradients and running statistics gathered (gradients ``sampled``)."""
+    from tf2_yolo_tpu_torch.models.layers import (set_bn_group,
+                                                  set_tensor_parallel)
+    from tf2_yolo_tpu_torch.parallel import (make_optimizer,
+                                             make_train_step,
+                                             tensor_parallel_shardings)
+    from tf2_yolo_tpu_torch.parallel.collectives import gather_state_dict
+    from tf2_yolo_tpu_torch.parallel.train import TrainState
+
+    from tf2_yolo_tpu_torch.parallel import process_batch_slice
+
+    rng = np.random.RandomState(17)
+    x = torch.from_numpy(rng.rand(4, 32, 32, 3).astype(np.float32))
+    sl = process_batch_slice(4, mesh)
+    out = {}
+    for name in TP_FAMILIES:
+        model = tp_family_model(name)
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        with torch.no_grad():
+            heads = _as_list(model.eval()(x[:1]))
+        cts = [torch.from_numpy(rng.randn(4, *h.shape[1:]).astype(
+            np.float32))[sl] for h in heads]
+        runs, evals = {}, {}
+        calibrated = _layer_statistics(model, x[sl])
+        # the probe only where the train-mode step is chaotic
+        probe = (("probe", 1e-6),) if name in TP_CHAOTIC else ()
+        for run, eps in (("whole", 0.0), *probe, ("sliced", 0.0)):
+            model.load_state_dict(init)
+            model.load_state_dict(calibrated, strict=False)
+            set_bn_group(model, mesh.data_group)
+            if run == "sliced":
+                set_tensor_parallel(model, mesh,
+                                    tensor_parallel_shardings(model, mesh))
+            # the eval forward on the layers' statistics and its
+            # backward: no train-mode chaos (the probe needs none)
+            model.zero_grad(set_to_none=True)
+            if run != "probe":
+                sum(linear_loss(ct, h) for ct, h in zip(
+                    cts, _as_list(model.eval()(x[sl])))).backward()
+                evals[run] = sampled(gather_state_dict(
+                    model, {k: p.grad for k, p in model.named_parameters()}))
+            state = TrainState(model, make_optimizer("sgd", 0.0)(model))
+            step = make_train_step([linear_loss] * len(cts),
+                                   group=mesh.data_group)
+            _, logs = step(state, x[sl] + eps, tuple(cts))
+            grads = {k: p.grad for k, p in model.named_parameters()}
+            stats = {k: v.clone() for k, v in model.named_buffers()
+                     if k.endswith(("mean", "var"))}
+            runs[run] = (float(logs["loss"]),
+                         sampled(gather_state_dict(model, grads)),
+                         gather_state_dict(model, stats))
+        out[name] = dict(loss={k: v[0] for k, v in runs.items()},
+                         sliced=sorted(model.tensor_parallel[1]),
+                         leaves=_compare(runs),
+                         eval_leaves={k: float((evals["sliced"][k] - w).norm()
+                                               / max(float(w.norm()), 1e-30))
+                                      for k, w in evals["whole"].items()})
+        del model, state
+        gc.collect()
+    return out
+
+
+def _layer_statistics(model, x):
+    """Running statistics for an eval forward without chaos: each BN's
+    mean and variance set to those of its whole input on ``x``, over
+    every channel (one value a layer), so that no channel's few values
+    scale it up and no activation vanishes with depth."""
+    from tf2_yolo_tpu_torch.models.layers import BNState
+
+    def hook(bn, args):
+        y = args[0].float()
+        bn.mean.fill_(float(y.mean()))
+        bn.var.fill_(float(y.var(unbiased=False)))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, BNState)]
+    try:
+        with torch.no_grad():
+            model.eval()(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return {k: v.clone() for k, v in model.named_buffers()
+            if k.endswith(("mean", "var"))}
+
+
+def _compare(runs):
+    """{leaf: (rel L2 of sliced to whole, of probe to whole, the whole
+    leaf's norm, the norm of its layer's kernel or scale gradient)} over
+    the gradients and running statistics of ``runs``."""
+    def rel(a, b):
+        return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+    out = {}
+    for i in (1, 2):
+        whole, sliced = runs["whole"][i], runs["sliced"][i]
+        probe = runs["probe"][i] if "probe" in runs else whole
+        for k, w in whole.items():
+            base = k[:-len("bias")] if k.endswith("bias") else None
+            other = whole.get(f"{base}kernel", whole.get(f"{base}scale")) \
+                if base is not None else None
+            out[k] = (rel(sliced[k], w), rel(probe[k], w), float(w.norm()),
+                      None if other is None else float(other.norm()))
+    return out
+
+
+def _space_records(records, mesh):
+    return [dict(kind=r.kind, dim=r.dim, numel=r.numel, rows=r.rows,
+                 axis=("space" if r.group is mesh.space_group else
+                       "grid" if r.group is mesh.group else "other"))
+            for r in records]
+
+
+def run_space(pid, io_dir):
+    from tf2_yolo_tpu_torch.models.layers import set_spatial_parallel
+    from tf2_yolo_tpu_torch.ops.losses import wrap_yolo_loss_v2
+    from tf2_yolo_tpu_torch.parallel import (make_mesh_spatial,
+                                             make_optimizer, make_train_step,
+                                             process_batch_slice,
+                                             spatial_sharding)
+    from tf2_yolo_tpu_torch.parallel.collectives import recording
+    from tf2_yolo_tpu_torch.parallel.train import TrainState
+
+    data = torch.load(os.path.join(io_dir, "space.pt"), weights_only=True)
+    meshes = {"1x4": make_mesh_spatial(1, 4), "2x2": make_mesh_spatial(2, 2)}
+    out = dict(pid=pid, mesh={
+        k: dict(shape=m.shape, data_index=m.data_index,
+                space_index=m.space_index, space_ranks=m.space_ranks,
+                same=make_mesh_spatial(m.shape["data"], m.shape["space"])
+                is m)
+        for k, m in meshes.items()})
+
+    # tests/test_sharding.py's TinyDetector step on both grids
+    tiny = data["tiny"]
+    loss = wrap_yolo_loss_v2((2, 2), 2, 2, TINY_ANCHORS)
+    for key, mesh in meshes.items():
+        model = TinyDetector()
+        model.load_state_dict(tiny["weights"])
+        set_spatial_parallel(model, mesh, (64, 64))
+        state = TrainState(model, make_optimizer("sgd", 1e-2)(model))
+        step = make_train_step([loss], mesh=mesh)
+        xs = spatial_sharding(mesh)(tiny["x"])
+        ys = tiny["y"][process_batch_slice(tiny["y"].shape[0], mesh)]
+        with recording() as records:
+            _, logs = step(state, xs, (ys,))
+        out[f"tiny_{key}"] = dict(
+            loss=float(logs["loss"]), rows=tuple(xs.shape),
+            records=_space_records(records, mesh),
+            variables={k: v.clone() for k, v in model.state_dict().items()})
+
+    # the families on the (2, 2) grid: an eval forward and a step
+    mesh = meshes["2x2"]
+    for name, fam in data["families"].items():
+        model = family_model(name)
+        model.load_state_dict(fam["eval_stats"], strict=False)
+        set_spatial_parallel(model, mesh, tuple(fam["x"].shape[1:3]))
+        sl = process_batch_slice(fam["x"].shape[0], mesh)
+        cts = tuple(ct[sl] for ct in fam["cts"])
+        # the eval forward on running statistics of _layer_statistics,
+        # and the gradients of the input and of every leaf: each windowed
+        # layer's backward and the row exchanges' without the chaos of
+        # BatchNorm statistics over a few values
+        xs = spatial_sharding(mesh)(fam["x"]).clone().requires_grad_()
+        heads = _as_list(model.eval()(xs))
+        sum(linear_loss(ct, h) for ct, h in zip(cts, heads)).backward()
+        eval_grads = sampled({k: p.grad for k, p in
+                              model.named_parameters()})
+        model.zero_grad(set_to_none=True)
+        model.load_state_dict(fam["bn_stats"], strict=False)
+        state = TrainState(model, make_optimizer("sgd", 0.0)(model))
+        step = make_train_step([linear_loss] * len(heads), mesh=mesh)
+        with recording() as records:
+            _, logs = step(state, xs.detach(), cts)
+        out[name] = dict(
+            heads=[h.detach().clone() for h in heads], dx=xs.grad.clone(),
+            eval_grads=eval_grads, loss=float(logs["loss"]),
+            fetched=max(r.rows for r in records if r.kind == "row_fetch"),
+            grads=sampled({k: p.grad for k, p in model.named_parameters()}),
+            norms={k: float(p.grad.norm())
+                   for k, p in model.named_parameters()},
+            stats={k: v.clone() for k, v in model.named_buffers()
+                   if k.endswith(("mean", "var"))})
+        if mesh.space_index != 0:
+            out[name].pop("heads")
+        if pid != 0:
+            for k in ("grads", "norms", "stats"):
+                out[name].pop(k)
+        del model, state
+        gc.collect()
+    out["max_rss_bytes"] = peak_rss()
+    torch.save(out, os.path.join(io_dir, f"space_{pid}.pt"))
 
 
 def run_pipe(pid, io_dir):
@@ -514,6 +833,8 @@ def main():
             run_tp(pid, io_dir)
         elif mode == "pipe":
             run_pipe(pid, io_dir)
+        elif mode == "space":
+            run_space(pid, io_dir)
         else:
             raise ValueError(f"unknown mode {mode!r}")
     finally:

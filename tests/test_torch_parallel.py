@@ -148,19 +148,47 @@ def _plan_matches_jax(stacks):
         assert tensor_parallel_shardings(Stack(), grid, gate) == want
 
 
+def _spatial_grid_of_one_process(stacks):
+    """``make_mesh_spatial`` in one process without a process group: a
+    ``("data", "space")`` grid of one, its place and its axis sizes;
+    a space axis that the processes do not fill is a ValueError."""
+    mesh = make_mesh_spatial(1, 1)
+    assert mesh.axis_names == ("data", "space")
+    assert mesh.shape == {"data": 1, "space": 1} and mesh.ranks == (0,)
+    assert (mesh.data_index, mesh.space_index) == (0, 0)
+    assert mesh.space_ranks == (0,)
+    with pytest.raises(ValueError, match="n_space=2 must divide the 1"):
+        make_mesh_spatial(1, 2)
+
+
+def _spatial_cut_of_one_process(stacks):
+    """``spatial_sharding`` of a grid of one: the whole batch, each
+    image whole; a ConvBN spatially partitioned over it gives the
+    unpartitioned layer's output."""
+    from tf2_yolo_tpu_torch.models.layers import set_spatial_parallel
+    x = torch.from_numpy(np.random.RandomState(3).randn(
+        2, 10, 8, 3).astype(np.float32))
+    cut = spatial_sharding(make_mesh_spatial(1, 1))(x)
+    assert torch.equal(cut, x)
+    torch.manual_seed(0)
+    whole = ConvBN(x.shape[-1], 16, 3, 2, device="cpu").eval()
+    part = ConvBN(x.shape[-1], 16, 3, 2, device="cpu").eval()
+    part.load_state_dict(whole.state_dict())
+    set_spatial_parallel(part, make_mesh_spatial(1, 1), tuple(x.shape[1:3]))
+    with torch.no_grad():
+        np.testing.assert_allclose(part(cut).numpy(), whole(x).numpy(),
+                                   rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("call", [
     _grid_of_two_processes, _plan_matches_jax,
-    lambda stacks: make_mesh_spatial(1, 2),
-    lambda stacks: spatial_sharding(None)],
+    _spatial_grid_of_one_process, _spatial_cut_of_one_process],
     ids=[f"<lambda>{i}" for i in range(4)])
 def test_tensor_and_spatial_parallelism_raise(call, stacks):
-    """Tensor parallelism is ported (the two cases above); spatial
-    partitioning still raises, naming queue 1, item 9."""
-    if call in (_grid_of_two_processes, _plan_matches_jax):
-        call(stacks)
-        return
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        call(stacks)
+    """Tensor parallelism and spatial partitioning are ported: the grid
+    of two processes and the plan against JAX's (the first two cases),
+    the spatial grid and cut in one process (the last two)."""
+    call(stacks)
 
 
 # ------------------------------------------ the process group in one process

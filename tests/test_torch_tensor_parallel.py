@@ -33,6 +33,8 @@ from tf2_yolo_tpu_torch.parallel.mesh import Mesh
 torch.set_num_threads(1)
 
 GRID = Mesh(shape={"data": 1, "model": 2}, ranks=(0, 1))   # no groups
+# the most the probe rule allows: well below what a wrong backward moves
+PROBE_CAP = 0.2
 V4_ANCHORS = np.stack([np.linspace(0.1, 0.8, 9),
                        np.linspace(0.1, 0.7, 9)], axis=1)
 
@@ -56,20 +58,41 @@ def plan_models():
     once for the plan's cases."""
     from tests._torch_multiprocess_worker import TinyDetector
     from tests.test_sharding import TinyDetector as JTiny
+    from tf2_yolo_tpu.models import YoloV2 as JYoloV2
     from tf2_yolo_tpu.models import YoloV4 as JYoloV4
+    from tf2_yolo_tpu.models import backbones as jbackbones
+    from tf2_yolo_tpu_torch.models import Classifier
+    from tf2_yolo_tpu_torch.models import backbones
+    x32 = jnp.zeros((1, 32, 32, 3))
     out = {}
     for name, jmod, x, port in (
             ("tiny", JTiny(), jnp.zeros((1, 64, 64, 3)), TinyDetector()),
-            ("v4", JYoloV4(anchors=V4_ANCHORS, class_num=3),
-             jnp.zeros((1, 32, 32, 3)), YoloV4(V4_ANCHORS, 3,
-                                                device="cpu"))):
+            ("v4", JYoloV4(anchors=V4_ANCHORS, class_num=3), x32,
+             YoloV4(V4_ANCHORS, 3, device="cpu")),
+            # the plan reads shapes only: the port's models on "meta"
+            ("v4_resnet50", JYoloV4(anchors=V4_ANCHORS, class_num=3,
+                                    backbone="resnet50"), x32,
+             YoloV4(V4_ANCHORS, 3, device="meta", backbone="resnet50")),
+            ("v2_mobilenet", JYoloV2(anchors=V4_ANCHORS[:5], class_num=3,
+                                     backbone="mobilenet"), x32,
+             YoloV2(V4_ANCHORS[:5], 3, device="meta", backbone="mobilenet")),
+            ("v2_unet", JYoloV2(anchors=V4_ANCHORS[:5], class_num=3,
+                                backbone="unet"), x32,
+             YoloV2(V4_ANCHORS[:5], 3, device="meta", backbone="unet")),
+            ("classifier", jbackbones.Classifier(
+                backbone=jbackbones.DarknetV1(), class_num=1000),
+             jnp.zeros((1, 64, 64, 3)),
+             Classifier(backbones.DarknetV1(device="meta"), 1000,
+                        device="meta"))):
         out[name] = (jax.eval_shape(lambda: jmod.init(
             jax.random.PRNGKey(0), x, train=False)), port)
     return out
 
 
 @pytest.mark.parametrize("model,min_channels", [
-    ("tiny", 16), ("tiny", 32), ("v4", 128), ("v4", 16)])
+    ("tiny", 16), ("tiny", 32), ("v4", 128), ("v4", 16),
+    ("v4_resnet50", 128), ("v2_mobilenet", 128), ("v2_unet", 128),
+    ("classifier", 128)])
 def test_shard_plan_matches_jax(plan_models, model, min_channels):
     """tensor_parallel_shardings of the port's state_dict, leaf by leaf,
     against the JAX package's NamedSharding specs, names through the
@@ -79,6 +102,8 @@ def test_shard_plan_matches_jax(plan_models, model, min_channels):
     got = tensor_parallel_shardings(port, GRID, min_channels=min_channels)
     assert got == want
     assert any(d is not None for d in got.values())
+    if model == "classifier":
+        assert got["Dense_0.kernel"] == 1 and got["Dense_0.bias"] == 0
 
 
 @pytest.fixture(scope="module")
@@ -249,26 +274,120 @@ def _v2(backbone):
     return YoloV2(V4_ANCHORS[:5], 3, device="cpu", backbone=backbone)
 
 
+def _sliced_kinds(model):
+    """The sliced layers' kinds: which attribute holds each one's Shard
+    (``tp``, or ``tp_pair`` for a keras conv + BatchNorm pair and a
+    depthwise conv with its BN)."""
+    kinds = {}
+    for name, m in model.named_modules():
+        for attr in ("tp", "tp_pair"):
+            if getattr(m, attr, None) is not None:
+                kinds.setdefault(type(m).__name__ + "." + attr, set()).add(
+                    name)
+    return kinds
+
+
 @pytest.mark.parametrize("build,exc,match", [
     (lambda: _v4(packed=3), ValueError, "packed=False"),
-    (lambda: _v4(backbone="resnet50"), NotImplementedError,
-     "queue 1, item 9"),
-    (lambda: _v2("mobilenet"), NotImplementedError, "queue 1, item 9"),
-    (lambda: _v2("unet"), NotImplementedError, "ConvActBN.*queue 1, item 9"),
+    (lambda: _v4(backbone="resnet50"), None, None),
+    (lambda: _v2("mobilenet"), None, None),
+    (lambda: _v2("unet"), None, None),
 ], ids=["packed", "resnet", "mobilenet", "unet"])
 def test_tp_refuses_what_it_cannot_slice(build, exc, match):
-    """The fused routes are single-device (ValueError); the keras conv +
-    BatchNorm pairs, the depthwise convs and the UNet's ConvActBN are
-    not sliced yet (queue 1, item 9), and nothing is sliced before the
-    refusal."""
+    """The fused routes are single-device (ValueError, nothing sliced);
+    the keras conv + BatchNorm pairs of ResNet-50, MobileNetV2's
+    depthwise convs and pairs, and the UNet's ConvActBNs are sliced: each
+    planned leaf keeps half of its dim, each unit knows its shard, and
+    the plan leaves no leaf of a unit whole."""
     model = build()
     before = {k: v.clone() for k, v in model.state_dict().items()}
     plan = tensor_parallel_shardings(model, GRID)
-    with pytest.raises(exc, match=match):
-        set_tensor_parallel(model, GRID, plan)
-    assert getattr(model, "tensor_parallel", None) is None
+    if exc is not None:
+        with pytest.raises(exc, match=match):
+            set_tensor_parallel(model, GRID, plan)
+        assert getattr(model, "tensor_parallel", None) is None
+        for k, v in model.state_dict().items():
+            assert torch.equal(v, before[k]), k
+        return
+    set_tensor_parallel(model, GRID, plan)
+    shard, dims = model.tensor_parallel
+    assert dims == {k: d for k, d in plan.items() if d is not None}
     for k, v in model.state_dict().items():
-        assert torch.equal(v, before[k]), k
+        if k in dims:
+            assert v.shape[dims[k]] * 2 == before[k].shape[dims[k]], k
+            assert torch.equal(v, shard.slice(before[k], dims[k])), k
+        else:
+            assert torch.equal(v, before[k]), k
+    kinds = _sliced_kinds(model)
+    want = {"resnet": {"Conv.tp_pair", "ConvBN.tp"},
+            "mobilenet": {"Conv.tp_pair", "DepthwiseConv.tp_pair"},
+            "unet": {"ConvActBN.tp"}}
+    name = {"ResNet": "resnet", "MobileNetV2": "mobilenet",
+            "UNetBody": "unet"}[type(model.backbone).__name__]
+    assert want[name] <= set(kinds), kinds
+
+
+def test_tp_slices_a_dense_and_refuses_half_a_unit():
+    """A Classifier's Dense is sliced on Co (its kernel's dim 1, its bias
+    on dim 0); a plan that slices a keras pair's BN and not its conv is a
+    ValueError naming both, before anything is sliced."""
+    from tests._torch_multiprocess_worker import Stack
+    from tf2_yolo_tpu_torch.models import Classifier
+    model = Classifier(Stack(3, 64), 256, features=64, device="cpu")
+    set_tensor_parallel(model, GRID, tensor_parallel_shardings(model, GRID))
+    assert model.Dense_0.tp is not None
+    assert tuple(model.Dense_0.kernel.shape) == (64, 128)
+    resnet = _v4(backbone="resnet50")
+    plan = tensor_parallel_shardings(resnet, GRID)
+    conv = "backbone.stage4_block1.conv3.kernel"
+    assert plan[conv] == 3
+    plan[conv] = None
+    with pytest.raises(ValueError, match="conv3.kernel.*bn3|bn3.*conv3"):
+        set_tensor_parallel(resnet, GRID, plan)
+    assert getattr(resnet, "tensor_parallel", None) is None
+
+
+def test_tp_family_steps_match_unsliced(tp_run):
+    """One train step of YOLOv4 with ResNet-50, YOLOv2 with MobileNetV2
+    and with the UNet, and a classifier (a Dense on a ResNet v2 block,
+    whose ``pre_bn`` is a lone BatchNorm) at n_model 2 against
+    n_model 1 on the same data group (tests/_torch_multiprocess_worker.py,
+    ``tp_families``): the loss, each gradient and each running statistic
+    at 1e-5, or, in the chaotic train-mode nets (a 1e-6 change of the
+    images moves ResNet-50's loss by 1.5% and its BN gradients by up to
+    5%, the classifier's ``b.bn.scale`` by 0.9%), within 8 times the
+    unsliced step's own distance under that change, and never more than
+    ``PROBE_CAP``; a bias whose exact gradient is 0 holds rounding on
+    both sides. The eval forward on one mean and variance a layer
+    (the worker's ``_layer_statistics``; BatchNorm an affine map: no
+    chaos) and its backward hold every leaf's gradient at 1e-5: each
+    sliced layer kind's backward."""
+    results, _ = tp_run
+    fams = results[0]["families"]
+    assert set(fams) == {"v4_resnet50", "v2_mobilenet", "v2_unet",
+                         "classifier"}
+    assert {"backbone.block.pre_bn.scale", "backbone.block.conv3.kernel",
+            "Dense_0.kernel"} <= set(fams["classifier"]["sliced"])
+    for name, fam in fams.items():
+        assert fam["sliced"], name
+        loss = fam["loss"]
+        err = abs(loss["sliced"] - loss["whole"])
+        noise = abs(loss.get("probe", loss["whole"]) - loss["whole"])
+        assert err <= min(PROBE_CAP * abs(loss["whole"]),
+                          max(8 * noise, 1e-5 * abs(loss["whole"]))), \
+            (name, loss)
+        for k, (err, noise, norm, other) in fam["leaves"].items():
+            if other is not None and norm <= 1e-5 * other:
+                # a bias whose exact gradient is 0: rounding on both sides
+                assert err * norm <= 1e-5 * other, (name, k)
+                continue
+            assert err <= min(PROBE_CAP, max(8 * noise, 1e-5)), \
+                (name, k, err, noise)
+        # the eval backward (no chaos): every sliced layer kind's at 1e-5
+        assert fam["eval_leaves"].keys() == {
+            k for k in fam["leaves"] if not k.endswith(("mean", "var"))}
+        for k, err in fam["eval_leaves"].items():
+            assert err <= 1e-5, (name, k, err)
 
 
 def test_compile_n_model_needs_the_processes():

@@ -11,14 +11,17 @@ names follow the flax names: the named ones (``stem``, ``stage3_block2.expand``,
 unnamed inside ``@nn.compact``, flax's automatic ``ConvBN_0``,
 ``ConvBN_1``, ... (``ConvActBN_0``, ... in the UNet) in call order. The
 v4 convs use the DarknetConv2D init, RandomNormal(0, 0.02); the others
-HE_NORMAL.
+HE_NORMAL. The pools and upsamples are parameter-free modules, one a call
+site (``pools.0``, ...; no ``state_dict`` entry), which spatial
+partitioning gives the height of their input
+(``layers.set_spatial_parallel``).
 """
 
 import torch
 from torch import nn
 
-from .layers import (ConvActBN, ConvBN, Dense, darknet_normal_, he_normal_,
-                     max_pool, upsample2x)
+from .layers import (ConvActBN, ConvBN, Dense, MaxPool, Upsample2x,
+                     darknet_normal_, he_normal_)
 from .packed_region import (activate, p3_stage, packed_conv3x3,
                             packed_stage, rows_to)
 
@@ -66,10 +69,13 @@ class DarknetV1(_Sequence):
         super().__init__(3, **_v12_conv(**kw))
         self.steps = [step if step == "pool" else self.add(ConvBN, *step)
                       for step in self.PLAN]
+        self.pools = nn.ModuleList(MaxPool() for s in self.steps
+                                   if s == "pool")
 
     def forward(self, x):
+        pools = iter(self.pools)
         for step in self.steps:
-            x = max_pool(x) if step == "pool" else getattr(self, step)(x)
+            x = next(pools)(x) if step == "pool" else getattr(self, step)(x)
         return x
 
 
@@ -88,12 +94,15 @@ class Darknet19(_Sequence):
         self.steps = [step if isinstance(step, str) else self.add(ConvBN,
                                                                   *step)
                       for step in self.PLAN]
+        self.pools = nn.ModuleList(MaxPool() for s in self.steps
+                                   if s == "pool")
 
     def forward(self, x):
         tap = None
+        pools = iter(self.pools)
         for step in self.steps:
             if step == "pool":
-                x = max_pool(x)
+                x = next(pools)(x)
             elif step == "tap":
                 tap = x
             else:
@@ -121,15 +130,18 @@ class UNetBody(_Sequence):
             self._ci = skip + f
             self.decoder.append((up, self.add(ConvActBN, f),
                                  self.add(ConvActBN, f)))
+        self.pools = nn.ModuleList(MaxPool() for _ in self.encoder)
+        self.upsamples = nn.ModuleList(Upsample2x() for _ in self.decoder)
 
     def forward(self, x):
         skips = []
-        for a, b in self.encoder:
+        for (a, b), pool in zip(self.encoder, self.pools):
             x = getattr(self, b)(getattr(self, a)(x))
             skips.append(x)
-            x = max_pool(x)
-        for (up, a, b), skip in zip(self.decoder, (skips[4], skips[3])):
-            x = getattr(self, up)(upsample2x(x))
+            x = pool(x)
+        for (up, a, b), skip, upsample in zip(
+                self.decoder, (skips[4], skips[3]), self.upsamples):
+            x = getattr(self, up)(upsample(x))
             x = torch.cat([skip, x], dim=-1)
             x = getattr(self, b)(getattr(self, a)(x))
         return x
@@ -196,14 +208,17 @@ class TinyDarknet(_Sequence):
         self.steps = [step if isinstance(step, str) else self.add(ConvBN,
                                                                   *step)
                       for step in self.PLAN]
+        # SAME pools of stride 2, and the last one of stride 1
+        self.pools = nn.ModuleList(
+            MaxPool(2, 2 if s == "pool" else 1, "SAME")
+            for s in self.steps if s in ("pool", "pool1"))
 
     def forward(self, x):
         tap = None
+        pools = iter(self.pools)
         for step in self.steps:
-            if step == "pool":
-                x = max_pool(x, 2, 2, "SAME")
-            elif step == "pool1":
-                x = max_pool(x, 2, 1, "SAME")     # the stride-1 pool
+            if step in ("pool", "pool1"):
+                x = next(pools)(x)
             elif step == "tap":
                 tap = x
             else:

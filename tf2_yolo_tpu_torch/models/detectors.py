@@ -33,8 +33,8 @@ from torch import nn
 from .backbones import (CSPDarknet53, Darknet19, Darknet53, DarknetV1,
                         TinyDarknet, UNetBody)
 from .heads import AnchorHead, HeadV1
-from .layers import (ConvBN, darknet_normal_, he_normal_, space_to_depth,
-                     spp, upsample2x)
+from .layers import (SPP, ConvBN, SpaceToDepth, Upsample2x, darknet_normal_,
+                     he_normal_)
 from .mobilenet import MobileNetV2
 from .resnet import ResNet
 
@@ -169,6 +169,7 @@ class YoloV2(nn.Module):
             self.neck1 = ConvBN(1024, 1024, 3, **conv)
             self.neck2 = ConvBN(1024, 1024, 3, **conv)
             self.passthrough = ConvBN(512, 64, 3, **conv)
+            self.space_to_depth = SpaceToDepth(2)
             self.neck3 = ConvBN(4 * 64 + 1024, 1024, 3, **conv)
             ci = 1024
         elif backbone == "unet":
@@ -195,7 +196,7 @@ class YoloV2(nn.Module):
         if self.backbone_name == "darknet":
             passthrough, feat = taps
             conv = self.neck2(self.neck1(feat))
-            pt = space_to_depth(self.passthrough(passthrough), 2)
+            pt = self.space_to_depth(self.passthrough(passthrough))
             feat = self.neck3(torch.cat([pt, conv], dim=-1))
         else:
             feat = taps
@@ -221,6 +222,7 @@ class YoloV3(nn.Module):
             self.backbone = TinyDarknet(**kw)
             self.tiny_out1 = ConvBN(256, 512, 3, **leaky)
             self.tiny_up = ConvBN(256, 128, 1, **leaky)
+            self.tiny_upsample = Upsample2x()
             self.tiny_out2 = ConvBN(128 + 256, 256, 3, **leaky)
             feats = (512, 256)
         else:
@@ -233,6 +235,7 @@ class YoloV3(nn.Module):
             self.up2 = ConvBN(256, 128, 1, **leaky)
             self.fpn3 = FPNStage(128 + c3, 128, make_out=True,
                                  init=he_normal_, **kw)
+            self.upsample1, self.upsample2 = Upsample2x(), Upsample2x()
             feats = (1024, 512, 256)
         per_level = _split_anchors(anchors, len(feats))
         for i, (ci, anc) in enumerate(zip(feats, per_level)):
@@ -254,15 +257,15 @@ class YoloV3(nn.Module):
         if self.tiny:
             tap, bottleneck = taps
             out1 = self.tiny_out1(bottleneck)
-            up = upsample2x(self.tiny_up(bottleneck))
+            up = self.tiny_upsample(self.tiny_up(bottleneck))
             out2 = self.tiny_out2(torch.cat([up, tap], dim=-1))
             feats = [out1, out2]
         else:
             c3, c4, c5 = taps
             t, out1 = self.fpn1(c5)
-            t = torch.cat([upsample2x(self.up1(t)), c4], dim=-1)
+            t = torch.cat([self.upsample1(self.up1(t)), c4], dim=-1)
             t, out2 = self.fpn2(t)
-            t = torch.cat([upsample2x(self.up2(t)), c3], dim=-1)
+            t = torch.cat([self.upsample2(self.up2(t)), c3], dim=-1)
             _, out3 = self.fpn3(t)
             feats = [out1, out2, out3]
         return [getattr(self, f"head{i + 1}")(f)
@@ -302,6 +305,7 @@ class YoloV4(nn.Module):
         self.td1_pre1 = _neck(c5, 512, 1, **kw)
         self.td1_pre2 = _neck(512, 1024, 3, **kw)
         self.td1_spp_pre = _neck(1024, 512, 1, **kw)
+        self.spp = SPP()
         self.td1_post1 = _neck(2048, 512, 1, **kw)
         self.td1_post2 = _neck(512, 1024, 3, **kw)
         self.td1_post3 = _neck(1024, 512, 1, **kw)
@@ -313,6 +317,7 @@ class YoloV4(nn.Module):
         self.td2_up = _neck(256, 128, 1, **kw)
         self.td3_pre = _neck(c3, 128, 1, **kw)
         self.td3 = FPNStage(256, 128, **kw)
+        self.upsample1, self.upsample2 = Upsample2x(), Upsample2x()
 
         self.out_l = _neck(128, 256, 3, **kw)
 
@@ -356,15 +361,15 @@ class YoloV4(nn.Module):
 
         # top-down path with SPP at the coarsest level
         t_s = self.td1_spp_pre(self.td1_pre2(self.td1_pre1(c5)))
-        t_s = spp(t_s)
+        t_s = self.spp(t_s)
         t_s = self.td1_post3(self.td1_post2(self.td1_post1(t_s)))
 
         up = self.td1_up(t_s)
-        t_m = torch.cat([self.td2_pre(c4), upsample2x(up)], dim=-1)
+        t_m = torch.cat([self.td2_pre(c4), self.upsample1(up)], dim=-1)
         t_m = self.td2(t_m)
 
         up = self.td2_up(t_m)
-        t_l = torch.cat([self.td3_pre(c3), upsample2x(up)], dim=-1)
+        t_l = torch.cat([self.td3_pre(c3), self.upsample2(up)], dim=-1)
         t_l = self.td3(t_l)
 
         out_l = self.out_l(t_l)

@@ -35,9 +35,14 @@ backward on one model's ConvBNs (``set_bn_stats_stop_gradient`` of the
 JAX package, per model instead of process-global); :func:`set_bn_group`
 takes one model's train-mode statistics over the processes of a process
 group (the JAX package's ``bn_axis_name``); :func:`set_tensor_parallel`
-slices one model's wide ConvBNs and head convs over the model axis of a
-process grid (``parallel.mesh``), each then running Megatron-style
-between the collectives of ``parallel.collectives``.
+slices one model's wide layers over the model axis of a process grid
+(``parallel.mesh``), each then running Megatron-style between the
+collectives of ``parallel.collectives``; :func:`set_spatial_parallel`
+splits its image rows over the space axis of a ``("data", "space")``
+grid, each windowed layer (``Conv``, ``DepthwiseConv`` and the
+parameter-free :class:`MaxPool`, :class:`AvgPool`,
+:class:`Upsample2x`, :class:`SpaceToDepth` and :class:`SPP` modules, one
+a call site) fetching the rows it lacks (``parallel.spatial``).
 """
 
 import contextlib
@@ -48,12 +53,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.conv_bn import _GEOMETRIES as INT8_GEOMETRIES
-from ..ops.kernels.conv_bn import conv_bn_stats
+from ..ops.kernels.conv_bn import (Geometry, _same_pad, conv_bn_stats,
+                                   conv_geometry)
 from ..ops.kernels.conv_int8 import conv_int8, quantize_weights, \
     weight_layout
 from ..ops.kernels.fused_gemm import act_and_grad
 from ..parallel.collectives import (Shard, copy_to_model, gather_channels,
-                                    record)
+                                    record, slice_channels)
+from ..parallel.spatial import (SpaceRows, SpaceShard, gather_rows,
+                                window_need)
 
 BN_EPS = 1e-3                  # tf.keras default, as the JAX package
 BN_MOMENTUM = 0.99             # running = 0.99 running + 0.01 batch
@@ -139,7 +147,9 @@ class Conv(nn.Module):
     (1x1 s1, 3x3 s1 SAME, 3x3 s2 with the darknet pad, or with flax's SAME
     where ``padding`` is ``"same"``, 1x1 s2, 7x7 s2 and 2x2 s1 SAME; an
     int ``padding`` pads that much on every side, then VALID). Returns
-    (y, s1, s2); the statistics are ``None`` unless ``want_stats``."""
+    (y, s1, s2); the statistics are ``None`` unless ``want_stats``.
+    Spatially partitioned (``spatial``), it runs on the row slab that its
+    output rows read, with an explicit ``conv_bn.Geometry``."""
 
     def __init__(self, ci, co, kernel, stride=1, use_bias=False,
                  dtype=torch.float32, init=he_normal_, generator=None,
@@ -156,7 +166,9 @@ class Conv(nn.Module):
         self.padding = padding
         self.dtype = dtype
         self.plain = False
-        self.tp = None               # set_tensor_parallel (a head conv)
+        self.tp = None               # set_tensor_parallel: a conv alone
+        self.tp_pair = None          # ... the conv of a keras pair
+        self.spatial = None          # set_spatial_parallel
 
     def forward(self, x, want_stats=False):
         dt = self.dtype
@@ -165,11 +177,24 @@ class Conv(nn.Module):
         k = self.kernel.to(dt)
         b = (self.bias.to(dt) if self.bias is not None
              else torch.zeros(k.shape[-1], dtype=dt, device=k.device))
-        y, s1, s2 = conv_bn_stats(x.to(dt).contiguous(), k, b, self.stride,
-                                  want_stats, self.plain, self.padding)
+        x, padding = x.to(dt), self.padding
+        if self.spatial is not None:
+            x, padding = self._slab(x)
+        y, s1, s2 = conv_bn_stats(x.contiguous(), k, b, self.stride,
+                                  want_stats, self.plain, padding)
         if self.tp is not None:
             y = gather_channels(y, self.tp)
         return y, s1, s2
+
+    def _slab(self, x):
+        """The rows that this process's output rows read, and their
+        explicit geometry (spatial partitioning: the slab's top pad is
+        the image's where it reaches the top edge, else 0)."""
+        sp, ks, s = self.spatial, self.kernel.shape[0], self.stride
+        g = conv_geometry(sp.h, x.shape[2], ks, s, self.padding)
+        slab, top, _, (lo, hi) = sp.slab(x, g.ho,
+                                         window_need(ks, s, g.pad_top))
+        return slab, Geometry(hi - lo, g.wo, top, g.pad_left)
 
 
 class BNState(nn.Module):
@@ -187,7 +212,12 @@ class BNState(nn.Module):
     ``group`` where one is set (:func:`set_bn_group`); the running
     statistics are updated in place. In eval mode the running statistics normalise.
     (y - mean) * (rsqrt(var + eps) * scale) + bias is computed in f32
-    and rounded once to y's dtype."""
+    and rounded once to y's dtype. Under spatial partitioning
+    (:func:`set_spatial_parallel`) the count is the global one, from the
+    level's global height: the shards' rows are uneven. A lone BNState
+    sliced over the model axis (``tp``, :func:`set_tensor_parallel`)
+    normalises this process's channels of the full input and gathers
+    them."""
 
     def __init__(self, features, device="cuda", eps=BN_EPS,
                  momentum=BN_MOMENTUM):
@@ -199,6 +229,8 @@ class BNState(nn.Module):
         self.eps = eps
         self.momentum = momentum
         self.group = None            # set_bn_group
+        self.tp = None               # set_tensor_parallel: a lone BN
+        self.spatial = None          # set_spatial_parallel
 
     @torch.no_grad()
     def update_running(self, mean, var):
@@ -207,17 +239,36 @@ class BNState(nn.Module):
         self.mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
         self.var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
 
+    def batch_count(self, y):
+        """(the count of values per channel, whether it is the global
+        one): this process's pixels, or under spatial partitioning those
+        of the whole grid's batch at the level's height."""
+        if self.spatial is None:
+            return y.numel() // y.shape[-1], False
+        sp = self.spatial
+        return y.shape[0] * sp.shard.n_data * sp.h * y.shape[2], True
+
     def forward(self, y, s1=None, s2=None, clip=True):
+        if self.tp is None:
+            return self._forward(y, s1, s2, clip)
+        return gather_channels(
+            self._forward(slice_channels(y, self.tp), s1, s2, clip), self.tp)
+
+    def _forward(self, y, s1, s2, clip):
         if self.training:
-            count = y.numel() // y.shape[-1]
+            count, whole = self.batch_count(y)
             if s1 is None:
                 a = y.float()
-                s1, s2 = a.mean(dim=(0, 1, 2)), (a * a).mean(dim=(0, 1, 2))
-                if self.group is None:
-                    count = 1
-                else:                 # sums again, to add over processes
-                    s1, s2 = s1 * count, s2 * count
-            mean, var = batch_stats(s1, s2, count, clip, self.group)
+                if whole:             # a shard may hold no row
+                    s1, s2 = a.sum(dim=(0, 1, 2)), (a * a).sum(dim=(0, 1, 2))
+                else:
+                    s1, s2 = a.mean(dim=(0, 1, 2)), (a * a).mean(
+                        dim=(0, 1, 2))
+                    if self.group is None:
+                        count = 1
+                    else:             # sums again, to add over processes
+                        s1, s2 = s1 * count, s2 * count
+            mean, var = batch_stats(s1, s2, count, clip, self.group, whole)
             self.update_running(mean, var)
         else:
             mean, var = self.mean, self.var
@@ -229,23 +280,65 @@ class BNState(nn.Module):
 def conv_then_bn(conv, bn, x):
     """flax ``nn.Conv`` then ``nn.BatchNorm`` (the keras backbones'
     pair): ``bn(conv(x))``, the train-mode statistics taken from the conv
-    kernel's sums of its rounded output."""
+    kernel's sums of its rounded output. A pair sliced over the model
+    axis (``conv.tp_pair``, :func:`set_tensor_parallel`) runs
+    Megatron-style: f, the conv on its weight slice (the slice's
+    statistics), BN on the slice, then g, so that the callers' ReLU,
+    ReLU6 and residual adds see the full tensor."""
+    shard = conv.tp_pair
+    if shard is not None:
+        x = copy_to_model(x, shard)
     y, s1, s2 = conv(x, want_stats=bn.training)
-    return bn(y, s1, s2)
+    y = bn(y, s1, s2)
+    return y if shard is None else gather_channels(y, shard)
 
 
-def depthwise_conv(x, kernel, stride):
+def depthwise_then_bn(dw, bn, x):
+    """A :class:`DepthwiseConv` and its BatchNorm (statistics from the
+    conv's output): ``bn(dw(x))``. Sliced over the model axis
+    (``dw.tp_pair``), each process takes its channel slice of the full
+    input (a depthwise channel reads only its own), runs both on it and
+    gathers."""
+    shard = dw.tp_pair
+    if shard is None:
+        return bn(dw(x))
+    return gather_channels(bn(dw(slice_channels(x, shard))), shard)
+
+
+class _NoRows(torch.autograd.Function):
+    """apply(slab, shape): an op's output of 0 rows on a shard of a
+    spatially partitioned model that holds none (the library ops refuse
+    an empty input); its backward a zero cotangent of the slab. Every
+    process then runs the same ops in the same order."""
+
+    @staticmethod
+    def forward(ctx, slab, shape):
+        ctx.shape = slab.shape
+        return slab.new_empty(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.new_zeros(ctx.shape), None
+
+
+def _same_pads(size, ksize, stride):
+    """(before, after) of flax's SAME on one axis: the smaller half
+    before."""
+    total = max((-(-size // stride) - 1) * stride + ksize - size, 0)
+    return total // 2, total - total // 2
+
+
+def depthwise_conv(x, kernel, stride, rows=None):
     """flax ``nn.Conv(C, (k, k), stride, padding="SAME",
     feature_group_count=C, use_bias=False)`` on NHWC ``x`` with a (k, k,
     1, C) kernel, both in the compute dtype: the library's grouped conv
     (``F.conv2d(groups=C)``) on NCHW views, the SAME pad's larger half
-    below and right. The JAX package runs it as an XLA conv outside any
-    Pallas kernel; ``depthwise_conv.calls`` counts the calls."""
+    below and right (``rows``: the (top, bottom) pad of a row slab
+    instead). The JAX package runs it as an XLA conv outside any Pallas
+    kernel; ``depthwise_conv.calls`` counts the calls."""
     k, c = kernel.shape[0], kernel.shape[-1]
-    pads = []
-    for size in (x.shape[2], x.shape[1]):
-        total = max((-(-size // stride) - 1) * stride + k - size, 0)
-        pads += [total // 2, total - total // 2]
+    pads = [*_same_pads(x.shape[2], k, stride),
+            *(rows or _same_pads(x.shape[1], k, stride))]
     xc = F.pad(x.permute(0, 3, 1, 2), pads)
     y = F.conv2d(xc, kernel.permute(3, 2, 0, 1), stride=stride, groups=c)
     depthwise_conv.calls += 1
@@ -258,7 +351,8 @@ depthwise_conv.calls = 0
 class DepthwiseConv(nn.Module):
     """A depthwise ``k`` x ``k`` SAME conv of ``channels`` channels
     without bias, its kernel (k, k, 1, C) in the flax layout
-    (:func:`depthwise_conv`)."""
+    (:func:`depthwise_conv`). ``tp_pair``: sliced over the model axis
+    with its BatchNorm (:func:`depthwise_then_bn`)."""
 
     def __init__(self, channels, kernel=3, stride=1, dtype=torch.float32,
                  init=glorot_uniform_, generator=None, device="cuda"):
@@ -268,10 +362,22 @@ class DepthwiseConv(nn.Module):
         init(self.kernel, generator)
         self.stride = stride
         self.dtype = dtype
+        self.tp_pair = None          # set_tensor_parallel
+        self.spatial = None          # set_spatial_parallel
 
     def forward(self, x):
-        return depthwise_conv(x.to(self.dtype), self.kernel.to(self.dtype),
-                              self.stride)
+        x, k = x.to(self.dtype), self.kernel.to(self.dtype)
+        sp = self.spatial
+        if sp is None:
+            return depthwise_conv(x, k, self.stride)
+        ks, s = k.shape[0], self.stride
+        ho, pad_top = _same_pad(sp.h, ks, s)
+        slab, top, bottom, (lo, hi) = sp.slab(x, ho,
+                                              window_need(ks, s, pad_top))
+        if hi == lo:
+            return _NoRows.apply(slab, (x.shape[0], 0, -(-x.shape[2] // s),
+                                        x.shape[3]))
+        return depthwise_conv(slab, k, s, rows=(top, bottom))
 
 
 class Dense(nn.Module):
@@ -286,10 +392,14 @@ class Dense(nn.Module):
         glorot_uniform_(self.kernel, generator)
         self.bias = nn.Parameter(torch.zeros(co, device=device))
         self.dtype = dtype
+        self.tp = None               # set_tensor_parallel
 
     def forward(self, x):
         dt = self.dtype
-        return F.linear(x.to(dt), self.kernel.to(dt).t(), self.bias.to(dt))
+        if self.tp is not None:
+            x = copy_to_model(x, self.tp)
+        y = F.linear(x.to(dt), self.kernel.to(dt).t(), self.bias.to(dt))
+        return y if self.tp is None else gather_channels(y, self.tp)
 
 
 class ConvBN(nn.Module):
@@ -345,8 +455,9 @@ class ConvBN(nn.Module):
         train = self.training and bn is not None
         y, s1, s2 = self.conv(x, want_stats=train)
         if train and self.bn_sg:
-            mean, var = batch_stats(s1, s2, y.numel() // y.shape[-1],
-                                    group=bn.group)
+            count, whole = bn.batch_count(y)
+            mean, var = batch_stats(s1, s2, count, group=bn.group,
+                                    count_is_global=whole)
             bn.update_running(mean, var)
             mean, var = mean.detach(), var.detach()
             dt = self.dtype
@@ -492,68 +603,118 @@ def set_bn_group(model, group):
     return model
 
 
-_TP_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue 1, item 9: "
-                  "parallel)")
+def _sibling(modules, path, old, new, kinds):
+    """The module beside ``path`` whose last name component has ``old``
+    replaced by ``new`` (the port's keras pairs: ``conv1`` / ``bn1``,
+    ``expand_conv`` / ``expand_bn``, ``dw_conv`` / ``dw_bn``), if it is
+    one of ``kinds``: (its path, it), else None."""
+    parent, _, last = path.rpartition(".")
+    if old not in last:
+        return None
+    other = (f"{parent}." if parent else "") + last.replace(old, new)
+    mod = modules.get(other)
+    return (other, mod) if isinstance(mod, kinds) else None
+
+
+def _tp_unit(modules, path):
+    """(unit name, kind, the unit's module paths) of the layer that owns
+    the leaves of module ``path`` under tensor parallelism."""
+    owner = modules[path]
+    parent_path = path.rpartition(".")[0]
+    parent = modules[parent_path]
+    if isinstance(owner, (Conv, BNState)) and isinstance(
+            parent, (ConvBN, ConvActBN)):
+        return parent_path, type(parent).__name__, [path]
+    if isinstance(owner, (Conv, DepthwiseConv)):
+        bn = _sibling(modules, path, "conv", "bn", BNState)
+        if bn is not None:
+            return path, "pair", [path, bn[0]]
+        if isinstance(owner, Conv):
+            return path, "conv", [path]
+        raise ValueError(f"the depthwise conv {path} has no BatchNorm "
+                         "beside it to be sliced with")
+    if isinstance(owner, BNState):
+        conv = _sibling(modules, path, "bn", "conv", (Conv, DepthwiseConv))
+        if conv is not None:
+            return conv[0], "pair", [conv[0], path]
+        return path, "bn", [path]
+    if isinstance(owner, Dense):
+        return path, "dense", [path]
+    raise ValueError(f"tensor parallelism of {type(owner).__name__} "
+                     f"({path}): no sliced form")
 
 
 def _tp_units(model, plan):
-    """The layers that ``plan`` slices: ``{module name: (module, {leaf:
-    dim})}``, a ConvBN with its conv's and BN's leaves, or a conv alone
-    (the biased head convs, whose consumers read the gathered output).
-    Raises NotImplementedError for a sliced leaf of any other layer."""
+    """The layers that ``plan`` slices: ``{unit name: (kind, {leaf:
+    dim})}``, the leaves by their ``state_dict`` names. A unit is a
+    ConvBN or a ConvActBN with its conv's and BN's leaves; a keras conv
+    + BatchNorm pair (``conv_then_bn``: a ``Conv`` and the ``BNState``
+    beside it whose name has "bn" for "conv", ``conv1`` / ``bn1``,
+    ``expand_conv`` / ``expand_bn``), or a ``DepthwiseConv`` and its BN
+    (``dw_conv`` / ``dw_bn``), kind "pair", named by the conv; a conv
+    alone (the biased head convs, ResNet v2's ``conv3`` and projection),
+    a BatchNorm alone (ResNet v2's ``pre_bn`` and ``post_bn``) or a
+    ``Dense``. Raises ValueError where the plan slices some leaves of a
+    unit and not the others (a BN sliced and its conv not, or the
+    reverse), naming both, and for a sliced leaf of any other layer."""
     modules = dict(model.named_modules())
     units = {}
     for key, dim in plan.items():
         if dim is None:
             continue
-        path, _, leaf = key.rpartition(".")
-        owner = modules[path]
-        parent_path = path.rpartition(".")[0]
-        parent = modules[parent_path]
-        if isinstance(owner, (Conv, BNState)) and isinstance(parent, ConvBN):
-            unit, name = parent, parent_path
-            leaf = f"{path[len(parent_path):].lstrip('.')}.{leaf}"
-        elif isinstance(owner, Conv) and not isinstance(parent, ConvActBN):
-            unit, name = owner, path
-        else:
-            what = (f"{type(parent).__name__} ({parent_path})"
-                    if isinstance(parent, ConvActBN)
-                    else f"{type(owner).__name__} ({path}; a keras conv "
-                         "+ BatchNorm pair or a depthwise or dense layer)")
-            raise NotImplementedError(
-                f"tensor parallelism of {what} {_TP_NOT_PORTED}")
-        units.setdefault(name, (unit, {}))[1][leaf] = dim
-    for name, (unit, leaves) in units.items():
-        want = {k for k, _ in unit.named_parameters()} | {
-            k for k, _ in unit.named_buffers()}
+        name, kind, paths = _tp_unit(modules, key.rpartition(".")[0])
+        unit = units.setdefault(name, (kind, {}, paths))
+        unit[1][key] = dim
+        for p in paths:
+            if p not in unit[2]:
+                unit[2].append(p)
+    out = {}
+    for name, (kind, leaves, paths) in units.items():
+        want = set()
+        for p in ({name} if kind in ("ConvBN", "ConvActBN") else paths):
+            mod = modules[p]
+            pre = f"{p}." if p else ""
+            want |= {pre + k for k, _ in mod.named_parameters()}
+            want |= {pre + k for k, _ in mod.named_buffers()
+                     if k in mod.state_dict()}
         if set(leaves) != want:
             raise ValueError(f"the plan slices {sorted(leaves)} of {name} "
                              f"but not {sorted(want - set(leaves))}")
-    return units
+        out[name] = (kind, leaves)
+    return out
 
 
 def set_tensor_parallel(model, mesh, plan):
     """Slice ``model`` over the model axis of ``mesh`` by ``plan``
     (``parallel.tensor_parallel_shardings``: ``{state_dict name: dim or
-    None}``): each planned ConvBN and head conv keeps only this process's
-    ``Co / n_model`` output channels of its kernel, bias, BN scale and
-    bias and running statistics (the rest is freed: the memory per card
-    falls) and runs Megatron-style, ``parallel.collectives``: f (the
-    input's cotangent summed over the model group in the backward), the
-    conv kernel on the weight slice, BN and the activation on the
+    None}``): each planned layer keeps only this process's ``Co /
+    n_model`` output channels of its kernel, bias, BN scale and bias and
+    running statistics (the rest is freed: the memory per card falls) and
+    runs Megatron-style, ``parallel.collectives``: f (the input's
+    cotangent summed over the model group in the backward), the conv or
+    dense kernel on the weight slice, BN and the activation on the
     channel slice, then g (the slices gathered on the channel axis), so
-    that every consumer sees the full tensor. The BN sums of a slice are
-    taken over the group of :func:`set_bn_group` (the mesh's data
-    group). Everything else stays whole and is computed alike in every
-    process of the model group. Per model, as :func:`set_bn_group`; the
-    sliced entries are kept as ``model.tensor_parallel = (Shard,
-    {name: dim})`` (``collectives.gather_state_dict``). Returns
-    ``model``.
+    that every consumer sees the full tensor. The units
+    (:func:`_tp_units`): ConvBN; a conv alone (the head convs); a keras
+    conv + BatchNorm pair (``conv_then_bn``, gathered after the BN);
+    ConvActBN (conv, activation and BN on the slice); Dense; and, as
+    their slices read only their own channels, a depthwise conv with its
+    BN (:func:`depthwise_then_bn`) and a lone BN, which take this
+    process's channel slice of the full input (``collectives.
+    slice_channels``) instead of f. The BN sums of a slice are taken
+    over the group of :func:`set_bn_group` (the mesh's data group).
+    Everything else stays whole and is computed alike in every process
+    of the model group. Per model, as :func:`set_bn_group`; the sliced
+    entries are kept as ``model.tensor_parallel = (Shard, {name: dim})``
+    (``collectives.gather_state_dict``). Returns ``model``.
 
     Raises ValueError for a ``packed`` model (its fused routes are
-    single-device, in the JAX package too) and NotImplementedError for a
-    sliced leaf outside a ConvBN or a head conv (the keras backbones'
-    conv + BatchNorm pairs, depthwise and dense layers, ConvActBN)."""
+    single-device, in the JAX package too), a spatially partitioned one,
+    and a plan that slices part of a unit (:func:`_tp_units`), before
+    anything is sliced. Each sliced parameter is a new ``Parameter``: an
+    optimizer is made after this call."""
+    if mesh.axis_names[1] != "model":
+        raise ValueError(f"a {mesh.axis_names} mesh has no model axis")
     n = mesh.shape["model"]
     if n == 1:
         return model
@@ -562,22 +723,30 @@ def set_tensor_parallel(model, mesh, plan):
     if any(getattr(m, "packed", False) for m in model.modules()):
         raise ValueError("a packed model's fused routes are single-device: "
                          "tensor parallelism needs packed=False")
+    if getattr(model, "spatial_parallel", None) is not None:
+        raise ValueError("a spatially partitioned model cannot also be "
+                         "sliced over a model axis")
     units = _tp_units(model, plan)
     shard = Shard(mesh.model_group, n, mesh.model_index)
+    modules = dict(model.named_modules())
     dims = {}
     with torch.no_grad():
-        for name, (unit, leaves) in units.items():
-            for leaf, dim in leaves.items():
-                path, _, attr = leaf.rpartition(".")
-                mod = unit.get_submodule(path) if path else unit
+        for name, (kind, leaves) in units.items():
+            for key, dim in leaves.items():
+                path, _, attr = key.rpartition(".")
+                mod = modules[path]
                 t = getattr(mod, attr)
                 part = shard.slice(t, dim).clone()
                 if isinstance(t, nn.Parameter):
-                    t.data = part
+                    # a new leaf: autograd keeps the whole shape of a
+                    # leaf that a backward has reached
+                    setattr(mod, attr, nn.Parameter(
+                        part, requires_grad=t.requires_grad))
                 else:
                     mod._buffers[attr] = part
-                dims[f"{name}.{leaf}" if name else leaf] = dim
-            unit.tp = shard
+                dims[key] = dim
+            attr = "tp_pair" if kind == "pair" else "tp"
+            setattr(modules[name], attr, shard)
     model.tensor_parallel = (shard, dims)
     return model
 
@@ -607,7 +776,8 @@ def _all_reduce(t, group):
     return _AllReduceSum.apply(t, group)
 
 
-def batch_stats(s1, s2, count, clip=False, group=None):
+def batch_stats(s1, s2, count, clip=False, group=None,
+                count_is_global=False):
     """Batch mean and biased variance from the sums of y and y^2 over
     ``count`` values per channel (f32): s2 / count - mean^2, clipped at
     0 where ``clip`` (flax's ``nn.BatchNorm``; the JAX ConvBN does not
@@ -615,7 +785,9 @@ def batch_stats(s1, s2, count, clip=False, group=None):
     processes in one all-reduce (:func:`_all_reduce`) and the count is
     ``count`` times the group's size, so the statistics are those of the
     global batch: every process holds as many rows (``Model.fit`` checks
-    it; the JAX ConvBN multiplies by ``axis_size`` the same way). The
+    it; the JAX ConvBN multiplies by ``axis_size`` the same way), unless
+    ``count_is_global`` says that ``count`` is the whole group's already
+    (spatial partitioning, whose shards are uneven). The
     count stays a host number, so that the division is the same
     operation as without a group (on the card, PyTorch multiplies by
     the reciprocal of a host divisor and divides by a tensor one)."""
@@ -623,7 +795,8 @@ def batch_stats(s1, s2, count, clip=False, group=None):
         n = s1.shape[0]
         sums = _all_reduce(torch.cat([s1, s2]), group)
         s1, s2 = sums[:n], sums[n:]
-        count = count * torch.distributed.get_world_size(group)
+        if not count_is_global:
+            count = count * torch.distributed.get_world_size(group)
     mean = s1 / count
     var = s2 / count - mean * mean
     return mean, (torch.clamp(var, min=0.0) if clip else var)
@@ -649,31 +822,58 @@ class ConvActBN(nn.Module):
         self.bn = BNState(features, device)
         self.act = act
         self.dtype = dtype
+        self.tp = None               # set_tensor_parallel
 
     def forward(self, x):
+        if self.tp is None:
+            return self._forward(x)
+        # Megatron's f, the conv, activation and BN on this process's
+        # channels, then g
+        return gather_channels(self._forward(copy_to_model(x, self.tp)),
+                               self.tp)
+
+    def _forward(self, x):
         y, _, _ = self.conv(x)
         return self.bn(ACTS[self.act](y).float()).to(self.dtype)
 
 
-def max_pool(x, window=2, stride=None, padding="VALID"):
+def _pool_rows(size, window, stride, padding):
+    """(output size, pad before, pad after) of a pool on one axis:
+    ``"VALID"``, ``"SAME"`` (the smaller half before) or an int p (p on
+    both sides, then VALID)."""
+    if padding == "VALID":
+        return (size - window) // stride + 1, 0, 0
+    if padding == "SAME":
+        return (-(-size // stride), *_same_pads(size, window, stride))
+    if type(padding) is int:
+        return (size + 2 * padding - window) // stride + 1, padding, padding
+    raise ValueError(f"padding {padding!r}: 'VALID', 'SAME' or an int")
+
+
+def max_pool(x, window=2, stride=None, padding="VALID", rows=None):
     """flax ``nn.max_pool`` on NHWC with a square ``window`` and
     ``stride`` (default: the window): ``"VALID"``, or ``"SAME"``, whose
     pad of max((ceil(H/s) - 1) s + window - H, 0) is -inf, the smaller
     half on top and left (``F.max_pool2d``'s ``padding`` is symmetric and
-    cannot say that)."""
+    cannot say that); an int p pads p zeros on every side, then VALID
+    (the keras ResNet stem's pool after its zero pad). ``rows``: the
+    (top, bottom) pad of a row slab instead of the height's."""
     stride = stride or window
+    _, left, right = _pool_rows(x.shape[2], window, stride, padding)
+    top, bottom = rows or _pool_rows(x.shape[1], window, stride,
+                                     padding)[1:]
     xc = x.permute(0, 3, 1, 2)
-    if padding == "SAME":
-        h, wd = x.shape[1:3]
-        pads = []
-        for size in (wd, h):
-            total = max((-(-size // stride) - 1) * stride + window - size, 0)
-            pads += [total // 2, total - total // 2]
-        if any(pads):
-            xc = F.pad(xc, pads, value=float("-inf"))
-    elif padding != "VALID":
-        raise ValueError(f"padding {padding!r}: 'VALID' or 'SAME'")
+    if left or right or top or bottom:
+        xc = F.pad(xc, [left, right, top, bottom],
+                   value=0.0 if type(padding) is int else float("-inf"))
     return F.max_pool2d(xc, window, stride).permute(0, 2, 3, 1)
+
+
+def avg_pool(x, window, stride=None):
+    """flax ``nn.avg_pool`` on NHWC, VALID, with a square ``window`` and
+    ``stride`` (default: the window)."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), window,
+                        stride or window).permute(0, 2, 3, 1)
 
 
 def space_to_depth(x, block=2):
@@ -704,6 +904,221 @@ def spp(x):
     p13 = F.max_pool2d(p9, 5, stride=1, padding=2)
     out = torch.cat([p13, p9, p5, xc], dim=1)
     return out.permute(0, 2, 3, 1).contiguous()
+
+
+class _Windowed(nn.Module):
+    """A parameter-free layer with a window in H, one module a call site:
+    under spatial partitioning (``spatial``, :func:`set_spatial_parallel`)
+    it fetches the rows its output rows read (``parallel.spatial``) and
+    adds the image's pad where its slab reaches an edge. No
+    ``state_dict`` entry."""
+
+    def __init__(self):
+        super().__init__()
+        self.spatial = None
+
+    def forward(self, x):
+        sp = self.spatial
+        if sp is None:
+            return self.whole(x)
+        ho, need = self.rows(sp.h)
+        slab, top, bottom, (lo, hi) = sp.slab(x, ho, need)
+        if hi == lo:
+            return _NoRows.apply(slab, (x.shape[0], 0,
+                                        *self.out_wc(x.shape[2:])))
+        return self.part(slab, top, bottom, lo, hi)
+
+
+class MaxPool(_Windowed):
+    """:func:`max_pool` as a module."""
+
+    def __init__(self, window=2, stride=None, padding="VALID"):
+        super().__init__()
+        self.window, self.stride = window, stride or window
+        self.padding = padding
+
+    def whole(self, x):
+        return max_pool(x, self.window, self.stride, self.padding)
+
+    def rows(self, h):
+        ho, top, _ = _pool_rows(h, self.window, self.stride, self.padding)
+        return ho, window_need(self.window, self.stride, top)
+
+    def out_wc(self, wc):
+        return (_pool_rows(wc[0], self.window, self.stride,
+                           self.padding)[0], wc[1])
+
+    def part(self, slab, top, bottom, lo, hi):
+        return max_pool(slab, self.window, self.stride, self.padding,
+                        rows=(top, bottom))
+
+
+class AvgPool(MaxPool):
+    """:func:`avg_pool` (VALID) as a module."""
+
+    def __init__(self, window, stride=None):
+        super().__init__(window, stride, "VALID")
+
+    def whole(self, x):
+        return avg_pool(x, self.window, self.stride)
+
+    def part(self, slab, top, bottom, lo, hi):
+        return avg_pool(slab, self.window, self.stride)
+
+
+class SpaceToDepth(_Windowed):
+    """:func:`space_to_depth` as a module (a shard's output rows read the
+    input row pairs 2r, 2r + 1)."""
+
+    def __init__(self, block=2):
+        super().__init__()
+        self.block = block
+
+    def whole(self, x):
+        return space_to_depth(x, self.block)
+
+    def rows(self, h):
+        b = self.block
+        return h // b, lambda lo, hi: (lo * b, hi * b)
+
+    def out_wc(self, wc):
+        return wc[0] // self.block, wc[1] * self.block ** 2
+
+    def part(self, slab, top, bottom, lo, hi):
+        return space_to_depth(slab, self.block)
+
+
+class Upsample2x(_Windowed):
+    """:func:`upsample2x` as a module (output row r reads input row
+    r // 2: under the balanced split a shard may need a row of its
+    neighbour's, 7 + 6 -> 13 + 13)."""
+
+    def whole(self, x):
+        return upsample2x(x)
+
+    def rows(self, h):
+        return 2 * h, lambda lo, hi: (lo // 2, (hi - 1) // 2 + 1)
+
+    def out_wc(self, wc):
+        return 2 * wc[0], wc[1]
+
+    def part(self, slab, top, bottom, lo, hi):
+        first = 2 * (lo // 2)
+        return upsample2x(slab)[:, lo - first:hi - first]
+
+
+class SPP(_Windowed):
+    """:func:`spp` as a module. A shard reads six rows on each side (the
+    three 5x5 pools of the cascade); each pool's rows outside the image
+    are -inf, as the pad of the whole image's pools, so that every max
+    and its position are the same."""
+
+    def whole(self, x):
+        return spp(x)
+
+    def rows(self, h):
+        return h, window_need(13, 1, 6)
+
+    def out_wc(self, wc):
+        return wc[0], 4 * wc[1]
+
+    def part(self, slab, top, bottom, lo, hi):
+        xc = F.pad(slab.permute(0, 3, 1, 2), (0, 0, top, bottom),
+                   value=float("-inf"))         # rows lo - 6 ... hi + 6
+        h = self.spatial.h
+
+        def pool(t, first):
+            p = F.max_pool2d(t, 5, stride=1, padding=(0, 2))
+            r = torch.arange(first + 2, first + 2 + p.shape[2],
+                             device=p.device)
+            return p.masked_fill(((r < 0) | (r >= h)).view(1, 1, -1, 1),
+                                 float("-inf"))
+
+        p5 = pool(xc, lo - 6)
+        p9 = pool(p5, lo - 4)
+        p13 = pool(p9, lo - 2)
+        n = hi - lo
+        out = torch.cat([p13, p9[:, :, 2:2 + n], p5[:, :, 4:4 + n],
+                         xc[:, :, 6:6 + n]], dim=1)
+        return out.permute(0, 2, 3, 1).contiguous()
+
+
+_SPATIAL = (Conv, DepthwiseConv, BNState, _Windowed)
+
+
+def set_spatial_parallel(model, mesh, image_hw):
+    """Run ``model`` spatially partitioned over ``mesh``, a ``("data",
+    "space")`` grid (``parallel.make_mesh_spatial``): every process
+    holds its space index's band of image rows (``parallel.
+    spatial_sharding``) and of every activation, by the balanced split
+    of ``parallel.spatial``.
+
+    One shape pass of the unsharded model at batch 1 on ``image_hw`` (H,
+    W) images of three channels (eval mode, no gradient) records
+    each windowed layer's global input height (convs, depthwise convs,
+    the pool, upsample, space-to-depth and SPP modules; BatchNorms for
+    their counts); each gets its :class:`~parallel.spatial.SpaceRows`
+    (``spatial``). Every conv then runs K1 on its row slab with an
+    explicit geometry, the others their library op; BatchNorm sums are
+    taken over the whole grid (:func:`set_bn_group` with ``mesh.group``)
+    and divided by the global count; the model's outputs are gathered on
+    H over the space group (a forward hook), so that the loss, decode and
+    NMS see whole images. ``parallel.make_train_step(mesh=mesh)`` is its
+    train step. Per model; kept as ``model.spatial_parallel`` (the
+    :class:`~parallel.spatial.SpaceShard`). Returns ``model``.
+
+    Raises ValueError for a ``packed`` model (its fused routes are
+    single-device), a model sliced by :func:`set_tensor_parallel`, a mesh
+    without a space axis, and a windowed layer called twice in one
+    forward (each call site needs a module of its own)."""
+    if getattr(model, "spatial_parallel", None) is not None:
+        raise ValueError("the model is spatially partitioned already")
+    if any(getattr(m, "packed", False) for m in model.modules()):
+        raise ValueError("a packed model's fused routes are single-device: "
+                         "spatial partitioning needs packed=False")
+    if getattr(model, "tensor_parallel", None) is not None:
+        raise ValueError("a model sliced over a model axis cannot also be "
+                         "spatially partitioned")
+    shard = SpaceShard(mesh.space_group, mesh.shape["space"],
+                       mesh.space_index, mesh.space_ranks,
+                       mesh.shape["data"])
+    heights = {}
+
+    def seen(name, x):
+        if name in heights:
+            raise ValueError(f"{name} runs twice in one forward: each call "
+                             "site of a windowed layer needs its own module")
+        heights[name] = x.shape[1]
+
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, name=name: seen(name, args[0]))
+        for name, m in model.named_modules() if isinstance(m, _SPATIAL)]
+    was = model.training
+    device = next(model.parameters()).device
+    model.eval()
+    try:
+        with torch.no_grad():
+            out = model(torch.zeros((1, *image_hw, 3), device=device))
+    finally:
+        for h in hooks:
+            h.remove()
+        model.train(was)
+    modules = dict(model.named_modules())
+    for name, h in heights.items():
+        modules[name].spatial = SpaceRows(shard, h)
+    set_bn_group(model, mesh.group)
+    rows = [t.shape[1] for t in (out if isinstance(out, (list, tuple))
+                                 else [out])]
+
+    def gather(mod, args, out):
+        if isinstance(out, (list, tuple)):
+            return type(out)(gather_rows(t, shard, h)
+                             for t, h in zip(out, rows))
+        return gather_rows(out, shard, rows[0])
+
+    model.register_forward_hook(gather)
+    model.spatial_parallel = shard
+    return model
 
 
 def use_plain_route(model):

@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from .layers import (MOBILENET_BN, BNState, Conv, DepthwiseConv,
-                     conv_then_bn, glorot_uniform_, relu6)
+                     conv_then_bn, depthwise_then_bn, glorot_uniform_, relu6)
 
 # (filters, stride, expand, repeats)
 BLOCKS = [
@@ -61,7 +61,7 @@ class InvertedResidual(nn.Module):
         y = x
         if self.expand:
             y = relu6(conv_then_bn(self.expand_conv, self.expand_bn, y))
-        y = relu6(self.dw_bn(self.dw_conv(y)))
+        y = relu6(depthwise_then_bn(self.dw_conv, self.dw_bn, y))
         y = conv_then_bn(self.project_conv, self.project_bn, y)
         return x + y if self.residual else y
 

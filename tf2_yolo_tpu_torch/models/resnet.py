@@ -20,8 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import (RESNET_BN, BNState, Conv, conv_then_bn, glorot_uniform_,
-                     max_pool)
+from .layers import (RESNET_BN, BNState, Conv, MaxPool, conv_then_bn,
+                     glorot_uniform_)
 
 DEPTHS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
@@ -88,13 +88,15 @@ class BottleneckV2(nn.Module):
         self.conv2 = _conv(f, f, 3, stride, use_bias=False, **kw)
         self.bn2 = _bn(f, device)
         self.conv3 = _conv(f, 4 * f, 1, **kw)
+        if stride > 1 and not project:
+            self.short_pool = MaxPool(1, stride, "SAME")
 
     def forward(self, x):
         pre = F.relu(self.pre_bn(x))
         if self.project:
             shortcut = self.short_conv(pre)[0]
         elif self.stride > 1:
-            shortcut = max_pool(x, 1, self.stride, "SAME")
+            shortcut = self.short_pool(x)
         else:
             shortcut = x
         y = F.relu(conv_then_bn(self.conv1, self.bn1, pre))
@@ -136,6 +138,9 @@ class ResNet(nn.Module):
             self.stages.append(names)
         if preact:
             self.post_bn = _bn(ci, device)
+        # the keras stem pool pads with zeros, not -inf: v2's stem output
+        # is not activated and may be negative there
+        self.stem_pool = MaxPool(3, 2, padding=1)
         self.out_channels = (512, 1024, 2048)
 
     def stem(self, x):
@@ -145,9 +150,7 @@ class ResNet(nn.Module):
             x = self.stem_conv(x)[0]
         else:
             x = F.relu(conv_then_bn(self.stem_conv, self.stem_bn, x))
-        # the keras pool pads with zeros, not -inf: v2's stem output is
-        # not activated and may be negative there
-        return max_pool(F.pad(x, (0, 0, 1, 1, 1, 1)), 3, 2)
+        return self.stem_pool(x)
 
     def forward(self, x):
         x = self.stem(x)

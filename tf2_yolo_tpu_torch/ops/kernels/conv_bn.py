@@ -47,10 +47,16 @@ max((ceil(H/s) - 1) s + k - H, 0) rows in all, the smaller half on top
 (left), and gives ceil(H/s) rows. An int ``padding`` p (0 <= p < k)
 instead pads p on every side and is then VALID, (H + 2p - k) // s + 1
 rows: the keras ResNet stem's ``jnp.pad`` 3 before its 7x7 stride-2
-VALID conv, which is not SAME (SAME pads 2 on top at 416^2). The kernels
-take the top and left pad and the output size from the wrapper and read
-zeros past the bottom and right edges. Weights are HWIO, the flax
-layout, which is the kernel's row-major (K, Co) matrix.
+VALID conv, which is not SAME (SAME pads 2 on top at 416^2). A
+:class:`Geometry` as ``padding`` gives the output size and the top and
+left pad outright: a row slab of a spatially partitioned image
+(``parallel.spatial``) holds the rows its output rows read, fetched from
+the other shards, and runs with the top pad of the image's edge where it
+reaches it (else 0) and its own output rows, at any height; an output of
+0 rows (a shard that holds none) launches nothing, and its statistics
+are 0. The kernels take the top and left pad and the output size from
+the wrapper and read zeros past the bottom and right edges. Weights are
+HWIO, the flax layout, which is the kernel's row-major (K, Co) matrix.
 
 Under ``torch.export`` the forward without statistics (the served conv)
 is the custom op ``tf2_yolo_tpu_torch::conv_bn_forward`` (its fake
@@ -108,10 +114,22 @@ def conv_geometry(h, wd, ksize, stride, padding="darknet"):
     ``"darknet"`` (the JAX ConvBN's default) at stride 2 one row and
     column on top and left, then VALID, and SAME at stride 1;
     ``"same"`` flax's ``"SAME"`` (see the module docstring); an int p,
-    p on every side, then VALID. Raises ValueError on a geometry the
-    kernels do not take."""
+    p on every side, then VALID; a :class:`Geometry`, itself (a row
+    slab's). Raises ValueError on a geometry the kernels do not take."""
     if (ksize, stride) not in _GEOMETRIES:
         raise ValueError(f"unsupported conv {ksize}x{ksize} stride {stride}")
+    if isinstance(padding, Geometry):
+        g = padding
+        if not (0 <= g.pad_top < ksize and 0 <= g.pad_left < ksize):
+            raise ValueError(f"explicit geometry {g}: want 0 <= pad < "
+                             f"{ksize}")
+        if g.ho < 0 or g.wo < 1 or (g.ho and (
+                (g.ho - 1) * stride - g.pad_top >= h
+                or (g.wo - 1) * stride - g.pad_left >= wd)):
+            raise ValueError(f"explicit geometry {g}: its last output "
+                             f"row or column reads no pixel of a {h}x{wd} "
+                             "input")
+        return g
     if type(padding) is int:
         p = padding
         if not 0 <= p < ksize:
@@ -142,7 +160,9 @@ def _pads(h, wd, ksize, stride, padding):
     """An int p where a symmetric pad of p reads the same pixels as the
     geometry's (its bottom/right pad is then p or never read), so that
     the library conv pads without a copy; otherwise the (left, right,
-    top, bottom) zero padding after which the conv is VALID."""
+    top, bottom) zero padding after which the conv is VALID (``F.pad``'s
+    order; negative for the rows of a :class:`Geometry`'s slab that no
+    window reads)."""
     g = conv_geometry(h, wd, ksize, stride, padding)
     if g.pad_top == g.pad_left and \
             (h + 2 * g.pad_top - ksize) // stride + 1 == g.ho and \
@@ -150,6 +170,9 @@ def _pads(h, wd, ksize, stride, padding):
         return g.pad_top
     bottom = (g.ho - 1) * stride + ksize - h - g.pad_top
     right = (g.wo - 1) * stride + ksize - wd - g.pad_left
+    if isinstance(padding, Geometry):
+        # a slab's rows past its last window are cropped (a negative pad)
+        return (g.pad_left, right, g.pad_top, bottom)
     return (g.pad_left, max(right, 0), g.pad_top, max(bottom, 0))
 
 
@@ -259,7 +282,7 @@ def _check(x, w, b, stride, padding="darknet"):
     if wci != ci or b.shape[0] != co:
         raise ValueError(f"channel mismatch: x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, b {tuple(b.shape)}")
-    if x.numel() == 0 or x.numel() > _INT32_MAX \
+    if (x.numel() == 0 and g.ho) or x.numel() > _INT32_MAX \
             or n * g.ho * g.wo * co > _INT32_MAX:
         raise ValueError(f"unsupported size {tuple(x.shape)} -> {co}")
     if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype \
@@ -277,7 +300,9 @@ def conv_bn_stats_plain(x, w, b, stride=1, want_stats=True,
                         padding="darknet"):
     """Plain PyTorch version: f32 conv on NCHW views, bias, rounding to
     ``x.dtype``, then the statistics of the rounded y."""
-    _check(x, w, b, stride, padding)
+    n, h, wd, _, co, ks = _check(x, w, b, stride, padding)
+    if _empty(padding):
+        return _empty_out(x, n, co, padding, want_stats)
     xf = x.float().permute(0, 3, 1, 2)
     wf = w.float().permute(3, 2, 0, 1)            # HWIO -> OIHW
     p = _pads(x.shape[1], x.shape[2], w.shape[0], stride, padding)
@@ -335,6 +360,21 @@ def _forward_cuda(x, w, b, stride, want_stats, dims, padding="darknet"):
     return y, s1, s2
 
 
+def _empty(padding):
+    """Whether the conv has no output row (a slab of 0 rows)."""
+    return isinstance(padding, Geometry) and padding.ho == 0
+
+
+def _empty_out(x, n, co, padding, want_stats):
+    """(y, s1, s2) of a conv with no output row (``padding`` a
+    :class:`Geometry` of 0 rows): y of 0 rows, the statistics 0."""
+    y = x.new_empty((n, 0, padding.wo, co))
+    if not want_stats:
+        return y, None, None
+    z = torch.zeros(co, dtype=torch.float32, device=x.device)
+    return y, z, z.clone()
+
+
 def _conv_vjp(x, w, g, stride, want_dx, padding="darknet"):
     """(dx, dw) of the NHWC/HWIO conv for the output cotangent g, in the
     compute dtype (dx ``None`` unless ``want_dx``). Where a symmetric pad
@@ -342,22 +382,24 @@ def _conv_vjp(x, w, g, stride, want_dx, padding="darknet"):
     darknet stride-2 pad on even H and W, whose bottom/right pad is never
     touched, 1x1 stride 2, an explicit pad) the library conv pads; where
     SAME pads more below than above (7x7 and 3x3 at stride 2 on even H,
-    2x2) x is padded explicitly, the VJP taken at padding 0, and dx
-    cropped."""
+    2x2), and for a slab's explicit :class:`Geometry`, x is padded
+    explicitly, the VJP taken at padding 0, and dx cropped (and padded
+    with zeros where the pad cropped x)."""
     h, wd = x.shape[1:3]
+    if _empty(padding):
+        return (torch.zeros_like(x) if want_dx else None,
+                torch.zeros_like(w))
     pad = _pads(h, wd, w.shape[0], stride, padding)
     xc, crop = x.permute(0, 3, 1, 2), None
     if not isinstance(pad, int):
-        left, _, top, _ = pad
-        xc, crop = F.pad(xc, pad), (top, left)
+        xc, crop = F.pad(xc, pad), [-p for p in pad]
         pad = 0
     dx, dw, _ = torch.ops.aten.convolution_backward(
         g.permute(0, 3, 1, 2), xc,
         w.permute(3, 2, 0, 1), None, [stride, stride], [pad, pad], [1, 1],
         False, [0, 0], 1, [want_dx, True, False])
     if want_dx and crop is not None:
-        top, left = crop
-        dx = dx[:, :, top:top + h, left:left + wd]
+        dx = F.pad(dx, crop)
     return (dx.permute(0, 2, 3, 1) if want_dx else None,
             dw.permute(2, 3, 1, 0))
 
@@ -372,7 +414,9 @@ class _ConvBNStats(torch.autograd.Function):
         # detached, as the frozen-statistics BatchNorm does) stays None
         ctx.set_materialize_grads(False)
         dims = _check(x, w, b, stride, padding)
-        if plain or x.device.type == "cpu":
+        if _empty(padding):
+            y, s1, s2 = _empty_out(x, dims[0], dims[4], padding, want_stats)
+        elif plain or x.device.type == "cpu":
             y, s1, s2 = conv_bn_stats_plain(x, w, b, stride, want_stats,
                                             padding)
         elif x.device.type == "cuda":
@@ -411,6 +455,8 @@ class _ConvBNStats(torch.autograd.Function):
 
 def _forward_impl(x, w, b, stride, padding):
     dims = _check(x, w, b, stride, padding)
+    if _empty(padding):
+        return _empty_out(x, dims[0], dims[4], padding, False)[0]
     if x.device.type == "cpu":
         return conv_bn_stats_plain(x, w, b, stride, False, padding)[0]
     if x.device.type == "cuda":
@@ -418,9 +464,20 @@ def _forward_impl(x, w, b, stride, padding):
     raise ValueError(f"no conv_bn_stats kernel for {x.device}")
 
 
+def _padding_text(padding):
+    """The custom op's ``padding`` string: ``"darknet"``, ``"same"``, an
+    int's digits, or a :class:`Geometry`'s four ints ``"g:ho,wo,top,left"``
+    (:func:`_padding_of` reads it back)."""
+    if isinstance(padding, Geometry):
+        return "g:" + ",".join(str(v) for v in padding)
+    return str(padding)
+
+
 def _padding_of(text):
-    """The op's ``padding`` string (``str(padding)``) as the wrappers
-    take it."""
+    """The op's ``padding`` string (:func:`_padding_text`) as the
+    wrappers take it."""
+    if text.startswith("g:"):
+        return Geometry(*(int(v) for v in text[2:].split(",")))
     return int(text) if text.isdigit() else text
 
 
@@ -442,9 +499,11 @@ def geometry_key(ksize, stride, padding="darknet", route="tc"):
     """The key of ``conv_bn_stats.by_geometry``: e.g. ``"3x3s2 same
     tc"``; the darknet pad is ``"darknet"`` at stride 2 and the only pad
     of a stride-1 conv (``"same"``); an int pad p is ``"padp"``
-    (``"7x7s2 pad3 im2col"``). The route is ``"tc"`` (the ring),
+    (``"7x7s2 pad3 im2col"``), a slab's :class:`Geometry` ``"slab"``
+    (``"3x3s1 slab tc"``). The route is ``"tc"`` (the ring),
     ``"im2col"`` (the small-Ci tensor-core kernel) or ``"cuda_core"``."""
     kind = f"pad{padding}" if type(padding) is int else \
+        "slab" if isinstance(padding, Geometry) else \
         "darknet" if stride == 2 and padding == "darknet" else "same"
     return f"{ksize}x{ksize}s{stride} {kind} {route}"
 
@@ -454,10 +513,11 @@ def conv_bn_stats(x, w, b, stride=1, want_stats=True, plain=False,
     """See the module docstring. CPU tensors take the plain version;
     CUDA tensors launch the kernel, or raise. ``plain=True`` forces the
     plain version on any device (the reference route).
-    ``padding`` (:func:`conv_geometry`): ``"darknet"``, ``"same"`` or
-    an int."""
+    ``padding`` (:func:`conv_geometry`): ``"darknet"``, ``"same"``, an
+    int or a row slab's :class:`Geometry`."""
     if not (want_stats or plain) and torch.compiler.is_compiling():
-        return _forward_op(x, w, b, stride, str(padding)), None, None
+        return _forward_op(x, w, b, stride, _padding_text(padding)), \
+            None, None
     out = _ConvBNStats.apply(x, w, b, stride, want_stats, plain, padding)
     return out if want_stats else (out, None, None)
 

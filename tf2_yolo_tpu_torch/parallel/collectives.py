@@ -4,7 +4,8 @@ issues.
 GSPMD derives the collectives of a channel-sharded conv net from the
 shardings (tf2_yolo_tpu/parallel/mesh.py, ``tensor_parallel_shardings``);
 here they are written out, Megatron-style, around each sharded layer
-(``models.layers.ConvBN``, ``Conv``):
+(``models.layers``: ``ConvBN``, ``Conv``, a keras conv + BatchNorm pair,
+``DepthwiseConv``, ``ConvActBN``, ``Dense``):
 
 - :func:`copy_to_model` (Megatron's f): the identity forward; in the
   backward the input's cotangent, which each process computed from its
@@ -12,7 +13,11 @@ here they are written out, Megatron-style, around each sharded layer
 - :func:`gather_channels` (g): the layer's slice of the channels (the
   last axis of an NHWC tensor) gathered over the model group, so that
   every consumer sees the full tensor; its backward takes this process's
-  slice of the cotangent.
+  slice of the cotangent;
+- :func:`slice_channels`: this process's slice of the channels of a
+  full input (a depthwise conv's or a lone BatchNorm's, whose slices
+  read only their own channels); its backward puts the slice's
+  cotangent back in place and sums over the model group.
 
 :func:`gather_state_dict` and :func:`slice_state_dict` move a sharded
 model's variables to and from the full, unsharded tree (checkpoints,
@@ -37,11 +42,14 @@ _LOG = {"records": None}
 class Collective:
     """One collective: ``kind`` "all_gather" or "all_reduce", its
     ``group``, the ``dim`` gathered (None for a reduce) and the
-    ``numel`` of the full result."""
+    ``numel`` of the full result; or one message of a spatial row
+    exchange (``parallel.spatial``), "row_fetch" or "row_return", as its
+    receiver got it: ``dim`` 1, its ``numel`` and its ``rows``."""
     kind: str
     group: object
     dim: object
     numel: int
+    rows: object = None
 
 
 @contextlib.contextmanager
@@ -56,9 +64,10 @@ def recording():
         _LOG["records"] = prev
 
 
-def record(kind, group, dim, numel):
+def record(kind, group, dim, numel, rows=None):
     if _LOG["records"] is not None:
-        _LOG["records"].append(Collective(kind, group, dim, int(numel)))
+        _LOG["records"].append(Collective(kind, group, dim, int(numel),
+                                          rows))
 
 
 def all_reduce_(t, group):
@@ -117,6 +126,25 @@ class _GatherChannels(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return ctx.shard.slice(dy, -1).contiguous(), None
+
+
+class _SliceChannels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard, ctx.shape = shard, x.shape
+        return shard.slice(x, -1).contiguous()
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx = dy.new_zeros(ctx.shape)
+        ctx.shard.slice(dx, -1).copy_(dy)
+        return all_reduce_(dx, ctx.shard.group), None
+
+
+def slice_channels(x, shard):
+    """This process's channel slice of the full ``x`` (see the module
+    docstring)."""
+    return _SliceChannels.apply(x, shard)
 
 
 def copy_to_model(x, shard):

@@ -1,24 +1,30 @@
-"""The ``("data", "model")`` process grid and the tensor-parallel plan.
+"""The ``("data", "model")`` and ``("data", "space")`` process grids and
+the tensor-parallel plan.
 
 Port of tf2_yolo_tpu/parallel/mesh.py. A JAX mesh lays devices out along
 named axes and GSPMD derives the collectives from it; here one process
 drives one card, so a mesh is a grid of processes with one
 ``torch.distributed`` subgroup per row and per column, and the port's
 layers issue the collectives themselves (``models.layers``,
-``parallel.train``):
+``parallel.train``, ``parallel.spatial``):
 
 - the data axis: the processes of a column hold different rows of the
   batch; their BatchNorm sums and gradients are reduced over the column
   (``Mesh.data_group``);
-- the model axis: the processes of a row hold the same rows and each
-  holds a slice of the output channels of the wide convs
-  (:func:`tensor_parallel_shardings`); the sliced activations are
-  gathered over the row (``Mesh.model_group``).
+- the model axis (:func:`make_mesh`): the processes of a row hold the
+  same rows and each holds a slice of the output channels of the wide
+  layers (:func:`tensor_parallel_shardings`); the sliced activations are
+  gathered over the row (``Mesh.model_group``);
+- the space axis (:func:`make_mesh_spatial`): the processes of a row
+  hold the same images and each holds a band of their rows
+  (:func:`spatial_sharding`, ``parallel.spatial``); the windowed layers
+  fetch the rows they lack from the row's other processes
+  (``Mesh.space_group``), and BatchNorm and the gradients reduce over
+  the whole grid.
 
-Rank r sits at data index ``r // n_model`` and model index ``r %
-n_model``, the row-major layout of the JAX mesh over its device list.
-Spatial partitioning (:func:`make_mesh_spatial`,
-:func:`spatial_sharding`) is not ported and raises NotImplementedError.
+Rank r sits at data index ``r // n`` and model (space) index ``r % n``,
+n the size of the second axis: the row-major layout of the JAX mesh
+over its device list.
 """
 
 from dataclasses import dataclass
@@ -28,9 +34,6 @@ import torch.distributed as dist
 
 from .multihost import process_count, process_index
 
-_NOT_PORTED = ("spatial partitioning is not ported yet (ROADMAP.md, "
-               "queue 1, item 9: parallel)")
-
 # make_mesh's meshes of the live process group: creating a subgroup is
 # collective, so a repeated call returns the mesh made before
 _MESHES = {"world": None, "meshes": {}}
@@ -38,34 +41,74 @@ _MESHES = {"world": None, "meshes": {}}
 
 @dataclass(frozen=True)
 class Mesh:
-    """A ``("data", "model")`` grid of processes.
+    """A ``("data", "model")`` or ``("data", "space")`` grid of processes
+    (``axis_names``).
 
     ``shape`` maps each axis to its size; ``ranks`` are the grid's
-    processes, row-major (data index, model index); ``group`` spans them
-    all (None in a single process without a process group). For the
-    process that calls :func:`make_mesh`: ``data_index`` and
-    ``model_index`` its place (None outside the grid), ``data_group`` its
-    column (the processes with its model index; the whole grid's group
-    when the model axis is 1) and ``model_group`` its row (those with
-    its data index); otherwise an axis of size 1 has no group (None)."""
+    processes, row-major (data index, index on the second axis);
+    ``group`` spans them all (None in a single process without a process
+    group). For the process that calls :func:`make_mesh`: ``data_index``
+    and ``inner_index`` its place (None outside the grid), ``data_group``
+    its column (the processes with its second index; the whole grid's
+    group when the second axis is 1) and ``inner_group`` its row (those
+    with its data index); otherwise an axis of size 1 has no group
+    (None). ``model_group`` / ``model_index`` read the row of a
+    ``("data", "model")`` grid, ``space_group`` / ``space_index`` /
+    ``space_ranks`` that of a ``("data", "space")`` grid; each raises
+    ValueError on the other kind."""
     shape: dict
     ranks: tuple
     group: object = None
     data_group: object = None
-    model_group: object = None
+    inner_group: object = None
     data_index: Optional[int] = 0
-    model_index: Optional[int] = 0
+    inner_index: Optional[int] = 0
     axis_names: tuple = ("data", "model")
 
     @property
+    def inner(self) -> int:
+        """The size of the second axis (model or space)."""
+        return self.shape[self.axis_names[1]]
+
+    @property
     def size(self) -> int:
-        return self.shape["data"] * self.shape["model"]
+        return self.shape["data"] * self.inner
 
     @property
     def data_ranks(self) -> tuple:
         """The ranks of this process's column (data indices 0, 1, ...)."""
-        m = self.shape["model"]
-        return self.ranks[self.model_index::m]
+        return self.ranks[self.inner_index::self.inner]
+
+    @property
+    def model_group(self):
+        """This process's row of a ``("data", "model")`` grid."""
+        return self._row("model", self.inner_group)
+
+    @property
+    def model_index(self):
+        """This process's index on the model axis."""
+        return self._row("model", self.inner_index)
+
+    @property
+    def space_group(self):
+        """This process's row of a ``("data", "space")`` grid."""
+        return self._row("space", self.inner_group)
+
+    @property
+    def space_index(self):
+        """This process's index on the space axis."""
+        return self._row("space", self.inner_index)
+
+    @property
+    def space_ranks(self) -> tuple:
+        """The ranks of this process's row of a spatial grid."""
+        i = self._row("space", self.data_index)
+        return self.ranks[i * self.inner:(i + 1) * self.inner]
+
+    def _row(self, axis, value):
+        if self.axis_names[1] != axis:
+            raise ValueError(f"a {self.axis_names} mesh has no {axis} axis")
+        return value
 
     def __contains__(self, rank) -> bool:
         return rank in self.ranks
@@ -89,35 +132,42 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
     arguments in the same order (subgroups are created in a fixed order,
     the whole grid's, then each row's, then each column's); a repeated
     call returns the same mesh and creates nothing."""
+    return _mesh2(n_data, n_model, ranks, ("data", "model"))
+
+
+def _mesh2(n_data, n_model, ranks, axis_names):
+    """:func:`make_mesh` and :func:`make_mesh_spatial` (second axis
+    ``axis_names[1]``)."""
+    name = axis_names[1]
     n_model = int(n_model)
     world = process_count()
     ranks = tuple(range(world)) if ranks is None else tuple(
         int(r) for r in ranks)
     if n_model < 1 or len(ranks) % n_model:
-        raise ValueError(f"n_model={n_model} must divide the {len(ranks)} "
+        raise ValueError(f"n_{name}={n_model} must divide the {len(ranks)} "
                          "processes of the mesh")
     n = len(ranks) // n_model if n_data is None else int(n_data)
     if n * n_model != len(ranks):
         raise ValueError(f"the data axis spans every process: n_data {n} "
-                         f"x n_model {n_model} for {len(ranks)} processes")
+                         f"x n_{name} {n_model} for {len(ranks)} processes")
     if len(set(ranks)) != len(ranks) or not all(0 <= r < world
                                                 for r in ranks):
         raise ValueError(f"ranks {ranks}: distinct ranks of the {world} "
                          "processes")
-    shape = {"data": n, "model": n_model}
+    shape = {"data": n, name: n_model}
     if not dist.is_initialized():
-        return Mesh(shape=shape, ranks=ranks)
+        return Mesh(shape=shape, ranks=ranks, axis_names=axis_names)
     if _MESHES["world"] is not dist.group.WORLD:
         _MESHES.update(world=dist.group.WORLD, meshes={})
-    key = (n, n_model, ranks)
+    key = (n, n_model, ranks, axis_names)
     if key not in _MESHES["meshes"]:
-        _MESHES["meshes"][key] = _grid(shape, ranks)
+        _MESHES["meshes"][key] = _grid(shape, ranks, axis_names)
     return _MESHES["meshes"][key]
 
 
-def _grid(shape, ranks):
+def _grid(shape, ranks, axis_names):
     """The mesh's subgroups, every one created by every process."""
-    n, m = shape["data"], shape["model"]
+    n, m = shape["data"], shape[axis_names[1]]
     whole = (dist.group.WORLD if ranks == tuple(range(process_count()))
              else dist.new_group(list(ranks)))
     rows = [dist.new_group(list(ranks[i * m:(i + 1) * m])) if m > 1
@@ -128,11 +178,12 @@ def _grid(shape, ranks):
     me = process_index()
     if me not in ranks:
         return Mesh(shape=shape, ranks=ranks, group=None, data_index=None,
-                    model_index=None)
+                    inner_index=None, axis_names=axis_names)
     pos = ranks.index(me)
     i, j = divmod(pos, m)
     return Mesh(shape=shape, ranks=ranks, group=whole, data_group=cols[j],
-                model_group=rows[i], data_index=i, model_index=j)
+                inner_group=rows[i], data_index=i, inner_index=j,
+                axis_names=axis_names)
 
 
 def best_data_axis(batch_size: int, max_devices: Optional[int] = None
@@ -176,9 +227,37 @@ def tensor_parallel_shardings(model, mesh: Mesh, min_channels: int = 128,
     return {name: rule(tuple(t.shape)) for name, t in sd.items()}
 
 
-def make_mesh_spatial(*args, **kwargs):
-    raise NotImplementedError(f"make_mesh_spatial: {_NOT_PORTED}")
+def make_mesh_spatial(n_data: Optional[int] = None, n_space: int = 1,
+                      ranks: Optional[Sequence[int]] = None) -> Mesh:
+    """The ``("data", "space")`` grid over ``ranks`` (default: every
+    process of the process group), for spatial partitioning: the image
+    height split over the ``space`` axis (inputs too large for one card
+    per image), the batch over ``data``.
+
+    The same grid as :func:`make_mesh` with the second axis named
+    ``space``: rank r at data index ``r // n_space`` and space index ``r %
+    n_space``, a subgroup for each row (``Mesh.space_group``) and each
+    column; collective and cached as :func:`make_mesh`'s.
+    ``models.layers.set_spatial_parallel`` runs a model on it, fed by
+    :func:`spatial_sharding` and ``parallel.process_batch_slice(n,
+    mesh)`` for the labels."""
+    return _mesh2(n_data, n_space, ranks, ("data", "space"))
 
 
-def spatial_sharding(*args, **kwargs):
-    raise NotImplementedError(f"spatial_sharding: {_NOT_PORTED}")
+def spatial_sharding(mesh: Mesh):
+    """``P("data", "space")`` on NHWC images: a function that takes a
+    global batch (an array or a tensor, N x H x W x C) and returns this
+    process's cut of it: the rows of its data index
+    (:func:`parallel.process_batch_slice`), then the image rows of its
+    space index by ``parallel.spatial.split_rows`` (the first ``H %
+    n_space`` shards one row more). A view where the input allows."""
+    from .input import process_batch_slice
+    from .spatial import split_rows
+    index = mesh.space_index
+
+    def cut(batch):
+        n = process_batch_slice(batch.shape[0], mesh)
+        lo, hi = split_rows(batch.shape[1], mesh.shape["space"])[index]
+        return batch[n, lo:hi]
+
+    return cut

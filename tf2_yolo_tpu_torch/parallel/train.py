@@ -303,26 +303,27 @@ def _buckets(grads):
         yield run
 
 
-def _reduce_grads(state, group):
+def _reduce_grads(state, group, divisor=None):
     """Average the gradients of the optimizer's parameters over the
     processes of ``group``, in place (:func:`average_grads`)."""
     own = {id(p) for p in state.optimizer.param_groups[0]["params"]}
     average_grads([p for _, p in sorted(state.model.named_parameters(),
                                         key=lambda kv: kv[0])
-                   if id(p) in own], group)
+                   if id(p) in own], group, divisor)
 
 
-def average_grads(params, group):
+def average_grads(params, group, divisor=None):
     """Average the ``.grad`` of ``params`` over the processes of
     ``group``, in place, in the order given: the same list on every
     process, whatever gradients this process has (a parameter without
     one adds zeros, so that no process waits on a reduce that another
     skips). One all-reduce a bucket of concatenated gradients
-    (:data:`_BUCKET` elements)."""
+    (:data:`_BUCKET` elements), divided by ``divisor`` (default the
+    group's size)."""
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    world = dist.get_world_size(group)
+    world = dist.get_world_size(group) if divisor is None else divisor
     for grads in _buckets([p.grad for p in params]):
         flat = all_reduce_(_flatten_dense_tensors(grads), group)
         flat.div_(world)
@@ -353,7 +354,7 @@ def _mean_logs(logs, group):
 
 
 def make_train_step(loss_fns, metric_fns=None, metric_names=None,
-                    input_rescale=1 / 255, group=None):
+                    input_rescale=1 / 255, group=None, mesh=None):
     """Build ``train_step(state, x, y_tuple) -> (state, logs)``.
 
     loss_fns: one loss per model output (summed).
@@ -371,10 +372,28 @@ def make_train_step(loss_fns, metric_fns=None, metric_names=None,
         loss: the step of one process on the concatenated batch (the
         JAX package's one GSPMD program). The logs are averaged over the
         group too.
+    mesh: a ``("data", "space")`` grid (``parallel.make_mesh_spatial``)
+        for the spatial step of a model under
+        ``layers.set_spatial_parallel``: every process passes its cut of
+        the batch (``parallel.spatial_sharding``) and its data index's
+        labels; the loss is taken on the heads gathered over the space
+        group (the same loss on every process of a row), whose backward
+        gives each process the gradient of its own rows; the gradients
+        are then summed over the whole grid and divided by the size of
+        the data axis only (the space shards hold disjoint parts of one
+        image's gradient), and the logs averaged over the grid.
     ``logs`` holds ``loss`` and each metric as 0-d tensors on the
     model's device (reading one waits for the step).
     """
     loss_fns = list(loss_fns)
+    divisor = None
+    if mesh is not None:
+        if group is not None:
+            raise ValueError("make_train_step takes group or mesh, not both")
+        if mesh.axis_names != ("data", "space"):
+            raise ValueError(f"mesh {mesh.axis_names}: the spatial step "
+                             "takes a ('data', 'space') grid")
+        group, divisor = mesh.group, mesh.shape["data"]
 
     def train_step(state, x, ys):
         state.model.train()
@@ -384,7 +403,7 @@ def make_train_step(loss_fns, metric_fns=None, metric_names=None,
         loss.backward()
         logs = {"loss": loss.detach(), **metrics}
         if group is not None:
-            _reduce_grads(state, group)
+            _reduce_grads(state, group, divisor)
             logs = _mean_logs(logs, group)
         state.optimizer.step()
         state.step += 1
